@@ -1,0 +1,340 @@
+"""HTTP serving for ASR on the PyTorch port (the ASR half of
+``speecht5_tpu/cli/serve.py``):
+
+    POST /asr   body: WAV bytes (16 kHz mono)      -> {"text": ...}
+    GET  /healthz                                   -> {"ok": true, ...}
+
+Design notes (one card):
+- requests are padded to a fixed bucket grid (4/8/16 s by default), each
+  bucket warmed once at startup;
+- audio longer than the largest bucket is decoded in overlapping chunks and
+  the transcripts joined (never silently truncated);
+- concurrent /asr requests are micro-batched when --max-batch > 1: a
+  collector thread gathers same-bucket requests inside --batch-window-ms
+  and decodes them as one batch;
+- device access is serialized with a lock — one batch in flight.
+
+Only ``--decoder ctc_greedy`` is ported; ``beam`` and ``ctc_rescore`` arrive
+with the beam slice, and loading a checkpoint with the slice that ports
+``utils/checkpoint.py``.  Until then a ``Service`` is built around a model
+the caller made (``Service(args, model=..., cfg=...)``), as the tests and
+``chip_smoke.py`` do.
+
+Usage (once checkpoints load):
+    python -m speecht5_tpu_torch.cli.serve --arch speecht5_base_asr \\
+        --ckpt ckpt/ --dict dict.ltr.txt --decoder ctc_greedy --port 8080
+"""
+
+from __future__ import annotations
+
+import argparse
+import io
+import json
+import threading
+import time
+import types
+import wave
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+import numpy as np
+
+from ..data.dictionary import letters_to_text, load_cli_dictionary
+from ..utils.device import resolve_device
+
+ASR_BUCKETS_S = (4, 8, 16)
+SR = 16000
+DECODERS = ("beam", "ctc_greedy", "ctc_rescore")
+
+
+class RequestTooLarge(Exception):
+    """Mapped to HTTP 413 — the request exceeds a configured hard cap."""
+
+
+class _CTCAdapter:
+    """Make CTCDecoder (list of token rows) quack like the beam decoder's
+    result (tokens [B, beam, L] with BOS/EOS framing) so the serving paths
+    stay decoder-agnostic."""
+
+    def __init__(self, dec):
+        self.dec = dec
+
+    def __call__(self, wav, lengths):
+        rows = self.dec(wav, lengths)
+        L = max(len(r) for r in rows) + 2 if rows else 2
+        toks = np.zeros((len(rows), 1, max(L, 2)), np.int32)
+        lens = np.zeros((len(rows), 1), np.int32)
+        for b, r in enumerate(rows):
+            toks[b, 0, 1 : 1 + len(r)] = r
+            lens[b, 0] = len(r) + 2          # BOS + ids + EOS convention
+        return types.SimpleNamespace(tokens=toks, lengths=lens)
+
+
+def _parse_wav(body: bytes) -> np.ndarray:
+    with wave.open(io.BytesIO(body)) as w:
+        if w.getnchannels() != 1 or w.getframerate() != SR or w.getsampwidth() != 2:
+            raise ValueError(f"expected 16-bit mono PCM at {SR} Hz")
+        pcm = np.frombuffer(w.readframes(w.getnframes()), np.int16)
+    return pcm.astype(np.float32) / 32768.0
+
+
+class Service:
+    """Owns the decoder; one device batch in flight at a time."""
+
+    def __init__(self, args, *, model=None, cfg=None, device="cuda"):
+        from ..decode.asr import CTCDecoder
+
+        self.device = resolve_device(device)
+        self.lock = threading.Lock()
+        self.args = args
+        if args.decoder != "ctc_greedy":
+            raise NotImplementedError(
+                f"--decoder {args.decoder} arrives with the beam slice of the "
+                "port (decode/ctc_prefix.py, decode/beam_search.py); only "
+                "ctc_greedy is ported")
+        if model is None or cfg is None:
+            raise NotImplementedError(
+                "loading a checkpoint arrives with the slice that ports "
+                "utils/checkpoint.py; pass model= and cfg= for now")
+        dictionary, cfg_kw = load_cli_dictionary(args.dict_path, None)
+        for key, want in cfg_kw.items():
+            if getattr(cfg, key) != want:
+                raise ValueError(f"cfg.{key}={getattr(cfg, key)} but the "
+                                 f"dictionary gives {want}")
+        if cfg.dtype != args.dtype:
+            raise ValueError(f"model built for {cfg.dtype}, --dtype {args.dtype}")
+        self.dictionary = dictionary
+        self.cfg = cfg
+        self.model = model
+
+        self.max_batch = max(1, args.max_batch)
+        self.batch_window_s = args.batch_window_ms / 1000.0
+        self.asr_calls = 0      # device batches launched
+        self.asr_requests = 0   # chunks decoded (>= calls under batching)
+        self._queue = []
+        self._queue_cv = threading.Condition()
+        self.asr = _CTCAdapter(CTCDecoder(model, blank_id=cfg.blank_id,
+                                          device=self.device))
+        for secs in self.buckets():
+            for bs in sorted({1, self.max_batch}):
+                wav = np.zeros((bs, secs * SR), np.float32)
+                self.asr(wav, np.full((bs,), secs * SR, np.int32))
+                print(f"warmed ASR bucket {secs}s batch {bs}", flush=True)
+        if self.max_batch > 1:
+            threading.Thread(target=self._batcher_loop, daemon=True).start()
+
+    def buckets(self):
+        return [int(s) for s in self.args.asr_buckets.split(",")]
+
+    # ------------------------------------------------------------------ ops
+    def _chunk(self, wav: np.ndarray):
+        """Split audio into the bucket grid: one chunk when it fits, else
+        overlapping windows of the largest bucket (hop = bucket - overlap)
+        so nothing is dropped."""
+        n = len(wav)
+        top = self.buckets()[-1] * SR
+        if self.args.max_audio_s and n > self.args.max_audio_s * SR:
+            raise RequestTooLarge(
+                f"audio is {n / SR:.1f}s; --max-audio-s {self.args.max_audio_s}")
+        if n <= top:
+            return [wav]
+        overlap = int(self.args.chunk_overlap_s * SR)
+        hop = max(top - overlap, 1)
+        chunks = []
+        for start in range(0, n, hop):
+            chunks.append(wav[start : start + top])
+            if start + top >= n:
+                break
+        return chunks
+
+    def _decode_batch(self, wavs, lengths, n_real=None):
+        """One device batch over a padded same-bucket batch; returns the
+        detokenized texts for the first ``n_real`` rows."""
+        n_real = len(wavs) if n_real is None else n_real
+        with self.lock:
+            res = self.asr(wavs, np.asarray(lengths, np.int32))
+            self.asr_calls += 1
+            self.asr_requests += n_real
+        toks, lens = res.tokens[:, 0], res.lengths[:, 0]
+        out = []
+        for b in range(n_real):
+            hyp_ids = toks[b, 1 : max(int(lens[b]) - 1, 1)]
+            out.append(letters_to_text(self.dictionary.string(hyp_ids)))
+        return out
+
+    def _bucket_for(self, n: int) -> int:
+        secs = next((s for s in self.buckets() if s * SR >= n),
+                    self.buckets()[-1])
+        return secs * SR
+
+    def _decode_one(self, wav: np.ndarray) -> str:
+        T = self._bucket_for(len(wav))
+        padded = np.zeros((1, T), np.float32)
+        padded[0, : len(wav)] = wav[:T]
+        return self._decode_batch(padded, [min(len(wav), T)])[0]
+
+    # --------------------------------------------------- micro-batching
+    def _enqueue(self, wav: np.ndarray) -> dict:
+        slot = {"event": threading.Event(), "wav": wav,
+                "bucket": self._bucket_for(len(wav)), "text": None}
+        with self._queue_cv:
+            self._queue.append(slot)
+            self._queue_cv.notify()
+        return slot
+
+    @staticmethod
+    def _wait(slot: dict) -> str:
+        slot["event"].wait()
+        if "error" in slot:
+            raise slot["error"]
+        return slot["text"]
+
+    def _batcher_loop(self):
+        while True:
+            with self._queue_cv:
+                while not self._queue:
+                    self._queue_cv.wait()
+                first = self._queue[0]
+            deadline = time.monotonic() + self.batch_window_s
+            while time.monotonic() < deadline:
+                with self._queue_cv:
+                    same = [s for s in self._queue
+                            if s["bucket"] == first["bucket"]]
+                    if len(same) >= self.max_batch:
+                        break
+                time.sleep(self.batch_window_s / 10)
+            with self._queue_cv:
+                group = [s for s in self._queue
+                         if s["bucket"] == first["bucket"]][: self.max_batch]
+                for s in group:
+                    self._queue.remove(s)
+            T = first["bucket"]
+            rows = 1 if len(group) == 1 else self.max_batch
+            wavs = np.zeros((rows, T), np.float32)
+            lengths = np.full((rows,), T, np.int64)
+            for b, s in enumerate(group):
+                w = s["wav"][:T]
+                wavs[b, : len(w)] = w
+                lengths[b] = len(w)
+            try:
+                texts = self._decode_batch(wavs, lengths, n_real=len(group))
+                for b, s in enumerate(group):
+                    s["text"] = texts[b]
+            except Exception as e:  # noqa: BLE001 — deliver to the waiters
+                for s in group:
+                    s["error"] = e
+            finally:
+                for s in group:
+                    s["event"].set()
+
+    @staticmethod
+    def _join_transcripts(texts, max_seam_words: int = 8) -> str:
+        """Join chunk transcripts, deduplicating the window seam: the
+        longest word suffix of the running transcript that exactly matches
+        the next chunk's prefix is dropped from the incoming chunk."""
+        words: list = []
+        for t in texts:
+            w = t.split()
+            if not w:
+                continue
+            k_max = min(max_seam_words, len(words), len(w))
+            drop = 0
+            for k in range(k_max, 0, -1):
+                if words[-k:] == w[:k]:
+                    drop = k
+                    break
+            words.extend(w[drop:])
+        return " ".join(words)
+
+    def transcribe(self, wav: np.ndarray) -> str:
+        chunks = self._chunk(wav)
+        if self.max_batch <= 1:
+            texts = [self._decode_one(c) for c in chunks]
+        else:
+            slots = [self._enqueue(c) for c in chunks]
+            texts = [self._wait(s) for s in slots]
+        return self._join_transcripts(texts)
+
+
+def make_handler(svc: Service):
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, fmt, *a):  # quiet
+            pass
+
+        def _json(self, code, obj):
+            body = json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path == "/healthz":
+                self._json(200, {
+                    "ok": True,
+                    "asr": True,
+                    "asr_buckets_s": svc.buckets(),
+                    "decoder": svc.args.decoder,
+                    "max_batch": svc.max_batch,
+                    "asr_calls": svc.asr_calls,
+                    "asr_requests": svc.asr_requests,
+                })
+            else:
+                self._json(404, {"error": "not found"})
+
+        def do_POST(self):
+            n = int(self.headers.get("Content-Length", 0))
+            body = self.rfile.read(n)
+            try:
+                if self.path == "/asr":
+                    wav = _parse_wav(body)
+                    return self._json(200, {"text": svc.transcribe(wav)})
+                self._json(404, {"error": "not found"})
+            except RequestTooLarge as e:
+                self._json(413, {"error": str(e)})
+            except Exception as e:  # noqa: BLE001 — surface to the client
+                self._json(500, {"error": repr(e)})
+
+    return Handler
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--arch", default="speecht5_base_asr")
+    p.add_argument("--ckpt", required=True)
+    p.add_argument("--dict", dest="dict_path", required=True)
+    p.add_argument("--port", type=int, default=8080)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--decoder", default="beam", choices=DECODERS,
+                   help="/asr algorithm: joint CTC/attention beam search, "
+                        "encoder-only CTC viterbi, or two-pass CTC N-best + "
+                        "attention rescore (only ctc_greedy is ported)")
+    p.add_argument("--asr-buckets", default=",".join(
+        str(s) for s in ASR_BUCKETS_S))
+    p.add_argument("--max-batch", type=int, default=1,
+                   help="micro-batch up to N concurrent same-bucket /asr "
+                        "requests into one device batch")
+    p.add_argument("--batch-window-ms", type=float, default=20.0,
+                   help="how long the collector waits for co-arriving "
+                        "requests before launching a partial batch")
+    p.add_argument("--chunk-overlap-s", type=float, default=0.5,
+                   help="overlap between decode windows when audio exceeds "
+                        "the largest bucket (chunked, never truncated)")
+    p.add_argument("--max-audio-s", type=float, default=120.0,
+                   help="hard cap on /asr audio length -> HTTP 413 "
+                        "(0 disables)")
+    p.add_argument("--dtype", default="bfloat16")
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    svc = Service(args)
+    server = ThreadingHTTPServer((args.host, args.port), make_handler(svc))
+    print(json.dumps({"serving": True, "host": args.host,
+                      "port": server.server_address[1]}), flush=True)
+    server.serve_forever()
+
+
+if __name__ == "__main__":
+    main()

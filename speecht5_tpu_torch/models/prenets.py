@@ -1,0 +1,188 @@
+"""Speech encoder prenet: waveform -> encoder input.
+
+Port of ``speecht5_tpu/models/prenets.py`` :55-376 (reference
+modules/speech_encoder_prenet.py:58-272): the wav2vec2 conv feature
+extractor, post-extract LayerNorm + 512->d projection, the weight-normed
+conv positional embedding and fairseq sinusoidal positions.  HuBERT masking
+is training-only and arrives with the train slice (``mask_emb`` is kept for
+checkpoint parity).  The text and speech-decoder prenets arrive with their
+slices.
+
+Parameters use torch layouts (Conv1d ``[C_out, C_in, k]``, Linear
+``[out, in]``); ``utils/convert.from_jax_params`` maps the JAX trees.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..config import ConvFeatureConfig, SpeechT5Config
+from ..ops import cuda_kernels
+from ..ops.masking import length_mask
+from ..ops.positional import fairseq_sinusoidal
+from .common import Dense, LayerNorm32
+
+
+def _conv_weight(c_out: int, c_in: int, k: int) -> nn.Parameter:
+    return nn.Parameter(torch.empty(c_out, c_in, k))
+
+
+class _ConvKernel(nn.Module):
+    """Bare bias-free conv kernel ``weight`` [C_out, C_in, k] under the
+    JAX tree's ``conv_i`` name; every ``impl`` reads the same parameter."""
+
+    def __init__(self, c_out: int, c_in: int, k: int):
+        super().__init__()
+        self.weight = _conv_weight(c_out, c_in, k)
+
+
+class WeightNormConv1d(nn.Module):
+    """Conv1d with torch weight_norm(dim=2) parametrization (per-kernel-position
+    magnitude), matching the reference conv positional embedding
+    (speech_encoder_prenet.py:107-119).  ``weight_v`` is [C_out, C_in/groups,
+    k], ``weight_g`` is [1, 1, k]."""
+
+    def __init__(self, channels: int, kernel_size: int, groups: int = 1,
+                 dtype=torch.float32):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.groups = groups
+        self.dtype = dtype
+        self.weight_v = _conv_weight(channels, channels // groups, kernel_size)
+        self.weight_g = nn.Parameter(torch.ones(1, 1, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        """x: [B, T, C] -> [B, T, C]."""
+        v = self.weight_v.float()
+        norm = torch.sqrt((v * v).sum(dim=(0, 1), keepdim=True) + 1e-12)
+        w = (self.weight_g * v / norm).to(self.dtype)
+        k = self.kernel_size
+        # SAME-style padding k//2 both sides, then SamePad trims one trailing
+        # element for even kernels (reference SamePad in prenet :119)
+        y = F.conv1d(x.to(self.dtype).transpose(1, 2), w, padding=k // 2,
+                     groups=self.groups)
+        y = y.transpose(1, 2) + self.bias.to(self.dtype)
+        if k % 2 == 0:
+            y = y[:, :-1, :]
+        return y
+
+
+class _PerChannelGroupNorm(nn.Module):
+    """GroupNorm with num_groups == channels (per-channel stats over time,
+    padded frames included), the w2v2 "default" mode's Fp32GroupNorm on conv
+    layer 0.  Stats in f32, the feature map stays in the compute dtype."""
+
+    def __init__(self, channels: int, eps: float = 1e-5, dtype=torch.float32):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        xf = x.float()
+        mean = xf.mean(dim=1, keepdim=True)
+        var = (xf * xf).mean(dim=1, keepdim=True) - mean * mean
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        shift = self.bias - mean * inv
+        return (x * inv.to(self.dtype) + shift.to(self.dtype)).to(self.dtype)
+
+
+class ConvFeatureExtractor(nn.Module):
+    """wav2vec2-style stack of strided Conv1d blocks
+    (reference speech_encoder_prenet.py:278-374), "default" mode.
+
+    Layer 0 (one input channel) runs as the JAX package's ``_Conv0MatMul``:
+    framing by shifted strided views and one [*, k] @ [k, C] matmul.  Layers
+    1.. run per ``cfg.impl``: "pallas" -> the CUDA conv stack of
+    ``ops/cuda_kernels`` (the port's counterpart of the JAX
+    ``conv_stack_fused``), "polyphase" -> per-tap matmuls, "xla" -> conv1d.
+    """
+
+    def __init__(self, cfg: ConvFeatureConfig, dtype=torch.float32):
+        super().__init__()
+        if cfg.mode != "default" or cfg.bias:
+            raise NotImplementedError(
+                "only the 'default' mode without conv bias is ported "
+                "(layer_norm mode arrives with the Large slice)")
+        dim0, k0, s0 = cfg.layers[0]
+        if k0 % s0:
+            raise NotImplementedError("conv 0 needs stride | kernel")
+        self.cfg = cfg
+        self.dtype = dtype
+        c_in = 1
+        for i, (dim, k, _) in enumerate(cfg.layers):
+            self.add_module(f"conv_{i}", _ConvKernel(dim, c_in, k))
+            c_in = dim
+        self.group_norm = _PerChannelGroupNorm(dim0, 1e-5, dtype)
+
+    @property
+    def convs(self):
+        return [getattr(self, f"conv_{i}") for i in range(len(self.cfg.layers))]
+
+    def _conv0(self, wav):
+        _, k, s = self.cfg.layers[0]
+        x = wav.to(self.dtype)
+        B, T = x.shape
+        n_out = (T - k) // s + 1
+        rows = x[:, : (T // s) * s].reshape(B, T // s, s)
+        frames = torch.cat([rows[:, i : i + n_out] for i in range(k // s)], dim=-1)
+        w = self.convs[0].weight[:, 0, :].t().to(self.dtype)    # [k, C]
+        return frames @ w
+
+    def forward(self, wav):
+        """wav: [B, T] -> [B, frames, C_out]."""
+        x = F.gelu(self.group_norm(self._conv0(wav)))  # exact (erf) GELU
+        rest = self.cfg.layers[1:]
+        if not rest:
+            return x
+        specs = tuple((k, s) for _, k, s in rest)
+        convs = self.convs[1:]
+        if self.cfg.impl == "xla":
+            for (_, s), c in zip(specs, convs):
+                x = F.conv1d(x.transpose(1, 2), c.weight.to(self.dtype),
+                             stride=s).transpose(1, 2)
+                x = F.gelu(x)
+            return x
+        # [k, C_in, C_out]: the JAX kernel layout of the conv-stack contract
+        weights = [c.weight.permute(2, 1, 0) for c in convs]
+        if self.cfg.impl == "pallas":
+            return cuda_kernels.conv_stack(x, weights, specs)
+        if self.cfg.impl == "polyphase":
+            return cuda_kernels.conv_stack_plain(x, weights, specs)
+        raise ValueError(f"conv_features.impl={self.cfg.impl!r}")
+
+
+class SpeechEncoderPrenet(nn.Module):
+    def __init__(self, cfg: SpeechT5Config, dtype=torch.float32):
+        super().__init__()
+        if not (cfg.use_conv_pos and cfg.use_sinc_pos):
+            raise NotImplementedError("the slice ports the Base prenet: conv "
+                                      "and sinusoidal positions both on")
+        self.cfg = cfg
+        self.dtype = dtype
+        self.feature_extractor = ConvFeatureExtractor(cfg.conv_features, dtype)
+        c_out = cfg.conv_features.out_dim
+        self.layer_norm = LayerNorm32(c_out, eps=1e-6)
+        self.post_extract_proj = (Dense(c_out, cfg.d_model, dtype)
+                                  if c_out != cfg.d_model else None)
+        self.mask_emb = nn.Parameter(torch.empty(cfg.d_model))
+        self.pos_conv = WeightNormConv1d(cfg.d_model, cfg.conv_pos,
+                                         cfg.conv_pos_groups, dtype)
+
+    def forward(self, wav, wav_lengths):
+        """wav: [B, T] raw 16 kHz; wav_lengths: [B] -> (x [B, frames, D],
+        valid bool [B, frames])."""
+        feats = self.feature_extractor(wav)
+        frames = feats.shape[1]
+        valid = length_mask(self.cfg.conv_features.out_length(wav_lengths), frames)
+        x = self.layer_norm(feats).to(self.dtype)
+        if self.post_extract_proj is not None:
+            x = self.post_extract_proj(x)
+        x = x + F.gelu(self.pos_conv(x))
+        x = x + fairseq_sinusoidal(valid, self.cfg.d_model).to(self.dtype)
+        return x, valid
+

@@ -1,0 +1,22 @@
+"""Padding masks for the speech encoder.
+
+Only what ``encode_speech`` needs (the JAX package keeps it in
+``utils/masks.py``): boolean masks with True = valid frame.  HuBERT span
+masking (``speecht5_tpu/ops/masking.py``) is training-only and arrives with
+the train slice.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def length_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
+    """[B] lengths -> bool[B, max_len], True where position < length."""
+    pos = torch.arange(max_len, device=lengths.device, dtype=lengths.dtype)
+    return pos[None, :] < lengths[:, None]
+
+
+def mask_lengths(mask: torch.Tensor) -> torch.Tensor:
+    """bool[B, T] (True=valid) -> int32[B]."""
+    return mask.to(torch.int32).sum(dim=-1, dtype=torch.int32)

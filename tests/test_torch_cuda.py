@@ -1,0 +1,79 @@
+"""The port's CUDA kernels against their plain twins, on the card.
+
+Marked ``cuda``; each test skips when no card is present.  This file
+imports neither JAX nor the JAX package, so on a machine without JAX it
+runs with ``python -m pytest --noconftest -q tests/test_torch_cuda.py``.
+
+Tolerances: f32 1e-4 absolute (sums in another order); bf16 3e-2 of
+max |ref| (one bf16 rounding of probabilities or activations).
+"""
+
+import pytest
+import torch
+
+from speecht5_tpu_torch.models.attention import band_from_table
+from speecht5_tpu_torch.ops import cuda_kernels as K
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(got, ref, dtype):
+    err = (got.float() - ref.float()).abs().max().item()
+    if dtype == torch.float32:
+        assert err <= 1e-4, err
+    else:
+        assert err <= 3e-2 * ref.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,Dh", [(77, 16), (199, 64), (1024, 64)])
+def test_attention_kernel_matches_twin(card, dtype, T, Dh):
+    g = torch.Generator().manual_seed(T)
+    N, M = 6, 16
+    q, k, v = (torch.randn(N, T, Dh, generator=g) * s for s in (Dh ** -0.5, 1, 1))
+    table = torch.randn(2 * M, Dh, generator=g) * 0.2
+    args = [t.to(dtype).to(card) for t in (q, k, v, band_from_table(table, T, M))]
+    lengths = torch.tensor([T, 0, 1, T // 2, T - 1, 33], dtype=torch.int32, device=card)
+    before = K.banded_flash_attention.launches
+    got = K.banded_flash_attention(*args, lengths)
+    assert K.banded_flash_attention.launches == before + 1
+    ref = K.banded_flash_attention_plain(*args, lengths)
+    torch.cuda.synchronize()
+    _close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,T", [(32, 333), (512, 1000)])
+def test_conv_stack_kernel_matches_twin(card, dtype, C, T):
+    g = torch.Generator().manual_seed(C + T)
+    specs = ((3, 2),) * 4 + ((2, 2),) * 2
+    x = torch.randn(2, T, C, generator=g).to(dtype).to(card)
+    ws = [(torch.randn(k, C, C, generator=g) / (k * C) ** 0.5).to(dtype).to(card)
+          for k, _ in specs]
+    before = K.conv_stack.launches
+    got = K.conv_stack(x, ws, specs)
+    assert K.conv_stack.launches == before + len(specs)
+    ref = K.conv_stack_plain(x, ws, specs)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and got.dtype == dtype
+    _close(got, ref, dtype)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(card):
+    q = torch.zeros(2, 8, 4, device=card)
+    band = torch.zeros(4, 8, 8, device=card)
+    with pytest.raises(TypeError):
+        K.banded_flash_attention(q.half(), q.half(), q.half(), band.half())
+    with pytest.raises(ValueError):
+        K.banded_flash_attention(q, q, q, band.cpu())
+    with pytest.raises(ValueError):
+        K.banded_flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                                 q, q, band)

@@ -1,0 +1,120 @@
+"""Import hygiene, device defaults and the CUDA build line of the port, and
+``chip_smoke.py``'s phases run on the CPU at the tiny preset.
+
+A machine that runs the port need not have JAX, flax, transformers or
+sentencepiece, so neither the port nor ``chip_smoke.py`` may reach them or
+the JAX package; a subprocess with those modules blocked imports everything.
+"""
+
+import os
+import pathlib
+import re
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import chip_smoke
+from speecht5_tpu_torch import config as C
+from speecht5_tpu_torch.ops import cuda_kernels as K
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+BLOCKED = ("jax", "flax", "speecht5_tpu", "transformers", "sentencepiece")
+
+
+def _env():
+    from conftest import cpu_subprocess_env
+
+    return cpu_subprocess_env()
+
+
+def test_port_and_smoke_import_with_jax_blocked():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        f"for m in {BLOCKED!r}:\n"
+        "    sys.modules[m] = None\n"
+        "import speecht5_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "import chip_smoke, torch_serve_profile\n"
+        "print(len(names))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 15
+
+
+def test_no_import_lines_reach_jax():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|flax|speecht5_tpu)\b")
+    files = list((REPO / "speecht5_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "torch_serve_profile.py"]
+    hits = [f"{f}:{i}" for f in files
+            for i, line in enumerate(f.read_text().splitlines(), 1)
+            if pat.match(line)]
+    assert not hits
+
+
+def test_entry_points_default_to_cuda_and_raise_without_a_card():
+    import inspect
+
+    from speecht5_tpu_torch.cli.serve import Service
+    from speecht5_tpu_torch.decode.asr import CTCDecoder
+    from speecht5_tpu_torch.models.speecht5 import init_model
+    from speecht5_tpu_torch.utils.device import resolve_device
+
+    for fn in (init_model, CTCDecoder.__init__, Service.__init__, resolve_device):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: asking for cuda does not raise here")
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_model(C.speecht5_tiny())
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device()
+
+
+def test_nvcc_command_targets_sm90a_under_build():
+    out = K.build_dir() / "libx.so"
+    cmd = K.nvcc_command("nvcc", K.CSRC_DIR / "conv_stack.cu", out)
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert "--use_fast_math" not in cmd and "-shared" in cmd
+    assert out.parent.parent == REPO / "build" / "torch_kernels"
+    assert str(out) in cmd
+    for src in K.SOURCES.values():
+        assert (K.CSRC_DIR / src).is_file()
+
+
+def test_build_without_nvcc_raises(monkeypatch):
+    if shutil.which("nvcc") or os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("an nvcc is installed here")
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        K.find_nvcc()
+
+
+def test_chip_smoke_phases_run_on_cpu_with_twins():
+    base = C.speecht5_tiny()
+    served = chip_smoke.phase_serve(base, device="cpu", dtype="float32",
+                                    requests_s=(0.3, 1.1, 2.1), buckets="1,2")
+    assert [r["chunks"] for r in served["requests"]] == [1, 1, 2]
+    assert served["counts"] == {"banded_flash_attention": 0, "conv_stack": 0}
+    parity = chip_smoke.phase_parity(base, device="cpu",
+                                     requests_s=(0.3, 2.1), buckets="1,2")
+    assert parity["frames"] > 0 and parity["differing_frames"] == 0
+
+
+def test_chip_smoke_fails_without_card_or_repo(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                         env=_env(), capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and '"ok": true' not in out.stdout
+    shutil.copy(REPO / "chip_smoke.py", tmp_path)
+    env = _env()
+    env["PYTHONPATH"] = ""
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and '"ok": true' not in out.stdout
