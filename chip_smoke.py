@@ -5,33 +5,56 @@
 
 Phases, each timed; any failure raises and the exit code is non-zero:
 
-1. build    -- compile both CUDA kernels with nvcc for sm_90a from the
-               sources in this checkout (ops/cuda_kernels.build_all).
-2. kernels  -- hold each kernel against its plain PyTorch twin on the card at
-               SpeechT5-Base shapes (batch 1, as a served 16 s chunk gives
-               them, and batch 2), in f32 and bf16; time kernel, twin and
-               one PyTorch library call that computes the same function.
-3. serve    -- the main path: the port's ASR Service (ctc_greedy, bf16, both
-               kernels on) at full speecht5_base_asr width with random
-               weights, warming the 4/8/16 s buckets and answering 3 s, 11 s
-               and 21 s requests in process (the 21 s one is chunked).  The
-               kernels' launch counts are zeroed just before the requests and
-               read just after; a kernel that was never launched fails.
+1. build    -- compile the three CUDA sources with nvcc for sm_90a from this
+               checkout, one nvcc each, all started together.
+2. kernels  -- hold each of the five kernels against its plain PyTorch twin
+               on the card and time kernel, twin and one PyTorch library call
+               that computes the same function (a yardstick only):
+               the inference attention and the conv stack at SpeechT5-Base
+               shapes (batch 1, as a served 16 s chunk gives them, and batch
+               2), f32 and bf16; the three train-attention kernels at the
+               train step's shapes (N = 16 x 12, T = 799, Dh = 64, ragged
+               lengths with a row of length 0), f32 and bf16, dropout 0 and
+               0.1 at a fixed seed.
+3. serve    -- the serving path: the port's ASR Service (ctc_greedy, bf16,
+               both inference kernels on) at full speecht5_base_asr width
+               with random weights, answering 3 s, 11 s and 21 s requests in
+               process (the 21 s one is chunked).
 4. parity   -- the same f32 weights through the Service path with the
                kernels and with the flags off: the CTC frame ids must agree
                (a differing frame is tolerated only where the top-2 logit gap
                is < 1e-4, and on under 0.1% of frames).
+5. train    -- the training path: ``cli/train.main`` with the ASR fine-tune
+               recipe's flags (recipes/asr_finetune.sh: CTC weight 0.5,
+               label smoothing 0.1, accum 2, batch 16, bf16, --normalize,
+               the train-attention kernel and the conv kernel on) on
+               speecht5_base_asr at full width with random weights, over a
+               synthetic corpus of 32 seeded 8-16 s utterances written to a
+               temporary directory: 3 updates, then a resume that takes one
+               more.  Every loss and grad norm must be finite; each train
+               kernel must launch once per encoder layer run (layerdrop
+               skips some), and the inference kernel never.
+6. train parity -- one micro-batch in f32 with dropout, layerdrop and
+               masking at 0, same weights, kernel route against the plain
+               route: loss within 1e-4 relative, every parameter gradient
+               within 1e-3 of that parameter's max |g| (the k_proj biases,
+               whose gradient is analytically 0, within 1e-6 of the largest
+               gradient).
 
+The launch counts are zeroed just before each driven path (serve, train)
+and read just after; a kernel of that path that was never launched fails.
 Output: an early line with the card's name and power limit as nvidia-smi
 gives them, one ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  A watchdog ends a hung run with a
-traceback after 600 s.  The script opens no socket and starts no thread.
+traceback after 900 s.  The script opens no socket; the training loop's
+data prefetch thread ends with each run.
 """
 
 from __future__ import annotations
 
 import faulthandler
 import json
+import math
 import os
 import subprocess
 import sys
@@ -43,12 +66,17 @@ import torch
 import torch.nn.functional as F
 
 from speecht5_tpu_torch import config as C
+from speecht5_tpu_torch.cli import train as cli_train
 from speecht5_tpu_torch.cli.serve import SR, Service, build_parser
+from speecht5_tpu_torch.data.audio import layer_norm_wav, write_wav
+from speecht5_tpu_torch.data.manifests import SpeechToTextDataset
 from speecht5_tpu_torch.models.attention import band_from_table
+from speecht5_tpu_torch.models.layers import EncoderLayer
 from speecht5_tpu_torch.models.speecht5 import init_model
 from speecht5_tpu_torch.ops import cuda_kernels as K
+from speecht5_tpu_torch.train.trainer import Trainer, TrainConfig
 
-WATCHDOG_S = 600
+WATCHDOG_S = 900
 # published peaks of one H100 SXM (dense): bf16 tensor cores, f32 outside
 # the tensor cores, and HBM3 bandwidth
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -62,8 +90,35 @@ KERNELS = {
         "source": "speecht5_tpu_torch/csrc/conv_stack.cu",
         "replaces": "speecht5_tpu/ops/pallas_kernels.py:753",
     },
+    "banded_attention_train_fwd": {
+        "source": "speecht5_tpu_torch/csrc/banded_attention_train.cu",
+        "replaces": "speecht5_tpu/ops/pallas_kernels.py:427",
+    },
+    "banded_attention_train_bwd_dq": {
+        "source": "speecht5_tpu_torch/csrc/banded_attention_train.cu",
+        "replaces": "speecht5_tpu/ops/pallas_kernels.py:446",
+    },
+    "banded_attention_train_bwd_dkv": {
+        "source": "speecht5_tpu_torch/csrc/banded_attention_train.cu",
+        "replaces": "speecht5_tpu/ops/pallas_kernels.py:456",
+    },
 }
+TRAIN_KERNELS = ("banded_attention_train_fwd", "banded_attention_train_bwd_dq",
+                 "banded_attention_train_bwd_dkv")
+# the case of each kernel that its path runs: the served chunk (bf16, batch
+# 1) and the recipe's train step (bf16, attention dropout 0.1)
+MAIN_CASE = {"banded_flash_attention": "bfloat16/b1", "conv_stack": "bfloat16/b1",
+             **{n: "bfloat16/r0.1" for n in TRAIN_KERNELS}}
 KERNEL_OVERRIDES = ["encoder.use_pallas_attn=True", "conv_features.impl='pallas'"]
+TRAIN_OVERRIDES = ["encoder.use_pallas_attn_train=True", "conv_features.impl='pallas'"]
+# recipes/asr_finetune.sh (the flags of the s2t path; its lr/warmup/updates
+# and --finetune-from are the run's, not the step's)
+RECIPE_FLAGS = ["--ctc-weight", "0.5", "--label-smoothing", "0.1", "--accum", "2",
+                "--batch-size", "16", "--normalize", "--dtype", "bfloat16"]
+# zero every stochastic part of the train step, for the parity phase
+DETERMINISTIC = [f"{s}.{f}=0.0" for s in ("encoder", "decoder")
+                 for f in ("dropout", "attention_dropout", "activation_dropout",
+                           "layerdrop")] + ["masking.mask_prob=0.0"]
 # letter dictionary: 4 specials + 75 symbols + <mask> + <ctc_blank> = 81
 DICT_SYMBOLS = (["|", "'"] + [chr(ord("A") + i) for i in range(26)]
                 + [f"x{i}" for i in range(47)])
@@ -278,10 +333,104 @@ def _conv_record(batch, dtype):
     }
 
 
+def train_attention_case(dtype, device="cuda", batch=16, T=799, seed=2):
+    """The train step's attention shapes: batch x 12 heads, T = 799 (16 s),
+    Dh = 64, max distance 160; ragged lengths with a row of length 0 and a
+    full one; a random output gradient."""
+    g = torch.Generator().manual_seed(seed)
+    N, Dh, M = 12 * batch, 64, 160
+    q = (torch.randn(N, T, Dh, generator=g) * Dh ** -0.5).to(dtype)
+    k, v, do = (torch.randn(N, T, Dh, generator=g).to(dtype) for _ in range(3))
+    table = (torch.randn(2 * M, Dh, generator=g) * 0.125).to(dtype)
+    band = band_from_table(table, T, M).contiguous()
+    lengths = torch.randint(1, T + 1, (N,), generator=g, dtype=torch.int32)
+    lengths[0], lengths[1] = 0, T
+    return [t.to(device) for t in (q, k, v, band, lengths, do)]
+
+
+def _train_records(dtype, rate, seed=1234):
+    """The three train kernels against their twins on one case, with the
+    twin's forward outputs feeding both backward versions."""
+    q, k, v, band, lengths, do = train_attention_case(dtype)
+    N, T, Dh = q.shape
+    o, stats = K.banded_attention_train_fwd(q, k, v, band, lengths, rate, seed)
+    o_ref, stats_ref = K.banded_attention_train_fwd_plain(q, k, v, band, lengths,
+                                                          rate, seed)
+    args = (q, k, v, band, lengths, o_ref, do, stats_ref, rate, seed)
+    outs = {"banded_attention_train_fwd": ((o,), (o_ref,), ("o",)),
+            "banded_attention_train_bwd_dq": (
+                K.banded_attention_train_bwd_dq(*args),
+                K.banded_attention_train_bwd_dq_plain(*args), ("dq", "dband")),
+            "banded_attention_train_bwd_dkv": (
+                K.banded_attention_train_bwd_dkv(*args),
+                K.banded_attention_train_bwd_dkv_plain(*args), ("dk", "dv"))}
+    torch.cuda.synchronize()
+
+    # SDPA with the float bias (q.band + the key mask) as the yardstick:
+    # forward, and one autograd.grad call for the backward
+    keep = torch.arange(T, device=q.device)[None, None, :] < lengths[:, None, None]
+    bias = torch.einsum("nqd,dqk->nqk", q.float(), band.float())
+    bias = torch.where(keep, bias, torch.full((), K.NEG_INF, device=q.device)).to(dtype)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v, bias)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3],
+                                              dropout_p=rate, scale=1.0)
+    library = {
+        "banded_attention_train_fwd": lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=bias, dropout_p=rate, scale=1.0),
+        "banded_attention_train_bwd_dq": lambda: torch.autograd.grad(
+            sdpa_out, leaves, do, retain_graph=True),
+    }
+    library["banded_attention_train_bwd_dkv"] = library["banded_attention_train_bwd_dq"]
+    fns = {"banded_attention_train_fwd": (
+               lambda: K.banded_attention_train_fwd(q, k, v, band, lengths, rate, seed),
+               lambda: K.banded_attention_train_fwd_plain(q, k, v, band, lengths, rate, seed)),
+           "banded_attention_train_bwd_dq": (
+               lambda: K.banded_attention_train_bwd_dq(*args),
+               lambda: K.banded_attention_train_bwd_dq_plain(*args)),
+           "banded_attention_train_bwd_dkv": (
+               lambda: K.banded_attention_train_bwd_dkv(*args),
+               lambda: K.banded_attention_train_bwd_dkv_plain(*args))}
+
+    # the work these inputs need: keys past a row's length only for a row
+    # of length 0 (it attends to all T); flops per (n, i, j) pair over the
+    # valid keys -- fwd q.k, q.band, p.v; dq adds dO.v, ds.k, ds.band and
+    # q.ds; dkv dO.v, p.dO and ds.q
+    eff = torch.where(lengths > 0, lengths, T).double().sum().item()
+    pairs, e = T * eff, q.element_size()
+    big, band_b, small = N * T * Dh * e, Dh * T * T * e, 2 * N * T * 4 + 4 * N
+    work = {"banded_attention_train_fwd": (4 * big + band_b + small, 6 * Dh * pairs),
+            "banded_attention_train_bwd_dq": (6 * big + band_b + Dh * T * T * 4 + small,
+                                              12 * Dh * pairs),
+            "banded_attention_train_bwd_dkv": (7 * big + band_b + small, 10 * Dh * pairs)}
+    records, ok = {}, True
+    for name, (got, ref, labels) in outs.items():
+        errs = {}
+        for lab, a, b in zip(labels, got, ref):
+            err, _, good = _check(dtype, a, b)
+            errs[lab] = err
+            ok = ok and good
+        bound_ms, bound_by = _bound(*work[name], dtype)
+        kern, twin = fns[name]
+        records[name] = {
+            "max_abs_err": max(errs.values()), "errors": errs,
+            "tolerance": (f"atol {TOL_F32}" if dtype == torch.float32 else
+                          f"{TOL_BF16_REL} x max|ref| of each output"),
+            "ms": time_ms(kern, reps=10), "plain_ms": time_ms(twin, reps=5),
+            "library_ms": time_ms(library[name], reps=10),
+            "library_call": ("F.scaled_dot_product_attention(attn_mask=bias+mask)"
+                             + ("" if name.endswith("fwd") else
+                                " backward (dq, dk, dv, dbias in one call)")),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "shape": {"N": N, "T": T, "Dh": Dh, "rate": rate},
+        }
+    return ok, records
+
+
 def phase_kernels():
-    """Each kernel against its twin at batch 1 (what a served 16 s chunk
-    gives it) and batch 2, in f32 and bf16.  Records are keyed
-    "<dtype>/b<batch>"."""
+    """The inference kernels against their twins at batch 1 (what a served
+    16 s chunk gives them) and batch 2, in f32 and bf16 (keys
+    "<dtype>/b<batch>"); the train kernels at the train step's shapes in f32
+    and bf16 with dropout 0 and 0.1 (keys "<dtype>/r<rate>")."""
     records = {name: {} for name in KERNELS}
     failures = []
     for batch in (1, 2):
@@ -295,6 +444,16 @@ def phase_kernels():
                     failures.append(f"{name} {key}: max|diff| {rec['max_abs_err']} "
                                     f"> {rec['tolerance']}")
                 torch.cuda.empty_cache()
+    for dtype in (torch.float32, torch.bfloat16):
+        for rate in (0.0, 0.1):
+            key = f"{str(dtype).split('.')[-1]}/r{rate}"
+            ok, recs = _train_records(dtype, rate)
+            for name, rec in recs.items():
+                records[name][key] = rec
+            if not ok:
+                failures.append(f"train kernels {key}: "
+                                + json.dumps({n: r["errors"] for n, r in recs.items()}))
+            torch.cuda.empty_cache()
     log(json.dumps({"phase": "kernels", "records": records}))
     if failures:
         raise AssertionError("kernel disagrees with its twin: " + "; ".join(failures))
@@ -389,24 +548,177 @@ def phase_parity(base_cfg, device="cuda", requests_s=(3, 11, 21),
     return result
 
 
+# ------------------------------------------------------------------ train
+
+
+def write_corpus(directory: str, n: int, seconds=(8.0, 16.0), seed: int = 0):
+    """``n`` seeded 16 kHz utterances of ``seconds`` (min, max) with random
+    letter transcripts (fairseq .ltr: letters with '|' word ends): a WAV
+    each, a manifest and a label file.  Returns (manifest, labels, dict)."""
+    rng = np.random.default_rng(seed)
+    letters = [chr(ord("A") + i) for i in range(26)]
+    rows, lines = [], []
+    for i in range(n):
+        secs = float(rng.uniform(*seconds))
+        wav = synth_audio(secs, seed=seed + 1000 + i)
+        write_wav(os.path.join(directory, f"utt{i}.wav"), wav)
+        rows.append(f"utt{i}.wav\t{len(wav)}")
+        words = ["".join(rng.choice(letters, int(rng.integers(2, 8))))
+                 for _ in range(max(1, int(secs * 2.5)))]
+        lines.append(" ".join(" ".join(w) + " |" for w in words))
+    manifest = os.path.join(directory, "train.tsv")
+    with open(manifest, "w", encoding="utf-8") as f:
+        f.write(directory + "\n" + "\n".join(rows) + "\n")
+    labels = os.path.join(directory, "train.ltr")
+    with open(labels, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    return manifest, labels, write_dictionary(directory)
+
+
+class _LayerRuns:
+    """Counts training forwards of encoder layers (layerdrop skips some)."""
+
+    def __enter__(self):
+        self.n = 0
+
+        def hook(module, args, output):
+            if isinstance(module, EncoderLayer) and module.training:
+                self.n += 1
+
+        self.handle = torch.nn.modules.module.register_module_forward_hook(hook)
+        return self
+
+    def __exit__(self, *exc):
+        self.handle.remove()
+
+
+def phase_train(arch="speecht5_base_asr", device="cuda", n_utts=32, updates=3,
+                seconds=(8.0, 16.0), flags=RECIPE_FLAGS, seed=0):
+    """The training path through ``cli/train.main``: ``updates`` updates,
+    then a resume that takes one more; only the newest checkpoint (1.8 GB
+    at Base with the Adam moments) is kept, in a temporary directory
+    removed at the end.  Returns the launch counts of the first
+    run, the encoder layer runs, the per-update metrics and wall times."""
+    with tempfile.TemporaryDirectory() as d:
+        manifest, labels, dict_path = write_corpus(d, n_utts, seconds, seed)
+        args = ["--task", "s2t", "--arch", arch, "--manifest", manifest,
+                "--labels", labels, "--dict", dict_path,
+                "--save-dir", os.path.join(d, "ckpt"), *flags, "--keep-last", "1",
+                "--log-interval", "1", "--seed", str(seed + 1), "--device", device]
+        for ov in TRAIN_OVERRIDES:
+            args += ["--override", ov]
+        _sync(device)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        with _LayerRuns() as runs:
+            first = cli_train.main(args + ["--max-updates", str(updates)])
+        _sync(device)
+        wall = time.perf_counter() - t0
+        counts = K.launch_counts()
+        resumed = cli_train.main(args + ["--max-updates", str(updates + 1)])
+        saved = sorted(os.listdir(os.path.join(d, "ckpt")))
+    if not (first["steps"] == updates and len(first["history"]) == updates
+            and resumed["steps"] == updates + 1 and len(resumed["history"]) == 1):
+        raise AssertionError(f"train/resume steps wrong: {first['steps']}, "
+                             f"{resumed['steps']}, {len(resumed['history'])}")
+    if not (first["finite"] and resumed["finite"]):
+        raise AssertionError(f"non-finite train metrics: {first['history']} "
+                             f"{resumed['history']}")
+    if saved != [f"checkpoint_{updates + 1}.pt"]:
+        raise AssertionError(f"checkpoints saved: {saved}")
+    result = {"counts": counts, "layer_runs": runs.n, "wall_s": wall,
+              "history": first["history"] + resumed["history"]}
+    log(json.dumps({"phase": "train", **result}))
+    return result
+
+
+def synthetic_batch(cfg, batch, seconds=(8.0, 16.0), seed=0, device="cuda"):
+    """One collated s2t micro-batch as ``cli/train.py`` hands it to the
+    trainer: seeded audio of ``seconds`` (min, max), layer-normed as
+    ``--normalize`` does and padded to its audio bucket; random token
+    targets (12 a second) ending in EOS with the EOS-shifted decoder input;
+    wav_lengths on the host."""
+    rng = np.random.default_rng(seed)
+    wavs = [synth_audio(float(rng.uniform(*seconds)), seed=500 + seed + i)
+            for i in range(batch)]
+    items = []
+    for w in wavs:
+        tokens = np.append(rng.integers(4, 80, int(len(w) / SR * 12)), cfg.eos_id)
+        items.append({"id": 0, "wav": layer_norm_wav(w), "tokens": tokens})
+    b = SpeechToTextDataset.collate(items, cfg.eos_id, cfg.pad_id)
+    return {"wav_lengths": torch.from_numpy(b["wav_lengths"]),
+            **{k: torch.from_numpy(b[k]).to(device)
+               for k in ("wav", "prev_tokens", "targets")}}
+
+
+def phase_train_parity(base_cfg, device="cuda", batch=16, seconds=(8.0, 16.0),
+                       seed=0, loss_rtol=1e-4, grad_rtol=1e-3):
+    """One micro-batch in f32, every stochastic part at 0, the same weights:
+    the train-kernel route against the plain route (see the docstring)."""
+    cfg_k = C.apply_overrides(C.replace(base_cfg, dtype="float32", **DICT_CFG),
+                              DETERMINISTIC + TRAIN_OVERRIDES)
+    cfg_p = C.apply_overrides(C.replace(base_cfg, dtype="float32", **DICT_CFG),
+                              DETERMINISTIC)
+    b = synthetic_batch(base_cfg, batch, seconds, seed, device)
+    tcfg = TrainConfig(ctc_weight=0.5)
+    results = []
+    state = None
+    for cfg in (cfg_k, cfg_p):
+        model = init_model(cfg, torch.Generator().manual_seed(seed + 7), device)
+        if state is None:
+            state = model.state_dict()
+        model.load_state_dict(state)
+        trainer = Trainer(model, "s2t", tcfg)
+        model.train()
+        loss, _ = trainer.loss(b)
+        loss.backward()
+        results.append((loss.item(), {n: p.grad for n, p in model.named_parameters()}))
+        del model, trainer
+    (loss_k, g_k), (loss_p, g_p) = results
+    gmax = max(g.abs().max().item() for g in g_p.values() if g is not None)
+    worst, worst_name = 0.0, None
+    for name, gp in g_p.items():
+        gk = g_k[name]
+        if gp is None or gk is None:
+            if (gp is None) != (gk is None):
+                raise AssertionError(f"gradient of {name} present on one route only")
+            continue
+        err = (gk - gp).abs().max().item()
+        if name.endswith("k_proj.bias"):   # analytically 0: rounding noise
+            if max(gk.abs().max().item(), gp.abs().max().item()) > 1e-6 * gmax:
+                raise AssertionError(f"{name}: gradient not ~0")
+            continue
+        rel = err / max(gp.abs().max().item(), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, name
+    result = {"loss_kernel": loss_k, "loss_plain": loss_p,
+              "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
+              "worst_grad_rel_diff": worst, "worst_grad_param": worst_name}
+    log(json.dumps({"phase": "train_parity", **result}))
+    if result["loss_rel_diff"] > loss_rtol or worst > grad_rtol:
+        raise AssertionError(f"train routes differ: {result}")
+    return result
+
+
 # ------------------------------------------------------------------- main
 
 
 def kernels_line(records, counts):
-    """The contract line: the served path's dtype and batch (bf16, batch 1)
-    in the named keys, the other cases under "other"."""
+    """The contract line: each kernel's path case (MAIN_CASE) in the named
+    keys, the other cases under "other"; ``launches`` from the run of the
+    path that drives the kernel (``counts``)."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "tolerance")
     out = []
     for name, meta in KERNELS.items():
-        main = records[name]["bfloat16/b1"]
+        main = records[name][MAIN_CASE[name]]
         out.append({
             "name": name, "route": "cuda", "impl": "cuda", **meta,
             "launches": counts[name], **{k: main[k] for k in keys},
-            "dtype": "bfloat16", "shape": main["shape"],
+            "dtype": "bfloat16", "case": MAIN_CASE[name], "shape": main["shape"],
             "other": {case: {k: rec[k] for k in keys + ("shape",)}
                       for case, rec in records[name].items()
-                      if case != "bfloat16/b1"},
+                      if case != MAIN_CASE[name]},
         })
     return {"kernels": out}
 
@@ -437,17 +749,35 @@ def main():
     served = phase_serve(base)
     walls["serve"] = time.perf_counter() - t0
     log(json.dumps({"phase": "serve", "launches": served["counts"]}))
-    missing = [n for n in KERNELS if served["counts"][n] == 0]
+    missing = [n for n in ("banded_flash_attention", "conv_stack")
+               if served["counts"][n] == 0]
     if missing:
-        raise AssertionError(f"main path never launched {missing}")
+        raise AssertionError(f"serving path never launched {missing}")
 
     t0 = time.perf_counter()
     phase_parity(base)
     walls["parity"] = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
+    trained = phase_train()
+    walls["train"] = time.perf_counter() - t0
+    tc = trained["counts"]
+    if tc["banded_flash_attention"] != 0 or tc["conv_stack"] == 0:
+        raise AssertionError(f"train path launches wrong: {tc}")
+    runs = trained["layer_runs"]
+    if not runs or any(tc[n] != runs for n in TRAIN_KERNELS):
+        raise AssertionError(f"train kernels launched {tc}, encoder layers ran {runs}")
+    if not all(math.isfinite(v) for r in trained["history"] for v in r.values()):
+        raise AssertionError("non-finite train metrics")
+
+    t0 = time.perf_counter()
+    phase_train_parity(base)
+    walls["train_parity"] = time.perf_counter() - t0
+
     walls["total"] = time.perf_counter() - t_start
     log(json.dumps({"phase_seconds": walls, "card": card_line()}))
-    log(json.dumps(kernels_line(records, served["counts"])))
+    counts = {**served["counts"], **{n: tc[n] for n in TRAIN_KERNELS}}
+    log(json.dumps(kernels_line(records, counts)))
     torch.cuda.synchronize()
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {

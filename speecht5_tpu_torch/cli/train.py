@@ -1,0 +1,311 @@
+"""Training entry point of the port: preset -> dataset -> Trainer ->
+checkpoints, for the speech-to-text task (the s2t path of
+``speecht5_tpu/cli/train.py``, with the same flag names and defaults).
+
+Usage (the ASR fine-tune recipe, recipes/asr_finetune.sh):
+    python -m speecht5_tpu_torch.cli.train --task s2t \\
+        --arch speecht5_base_asr --manifest train.tsv --labels train.ltr \\
+        --dict dict.ltr.txt --save-dir ckpt/ --ctc-weight 0.5 \\
+        --label-smoothing 0.1 --accum 2 --batch-size 16 --normalize \\
+        --dtype bfloat16 --override encoder.use_pallas_attn_train=True \\
+        --override conv_features.impl=pallas
+
+One update consumes ``--accum`` consecutive batches of ``--batch-size``
+(fairseq --update-freq).  ``--valid-manifest`` runs validation every
+``--valid-interval`` updates (loss metrics and greedy-CTC UER/WER) and, with
+``--best-checkpoint-metric``, keeps the best checkpoint under
+``<save-dir>/best/``.  Runs on the card unless ``--device cpu``.  Other
+tasks, ``--finetune-from`` (JAX checkpoint conversion) and multi-process
+training are not ported yet and are refused.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import time
+
+import numpy as np
+import torch
+
+TASKS = ("s2t", "t2s", "s2s", "s2c", "pretrain_speech", "pretrain")
+
+
+def build_parser():
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--task", required=True, choices=TASKS)
+    p.add_argument("--arch", default="speecht5_base",
+                   help="config preset name in speecht5_tpu_torch.config")
+    p.add_argument("--manifest", required=True)
+    p.add_argument("--labels", default=None)
+    p.add_argument("--dict", dest="dict_path", default=None)
+    p.add_argument("--save-dir", required=True)
+    p.add_argument("--max-updates", type=int, default=1000)
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--max-tokens", type=int, default=0)
+    p.add_argument("--max-sample-size", type=int, default=None)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--warmup", type=int, default=1000)
+    p.add_argument("--schedule", default="inverse_sqrt",
+                   choices=("inverse_sqrt", "tri_stage", "polynomial"))
+    p.add_argument("--hold-steps", type=int, default=0,
+                   help="tri_stage hold phase length")
+    p.add_argument("--clip-norm", type=float, default=5.0)
+    p.add_argument("--accum", type=int, default=1)
+    p.add_argument("--ce-weight", type=float, default=1.0)
+    p.add_argument("--ctc-weight", type=float, default=0.0)
+    p.add_argument("--zero-infinity", action="store_true",
+                   help="zero CTC loss for infeasible alignments")
+    p.add_argument("--label-smoothing", type=float, default=0.1)
+    p.add_argument("--freeze-encoder-updates", type=int, default=0)
+    p.add_argument("--freeze-decoder-updates", type=int, default=0)
+    p.add_argument("--no-freeze-encoder-layers", default="",
+                   help="comma-separated encoder layer indices exempt from "
+                        "the encoder freeze")
+    p.add_argument("--normalize", action="store_true")
+    p.add_argument("--mask-prob", type=float, default=None,
+                   help="override HuBERT masking prob (e.g. 0 to disable)")
+    p.add_argument("--dtype", default="float32")
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--save-interval", type=int, default=1000)
+    p.add_argument("--log-interval", type=int, default=100)
+    p.add_argument("--keep-last", type=int, default=10)
+    p.add_argument("--valid-manifest", default=None)
+    p.add_argument("--valid-labels", default=None)
+    p.add_argument("--valid-interval", type=int, default=1000)
+    p.add_argument("--best-checkpoint-metric", default=None,
+                   help="validation metric (e.g. wer, loss) that selects the "
+                        "best/ checkpoint")
+    p.add_argument("--maximize-best-checkpoint-metric", action="store_true")
+    p.add_argument("--finetune-from", default=None,
+                   help="not ported yet: needs JAX checkpoint conversion (refused)")
+    p.add_argument("--vocab-size", type=int, default=None,
+                   help="override vocab (tasks without a dictionary)")
+    p.add_argument("--override", action="append", default=[],
+                   help="config field override, dotted path = literal, repeatable")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; the CPU only when asked for")
+    return p
+
+
+def make_batches(sizes, args, seed):
+    from ..data.manifests import batch_by_size
+
+    if args.max_tokens:
+        return batch_by_size(sizes, args.max_tokens, args.batch_size or None,
+                             shuffle_seed=seed)
+    order = np.random.default_rng(seed).permutation(len(sizes))
+    B = args.batch_size or 8
+    if len(order) < B:
+        raise SystemExit(
+            f"dataset has {len(sizes)} items < --batch-size {B}: no full "
+            "batch can be formed (the trailing partial batch is dropped)")
+    return [order[i : i + B] for i in range(0, len(order) - B + 1, B)]
+
+
+def run_validation(trainer, ds, args, cfg, dictionary, device):
+    """Average eval-step metrics over the full batches of ``ds``, and the
+    greedy-CTC UER (tokens) and WER (words) when CTC is trained (the
+    reference's valid-time WER, speech_to_text_loss.py:232-297)."""
+    from ..data.dictionary import letters_to_text
+    from ..utils.metrics import edit_distance
+
+    sums, n_batches = {}, 0
+    uer_err = uer_tot = wer_err = wer_tot = 0
+    B = args.batch_size
+    for s in range(0, len(ds) - len(ds) % B, B):
+        items = [ds[i] for i in range(s, s + B)]
+        batch = ds.collate(items, cfg.eos_id, cfg.pad_id)
+        out = trainer.eval_step(_to_device(batch, device))
+        ids = out.pop("_ctc_ids").cpu().numpy()
+        lens = out.pop("_enc_lengths").cpu().numpy()
+        for k, v in out.items():
+            sums[k] = sums.get(k, 0.0) + float(v)
+        n_batches += 1
+        if args.ctc_weight <= 0:
+            continue
+        for b, it in enumerate(items):
+            seq = ids[b, : lens[b]]
+            if len(seq):
+                seq = seq[np.concatenate([[True], seq[1:] != seq[:-1]])]
+            seq = seq[(seq != cfg.blank_id) & (seq != cfg.pad_id)].tolist()
+            ref = [t for t in it["tokens"].tolist() if t not in (cfg.pad_id, cfg.eos_id)]
+            uer_err += edit_distance(seq, ref)
+            uer_tot += max(len(ref), 1)
+            if dictionary is not None:
+                hyp_w = letters_to_text(dictionary.string(seq)).split()
+                ref_w = letters_to_text(dictionary.string(ref)).split()
+                wer_err += edit_distance(ref_w, hyp_w)
+                wer_tot += len(ref_w)
+    result = {k: v / max(n_batches, 1) for k, v in sums.items()}
+    if uer_tot:
+        result["uer"] = uer_err / uer_tot
+        if wer_tot:
+            result["wer"] = wer_err / wer_tot
+    return result
+
+
+def _best_state(save_dir):
+    """The incumbent best ({"metric", "value", "step"}) of a resumed run."""
+    path = os.path.join(save_dir, "best", "best.json")
+    if not os.path.exists(path):
+        return None
+    with open(path, encoding="utf-8") as f:
+        return json.load(f)
+
+
+def _to_device(batch, device):
+    """Model inputs on the card; wav_lengths stays on the host so that the
+    masks are drawn there without a device sync."""
+    out = {"wav_lengths": torch.from_numpy(batch["wav_lengths"])}
+    for k in ("wav", "prev_tokens", "targets"):
+        out[k] = torch.from_numpy(batch[k]).to(device, non_blocking=True)
+    return out
+
+
+def main(argv=None):
+    """Run the training loop; returns {"steps", "history": [per-update
+    metrics as floats], "final_loss", "checkpoint"}."""
+    args = build_parser().parse_args(argv)
+    if args.task != "s2t":
+        raise SystemExit(f"--task {args.task} is not ported to "
+                         "speecht5_tpu_torch yet; only --task s2t trains")
+    if args.finetune_from:
+        raise SystemExit("--finetune-from needs JAX checkpoint conversion, "
+                         "which is not ported yet")
+    if args.labels is None:
+        raise SystemExit("--task s2t needs --labels")
+
+    from .. import config as C
+    from ..data.dictionary import load_cli_dictionary
+    from ..data.manifests import SpeechToTextDataset
+    from ..data.prefetch import prefetch
+    from ..models.speecht5 import init_model
+    from ..train.trainer import Trainer, TrainConfig
+    from ..utils.checkpoint import restore_latest, save_checkpoint
+    from ..utils.device import resolve_device
+
+    t_start = time.time()
+    device = resolve_device(args.device)
+    dictionary, cfg_kw = load_cli_dictionary(args.dict_path, args.vocab_size)
+    cfg_kw["dtype"] = args.dtype
+    cfg = getattr(C, args.arch)(**cfg_kw)
+    cfg = C.apply_overrides(cfg, args.override)
+    if args.mask_prob is not None:
+        cfg = C.replace(cfg, masking=C.replace(
+            cfg.masking, mask_prob=args.mask_prob,
+            mask_channel_prob=min(cfg.masking.mask_channel_prob, args.mask_prob)))
+
+    ds = SpeechToTextDataset(manifest=args.manifest, labels=args.labels,
+                             dictionary=dictionary, normalize=args.normalize,
+                             max_sample_size=args.max_sample_size)
+    torch.manual_seed(args.seed)   # the device generator: activation dropout
+    model = init_model(cfg, torch.Generator().manual_seed(args.seed), device)
+    tcfg = TrainConfig(
+        lr=args.lr, warmup_steps=args.warmup, clip_norm=args.clip_norm,
+        schedule=args.schedule, hold_steps=args.hold_steps,
+        accum_steps=args.accum, ce_weight=args.ce_weight,
+        ctc_weight=args.ctc_weight, zero_infinity=args.zero_infinity,
+        label_smoothing=args.label_smoothing, total_steps=args.max_updates,
+        freeze_encoder_updates=args.freeze_encoder_updates,
+        freeze_decoder_updates=args.freeze_decoder_updates,
+        no_freeze_encoder_layers=tuple(
+            int(i) for i in args.no_freeze_encoder_layers.split(",") if i),
+    )
+    trainer = Trainer(model, "s2t", tcfg,
+                      generator=torch.Generator().manual_seed(args.seed + 7))
+
+    valid_ds = None
+    if args.valid_manifest:
+        valid_ds = SpeechToTextDataset(
+            manifest=args.valid_manifest,
+            labels=args.valid_labels or args.labels, dictionary=dictionary,
+            normalize=args.normalize, max_sample_size=args.max_sample_size)
+    best = _best_state(args.save_dir)
+    if best is not None and best.get("metric") != args.best_checkpoint_metric:
+        best = None
+
+    epoch0 = batch0 = 0
+    data_state = restore_latest(args.save_dir, trainer)
+    if data_state is not None:
+        epoch0, batch0 = data_state.get("epoch", 0), data_state.get("batch", 0)
+        print(f"resumed at step {trainer.step}", flush=True)
+
+    def batch_stream():
+        """(epoch, batch index, collated batch) from the saved position on,
+        epoch after epoch; runs on the prefetch thread."""
+        epoch, start = epoch0, batch0
+        while True:
+            for bi, idxs in enumerate(make_batches(ds.sizes, args, args.seed + epoch)):
+                if bi < start:
+                    continue
+                items = [ds[int(i)] for i in idxs]
+                b = ds.collate(items, cfg.eos_id, cfg.pad_id)
+                b.pop("ids", None)
+                yield epoch, bi, b
+            epoch, start = epoch + 1, 0
+
+    history, micro = [], []
+    log_sums, log_n = {}, 0
+    last_path = None
+    stream = prefetch(batch_stream())
+    try:
+        for epoch, bi, batch in stream:
+            if trainer.step >= args.max_updates:   # resumed at the end
+                break
+            micro.append(_to_device(batch, device))
+            if len(micro) < args.accum:
+                continue
+            metrics = trainer.train_step(micro)
+            micro = []
+            row = {k: float(v) for k, v in metrics.items()}
+            history.append(row)
+            for k, v in row.items():
+                log_sums[k] = log_sums.get(k, 0.0) + v
+            log_n += 1
+            step = trainer.step
+            if step % args.log_interval == 0 or step >= args.max_updates:
+                print(json.dumps({"step": step, **{
+                    k: round(v / log_n, 4) for k, v in log_sums.items()}}),
+                    flush=True)
+                log_sums, log_n = {}, 0
+            if valid_ds is not None and step % args.valid_interval == 0:
+                vm = run_validation(trainer, valid_ds, args, cfg, dictionary, device)
+                line = {"step": step, **{f"valid_{k}": round(v, 4) for k, v in vm.items()}}
+                metric = args.best_checkpoint_metric
+                if metric and metric in vm and (
+                        best is None or (vm[metric] > best["value"]
+                                         if args.maximize_best_checkpoint_metric
+                                         else vm[metric] < best["value"])):
+                    best_dir = os.path.join(args.save_dir, "best")
+                    save_checkpoint(best_dir, trainer,
+                                    data_state={"epoch": epoch, "batch": bi + 1},
+                                    keep_last=1)
+                    best = {"metric": metric, "value": vm[metric], "step": step}
+                    with open(os.path.join(best_dir, "best.json"), "w",
+                              encoding="utf-8") as f:
+                        json.dump(best, f)
+                    line["new_best"] = metric
+                print(json.dumps(line), flush=True)
+            if step % args.save_interval == 0 or step >= args.max_updates:
+                last_path = save_checkpoint(
+                    args.save_dir, trainer,
+                    data_state={"epoch": epoch, "batch": bi + 1},
+                    keep_last=args.keep_last)
+            if step >= args.max_updates:
+                break
+    finally:
+        stream.close()
+    final = history[-1]["loss"] if history else None
+    print(json.dumps({"done": True, "steps": trainer.step, "final_loss": final,
+                      "wall": round(time.time() - t_start, 1)}), flush=True)
+    return {"steps": trainer.step, "history": history, "final_loss": final,
+            "checkpoint": None if last_path is None else str(last_path),
+            "finite": all(math.isfinite(v) for r in history for v in r.values())}
+
+
+if __name__ == "__main__":
+    main()

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.masking import mask_lengths
+from ..utils.masks import mask_lengths
 from ..utils.device import resolve_device
 
 

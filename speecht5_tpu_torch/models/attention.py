@@ -1,24 +1,29 @@
-"""Multi-head self-attention with the SpeechT5 relative-position bias.
+"""Multi-head attention with the SpeechT5 relative-position bias.
 
-Port of ``speecht5_tpu/models/attention.py`` for the encoder's full,
-non-causal self-attention (reference modules/multihead_attention.py:24-522):
-q is scaled by head_dim**-0.5 before use, and the relative-position bias is
-the first-order term B[b,h,i,j] = q_scaled[b,h,i,:] . pe_k[clip(i-j)]
-(reference :343-353).  The KV cache, cross-attention and the ancestry view
-(``cache_rows``) arrive with the beam slice.
-
-The port is inference-only so far: no dropout is applied.
+Port of ``speecht5_tpu/models/attention.py`` (reference
+modules/multihead_attention.py:24-522): q is scaled by head_dim**-0.5
+before use; the relative-position bias is the first-order term
+B[b,h,i,j] = q_scaled[b,h,i,:] . pe_k[clip(i-j)] (reference :343-353);
+masks use -1e9, not -inf, so a fully masked row gives a uniform softmax.
+Self-attention (encoder, causal decoder) and cross-attention against the
+encoder output are ported with probability dropout on the training path;
+the KV cache, ``cache_rows`` and ``precompute_kv`` arrive with the beam
+slice.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops import cuda_kernels
 from .common import Dense
 
 NEG_INF = -1e9
+# the fused kernels keep a whole score row on chip; longer sequences take
+# the plain path, the JAX module's own routing rule (attention.py:236)
+MAX_FUSED_KEYS = 1024
 
 
 def rel_position_index(q_pos, k_pos, max_dist: int):
@@ -46,17 +51,22 @@ def relative_bias_banded(q, pos_band):
 
 
 class MultiheadAttention(nn.Module):
-    """Projections + full self-attention (``use_pallas`` routes to the CUDA
-    kernel, as ``config.use_pallas_attn`` does in the JAX package)."""
+    """Projections + attention.  ``use_pallas`` routes inference passes of
+    full self-attention with a band to the CUDA inference kernel and
+    ``use_pallas_train`` training passes to the differentiable train kernel,
+    as ``config.use_pallas_attn`` / ``use_pallas_attn_train`` do in the JAX
+    package; everything else takes the plain path."""
 
-    def __init__(self, d_model: int, num_heads: int, *,
+    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0, *,
                  dtype=torch.float32, use_pallas: bool = False,
-                 scores_f32: bool = True):
+                 use_pallas_train: bool = False, scores_f32: bool = True):
         super().__init__()
         self.d_model = d_model
         self.num_heads = num_heads
+        self.dropout = dropout
         self.dtype = dtype
         self.use_pallas = use_pallas
+        self.use_pallas_train = use_pallas_train
         self.scores_f32 = scores_f32
         self.q_proj = Dense(d_model, d_model, dtype)
         self.k_proj = Dense(d_model, d_model, dtype)
@@ -67,40 +77,67 @@ class MultiheadAttention(nn.Module):
     def head_dim(self):
         return self.d_model // self.num_heads
 
-    def forward(self, x, key_valid=None, pos_band=None):
-        """x: [B, T, D]; key_valid: bool [B, T] (True = attend, a contiguous
-        prefix); pos_band: [Dh, T, T] or None -> [B, T, D]."""
-        B, T, _ = x.shape
+    def forward(self, x, key_valid=None, pos_band=None, *, x_kv=None,
+                causal: bool = False, generator=None):
+        """x: [B, Tq, D]; key_valid: bool [B, Tk] (True = attend, a
+        contiguous prefix); pos_band: [Dh, T, T] or None; x_kv: [B, Tk, D]
+        for cross-attention (None = self-attention); causal: mask keys after
+        the query.  ``generator``: CPU ``torch.Generator`` for the train
+        kernel's dropout seed (the default CPU generator when None), so the
+        seed costs no device sync.  -> [B, Tq, D]."""
+        B, Tq, _ = x.shape
         H, Dh = self.num_heads, self.head_dim
-        q = self.q_proj(x).view(B, T, H, Dh) * (Dh ** -0.5)
-        k = self.k_proj(x).view(B, T, H, Dh)
-        v = self.v_proj(x).view(B, T, H, Dh)
+        src = x if x_kv is None else x_kv
+        q = self.q_proj(x).view(B, Tq, H, Dh) * (Dh ** -0.5)
+        k = self.k_proj(src).view(B, -1, H, Dh)
+        v = self.v_proj(src).view(B, -1, H, Dh)
+        Tk = k.shape[1]
 
-        # the JAX routing (models/attention.py:225-236) with the port's kernel:
-        # full self-attention with a band, up to 1024 keys
-        if pos_band is not None and self.use_pallas and T <= 1024:
+        # the JAX routing (models/attention.py:225-236): full, non-causal
+        # self-attention with a band, up to 1024 keys; the inference kernel
+        # when not training, the train kernel when training and asked for
+        fused = (pos_band is not None and x_kv is None and not causal
+                 and Tk <= MAX_FUSED_KEYS
+                 and (self.use_pallas_train if self.training else self.use_pallas))
+        if fused:
             # [B, T, H, Dh] -> [B*H, T, Dh] rows; contiguous() matters at
             # B == 1, where reshape returns a strided view
             N = B * H
-            qf, kf, vf = (t.transpose(1, 2).reshape(N, T, Dh).contiguous()
+            qf, kf, vf = (t.transpose(1, 2).reshape(N, Tq, Dh).contiguous()
                           for t in (q, k, v))
+            band = pos_band.to(qf.dtype).contiguous()
             lengths = None
             if key_valid is not None:
                 lengths = torch.repeat_interleave(
                     key_valid.sum(-1, dtype=torch.int32), H)
-            o = cuda_kernels.banded_flash_attention(
-                qf, kf, vf, pos_band.to(qf.dtype).contiguous(), lengths)
-            o = o.view(B, H, T, Dh).transpose(1, 2).reshape(B, T, self.d_model)
+            if self.training:
+                seed = 0
+                if self.dropout > 0.0:
+                    # an int32 draw, as jax.random.randint(.., 0, 2**31-1)
+                    seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=generator))
+                o = cuda_kernels.banded_attention_train(
+                    qf, kf, vf, band, lengths,
+                    dropout_rate=self.dropout, seed=seed)
+            else:
+                o = cuda_kernels.banded_flash_attention(qf, kf, vf, band, lengths)
+            o = o.view(B, H, Tq, Dh).transpose(1, 2).reshape(B, Tq, self.d_model)
             return self.out_proj(o)
 
         score_dtype = torch.float32 if self.scores_f32 else self.dtype
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k).to(score_dtype)
         if pos_band is not None:
             logits = logits + relative_bias_banded(q, pos_band).to(score_dtype)
+        mask = None
         if key_valid is not None:
-            logits = torch.where(key_valid[:, None, None, :], logits,
+            mask = key_valid[:, None, None, :]
+        if causal:
+            cm = torch.ones(Tq, Tk, dtype=torch.bool, device=x.device).tril()
+            mask = cm if mask is None else mask & cm
+        if mask is not None:
+            logits = torch.where(mask, logits,
                                  torch.full((), NEG_INF, dtype=score_dtype,
                                             device=logits.device))
         probs = torch.softmax(logits.float(), dim=-1).to(self.dtype)
+        probs = F.dropout(probs, self.dropout, self.training)
         out = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(self.dtype))
-        return self.out_proj(out.reshape(B, T, self.d_model))
+        return self.out_proj(out.reshape(B, Tq, self.d_model))

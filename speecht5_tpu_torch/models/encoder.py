@@ -5,8 +5,11 @@ Port of ``speecht5_tpu/models/encoder.py`` (reference modules/encoder.py
 (``pos_emb``: Embedding(2*max_dist, head_dim)); the post-LN stack applies
 the top-level LayerNorm to its *input* (encoder.py:226-227); the band is
 built once per forward and shared by every layer (JAX encoder.py:94-105);
-the CTC projection reads the encoder output (encoder.py:138-142; dropout is
-off at inference, so the dropped-out and plain outputs agree).
+the CTC projection reads the dropped-out encoder output (encoder.py
+:138-142: a second dropout draw on training passes -- the contract, not a
+slip).  Layerdrop (training only, JAX encoder.py:114-124) skips a layer
+with probability ``layerdrop``; the JAX package runs the layer and selects,
+which gives the same output and gradient for the same draw.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..config import TransformerConfig
@@ -50,23 +54,33 @@ class TransformerEncoder(nn.Module):
         self.proj = (nn.Linear(cfg.d_model, ctc_vocab_size)
                      if ctc_vocab_size is not None else None)
 
-    def forward(self, x, valid_mask=None, *, with_ctc: bool = False):
-        """x: [B, T, D]; valid_mask: bool [B, T] True=valid.
+    def forward(self, x, valid_mask=None, *, with_ctc: bool = False,
+                generator=None):
+        """x: [B, T, D]; valid_mask: bool [B, T] True=valid.  ``generator``:
+        CPU ``torch.Generator`` for the layerdrop draws and the train
+        kernel's dropout seeds (the default CPU generator when None).
 
         Returns dict(encoder_out, valid_mask[, ctc_logits])."""
+        cfg = self.cfg
         x = self.layer_norm(x).to(self.dtype)
+        x = F.dropout(x, cfg.dropout, self.training)
         pos_band = None
         if self.pos_emb is not None:
-            # at T == 1 the band is the single entry pe_k[M], the value the
-            # JAX package gathers on that path
+            # built from the f32 table and then cast, so the gather's
+            # backward sums in f32; at T == 1 the band is the single entry
+            # pe_k[M], the value the JAX package gathers on that path
             pos_band = band_from_table(
-                self.pos_emb().to(self.dtype), x.shape[1],
-                self.cfg.rel_pos.max_distance)
+                self.pos_emb().float(), x.shape[1],
+                cfg.rel_pos.max_distance).to(self.dtype)
         for layer in self.layers:
-            x = layer(x, valid_mask, pos_band)
+            if self.training and cfg.layerdrop > 0.0:
+                if torch.rand((), generator=generator) < cfg.layerdrop:
+                    continue
+            x = layer(x, valid_mask, pos_band, generator=generator)
         out = {"encoder_out": x, "valid_mask": valid_mask}
         if with_ctc and self.proj is not None:
-            out["ctc_logits"] = self.ctc_head(x)
+            out["ctc_logits"] = self.ctc_head(
+                F.dropout(x, cfg.dropout, self.training))
         return out
 
     def ctc_head(self, encoder_out):

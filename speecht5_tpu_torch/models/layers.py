@@ -1,12 +1,17 @@
-"""Transformer encoder layer (post-LN) and its feed-forward block.
+"""Transformer encoder and decoder layers (post-LN) and their feed-forward
+block.
 
-Port of ``speecht5_tpu/models/layers.py`` :33-130 (reference
-modules/transformer_layer.py:23-134): BERT-style post-LN layer with the
-rel-pos band passed through to self-attention; activation is the exact
-(erf) GELU.  The post-LN path never applies ``norm_k`` to the pos table
+Port of ``speecht5_tpu/models/layers.py`` :33-250 (reference
+modules/transformer_layer.py:23-404): BERT-style post-LN layers; the
+encoder layer passes the rel-pos band through to self-attention; the
+decoder layer runs causal self-attention without the rel-pos bias (the
+reference never passes the bias hook, transformer_layer.py:229-242),
+cross-attention against the encoder output and the FFN.  Activation is the
+exact (erf) GELU; dropout follows each sub-block and activation dropout the
+GELU, on training passes only.  The post-LN path never applies ``norm_k``
 (reference transformer_layer.py:112-119), so the JAX tree holds no
-``norm_k`` parameters for it and neither does the port.  The pre-LN layer
-(Large) and the decoder layer arrive with their slices.
+``norm_k`` parameters for it and neither does the port.  The pre-LN layers
+(Large) arrive with their slice.
 """
 
 from __future__ import annotations
@@ -20,16 +25,24 @@ from .attention import MultiheadAttention
 from .common import Dense, LayerNorm32
 
 
+def _post_ln_only(cfg: TransformerConfig):
+    if cfg.layer_norm_first:
+        raise NotImplementedError("pre-LN layers arrive with the Large slice")
+
+
 class FeedForward(nn.Module):
     def __init__(self, cfg: TransformerConfig, dtype=torch.float32):
         super().__init__()
         if cfg.activation != "gelu":
             raise ValueError(f"activation {cfg.activation!r} is not ported")
+        self.activation_dropout = cfg.activation_dropout
         self.fc1 = Dense(cfg.d_model, cfg.ffn_dim, dtype)
         self.fc2 = Dense(cfg.ffn_dim, cfg.d_model, dtype)
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x)))  # exact (erf) GELU
+        x = F.gelu(self.fc1(x))  # exact (erf) GELU
+        x = F.dropout(x, self.activation_dropout, self.training)
+        return self.fc2(x)
 
 
 class EncoderLayer(nn.Module):
@@ -38,23 +51,64 @@ class EncoderLayer(nn.Module):
 
     def __init__(self, cfg: TransformerConfig, dtype=torch.float32):
         super().__init__()
-        if cfg.layer_norm_first:
-            raise NotImplementedError(
-                "pre-LN encoder layers arrive with the Large slice")
+        _post_ln_only(cfg)
         self.cfg = cfg
         self.dtype = dtype
         self.self_attn = MultiheadAttention(
-            cfg.d_model, cfg.num_heads, dtype=dtype,
-            use_pallas=cfg.use_pallas_attn, scores_f32=cfg.attn_scores_f32,
+            cfg.d_model, cfg.num_heads, cfg.attention_dropout, dtype=dtype,
+            use_pallas=cfg.use_pallas_attn,
+            use_pallas_train=cfg.use_pallas_attn_train,
+            scores_f32=cfg.attn_scores_f32,
         )
         self.self_attn_layer_norm = LayerNorm32(cfg.d_model, eps=cfg.layer_norm_eps)
         self.final_layer_norm = LayerNorm32(cfg.d_model, eps=cfg.layer_norm_eps)
         self.ffn = FeedForward(cfg, dtype)
 
-    def forward(self, x, key_valid=None, pos_band=None):
+    def _drop(self, x):
+        return F.dropout(x, self.cfg.dropout, self.training)
+
+    def forward(self, x, key_valid=None, pos_band=None, *, generator=None):
         residual = x
-        y = self.self_attn(x, key_valid=key_valid, pos_band=pos_band)
-        x = self.self_attn_layer_norm(residual + y).to(self.dtype)
+        y = self.self_attn(x, key_valid, pos_band, generator=generator)
+        x = self.self_attn_layer_norm(residual + self._drop(y)).to(self.dtype)
         residual = x
-        x = residual + self.ffn(x)
+        x = residual + self._drop(self.ffn(x))
+        return self.final_layer_norm(x).to(self.dtype)
+
+
+class DecoderLayer(nn.Module):
+    """reference transformer_layer.py:137-404 (TransformerDecoderLayer),
+    post-LN, teacher-forced (no cache)."""
+
+    def __init__(self, cfg: TransformerConfig, dtype=torch.float32):
+        super().__init__()
+        _post_ln_only(cfg)
+        if cfg.use_rel_pos_bias:
+            raise NotImplementedError(
+                "decoder self-attention with the rel-pos bias is not ported "
+                "(SpeechT5 decoders run without it)")
+        self.cfg = cfg
+        self.dtype = dtype
+        self.self_attn = MultiheadAttention(
+            cfg.d_model, cfg.num_heads, cfg.attention_dropout, dtype=dtype,
+            scores_f32=cfg.attn_scores_f32)
+        self.encoder_attn = MultiheadAttention(
+            cfg.d_model, cfg.num_heads, cfg.attention_dropout, dtype=dtype,
+            scores_f32=cfg.attn_scores_f32)
+        self.self_attn_layer_norm = LayerNorm32(cfg.d_model, eps=cfg.layer_norm_eps)
+        self.encoder_attn_layer_norm = LayerNorm32(cfg.d_model, eps=cfg.layer_norm_eps)
+        self.final_layer_norm = LayerNorm32(cfg.d_model, eps=cfg.layer_norm_eps)
+        self.ffn = FeedForward(cfg, dtype)
+
+    def _drop(self, x):
+        return F.dropout(x, self.cfg.dropout, self.training)
+
+    def forward(self, x, enc=None, enc_valid=None, self_valid=None,
+                causal: bool = True):
+        y = self.self_attn(x, self_valid, causal=causal)
+        x = self.self_attn_layer_norm(x + self._drop(y)).to(self.dtype)
+        if enc is not None:
+            y = self.encoder_attn(x, enc_valid, x_kv=enc)
+            x = self.encoder_attn_layer_norm(x + self._drop(y)).to(self.dtype)
+        x = x + self._drop(self.ffn(x))
         return self.final_layer_norm(x).to(self.dtype)

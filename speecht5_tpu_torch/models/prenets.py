@@ -1,11 +1,14 @@
-"""Speech encoder prenet: waveform -> encoder input.
+"""Speech encoder prenet (waveform -> encoder input) and text decoder
+prenet (tokens -> decoder input).
 
-Port of ``speecht5_tpu/models/prenets.py`` :55-376 (reference
-modules/speech_encoder_prenet.py:58-272): the wav2vec2 conv feature
-extractor, post-extract LayerNorm + 512->d projection, the weight-normed
-conv positional embedding and fairseq sinusoidal positions.  HuBERT masking
-is training-only and arrives with the train slice (``mask_emb`` is kept for
-checkpoint parity).  The text and speech-decoder prenets arrive with their
+Port of ``speecht5_tpu/models/prenets.py`` :34-427 (reference
+modules/speech_encoder_prenet.py:58-272, text_decoder_prenet.py): the
+wav2vec2 conv feature extractor, feature gradient scaling
+(``feature_grad_mult``), post-extract LayerNorm + 512->d projection,
+dropout, HuBERT time/channel masking on training passes, the weight-normed
+conv positional embedding and fairseq sinusoidal positions; the text
+decoder prenet in full-sequence mode (``.step`` arrives with the beam
+slice).  The text encoder and speech decoder prenets arrive with their
 slices.
 
 Parameters use torch layouts (Conv1d ``[C_out, C_in, k]``, Linear
@@ -20,9 +23,24 @@ from torch import nn
 
 from ..config import ConvFeatureConfig, SpeechT5Config
 from ..ops import cuda_kernels
-from ..ops.masking import length_mask
+from ..ops.masking import apply_feature_masks, sample_feature_masks
 from ..ops.positional import fairseq_sinusoidal
+from ..utils.masks import length_mask
 from .common import Dense, LayerNorm32
+
+
+class GradMultiply(torch.autograd.Function):
+    """Identity forward, gradient scaled by ``scale`` (reference fairseq
+    GradMultiply, speech_encoder_prenet.py:156-164; JAX prenets.py:34-54)."""
+
+    @staticmethod
+    def forward(ctx, x, scale: float):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
 
 
 def _conv_weight(c_out: int, c_in: int, k: int) -> nn.Parameter:
@@ -173,16 +191,52 @@ class SpeechEncoderPrenet(nn.Module):
         self.pos_conv = WeightNormConv1d(cfg.d_model, cfg.conv_pos,
                                          cfg.conv_pos_groups, dtype)
 
-    def forward(self, wav, wav_lengths):
-        """wav: [B, T] raw 16 kHz; wav_lengths: [B] -> (x [B, frames, D],
-        valid bool [B, frames])."""
-        feats = self.feature_extractor(wav)
+    def forward(self, wav, wav_lengths, *, mask: bool = False, generator=None):
+        """wav: [B, T] raw 16 kHz; wav_lengths: [B] (on any device: a CPU
+        tensor lets the masks be drawn with no device sync) -> (x [B,
+        frames, D], valid bool [B, frames]).  ``mask``: HuBERT masking, drawn
+        from the CPU ``generator`` (the default CPU generator when None)."""
+        cfg = self.cfg
+        frame_lengths = cfg.conv_features.out_length(wav_lengths)
+        # feature grad scaling (reference :156-164): 0 detaches the
+        # extractor, so it runs without building a graph
+        mult = cfg.feature_grad_mult
+        with torch.set_grad_enabled(torch.is_grad_enabled() and mult != 0.0):
+            feats = self.feature_extractor(wav)
+        if mult not in (0.0, 1.0):
+            feats = GradMultiply.apply(feats, mult)
         frames = feats.shape[1]
-        valid = length_mask(self.cfg.conv_features.out_length(wav_lengths), frames)
+        valid = length_mask(frame_lengths.to(feats.device, non_blocking=True), frames)
         x = self.layer_norm(feats).to(self.dtype)
         if self.post_extract_proj is not None:
             x = self.post_extract_proj(x)
+        x = F.dropout(x, cfg.encoder.dropout, self.training)
+        if mask and cfg.masking.mask_prob > 0:
+            time_mask, chan_mask = sample_feature_masks(
+                frame_lengths.cpu(), frames, x.shape[-1], cfg.masking, generator)
+            dev = dict(device=x.device, non_blocking=True)
+            x = apply_feature_masks(
+                x, time_mask.to(**dev), self.mask_emb,
+                None if chan_mask is None else chan_mask.to(**dev))
         x = x + F.gelu(self.pos_conv(x))
-        x = x + fairseq_sinusoidal(valid, self.cfg.d_model).to(self.dtype)
+        x = x + fairseq_sinusoidal(valid, cfg.d_model).to(self.dtype)
         return x, valid
 
+
+class TextDecoderPrenet(nn.Module):
+    """Embedding (unscaled) + fairseq sinusoidal positions + dropout, in
+    full-sequence mode (JAX prenets.py:403-427)."""
+
+    def __init__(self, cfg: SpeechT5Config, dtype=torch.float32):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = dtype
+        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.d_model)
+
+    def forward(self, tokens):
+        """tokens: [B, T] -> (x [B, T, D], valid bool [B, T])."""
+        cfg = self.cfg
+        valid = tokens != cfg.pad_id
+        x = self.embed_tokens(tokens).to(self.dtype)
+        x = x + fairseq_sinusoidal(valid, cfg.d_model, cfg.pad_id).to(self.dtype)
+        return F.dropout(x, cfg.decoder.dropout, self.training), valid

@@ -1,17 +1,26 @@
 """Hand-written CUDA kernels of the port, their plain PyTorch twins, and the
 loader that builds them.
 
-Two kernels carry the ASR serving path (``speecht5_tpu/ops/pallas_kernels.py``
-holds the TPU kernels they replace):
+``speecht5_tpu/ops/pallas_kernels.py`` holds the TPU kernels they replace:
 
-- ``banded_flash_attention`` (``csrc/banded_attention.cu``): encoder
-  self-attention with the clipped relative-position bias computed in-kernel
-  from the shared ``[Dh, T, T]`` band; replaces ``banded_flash_attention``
-  (pallas_kernels.py:215).
+- ``banded_flash_attention`` (``csrc/banded_attention.cu``): inference
+  encoder self-attention with the clipped relative-position bias computed
+  in-kernel from the shared ``[Dh, T, T]`` band; replaces
+  ``banded_flash_attention`` (pallas_kernels.py:215).  Inference only: it
+  raises when asked to carry a gradient.
 - ``conv_stack`` (``csrc/conv_stack.cu``): feature-extractor layers 1..n,
   each a VALID strided Conv1d without bias followed by the exact GELU;
   replaces ``conv_stack_pallas`` / ``conv_stack_fused`` (pallas_kernels.py
-  :714, :783).  One launch per layer.
+  :714, :783).  One launch per layer; an autograd function whose backward
+  is the vjp of the plain twin, as ``conv_stack_fused``'s is the vjp of
+  ``_conv_stack_ref``.
+- ``banded_attention_train`` (``csrc/banded_attention_train.cu``): the
+  differentiable form of the attention with in-kernel counter-hash
+  probability dropout; replaces ``banded_flash_attention_train``
+  (pallas_kernels.py:411, ``pallas_call`` sites :427, :446, :456) with
+  three kernels: ``banded_attention_train_fwd``,
+  ``banded_attention_train_bwd_dq`` (dq and dband in one launch) and
+  ``banded_attention_train_bwd_dkv``.
 
 Each wrapper takes its kernel's plain twin only because the tensors it was
 given lie on the CPU; on CUDA tensors it launches the kernel or raises.
@@ -44,6 +53,7 @@ CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_ROOT = _PKG_DIR.parent / "build" / "torch_kernels"
 SOURCES = {
     "banded_attention": "banded_attention.cu",
+    "banded_attention_train": "banded_attention_train.cu",
     "conv_stack": "conv_stack.cu",
 }
 NVCC_FLAGS = (
@@ -127,9 +137,21 @@ def _lib(name: str) -> ctypes.CDLL:
         path = build_all([name])[name]
         lib = ctypes.CDLL(str(path))
         vp, i = ctypes.c_void_p, ctypes.c_int
+        u, f = ctypes.c_uint, ctypes.c_float
         if name == "banded_attention":
             lib.banded_attention_launch.argtypes = [vp] * 6 + [i] * 4 + [vp]
             lib.banded_attention_launch.restype = i
+        elif name == "banded_attention_train":
+            # q, k, v, band, lengths, then the outputs / saved tensors, then
+            # N, T, Dh, dtype, dropout on, seed, keep threshold, keep
+            # scale, stream
+            tail = [i] * 5 + [u, u, f, vp]
+            lib.bat_fwd_launch.argtypes = [vp] * 7 + tail
+            lib.bat_bwd_dq_launch.argtypes = [vp] * 10 + tail
+            lib.bat_bwd_dkv_launch.argtypes = [vp] * 10 + tail
+            for fn in (lib.bat_fwd_launch, lib.bat_bwd_dq_launch,
+                       lib.bat_bwd_dkv_launch):
+                fn.restype = i
         else:
             lib.conv_gelu_launch.argtypes = [vp] * 3 + [i] * 8 + [vp]
             lib.conv_gelu_launch.restype = i
@@ -194,7 +216,13 @@ def banded_flash_attention(q, k, v, pe_band, lengths=None):
     from the shared band.  Same contract as the JAX package's
     ``banded_flash_attention``: q/k/v [N, T, Dh] (q pre-scaled), pe_band
     [Dh, T, T], lengths [N] -> [N, T, Dh] in q's dtype.  CUDA: T <= 1024,
-    Dh <= 128."""
+    Dh <= 128.  Inference only: raises under grad mode when an input
+    requires grad (training passes take ``banded_attention_train``)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v, pe_band)):
+        raise RuntimeError(
+            "banded_flash_attention is inference-only and would drop the "
+            "gradient; use banded_attention_train or torch.no_grad()")
     if q.device.type == "cpu":
         return banded_flash_attention_plain(q, k, v, pe_band, lengths)
     N, T, Dh = q.shape
@@ -248,12 +276,9 @@ def conv_stack_plain(x, weights, specs):
     return x
 
 
-def conv_stack(x, weights, specs):
-    """Strided conv + exact GELU stack: [B, T, Cin] -> [B, T_out, Cout].
-
-    ``specs``: ((k, s), ...) per layer; ``weights``: matching [k, Cin, Cout]
-    tensors, cast to x's dtype as the JAX kernel does.  VALID padding, no
-    bias.  On CUDA: one kernel launch per layer."""
+def _conv_stack_forward(x, weights, specs):
+    """The kernel on CUDA tensors (one launch per layer), the twin on CPU
+    ones."""
     if x.device.type == "cpu":
         return conv_stack_plain(x, weights, specs)
     if x.dim() != 3:
@@ -280,16 +305,286 @@ def conv_stack(x, weights, specs):
     return x
 
 
+class _ConvStack(torch.autograd.Function):
+    """Forward: the kernel.  Backward: the vjp of ``conv_stack_plain``
+    (recomputed), as the JAX ``conv_stack_fused`` differentiates through
+    ``_conv_stack_ref``; the TPU package has no backward kernel either."""
+
+    @staticmethod
+    def forward(ctx, x, specs, *weights):
+        ctx.specs = specs
+        ctx.save_for_backward(x, *weights)
+        return _conv_stack_forward(x, weights, specs)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *weights = ctx.saved_tensors
+        with torch.enable_grad():
+            xs = x.detach().requires_grad_(ctx.needs_input_grad[0])
+            ws = [w.detach().requires_grad_(need)
+                  for w, need in zip(weights, ctx.needs_input_grad[2:])]
+            y = conv_stack_plain(xs, ws, ctx.specs)
+            wanted = [t for t in (xs, *ws) if t.requires_grad]
+            grads = iter(torch.autograd.grad(y, wanted, g))
+        return (next(grads) if xs.requires_grad else None, None,
+                *(next(grads) if w.requires_grad else None for w in ws))
+
+
+def conv_stack(x, weights, specs):
+    """Strided conv + exact GELU stack: [B, T, Cin] -> [B, T_out, Cout].
+
+    ``specs``: ((k, s), ...) per layer; ``weights``: matching [k, Cin, Cout]
+    tensors, cast to x's dtype as the JAX kernel does.  VALID padding, no
+    bias.  On CUDA: one kernel launch per layer.  Differentiable in x and
+    the weights (the backward is the plain twin's vjp)."""
+    return _ConvStack.apply(x, tuple(specs), *weights)
+
+
 conv_stack.launches = 0
 
 
+# ================================ banded-bias attention: training (VJP)
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x, c: int):
+    """(x * c) mod 2**32 for int64 x in [0, 2**32): split c in 16-bit
+    halves so no int64 product overflows (CPU torch has no uint32 mul)."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def dropout_threshold(rate: float) -> int:
+    """The keep threshold of ``_dropout_keep`` (pallas_kernels.py:285)."""
+    return min(int((1.0 - rate) * 4294967296.0), 4294967295)
+
+
+def dropout_keep_plain(seed: int, rate: float, N: int, Tq: int, Tk: int,
+                       device=None):
+    """bool [N, Tq, Tk] keep mask of the lowbias32 counter hash of
+    (seed, n, global row, global column), bit for bit the TPU kernel's
+    ``_dropout_keep`` (pallas_kernels.py:265-287)."""
+    i64 = dict(dtype=torch.int64, device=device)
+    row = torch.arange(Tq, **i64)[None, :, None]
+    col = torch.arange(Tk, **i64)[None, None, :]
+    n = torch.arange(N, **i64)[:, None, None]
+    x = _mul32(row, 0x9E3779B1) ^ _mul32(col, 0x85EBCA77)
+    x = (x + ((int(seed) & _M32) + _mul32(n, 0x27D4EB2F))) & _M32
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    x = x ^ (x >> 16)
+    return x < dropout_threshold(rate)
+
+
+def _train_scores(q, k, pe_band, lengths):
+    """f32 scores q.k + q.band with keys at or beyond a row's length set to
+    -1e9, and the bool key mask [N, 1, T]."""
+    T = q.shape[1]
+    qf = q.float()
+    s = qf @ k.float().transpose(1, 2)
+    s = s + torch.einsum("nqd,dqk->nqk", qf, pe_band.float())
+    ok = (torch.arange(T, device=q.device)[None, None, :]
+          < lengths.to(q.device)[:, None, None])
+    return torch.where(ok, s, torch.full((), NEG_INF, device=q.device)), ok
+
+
+def _train_probs(q, k, pe_band, lengths, stats):
+    """Normalised probabilities from the forward's row statistics
+    (stats[0] = row max, stats[1] = row sum), and the key mask."""
+    s, ok = _train_scores(q, k, pe_band, lengths)
+    return torch.exp(s - stats[0][..., None]) / stats[1][..., None], ok
+
+
+def _keep_scale(q, rate, seed):
+    """keep / (1 - rate) as f32 [N, T, T], or None without dropout."""
+    if rate <= 0.0:
+        return None
+    N, T, _ = q.shape
+    keep = dropout_keep_plain(seed, rate, N, T, T, q.device)
+    return keep.float() * (1.0 / (1.0 - rate))
+
+
+def banded_attention_train_fwd_plain(q, k, v, pe_band, lengths, rate, seed):
+    """Plain twin of the train forward (``_train_attn_fwd_kernel``,
+    pallas_kernels.py:310): p = softmax(q.k + q.band, masked) in f32,
+    dropout-scaled, cast to V's type, times V.  Returns (out [N, T, Dh] in
+    q's dtype, stats [2, N, T] f32: row max and row sum of exp)."""
+    s, _ = _train_scores(q, k, pe_band, lengths)
+    m = s.amax(dim=-1)
+    e = torch.exp(s - m[..., None])
+    l = e.sum(dim=-1).clamp_min(1e-30)
+    p = e / l[..., None]
+    ks = _keep_scale(q, rate, seed)
+    if ks is not None:
+        p = p * ks
+    o = p.to(v.dtype).float() @ v.float()
+    return o.to(q.dtype), torch.stack([m, l])
+
+
+def _train_ds(q, k, v, pe_band, lengths, o, do, stats, rate, seed):
+    """(p, keep_scale, ds): ds = p * (dO.V^T * keep_scale - rowsum(dO*O)),
+    zero at masked keys (the dense path's gradient; the Pallas kernel lets a
+    row of length 0 leak into dq/dk/dband, see ROADMAP.md C)."""
+    p, ok = _train_probs(q, k, pe_band, lengths, stats)
+    ks = _keep_scale(q, rate, seed)
+    dpn = do.float() @ v.float().transpose(1, 2)
+    if ks is not None:
+        dpn = dpn * ks
+    delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
+    return p, ks, p * (dpn - delta) * ok
+
+
+def banded_attention_train_bwd_dq_plain(q, k, v, pe_band, lengths, o, do,
+                                        stats, rate, seed):
+    """Plain twin of ``_train_attn_bwd_dq_kernel`` (pallas_kernels.py:342):
+    dq [N, T, Dh] in q's dtype and dband [Dh, T, T] f32 summed over N."""
+    _, _, ds = _train_ds(q, k, v, pe_band, lengths, o, do, stats, rate, seed)
+    dq = ds.to(k.dtype).float() @ k.float()
+    dq = dq + torch.einsum("nqk,dqk->nqd", ds, pe_band.float())
+    dband = torch.einsum("nqd,nqk->dqk", q.float(), ds)
+    return dq.to(q.dtype), dband
+
+
+def banded_attention_train_bwd_dkv_plain(q, k, v, pe_band, lengths, o, do,
+                                         stats, rate, seed):
+    """Plain twin of ``_train_attn_bwd_dkv_kernel`` (pallas_kernels.py:374):
+    dk, dv [N, T, Dh] in q's dtype."""
+    p, ks, ds = _train_ds(q, k, v, pe_band, lengths, o, do, stats, rate, seed)
+    pd = p if ks is None else p * ks
+    dv = pd.to(do.dtype).float().transpose(1, 2) @ do.float()
+    dk = ds.transpose(1, 2) @ q.float()
+    return dk.to(q.dtype), dv.to(q.dtype)
+
+
+def _train_args(q, k, v, pe_band, lengths, rate, seed):
+    """Validate the CUDA inputs; returns the launch's scalar tail."""
+    N, T, Dh = q.shape
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q/k/v shapes differ: {q.shape} {k.shape} {v.shape}")
+    if pe_band.shape != (Dh, T, T):
+        raise ValueError(f"pe_band shape {tuple(pe_band.shape)} != {(Dh, T, T)}")
+    if T > 1024 or Dh > 64:
+        raise ValueError(f"train kernel limits T <= 1024, Dh <= 64; got T={T} Dh={Dh}")
+    if lengths.dtype != torch.int32 or lengths.shape != (N,):
+        raise TypeError("lengths must be int32 [N]")
+    _check_cuda(q, k, v, pe_band, lengths)
+    code = _dtype_code(q, k, v, pe_band)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    on = 1 if rate > 0.0 else 0
+    scale = 1.0 / (1.0 - rate) if on else 1.0
+    return (N, T, Dh, code, on, int(seed) & _M32,
+            dropout_threshold(rate) if on else _M32, scale, stream)
+
+
+def banded_attention_train_fwd(q, k, v, pe_band, lengths, rate, seed):
+    """Train forward: (out [N, T, Dh], stats [2, N, T] f32).  The kernel on
+    CUDA tensors, the twin on CPU ones."""
+    if q.device.type == "cpu":
+        return banded_attention_train_fwd_plain(q, k, v, pe_band, lengths,
+                                                rate, seed)
+    tail = _train_args(q, k, v, pe_band, lengths, rate, seed)
+    out = torch.empty_like(q)
+    stats = torch.empty((2,) + q.shape[:2], dtype=torch.float32, device=q.device)
+    rc = _lib("banded_attention_train").bat_fwd_launch(
+        *(t.data_ptr() for t in (q, k, v, pe_band, lengths, out, stats)), *tail)
+    _check_rc(rc, "banded_attention_train_fwd")
+    banded_attention_train_fwd.launches += 1
+    return out, stats
+
+
+def banded_attention_train_bwd_dq(q, k, v, pe_band, lengths, o, do, stats,
+                                  rate, seed):
+    """Train backward K1: (dq [N, T, Dh], dband [Dh, T, T] f32).  One launch
+    whose blocks either own a (n, 16-row query tile) of dq or a 16 x 16
+    (query, key) tile of dband summed over every n in a fixed order."""
+    if q.device.type == "cpu":
+        return banded_attention_train_bwd_dq_plain(
+            q, k, v, pe_band, lengths, o, do, stats, rate, seed)
+    tail = _train_args(q, k, v, pe_band, lengths, rate, seed)
+    _check_cuda(o, do, stats)
+    dq = torch.empty_like(q)
+    dband = torch.empty(pe_band.shape, dtype=torch.float32, device=q.device)
+    rc = _lib("banded_attention_train").bat_bwd_dq_launch(
+        *(t.data_ptr() for t in (q, k, v, pe_band, lengths, o, do, stats, dq,
+                                 dband)), *tail)
+    _check_rc(rc, "banded_attention_train_bwd_dq")
+    banded_attention_train_bwd_dq.launches += 1
+    return dq, dband
+
+
+def banded_attention_train_bwd_dkv(q, k, v, pe_band, lengths, o, do, stats,
+                                   rate, seed):
+    """Train backward K2: (dk, dv), each [N, T, Dh]."""
+    if q.device.type == "cpu":
+        return banded_attention_train_bwd_dkv_plain(
+            q, k, v, pe_band, lengths, o, do, stats, rate, seed)
+    tail = _train_args(q, k, v, pe_band, lengths, rate, seed)
+    _check_cuda(o, do, stats)
+    dk, dv = torch.empty_like(q), torch.empty_like(q)
+    rc = _lib("banded_attention_train").bat_bwd_dkv_launch(
+        *(t.data_ptr() for t in (q, k, v, pe_band, lengths, o, do, stats, dk,
+                                 dv)), *tail)
+    _check_rc(rc, "banded_attention_train_bwd_dkv")
+    banded_attention_train_bwd_dkv.launches += 1
+    return dk, dv
+
+
+banded_attention_train_fwd.launches = 0
+banded_attention_train_bwd_dq.launches = 0
+banded_attention_train_bwd_dkv.launches = 0
+
+
+class _BandedAttentionTrain(torch.autograd.Function):
+    """Forward kernel saves the row statistics; the two backward kernels
+    regenerate p and the dropout mask from them and the seed."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, pe_band, lengths, rate, seed):
+        o, stats = banded_attention_train_fwd(q, k, v, pe_band, lengths,
+                                              rate, seed)
+        ctx.rate, ctx.seed = rate, seed
+        ctx.save_for_backward(q, k, v, pe_band, lengths, o, stats)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, pe_band, lengths, o, stats = ctx.saved_tensors
+        args = (q, k, v, pe_band, lengths, o, g.to(q.dtype).contiguous(),
+                stats, ctx.rate, ctx.seed)
+        dq, dband = banded_attention_train_bwd_dq(*args)
+        dk, dv = banded_attention_train_bwd_dkv(*args)
+        # the cotangent takes the primal's dtype, as in the JAX custom VJP
+        return dq, dk, dv, dband.to(pe_band.dtype), None, None, None
+
+
+def banded_attention_train(q, k, v, pe_band, lengths=None, *,
+                           dropout_rate: float = 0.0, seed: int = 0):
+    """Differentiable fused self-attention with the banded rel-pos bias,
+    prefix-length masking and counter-hash probability dropout; the JAX
+    contract of ``banded_attention_train`` (pallas_kernels.py:517).
+
+    q/k/v [N, T, Dh] (q pre-scaled); pe_band [Dh, T, T]; lengths [N] int32
+    contiguous valid key counts; seed: a Python int.  Gradients reach q, k,
+    v and pe_band.  CUDA: T <= 1024, Dh <= 64."""
+    N, T, _ = q.shape
+    if lengths is None:
+        lengths = torch.full((N,), T, dtype=torch.int32, device=q.device)
+    return _BandedAttentionTrain.apply(q, k, v, pe_band, lengths,
+                                       float(dropout_rate), int(seed))
+
+
+WRAPPERS = (banded_flash_attention, conv_stack, banded_attention_train_fwd,
+            banded_attention_train_bwd_dq, banded_attention_train_bwd_dkv)
+
+
 def reset_launch_counts():
-    banded_flash_attention.launches = 0
-    conv_stack.launches = 0
+    for fn in WRAPPERS:
+        fn.launches = 0
 
 
 def launch_counts() -> dict:
-    return {
-        "banded_flash_attention": banded_flash_attention.launches,
-        "conv_stack": conv_stack.launches,
-    }
+    return {fn.__name__: fn.launches for fn in WRAPPERS}

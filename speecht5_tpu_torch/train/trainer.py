@@ -1,0 +1,184 @@
+"""The s2t train step (port of the speech-to-text part of
+``speecht5_tpu/train/trainer.py`` :75-434).
+
+One update = ``accum_steps`` micro-batches (fairseq --update-freq), each a
+forward and backward of ``forward_s2t`` + ``s2t_loss``; the gradients are
+averaged, then (as the JAX optax chain) clipped by their global norm and
+applied by AdamW:
+
+- clipping as ``optax.clip_by_global_norm``: g unchanged when norm < c,
+  else g * c / norm (no epsilon);
+- ``torch.optim.AdamW`` over every parameter is ``optax.adamw``: decoupled
+  weight decay, eps outside the square root, per-step learning rate from
+  the schedule at the update count;
+- freeze horizons (--freeze-encoder-updates / --freeze-decoder-updates):
+  while step < N a frozen parameter's gradient is None, so it adds nothing
+  to the norm and AdamW leaves it and its moments alone; its step count
+  starts lazily at release, which is what the JAX debias (trainer.py
+  :373-391) emulates.  A parameter that the loss does not reach gets a zero
+  gradient, as in JAX, so weight decay still applies to it;
+- ``grad_norm`` is the norm before clipping, the JAX metric.
+
+The host-side random draws (HuBERT masks, layerdrop, the train kernel's
+dropout seeds) come from one CPU ``torch.Generator``; dropout of
+activations draws from the device's generator.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from . import criterions
+from .schedules import inverse_sqrt, polynomial_decay, tri_stage
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 1e-4
+    warmup_steps: int = 25000
+    schedule: str = "inverse_sqrt"   # inverse_sqrt | tri_stage | polynomial
+    total_steps: int = 800000
+    hold_steps: int = 0
+    betas: tuple = (0.9, 0.98)
+    adam_eps: float = 1e-8
+    weight_decay: float = 0.01
+    clip_norm: float = 5.0
+    accum_steps: int = 1             # fairseq --update-freq
+    ce_weight: float = 1.0
+    ctc_weight: float = 0.0
+    zero_infinity: bool = False
+    label_smoothing: float = 0.1
+    freeze_encoder_updates: int = 0
+    freeze_decoder_updates: int = 0
+    no_freeze_encoder_layers: tuple = ()
+
+
+def make_schedule(cfg: TrainConfig):
+    if cfg.schedule == "inverse_sqrt":
+        return inverse_sqrt(cfg.lr, cfg.warmup_steps)
+    if cfg.schedule == "tri_stage":
+        return tri_stage(
+            cfg.lr, cfg.warmup_steps, cfg.hold_steps,
+            max(cfg.total_steps - cfg.warmup_steps - cfg.hold_steps, 1),
+        )
+    return polynomial_decay(cfg.lr, cfg.warmup_steps, cfg.total_steps)
+
+
+# sub-nets covered by the reference freeze flags (JAX trainer.py:297-301)
+_ENC_FREEZE_TOPS = ("speech_encoder_prenet",)
+_DEC_FREEZE_TOPS = ("decoder", "text_decoder_prenet", "text_decoder_postnet")
+
+
+def freeze_horizon(name: str, cfg: TrainConfig) -> int:
+    """Freeze horizon N of a parameter (0 = never frozen).  The encoder
+    freeze covers the speech prenet and the encoder except its CTC
+    projection and the exempt layers; the decoder freeze covers the decoder
+    and its text pre/postnets (JAX trainer.py:304-328)."""
+    parts = name.split(".")
+    top = parts[0]
+    if cfg.freeze_encoder_updates:
+        if top in _ENC_FREEZE_TOPS:
+            return cfg.freeze_encoder_updates
+        if top == "encoder" and len(parts) >= 2:
+            exempt = {f"layers.{i}" for i in cfg.no_freeze_encoder_layers}
+            second = ".".join(parts[1:3]) if parts[1] == "layers" else parts[1]
+            if second != "proj" and second not in exempt:
+                return cfg.freeze_encoder_updates
+    if cfg.freeze_decoder_updates and top in _DEC_FREEZE_TOPS:
+        return cfg.freeze_decoder_updates
+    return 0
+
+
+class Trainer:
+    """s2t trainer: the model, its AdamW and the update count."""
+
+    def __init__(self, model, task: str, cfg: TrainConfig, *, generator=None):
+        if task != "s2t":
+            raise ValueError(f"task {task!r} is not ported; only 's2t' is")
+        self.model = model
+        self.cfg = cfg
+        self.task = task
+        self.named = list(model.named_parameters())
+        self.horizons = [freeze_horizon(n, cfg) for n, _ in self.named]
+        self.optimizer = torch.optim.AdamW(
+            [p for _, p in self.named], lr=cfg.lr, betas=tuple(cfg.betas),
+            eps=cfg.adam_eps, weight_decay=cfg.weight_decay)
+        self.schedule = make_schedule(cfg)
+        self.step = 0
+        self.generator = (generator if generator is not None
+                          else torch.Generator().manual_seed(0))
+
+    def loss(self, batch):
+        """(loss, metrics) of one micro-batch: wav [B, T] f32, wav_lengths
+        [B] (CPU is best: the masks are drawn on the host), prev_tokens and
+        targets [B, L]."""
+        mcfg = self.model.cfg
+        cfg = self.cfg
+        logits, ctc_logits, enc_valid = self.model.forward_s2t(
+            batch["wav"], batch["wav_lengths"], batch["prev_tokens"],
+            mask=True, generator=self.generator)
+        return criterions.s2t_loss(
+            logits, ctc_logits, enc_valid, batch["targets"], mcfg.pad_id,
+            mcfg.blank_id, eos_id=mcfg.eos_id, ce_weight=cfg.ce_weight,
+            ctc_weight=cfg.ctc_weight, label_smoothing=cfg.label_smoothing,
+            zero_infinity=cfg.zero_infinity)
+
+    @torch.no_grad()
+    def eval_step(self, batch):
+        """Validation forward (no masking, dropout or layerdrop): the s2t
+        metrics with CTC always on, and the greedy CTC frame ids and frame
+        lengths for the caller's error rates (JAX trainer.py:505-545)."""
+        mcfg, cfg = self.model.cfg, self.cfg
+        self.model.eval()
+        logits, ctc_logits, enc_valid = self.model.forward_s2t(
+            batch["wav"], batch["wav_lengths"], batch["prev_tokens"], mask=False)
+        _, metrics = criterions.s2t_loss(
+            logits, ctc_logits, enc_valid, batch["targets"], mcfg.pad_id,
+            mcfg.blank_id, eos_id=mcfg.eos_id, ce_weight=cfg.ce_weight,
+            ctc_weight=max(cfg.ctc_weight, 1e-9),
+            label_smoothing=cfg.label_smoothing)
+        metrics["_ctc_ids"] = ctc_logits.argmax(-1)
+        metrics["_enc_lengths"] = enc_valid.sum(-1)
+        return metrics
+
+    def train_step(self, micro_batches):
+        """One update over ``accum_steps`` micro-batches -> metrics (0-dim
+        tensors on the model's device, averaged over the micro-batches, and
+        ``grad_norm``)."""
+        if len(micro_batches) != self.cfg.accum_steps:
+            raise ValueError(f"expected {self.cfg.accum_steps} micro-batches, "
+                             f"got {len(micro_batches)}")
+        self.model.train()
+        self.optimizer.zero_grad(set_to_none=True)
+        sums = {}
+        for mb in micro_batches:
+            loss, metrics = self.loss(mb)
+            (loss / len(micro_batches)).backward()
+            for k, v in metrics.items():
+                v = v.detach()
+                sums[k] = v if k not in sums else sums[k] + v
+        metrics = {k: v / len(micro_batches) for k, v in sums.items()}
+
+        grads = []
+        for (_, p), horizon in zip(self.named, self.horizons):
+            if self.step < horizon:
+                p.grad = None
+                continue
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            grads.append(p.grad)
+        norm = torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(grads))) if grads else torch.zeros(())
+        if self.cfg.clip_norm > 0 and grads:
+            c = self.cfg.clip_norm
+            scale = torch.where(norm < c, torch.ones_like(norm), c / norm)
+            torch._foreach_mul_(grads, scale)
+        lr = self.schedule(self.step)
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+        self.optimizer.step()
+        self.step += 1
+        metrics["grad_norm"] = norm
+        return metrics

@@ -12,8 +12,9 @@ returns a ``state_dict`` for the port's ``SpeechT5Model``.  Layouts:
 - Embed ``embedding`` (``pe_k``)        -> ``weight``
 - ``layers_<i>``                        -> ``layers.<i>``
 
-Only the subtrees this slice of the port has (``speech_encoder_prenet``
-and ``encoder``) are carried; the others are left out of the result.
+Only the subtrees the port has (``speech_encoder_prenet``, ``encoder``,
+``decoder``, ``text_decoder_prenet`` and ``text_decoder_postnet``) are
+carried; the others are left out of the result.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ import re
 import numpy as np
 import torch
 
-PORTED_SUBTREES = ("speech_encoder_prenet", "encoder")
+PORTED_SUBTREES = ("speech_encoder_prenet", "encoder", "decoder",
+                   "text_decoder_prenet", "text_decoder_postnet")
 
 
 def _leaf(name: str, value: np.ndarray):

@@ -49,10 +49,12 @@ def _wav(B, T, seed=0):
 
 
 def _init_jax(cfg, T=4000):
+    """Parameters of every sub-net the port has (the s2t forward's)."""
     wav = jnp.zeros((1, T), jnp.float32)
     lens = jnp.full((1,), T, jnp.int32)
-    return JModel(cfg).init({"params": jax.random.PRNGKey(0)}, wav, lens,
-                            method="encode_speech", with_ctc=True)
+    prev = jnp.full((1, 4), cfg.eos_id, jnp.int32)
+    return JModel(cfg).init({"params": jax.random.PRNGKey(0)}, wav, lens, prev,
+                            mask=False, deterministic=True, method="forward_s2t")
 
 
 def _flat(variables):

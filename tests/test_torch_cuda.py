@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain twins, on the card.
+"""The port's CUDA kernels against their plain twins, on the card, the
+train kernels and the conv stack's gradient included, and the inference
+kernel's refusal to drop a gradient.
 
 Marked ``cuda``; each test skips when no card is present.  This file
 imports neither JAX nor the JAX package, so on a machine without JAX it
@@ -77,3 +79,63 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError):
         K.banded_flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
                                  q, q, band)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("T,Dh", [(77, 16), (300, 64)])
+def test_train_kernels_match_twins(card, dtype, rate, T, Dh):
+    """Forward, dq/dband and dk/dv kernels against their twins, ragged
+    lengths with a row of length 0, each launch counted once."""
+    g = torch.Generator().manual_seed(T + Dh)
+    N, M, seed = 6, 16, 77
+    q, k, v, do = (torch.randn(N, T, Dh, generator=g) * s
+                   for s in (Dh ** -0.5, 1, 1, 1))
+    table = torch.randn(2 * M, Dh, generator=g) * 0.2
+    q, k, v, do, band = [t.to(dtype).to(card) for t in
+                         (q, k, v, do, band_from_table(table, T, M))]
+    lengths = torch.tensor([T, 0, 1, T // 2, T - 1, 33], dtype=torch.int32, device=card)
+    before = K.launch_counts()
+    o, stats = K.banded_attention_train_fwd(q, k, v, band, lengths, rate, seed)
+    o_ref, stats_ref = K.banded_attention_train_fwd_plain(q, k, v, band, lengths,
+                                                          rate, seed)
+    args = (q, k, v, band, lengths, o_ref, do, stats_ref, rate, seed)
+    got = (o, *K.banded_attention_train_bwd_dq(*args),
+           *K.banded_attention_train_bwd_dkv(*args))
+    ref = (o_ref, *K.banded_attention_train_bwd_dq_plain(*args),
+           *K.banded_attention_train_bwd_dkv_plain(*args))
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    for name in ("banded_attention_train_fwd", "banded_attention_train_bwd_dq",
+                 "banded_attention_train_bwd_dkv"):
+        assert after[name] == before[name] + 1, name
+    assert got[2].dtype == torch.float32       # dband accumulates in f32
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape
+        _close(a, b, dtype)
+
+
+def test_inference_kernel_raises_under_grad(card):
+    q = torch.randn(2, 8, 4, device=card, requires_grad=True)
+    band = torch.zeros(4, 8, 8, device=card)
+    before = K.banded_flash_attention.launches
+    with pytest.raises(RuntimeError, match="inference-only"):
+        K.banded_flash_attention(q, q.detach(), q.detach(), band)
+    assert K.banded_flash_attention.launches == before
+
+
+def test_conv_stack_gradient_is_the_twin_vjp(card):
+    g = torch.Generator().manual_seed(5)
+    specs = ((3, 2),) * 2 + ((2, 2),)
+    x = torch.randn(2, 301, 64, generator=g)
+    ws = [torch.randn(k, 64, 64, generator=g) / (k * 64) ** 0.5 for k, _ in specs]
+    leaves = [t.to(card).requires_grad_() for t in (x, *ws)]
+    refs = [t.to(card).requires_grad_() for t in (x, *ws)]
+    before = K.conv_stack.launches
+    y = K.conv_stack(leaves[0], leaves[1:], specs)
+    assert K.conv_stack.launches == before + len(specs)
+    cot = torch.randn(y.shape, generator=g).to(card)
+    y.backward(cot)
+    K.conv_stack_plain(refs[0], refs[1:], specs).backward(cot)
+    for a, b in zip(leaves, refs):
+        _close(a.grad, b.grad, torch.float32)

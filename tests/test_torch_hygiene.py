@@ -39,7 +39,7 @@ def test_port_and_smoke_import_with_jax_blocked():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "import chip_smoke, torch_serve_profile\n"
+        "import chip_smoke, torch_serve_profile, torch_train_profile\n"
         "print(len(names))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
@@ -51,7 +51,8 @@ def test_port_and_smoke_import_with_jax_blocked():
 def test_no_import_lines_reach_jax():
     pat = re.compile(r"^\s*(import|from)\s+(jax|flax|speecht5_tpu)\b")
     files = list((REPO / "speecht5_tpu_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "torch_serve_profile.py"]
+        REPO / "chip_smoke.py", REPO / "torch_serve_profile.py",
+        REPO / "torch_train_profile.py"]
     hits = [f"{f}:{i}" for f in files
             for i, line in enumerate(f.read_text().splitlines(), 1)
             if pat.match(line)]
@@ -77,14 +78,26 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
 
 
 def test_nvcc_command_targets_sm90a_under_build():
-    out = K.build_dir() / "libx.so"
-    cmd = K.nvcc_command("nvcc", K.CSRC_DIR / "conv_stack.cu", out)
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert "--use_fast_math" not in cmd and "-shared" in cmd
-    assert out.parent.parent == REPO / "build" / "torch_kernels"
-    assert str(out) in cmd
+    assert "banded_attention_train.cu" in K.SOURCES.values()
     for src in K.SOURCES.values():
         assert (K.CSRC_DIR / src).is_file()
+        out = K.build_dir() / f"lib{src}.so"
+        cmd = K.nvcc_command("nvcc", K.CSRC_DIR / src, out)
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert "--use_fast_math" not in cmd and "-shared" in cmd
+        assert out.parent.parent == REPO / "build" / "torch_kernels"
+        assert str(out) in cmd and str(K.CSRC_DIR / src) in cmd
+
+
+def test_train_cli_defaults_to_cuda_and_raises_without_a_card(tmp_path):
+    from speecht5_tpu_torch.cli import train as cli_train
+
+    assert cli_train.build_parser().get_default("device") == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: asking for cuda does not raise here")
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli_train.main(["--task", "s2t", "--manifest", "m.tsv", "--labels", "l",
+                        "--save-dir", str(tmp_path)])
 
 
 def test_build_without_nvcc_raises(monkeypatch):
@@ -100,10 +113,25 @@ def test_chip_smoke_phases_run_on_cpu_with_twins():
     served = chip_smoke.phase_serve(base, device="cpu", dtype="float32",
                                     requests_s=(0.3, 1.1, 2.1), buckets="1,2")
     assert [r["chunks"] for r in served["requests"]] == [1, 1, 2]
-    assert served["counts"] == {"banded_flash_attention": 0, "conv_stack": 0}
+    assert set(served["counts"].values()) == {0}
     parity = chip_smoke.phase_parity(base, device="cpu",
                                      requests_s=(0.3, 2.1), buckets="1,2")
     assert parity["frames"] > 0 and parity["differing_frames"] == 0
+
+
+def test_chip_smoke_train_phases_run_on_cpu_with_twins():
+    """The train phase (cli/train.main, resume) and the train parity phase
+    at the tiny preset on the CPU: the kernels' twins run, so no launches;
+    every encoder layer runs (the tiny preset has no layerdrop)."""
+    flags = ["--batch-size", "2", "--accum", "2", "--ctc-weight", "0.5",
+             "--normalize"]
+    trained = chip_smoke.phase_train("speecht5_tiny", device="cpu", n_utts=4,
+                                     updates=2, seconds=(0.3, 0.8), flags=flags)
+    assert set(trained["counts"].values()) == {0}
+    assert trained["layer_runs"] == 2 * 2 * 2 and len(trained["history"]) == 3
+    parity = chip_smoke.phase_train_parity(C.speecht5_tiny(), device="cpu",
+                                           batch=2, seconds=(0.8, 1.2))
+    assert parity["loss_rel_diff"] < 1e-5
 
 
 def test_chip_smoke_fails_without_card_or_repo(tmp_path):

@@ -108,7 +108,13 @@ def test_twins_count_no_launches_on_cpu():
     q, k, v, table = _attn_inputs(1, 8, 4, 2)
     K.banded_flash_attention(_t(q), _t(k), _t(v), band_from_table(_t(table), 8, 2))
     K.conv_stack(torch.zeros(1, 9, 4), [torch.zeros(3, 4, 4)], [(3, 2)])
-    assert K.launch_counts() == {"banded_flash_attention": 0, "conv_stack": 0}
+    q = _t(q).requires_grad_()
+    K.banded_attention_train(q, _t(k), _t(v), band_from_table(_t(table), 8, 2),
+                             dropout_rate=0.1, seed=1).sum().backward()
+    assert K.launch_counts() == {
+        "banded_flash_attention": 0, "conv_stack": 0,
+        "banded_attention_train_fwd": 0, "banded_attention_train_bwd_dq": 0,
+        "banded_attention_train_bwd_dkv": 0}
 
 
 SPECS = ((3, 2), (3, 2), (2, 2))
@@ -158,9 +164,10 @@ def test_attention_module_hands_the_kernel_contiguous_rows(monkeypatch, B):
         return K.banded_flash_attention_plain(q, k, v, band, lengths)
 
     monkeypatch.setattr(K, "banded_flash_attention", spy)
-    attn = MultiheadAttention(32, 4, use_pallas=True)
+    attn = MultiheadAttention(32, 4, use_pallas=True).eval()
     T = 9
     band = band_from_table(torch.randn(8, 8), T, 4)
     valid = torch.arange(T)[None, :] < torch.tensor([T, 5][:B])[:, None]
-    attn(torch.randn(B, T, 32), valid, band)
+    with torch.no_grad():
+        attn(torch.randn(B, T, 32), valid, band)
     assert seen == [True]
