@@ -5,9 +5,9 @@
 
 Phases, each timed; any failure raises and the exit code is non-zero:
 
-1. build    -- compile the three CUDA sources with nvcc for sm_90a from this
+1. build    -- compile the four CUDA sources with nvcc for sm_90a from this
                checkout, one nvcc each, all started together.
-2. kernels  -- hold each of the five kernels against its plain PyTorch twin
+2. kernels  -- hold each of the six kernels against its plain PyTorch twin
                on the card and time kernel, twin and one PyTorch library call
                that computes the same function (a yardstick only):
                the inference attention and the conv stack at SpeechT5-Base
@@ -15,7 +15,10 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                2), f32 and bf16; the three train-attention kernels at the
                train step's shapes (N = 16 x 12, T = 799, Dh = 64, ragged
                lengths with a row of length 0), f32 and bf16, dropout 0 and
-               0.1 at a fixed seed.
+               0.1 at a fixed seed; the log-mel kernel at the t2s step's
+               batch ([16, 197376] reflect-padded rows, center=False, 80
+               mels: 768 frames) and at [2, 48000] with center=True, f32,
+               atol 2e-3 (the JAX spec's, tests/test_pallas_kernels.py:23).
 3. serve    -- the serving path: the port's ASR Service (ctc_greedy, bf16,
                both inference kernels on) at full speecht5_base_asr width
                with random weights, answering 3 s, 11 s and 21 s requests in
@@ -40,9 +43,27 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                within 1e-3 of that parameter's max |g| (the k_proj biases,
                whose gradient is analytically 0, within 1e-6 of the largest
                gradient).
+7. train t2s -- the TTS fine-tune path: ``cli/train.main --task t2s`` with
+               the recipe's flags (recipes/tts_finetune.sh: guided
+               attention, lr 1e-4, warmup 10000, batch 16, bf16, x-vectors,
+               mel targets on the card, the train-attention kernel on) on
+               speecht5_base at full width with random weights, over a
+               synthetic corpus of 32 seeded 2-10 s utterances with letter
+               transcripts (~14 a second) and a 512-d x-vector each: 3
+               updates, then a resume that takes one more.  Every metric
+               must be finite; the log-mel kernel must launch once per
+               micro-batch, each train kernel once per text-encoder layer
+               run, the inference and conv kernels never.
+8. t2s parity -- one f32 micro-batch with every dropout, the Tacotron
+               prenet's and layerdrop at 0, same weights, kernel route (log
+               mel and train attention on the card) against the plain route
+               (the twins' mels, plain attention): target_mel within 2e-3,
+               loss within 1e-4 relative, every parameter gradient within
+               1e-3 of that parameter's max |g| (k_proj biases as in 6).
 
-The launch counts are zeroed just before each driven path (serve, train)
-and read just after; a kernel of that path that was never launched fails.
+The launch counts are zeroed just before each driven path (serve, train,
+train t2s) and read just after; a kernel of that path that was never
+launched fails.
 Output: an early line with the card's name and power limit as nvidia-smi
 gives them, one ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  A watchdog ends a hung run with a
@@ -69,12 +90,14 @@ from speecht5_tpu_torch import config as C
 from speecht5_tpu_torch.cli import train as cli_train
 from speecht5_tpu_torch.cli.serve import SR, Service, build_parser
 from speecht5_tpu_torch.data.audio import layer_norm_wav, write_wav
-from speecht5_tpu_torch.data.manifests import SpeechToTextDataset
+from speecht5_tpu_torch.data.manifests import (TOKEN_BUCKETS, SpeechToTextDataset,
+                                               bucket_length, collate_mel_targets)
 from speecht5_tpu_torch.models.attention import band_from_table
 from speecht5_tpu_torch.models.layers import EncoderLayer
 from speecht5_tpu_torch.models.speecht5 import init_model
 from speecht5_tpu_torch.ops import cuda_kernels as K
-from speecht5_tpu_torch.train.trainer import Trainer, TrainConfig
+from speecht5_tpu_torch.ops.mel import mel_filterbank
+from speecht5_tpu_torch.train.trainer import Trainer, TrainConfig, device_mel_batch
 
 WATCHDOG_S = 900
 # published peaks of one H100 SXM (dense): bf16 tensor cores, f32 outside
@@ -102,13 +125,19 @@ KERNELS = {
         "source": "speecht5_tpu_torch/csrc/banded_attention_train.cu",
         "replaces": "speecht5_tpu/ops/pallas_kernels.py:456",
     },
+    "fused_log_mel": {
+        "source": "speecht5_tpu_torch/csrc/log_mel.cu",
+        "replaces": "speecht5_tpu/ops/pallas_kernels.py:154",
+    },
 }
 TRAIN_KERNELS = ("banded_attention_train_fwd", "banded_attention_train_bwd_dq",
                  "banded_attention_train_bwd_dkv")
 # the case of each kernel that its path runs: the served chunk (bf16, batch
-# 1) and the recipe's train step (bf16, attention dropout 0.1)
+# 1), the recipe's train step (bf16, attention dropout 0.1) and the t2s
+# step's mel targets (f32, 16 rows of 768 frames)
 MAIN_CASE = {"banded_flash_attention": "bfloat16/b1", "conv_stack": "bfloat16/b1",
-             **{n: "bfloat16/r0.1" for n in TRAIN_KERNELS}}
+             **{n: "bfloat16/r0.1" for n in TRAIN_KERNELS},
+             "fused_log_mel": "float32/b16"}
 KERNEL_OVERRIDES = ["encoder.use_pallas_attn=True", "conv_features.impl='pallas'"]
 TRAIN_OVERRIDES = ["encoder.use_pallas_attn_train=True", "conv_features.impl='pallas'"]
 # recipes/asr_finetune.sh (the flags of the s2t path; its lr/warmup/updates
@@ -125,6 +154,15 @@ DICT_SYMBOLS = (["|", "'"] + [chr(ord("A") + i) for i in range(26)]
 DICT_CFG = {"vocab_size": 81, "blank_id": 80}
 TOL_F32 = 1e-4          # absolute
 TOL_BF16_REL = 3e-2     # max |diff| / max |ref|
+TOL_MEL = 2e-3          # absolute, on log10-mel
+# recipes/tts_finetune.sh (the flags of the t2s step; its data, updates and
+# --finetune-from are the run's)
+T2S_FLAGS = ["--guided-attn", "--lr", "1e-4", "--warmup", "10000",
+             "--batch-size", "16", "--dtype", "bfloat16"]
+T2S_OVERRIDES = ["encoder.use_pallas_attn_train=True"]
+# every stochastic part of the t2s step at 0, for its parity phase
+T2S_DETERMINISTIC = DETERMINISTIC + ["speech_prenet.dropout=0.0",
+                                     "speech_postnet.postnet_dropout=0.0"]
 
 
 def log(msg):
@@ -426,11 +464,72 @@ def _train_records(dtype, rate, seed=1234):
     return ok, records
 
 
+def mel_case(batch, samples, center, device="cuda", seed=3):
+    """Seeded speech-like rows as the t2s collator hands them to the
+    kernel: with ``center`` False each row an utterance of 2 s up to the
+    row length, reflect-padded by n_fft / 2 and zero-padded to ``samples``
+    (the first row fills it); with ``center`` True plain utterances of
+    ``samples`` samples."""
+    rng = np.random.default_rng(seed)
+    wav = np.zeros((batch, samples), np.float32)
+    for b in range(batch):
+        if center:
+            wav[b] = synth_audio(samples / SR, seed=seed + 10 * b)[:samples]
+            continue
+        n = samples - 1024 if b == 0 else int(rng.integers(2 * SR, samples - 1024))
+        x = np.pad(synth_audio(n / SR, seed=seed + 10 * b), (512, 512), mode="reflect")
+        wav[b, : len(x)] = x
+    return torch.from_numpy(wav).to(device)
+
+
+def _mel_record(batch, samples, center, n_mels=80, n_fft=1024, hop=256):
+    wav = mel_case(batch, samples, center)
+    kw = dict(n_fft=n_fft, hop=hop, n_mels=n_mels, center=center)
+    got = K.fused_log_mel(wav, **kw)
+    ref = K.fused_log_mel_plain(wav, **kw)
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    ok = err <= TOL_MEL and bool(torch.isfinite(got).all())
+    B, frames, _ = got.shape
+    n_bins = n_fft // 2 + 1
+    # the operations the function needs, not the kernel's O(n^2) DFT: per
+    # frame the window, one real FFT (2.5 n log2 n flops, the usual count),
+    # the magnitudes (two products, two sums and a root per bin), a
+    # multiply-add for each non-zero filterbank entry and a log per mel;
+    # bytes: the waveform read once and the output written once
+    fb_np = mel_filterbank(16000, n_fft, n_mels, 80.0, 7600.0)
+    per_frame = (n_fft + 2.5 * n_fft * math.log2(n_fft) + 5 * n_bins
+                 + 2 * np.count_nonzero(fb_np) + n_mels)
+    flops = B * frames * per_frame
+    nbytes = 4 * (wav.numel() + got.numel())
+    bound_ms, bound_by = _bound(nbytes, flops, torch.float32)
+    win = torch.hann_window(n_fft, periodic=True, device=wav.device)
+    fb = torch.from_numpy(fb_np).to(wav.device)
+
+    def library():
+        spec = torch.stft(wav, n_fft, hop, window=win, center=center,
+                          pad_mode="reflect", return_complex=True)
+        return torch.log10(torch.clamp_min(spec.abs().transpose(1, 2) @ fb.t(), 1e-10))
+
+    return ok, {
+        "max_abs_err": err, "tolerance": f"atol {TOL_MEL}",
+        "ms": time_ms(lambda: K.fused_log_mel(wav, **kw)),
+        "plain_ms": time_ms(lambda: K.fused_log_mel_plain(wav, **kw), reps=10),
+        "library_ms": time_ms(library),
+        "library_call": "torch.stft(return_complex) -> abs -> f32 matmul with the "
+                        "filterbank -> log10",
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "shape": {"B": B, "T": wav.shape[1], "frames": frames, "n_fft": n_fft,
+                  "hop": hop, "n_mels": n_mels, "center": center},
+    }
+
+
 def phase_kernels():
     """The inference kernels against their twins at batch 1 (what a served
     16 s chunk gives them) and batch 2, in f32 and bf16 (keys
     "<dtype>/b<batch>"); the train kernels at the train step's shapes in f32
-    and bf16 with dropout 0 and 0.1 (keys "<dtype>/r<rate>")."""
+    and bf16 with dropout 0 and 0.1 (keys "<dtype>/r<rate>"); the log-mel
+    kernel at the t2s batch and a centred case (keys "float32/b<batch>")."""
     records = {name: {} for name in KERNELS}
     failures = []
     for batch in (1, 2):
@@ -454,6 +553,12 @@ def phase_kernels():
                 failures.append(f"train kernels {key}: "
                                 + json.dumps({n: r["errors"] for n, r in recs.items()}))
             torch.cuda.empty_cache()
+    for batch, samples, center in ((16, 767 * 256 + 1024, False), (2, 48000, True)):
+        ok, rec = _mel_record(batch, samples, center)
+        records["fused_log_mel"][f"float32/b{batch}"] = rec
+        if not ok:
+            failures.append(f"fused_log_mel b{batch}: max|diff| {rec['max_abs_err']} "
+                            f"> {rec['tolerance']}")
     log(json.dumps({"phase": "kernels", "records": records}))
     if failures:
         raise AssertionError("kernel disagrees with its twin: " + "; ".join(failures))
@@ -700,13 +805,169 @@ def phase_train_parity(base_cfg, device="cuda", batch=16, seconds=(8.0, 16.0),
     return result
 
 
+# -------------------------------------------------------------- train t2s
+
+
+def write_t2s_corpus(directory: str, n: int, seconds=(2.0, 10.0), spk_dim: int = 512,
+                     seed: int = 0):
+    """``n`` seeded 16 kHz utterances of ``seconds`` (min, max), letter
+    transcripts of about 14 symbols a second (letters and '|' word ends)
+    and a seeded ``spk_dim`` x-vector per utterance (``<name>.npy`` in
+    ``<directory>/xvectors``).  Returns (manifest, labels, dict, spkemb dir)."""
+    rng = np.random.default_rng(seed)
+    letters = [chr(ord("A") + i) for i in range(26)]
+    spk_dir = os.path.join(directory, "xvectors")
+    os.makedirs(spk_dir, exist_ok=True)
+    rows, lines = [], []
+    for i in range(n):
+        secs = float(rng.uniform(*seconds))
+        wav = synth_audio(secs, seed=seed + 3000 + i)
+        write_wav(os.path.join(directory, f"tts{i}.wav"), wav)
+        np.save(os.path.join(spk_dir, f"tts{i}.npy"),
+                rng.standard_normal(spk_dim).astype(np.float32))
+        rows.append(f"tts{i}.wav\t{len(wav)}")
+        symbols = []
+        while len(symbols) < int(secs * 14):
+            symbols += list(rng.choice(letters, int(rng.integers(2, 8)))) + ["|"]
+        lines.append(" ".join(symbols[: max(2, int(secs * 14))]))
+    manifest = os.path.join(directory, "tts.tsv")
+    with open(manifest, "w", encoding="utf-8") as f:
+        f.write(directory + "\n" + "\n".join(rows) + "\n")
+    labels = os.path.join(directory, "tts.ltr")
+    with open(labels, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    return manifest, labels, write_dictionary(directory), spk_dir
+
+
+def phase_train_t2s(arch="speecht5_base", device="cuda", n_utts=32, updates=3,
+                    seconds=(2.0, 10.0), flags=T2S_FLAGS, seed=0):
+    """The t2s path through ``cli/train.main``: ``updates`` updates, then a
+    resume that takes one more, keeping only the newest checkpoint, in a
+    temporary directory removed at the end.  Returns the launch counts of
+    the first run, its text-encoder layer runs and micro-batches, and the
+    per-update metrics."""
+    with tempfile.TemporaryDirectory() as d:
+        manifest, labels, dict_path, spk_dir = write_t2s_corpus(
+            d, n_utts, seconds, getattr(C, arch)().spk_embed_dim, seed)
+        args = ["--task", "t2s", "--arch", arch, "--manifest", manifest,
+                "--labels", labels, "--dict", dict_path, "--spkemb-dir", spk_dir,
+                "--save-dir", os.path.join(d, "ckpt"), *flags, "--keep-last", "1",
+                "--log-interval", "1", "--seed", str(seed + 1), "--device", device]
+        for ov in T2S_OVERRIDES:
+            args += ["--override", ov]
+        accum = int(flags[flags.index("--accum") + 1]) if "--accum" in flags else 1
+        _sync(device)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        with _LayerRuns() as runs:
+            first = cli_train.main(args + ["--max-updates", str(updates)])
+        _sync(device)
+        wall = time.perf_counter() - t0
+        counts = K.launch_counts()
+        resumed = cli_train.main(args + ["--max-updates", str(updates + 1)])
+        saved = sorted(os.listdir(os.path.join(d, "ckpt")))
+    if not (first["steps"] == updates and len(first["history"]) == updates
+            and resumed["steps"] == updates + 1 and len(resumed["history"]) == 1):
+        raise AssertionError(f"t2s train/resume steps wrong: {first['steps']}, "
+                             f"{resumed['steps']}, {len(resumed['history'])}")
+    if not (first["finite"] and resumed["finite"]):
+        raise AssertionError(f"non-finite t2s metrics: {first['history']} "
+                             f"{resumed['history']}")
+    if saved != [f"checkpoint_{updates + 1}.pt"]:
+        raise AssertionError(f"checkpoints saved: {saved}")
+    want = {"l1_loss", "l2_loss", "bce_loss", "loss", "grad_norm"}
+    if "--guided-attn" in flags:
+        want.add("enc_dec_attn_loss")
+    if set(first["history"][0]) != want:
+        raise AssertionError(f"t2s metrics {sorted(first['history'][0])}")
+    result = {"counts": counts, "layer_runs": runs.n,
+              "micro_batches": updates * accum, "wall_s": wall,
+              "history": first["history"] + resumed["history"]}
+    log(json.dumps({"phase": "train_t2s", **result}))
+    return result
+
+
+def synthetic_t2s_batch(cfg, batch, seconds=(2.0, 10.0), seed=0, device="cuda"):
+    """One collated t2s micro-batch in device-mel mode as ``cli/train.py``
+    hands it to the trainer (the collation of ``TextToSpeechDataset``):
+    seeded audio, random letter tokens (~14 a second) ending in EOS padded
+    to their bucket, seeded x-vectors; everything on ``device``."""
+    rng = np.random.default_rng(seed)
+    items = [{"tgt_wav_raw": synth_audio(float(rng.uniform(*seconds)), seed=700 + seed + i)}
+             for i in range(batch)]
+    lengths = [max(2, int(len(it["tgt_wav_raw"]) / SR * 14)) + 1 for it in items]
+    tokens = np.full((batch, bucket_length(max(lengths), TOKEN_BUCKETS)), cfg.pad_id)
+    for i, n in enumerate(lengths):
+        tokens[i, :n] = np.append(rng.integers(4, 30, n - 1), cfg.eos_id)
+    b = collate_mel_targets(items, cfg.reduction_factor, cfg.n_mels, bucketed=True,
+                            device_mel=True)
+    b["tokens"] = tokens
+    b["spkembs"] = rng.standard_normal((batch, cfg.spk_embed_dim)).astype(np.float32)
+    return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+
+def phase_t2s_parity(base_cfg, device="cuda", batch=16, seconds=(2.0, 10.0), seed=0,
+                     mel_atol=TOL_MEL, loss_rtol=1e-4, grad_rtol=1e-3):
+    """One f32 t2s micro-batch, every stochastic part at 0, the same
+    weights: the kernel route (mels by the log-mel kernel, the train
+    attention kernel) against the plain route (the twin's mels computed on
+    the CPU, plain attention); see the module docstring."""
+    base = C.replace(base_cfg, dtype="float32", **DICT_CFG)
+    cfg_k = C.apply_overrides(base, T2S_DETERMINISTIC + T2S_OVERRIDES)
+    cfg_p = C.apply_overrides(base, T2S_DETERMINISTIC)
+    b = synthetic_t2s_batch(base, batch, seconds, seed, device)
+    r = base.reduction_factor
+    mel_k = device_mel_batch(b, base.n_mels, r)
+    mel_p = device_mel_batch({k: v.cpu() for k, v in b.items()}, base.n_mels, r)
+    mel_err = max((mel_k[k].cpu() - mel_p[k]).abs().max().item()
+                  for k in ("target_mel", "prev_mel"))
+    b_plain = {k: v.to(device) for k, v in mel_p.items()}
+    tcfg = TrainConfig(use_guided_attn=True)
+    results, state = [], None
+    for cfg, mb in ((cfg_k, b), (cfg_p, b_plain)):
+        model = init_model(cfg, torch.Generator().manual_seed(seed + 7), device)
+        if state is None:
+            state = model.state_dict()
+        model.load_state_dict(state)
+        trainer = Trainer(model, "t2s", tcfg)
+        model.train()
+        loss, _ = trainer.loss(mb)
+        loss.backward()
+        results.append((loss.item(), {n: p.grad for n, p in model.named_parameters()}))
+        del model, trainer
+    (loss_k, g_k), (loss_p, g_p) = results
+    gmax = max(g.abs().max().item() for g in g_p.values() if g is not None)
+    worst, worst_name = 0.0, None
+    for name, gp in g_p.items():
+        gk = g_k[name]
+        if gp is None or gk is None:
+            if (gp is None) != (gk is None):
+                raise AssertionError(f"gradient of {name} present on one route only")
+            continue
+        if name.endswith("k_proj.bias"):   # analytically 0: rounding noise
+            if max(gk.abs().max().item(), gp.abs().max().item()) > 1e-6 * gmax:
+                raise AssertionError(f"{name}: gradient not ~0")
+            continue
+        rel = (gk - gp).abs().max().item() / max(gp.abs().max().item(), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, name
+    result = {"mel_max_abs_err": mel_err, "loss_kernel": loss_k, "loss_plain": loss_p,
+              "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
+              "worst_grad_rel_diff": worst, "worst_grad_param": worst_name}
+    log(json.dumps({"phase": "t2s_parity", **result}))
+    if mel_err > mel_atol or result["loss_rel_diff"] > loss_rtol or worst > grad_rtol:
+        raise AssertionError(f"t2s routes differ: {result}")
+    return result
+
+
 # ------------------------------------------------------------------- main
 
 
-def kernels_line(records, counts):
+def kernels_line(records, counts, by_path=None):
     """The contract line: each kernel's path case (MAIN_CASE) in the named
-    keys, the other cases under "other"; ``launches`` from the run of the
-    path that drives the kernel (``counts``)."""
+    keys, the other cases under "other"; ``launches`` from the runs of the
+    paths that drive the kernel (``counts``, summed over the paths), and
+    per path under "launches_by_path"."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "tolerance")
     out = []
@@ -715,12 +976,27 @@ def kernels_line(records, counts):
         out.append({
             "name": name, "route": "cuda", "impl": "cuda", **meta,
             "launches": counts[name], **{k: main[k] for k in keys},
-            "dtype": "bfloat16", "case": MAIN_CASE[name], "shape": main["shape"],
+            "launches_by_path": {p: c[name] for p, c in (by_path or {}).items()},
+            "dtype": MAIN_CASE[name].split("/")[0], "case": MAIN_CASE[name],
+            "shape": main["shape"],
             "other": {case: {k: rec[k] for k in keys + ("shape",)}
                       for case, rec in records[name].items()
                       if case != MAIN_CASE[name]},
         })
     return {"kernels": out}
+
+
+def check_t2s_counts(result):
+    """The t2s path's launches: the log-mel kernel once per micro-batch,
+    each train kernel once per text-encoder layer run, the inference
+    attention and conv kernels never."""
+    c, runs = result["counts"], result["layer_runs"]
+    if (c["fused_log_mel"] != result["micro_batches"] or c["banded_flash_attention"]
+            or c["conv_stack"]):
+        raise AssertionError(f"t2s path launches wrong: {c}")
+    if not runs or any(c[n] != runs for n in TRAIN_KERNELS):
+        raise AssertionError(f"t2s train kernels launched {c}, text-encoder "
+                             f"layers ran {runs}")
 
 
 def main():
@@ -774,10 +1050,20 @@ def main():
     phase_train_parity(base)
     walls["train_parity"] = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
+    t2s = phase_train_t2s()
+    walls["train_t2s"] = time.perf_counter() - t0
+    check_t2s_counts(t2s)
+
+    t0 = time.perf_counter()
+    phase_t2s_parity(C.speecht5_base())
+    walls["t2s_parity"] = time.perf_counter() - t0
+
     walls["total"] = time.perf_counter() - t_start
     log(json.dumps({"phase_seconds": walls, "card": card_line()}))
-    counts = {**served["counts"], **{n: tc[n] for n in TRAIN_KERNELS}}
-    log(json.dumps(kernels_line(records, counts)))
+    by_path = {"serve": served["counts"], "train_s2t": tc, "train_t2s": t2s["counts"]}
+    counts = {n: sum(c[n] for c in by_path.values()) for n in KERNELS}
+    log(json.dumps(kernels_line(records, counts, by_path)))
     torch.cuda.synchronize()
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {

@@ -15,12 +15,13 @@ Design notes (one card):
 - device access is serialized with a lock — one batch in flight.
 
 Only ``--decoder ctc_greedy`` is ported; ``beam`` and ``ctc_rescore`` arrive
-with the beam slice, and loading a checkpoint with the slice that ports
-``utils/checkpoint.py``.  Until then a ``Service`` is built around a model
-the caller made (``Service(args, model=..., cfg=...)``), as the tests and
-``chip_smoke.py`` do.
+with the beam slice.  The model is restored from the newest
+``checkpoint_<step>.pt`` that the port's ``cli/train.py`` wrote in
+``--ckpt`` (its model state only); a caller may instead hand in a model it
+made (``Service(args, model=..., cfg=...)``), as the tests and
+``chip_smoke.py`` do.  Runs on the card unless ``--device cpu``.
 
-Usage (once checkpoints load):
+Usage:
     python -m speecht5_tpu_torch.cli.serve --arch speecht5_base_asr \\
         --ckpt ckpt/ --dict dict.ltr.txt --decoder ctc_greedy --port 8080
 """
@@ -77,6 +78,31 @@ def _parse_wav(body: bytes) -> np.ndarray:
     return pcm.astype(np.float32) / 32768.0
 
 
+def restore_model(args, device):
+    """``getattr(config, args.arch)`` at the dictionary's vocabulary and
+    ``args.dtype``, with the model state of the newest checkpoint in
+    ``args.ckpt`` (JAX cli/serve.py:110-121).  Raises SystemExit when there
+    is none.  Returns (cfg, model in eval mode on ``device``)."""
+    import torch
+
+    from .. import config as C
+    from ..models.speecht5 import init_model
+    from ..utils.checkpoint import checkpoints
+
+    _, cfg_kw = load_cli_dictionary(args.dict_path, None)
+    cfg_kw["dtype"] = args.dtype
+    cfg = getattr(C, args.arch)(**cfg_kw)
+    found = checkpoints(args.ckpt)
+    if not found:
+        raise SystemExit(f"no checkpoint in {args.ckpt}")
+    step, path = found[-1]
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    model = init_model(cfg, device=device)
+    model.load_state_dict(state["model"])
+    print(f"loaded checkpoint step {step}", flush=True)
+    return cfg, model
+
+
 class Service:
     """Owns the decoder; one device batch in flight at a time."""
 
@@ -91,10 +117,10 @@ class Service:
                 f"--decoder {args.decoder} arrives with the beam slice of the "
                 "port (decode/ctc_prefix.py, decode/beam_search.py); only "
                 "ctc_greedy is ported")
-        if model is None or cfg is None:
-            raise NotImplementedError(
-                "loading a checkpoint arrives with the slice that ports "
-                "utils/checkpoint.py; pass model= and cfg= for now")
+        if model is None:
+            cfg, model = restore_model(args, self.device)
+        elif cfg is None:
+            raise ValueError("a model handed in needs its cfg")
         dictionary, cfg_kw = load_cli_dictionary(args.dict_path, None)
         for key, want in cfg_kw.items():
             if getattr(cfg, key) != want:
@@ -324,12 +350,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="hard cap on /asr audio length -> HTTP 413 "
                         "(0 disables)")
     p.add_argument("--dtype", default="bfloat16")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; the CPU only when asked for")
     return p
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    svc = Service(args)
+    svc = Service(args, device=args.device)
     server = ThreadingHTTPServer((args.host, args.port), make_handler(svc))
     print(json.dumps({"serving": True, "host": args.host,
                       "port": server.server_address[1]}), flush=True)

@@ -1,6 +1,15 @@
 """Training entry point of the port: preset -> dataset -> Trainer ->
-checkpoints, for the speech-to-text task (the s2t path of
-``speecht5_tpu/cli/train.py``, with the same flag names and defaults).
+checkpoints, for the speech-to-text and text-to-speech tasks (the s2t and
+t2s paths of ``speecht5_tpu/cli/train.py``, with the same flag names and
+defaults).
+
+Usage (the TTS fine-tune recipe, recipes/tts_finetune.sh; the mel targets
+are computed on the card from the waveform unless --host-mel):
+    python -m speecht5_tpu_torch.cli.train --task t2s --arch speecht5_base \\
+        --manifest train.tsv --labels train.txt --dict dict.txt \\
+        --spkemb-dir xvectors/ --save-dir ckpt/ --guided-attn --lr 1e-4 \\
+        --warmup 10000 --batch-size 16 --dtype bfloat16 \\
+        --override encoder.use_pallas_attn_train=True
 
 Usage (the ASR fine-tune recipe, recipes/asr_finetune.sh):
     python -m speecht5_tpu_torch.cli.train --task s2t \\
@@ -12,7 +21,8 @@ Usage (the ASR fine-tune recipe, recipes/asr_finetune.sh):
 
 One update consumes ``--accum`` consecutive batches of ``--batch-size``
 (fairseq --update-freq).  ``--valid-manifest`` runs validation every
-``--valid-interval`` updates (loss metrics and greedy-CTC UER/WER) and, with
+``--valid-interval`` updates (loss metrics, and for s2t greedy-CTC
+UER/WER) and, with
 ``--best-checkpoint-metric``, keeps the best checkpoint under
 ``<save-dir>/best/``.  Runs on the card unless ``--device cpu``.  Other
 tasks, ``--finetune-from`` (JAX checkpoint conversion) and multi-process
@@ -42,6 +52,8 @@ def build_parser():
     p.add_argument("--manifest", required=True)
     p.add_argument("--labels", default=None)
     p.add_argument("--dict", dest="dict_path", default=None)
+    p.add_argument("--spkemb-dir", default=None,
+                   help="t2s: x-vector .npy files named by utterance basename")
     p.add_argument("--save-dir", required=True)
     p.add_argument("--max-updates", type=int, default=1000)
     p.add_argument("--batch-size", type=int, default=8)
@@ -60,12 +72,22 @@ def build_parser():
     p.add_argument("--zero-infinity", action="store_true",
                    help="zero CTC loss for infeasible alignments")
     p.add_argument("--label-smoothing", type=float, default=0.1)
+    p.add_argument("--guided-attn", action="store_true",
+                   help="t2s: add the guided attention loss")
     p.add_argument("--freeze-encoder-updates", type=int, default=0)
     p.add_argument("--freeze-decoder-updates", type=int, default=0)
     p.add_argument("--no-freeze-encoder-layers", default="",
                    help="comma-separated encoder layer indices exempt from "
                         "the encoder freeze")
     p.add_argument("--normalize", action="store_true")
+    p.add_argument("--device-mel", dest="device_mel", action="store_true",
+                   default=True,
+                   help="t2s: compute the log-mel targets on the device from "
+                        "the waveform (the CUDA log-mel kernel on the card); "
+                        "the default")
+    p.add_argument("--host-mel", dest="device_mel", action="store_false",
+                   help="t2s: compute the log-mel targets per utterance on "
+                        "the host (numpy)")
     p.add_argument("--mask-prob", type=float, default=None,
                    help="override HuBERT masking prob (e.g. 0 to disable)")
     p.add_argument("--dtype", default="float32")
@@ -107,8 +129,8 @@ def make_batches(sizes, args, seed):
 
 
 def run_validation(trainer, ds, args, cfg, dictionary, device):
-    """Average eval-step metrics over the full batches of ``ds``, and the
-    greedy-CTC UER (tokens) and WER (words) when CTC is trained (the
+    """Average eval-step metrics over the full batches of ``ds``, and for
+    s2t the greedy-CTC UER (tokens) and WER (words) when CTC is trained (the
     reference's valid-time WER, speech_to_text_loss.py:232-297)."""
     from ..data.dictionary import letters_to_text
     from ..utils.metrics import edit_distance
@@ -120,13 +142,14 @@ def run_validation(trainer, ds, args, cfg, dictionary, device):
         items = [ds[i] for i in range(s, s + B)]
         batch = ds.collate(items, cfg.eos_id, cfg.pad_id)
         out = trainer.eval_step(_to_device(batch, device))
-        ids = out.pop("_ctc_ids").cpu().numpy()
-        lens = out.pop("_enc_lengths").cpu().numpy()
+        ids = out.pop("_ctc_ids", None)
+        lens = out.pop("_enc_lengths", None)
         for k, v in out.items():
             sums[k] = sums.get(k, 0.0) + float(v)
         n_batches += 1
-        if args.ctc_weight <= 0:
+        if ids is None or args.ctc_weight <= 0:
             continue
+        ids, lens = ids.cpu().numpy(), lens.cpu().numpy()
         for b, it in enumerate(items):
             seq = ids[b, : lens[b]]
             if len(seq):
@@ -158,30 +181,47 @@ def _best_state(save_dir):
 
 
 def _to_device(batch, device):
-    """Model inputs on the card; wav_lengths stays on the host so that the
-    masks are drawn there without a device sync."""
-    out = {"wav_lengths": torch.from_numpy(batch["wav_lengths"])}
-    for k in ("wav", "prev_tokens", "targets"):
-        out[k] = torch.from_numpy(batch[k]).to(device, non_blocking=True)
+    """Model inputs on the card; an s2t batch's wav_lengths stays on the
+    host so that the masks are drawn there without a device sync."""
+    out = {}
+    for k, v in batch.items():
+        if k == "ids":
+            continue
+        t = torch.from_numpy(v)
+        out[k] = t if k == "wav_lengths" else t.to(device, non_blocking=True)
     return out
+
+
+def build_dataset(args, dictionary, cfg, manifest, labels):
+    from ..data.manifests import SpeechToTextDataset, TextToSpeechDataset
+
+    if args.task == "t2s":
+        return TextToSpeechDataset(
+            manifest=manifest, labels=labels, dictionary=dictionary,
+            spkemb_dir=args.spkemb_dir, reduction_factor=cfg.reduction_factor,
+            n_mels=cfg.n_mels, device_mel=args.device_mel)
+    return SpeechToTextDataset(manifest=manifest, labels=labels,
+                               dictionary=dictionary, normalize=args.normalize,
+                               max_sample_size=args.max_sample_size)
 
 
 def main(argv=None):
     """Run the training loop; returns {"steps", "history": [per-update
     metrics as floats], "final_loss", "checkpoint"}."""
+    from ..train.trainer import TASKS as PORTED_TASKS
+
     args = build_parser().parse_args(argv)
-    if args.task != "s2t":
+    if args.task not in PORTED_TASKS:
         raise SystemExit(f"--task {args.task} is not ported to "
-                         "speecht5_tpu_torch yet; only --task s2t trains")
+                         f"speecht5_tpu_torch yet; only {PORTED_TASKS} train")
     if args.finetune_from:
         raise SystemExit("--finetune-from needs JAX checkpoint conversion, "
                          "which is not ported yet")
     if args.labels is None:
-        raise SystemExit("--task s2t needs --labels")
+        raise SystemExit(f"--task {args.task} needs --labels")
 
     from .. import config as C
     from ..data.dictionary import load_cli_dictionary
-    from ..data.manifests import SpeechToTextDataset
     from ..data.prefetch import prefetch
     from ..models.speecht5 import init_model
     from ..train.trainer import Trainer, TrainConfig
@@ -199,9 +239,7 @@ def main(argv=None):
             cfg.masking, mask_prob=args.mask_prob,
             mask_channel_prob=min(cfg.masking.mask_channel_prob, args.mask_prob)))
 
-    ds = SpeechToTextDataset(manifest=args.manifest, labels=args.labels,
-                             dictionary=dictionary, normalize=args.normalize,
-                             max_sample_size=args.max_sample_size)
+    ds = build_dataset(args, dictionary, cfg, args.manifest, args.labels)
     torch.manual_seed(args.seed)   # the device generator: activation dropout
     model = init_model(cfg, torch.Generator().manual_seed(args.seed), device)
     tcfg = TrainConfig(
@@ -209,21 +247,20 @@ def main(argv=None):
         schedule=args.schedule, hold_steps=args.hold_steps,
         accum_steps=args.accum, ce_weight=args.ce_weight,
         ctc_weight=args.ctc_weight, zero_infinity=args.zero_infinity,
-        label_smoothing=args.label_smoothing, total_steps=args.max_updates,
+        label_smoothing=args.label_smoothing, use_guided_attn=args.guided_attn,
+        total_steps=args.max_updates,
         freeze_encoder_updates=args.freeze_encoder_updates,
         freeze_decoder_updates=args.freeze_decoder_updates,
         no_freeze_encoder_layers=tuple(
             int(i) for i in args.no_freeze_encoder_layers.split(",") if i),
     )
-    trainer = Trainer(model, "s2t", tcfg,
+    trainer = Trainer(model, args.task, tcfg,
                       generator=torch.Generator().manual_seed(args.seed + 7))
 
     valid_ds = None
     if args.valid_manifest:
-        valid_ds = SpeechToTextDataset(
-            manifest=args.valid_manifest,
-            labels=args.valid_labels or args.labels, dictionary=dictionary,
-            normalize=args.normalize, max_sample_size=args.max_sample_size)
+        valid_ds = build_dataset(args, dictionary, cfg, args.valid_manifest,
+                                 args.valid_labels or args.labels)
     best = _best_state(args.save_dir)
     if best is not None and best.get("metric") != args.best_checkpoint_metric:
         best = None
@@ -243,9 +280,7 @@ def main(argv=None):
                 if bi < start:
                     continue
                 items = [ds[int(i)] for i in idxs]
-                b = ds.collate(items, cfg.eos_id, cfg.pad_id)
-                b.pop("ids", None)
-                yield epoch, bi, b
+                yield epoch, bi, ds.collate(items, cfg.eos_id, cfg.pad_id)
             epoch, start = epoch + 1, 0
 
     history, micro = [], []

@@ -1,10 +1,15 @@
-"""Manifest-TSV speech-to-text dataset and batching (the port's copy of
-the s2t part of ``speecht5_tpu/data/manifests.py`` :33-210, which imports
-JAX through ``ops.mel`` and so cannot be imported here).
+"""Manifest-TSV speech-to-text and text-to-speech datasets and batching
+(the port's copy of the s2t and t2s parts of
+``speecht5_tpu/data/manifests.py`` :33-273, which imports JAX through
+``ops.mel`` and so cannot be imported here).
 
 - audio manifests: first line = root dir, then "relpath\\tnframes" rows
   (reference data/speech_to_text_dataset.py:74-140); label files are
-  parallel text files, one utterance a line;
+  parallel text files, one utterance a line; t2s x-vectors are
+  ``<spkemb_dir>/<utterance basename>.npy``;
+- TTS mel targets either per utterance on the host (``log_mel_numpy``) or,
+  in device mode, as the reflect-padded waveform that the train step turns
+  into mels on the card (``train/trainer.device_mel_batch``);
 - batching by token count with length-sorted ordering (fairseq
   batch_by_size semantics);
 - batches are padded to bucketed lengths, as in the JAX package, so the
@@ -19,6 +24,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..ops.mel import log_mel_numpy
 from .audio import layer_norm_wav, read_audio
 from .dictionary import Dictionary
 
@@ -79,6 +85,56 @@ AUDIO_BUCKETS = tuple(
     int(16000 * s) for s in (0.25, 0.5, 1, 2, 4, 6, 8, 10, 13, 16, 20, 25, 30)
 )
 TOKEN_BUCKETS = (16, 32, 48, 64, 96, 128, 192, 256, 384, 512, 600)
+FRAME_BUCKETS = (128, 256, 384, 512, 768, 1024, 1536, 2048, 3000)
+MEL_N_FFT, MEL_HOP = 1024, 256  # log_mel_numpy / fused_log_mel defaults
+
+
+def collate_mel_targets(items, r: int, n_mels: int, bucketed: bool,
+                        device_mel: bool, wav_key: str = "tgt_wav_raw"
+                        ) -> Dict[str, np.ndarray]:
+    """TTS-target collation (JAX manifests.py:62-111).
+
+    Host mode (device_mel=False): items carry a per-utterance ``mel``
+    (log_mel_numpy); packs bucketed ``target_mel`` and the r-thinned,
+    zero-BOS ``prev_mel`` (reference text_to_speech_dataset.py:228-283).
+
+    Device mode: items carry the raw target waveform under ``wav_key``; each
+    utterance is reflect-padded here on the host (so on-device framing with
+    center=False reproduces the per-utterance transform, whatever the batch
+    padding) into ``tgt_wav`` [B, (mel_len - 1) * hop + n_fft]."""
+    B = len(items)
+    if device_mel:
+        frames = [1 + len(it[wav_key]) // MEL_HOP for it in items]
+        mel_len = max(frames)
+    else:
+        mel_len = max(it["mel"].shape[0] for it in items)
+    if bucketed:
+        mel_len = bucket_length(mel_len, FRAME_BUCKETS)
+    mel_len -= mel_len % r
+    dec_lengths = np.zeros((B,), np.int32)
+
+    if device_mel:
+        need = (mel_len - 1) * MEL_HOP + MEL_N_FFT
+        tgt = np.zeros((B, need), np.float32)
+        for b, it in enumerate(items):
+            x = np.pad(it[wav_key].astype(np.float32),
+                       (MEL_N_FFT // 2, MEL_N_FFT // 2), mode="reflect")
+            L = min(len(x), need)
+            tgt[b, :L] = x[:L]
+            dec_lengths[b] = min(frames[b], mel_len)
+        return {"tgt_wav": tgt, "dec_lengths": dec_lengths,
+                "dec_lengths_r": dec_lengths // r}
+
+    target_mel = np.zeros((B, mel_len, n_mels), np.float32)
+    prev_mel = np.zeros((B, mel_len // r, n_mels), np.float32)
+    for b, it in enumerate(items):
+        m = it["mel"][:mel_len]
+        target_mel[b, : len(m)] = m
+        dec_lengths[b] = len(m)
+        thin = m[r - 1 :: r]           # every r-th frame (1-indexed r-1)
+        prev_mel[b, 1 : len(thin)] = thin[:-1]  # shifted, zero BOS
+    return {"target_mel": target_mel, "prev_mel": prev_mel,
+            "dec_lengths": dec_lengths, "dec_lengths_r": dec_lengths // r}
 
 
 @dataclass
@@ -138,3 +194,62 @@ class SpeechToTextDataset:
         return {"wav": wav, "wav_lengths": wav_lengths,
                 "prev_tokens": prev, "targets": targets,
                 "ids": np.asarray([it["id"] for it in items])}
+
+
+@dataclass
+class TextToSpeechDataset:
+    """TTS: token source, log-mel target and x-vector (reference
+    data/text_to_speech_dataset.py:142-283)."""
+
+    manifest: str
+    labels: str
+    dictionary: Dictionary
+    spkemb_dir: Optional[str] = None   # .npy x-vectors by utterance basename
+    reduction_factor: int = 2
+    n_mels: int = 80
+    device_mel: bool = False   # targets as the reflect-padded waveform; the
+                               # train step computes the mels on the card
+
+    def __post_init__(self):
+        self.root, self.names, self.sizes = load_audio_manifest(self.manifest)
+        self.label_lines = read_lines(self.labels)
+
+    def __len__(self):
+        return len(self.names)
+
+    def __getitem__(self, i: int) -> Dict:
+        wav, _ = read_audio(os.path.join(self.root, self.names[i]))
+        tokens = self.dictionary.encode_line(self.label_lines[i])
+        item = {"id": i, "tokens": np.asarray(tokens, np.int64)}
+        if self.device_mel:
+            item["tgt_wav_raw"] = wav.astype(np.float32)
+        else:
+            item["mel"] = log_mel_numpy(wav, n_mels=self.n_mels)
+        if self.spkemb_dir:
+            base = os.path.splitext(os.path.basename(self.names[i]))[0]
+            item["spkemb"] = np.load(
+                os.path.join(self.spkemb_dir, base + ".npy")).astype(np.float32)
+        return item
+
+    def collate(self, items: List[Dict], eos_id: int, pad_id: int,
+                bucketed: bool = True) -> Dict[str, np.ndarray]:
+        B = len(items)
+        tok_len = max(len(it["tokens"]) for it in items)
+        if bucketed:
+            tok_len = bucket_length(tok_len, TOKEN_BUCKETS)
+        tokens = np.full((B, tok_len), pad_id, np.int64)
+        spk = None
+        if "spkemb" in items[0]:
+            spk = np.zeros((B, len(items[0]["spkemb"])), np.float32)
+        for b, it in enumerate(items):
+            t = it["tokens"]
+            Lt = min(len(t), tok_len)  # clamp: utt may exceed top bucket
+            tokens[b, :Lt] = t[:Lt]
+            if spk is not None:
+                spk[b] = it["spkemb"]
+        batch = {"tokens": tokens, "ids": np.asarray([it["id"] for it in items])}
+        batch.update(collate_mel_targets(items, self.reduction_factor, self.n_mels,
+                                         bucketed, self.device_mel))
+        if spk is not None:
+            batch["spkembs"] = spk
+        return batch

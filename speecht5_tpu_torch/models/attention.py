@@ -6,9 +6,10 @@ before use; the relative-position bias is the first-order term
 B[b,h,i,j] = q_scaled[b,h,i,:] . pe_k[clip(i-j)] (reference :343-353);
 masks use -1e9, not -inf, so a fully masked row gives a uniform softmax.
 Self-attention (encoder, causal decoder) and cross-attention against the
-encoder output are ported with probability dropout on the training path;
-the KV cache, ``cache_rows`` and ``precompute_kv`` arrive with the beam
-slice.
+encoder output are ported with probability dropout on the training path,
+and the attention weights (the f32 softmax before dropout, JAX
+attention.py:305-316) on request; the KV cache, ``cache_rows`` and
+``precompute_kv`` arrive with the beam slice.
 """
 
 from __future__ import annotations
@@ -78,13 +79,17 @@ class MultiheadAttention(nn.Module):
         return self.d_model // self.num_heads
 
     def forward(self, x, key_valid=None, pos_band=None, *, x_kv=None,
-                causal: bool = False, generator=None):
+                causal: bool = False, generator=None,
+                return_weights: bool = False):
         """x: [B, Tq, D]; key_valid: bool [B, Tk] (True = attend, a
         contiguous prefix); pos_band: [Dh, T, T] or None; x_kv: [B, Tk, D]
         for cross-attention (None = self-attention); causal: mask keys after
         the query.  ``generator``: CPU ``torch.Generator`` for the train
         kernel's dropout seed (the default CPU generator when None), so the
-        seed costs no device sync.  -> [B, Tq, D]."""
+        seed costs no device sync.  -> [B, Tq, D], or with
+        ``return_weights`` (out, f32 weights [B, H, Tq, Tk]), which the
+        fused kernels do not give (JAX routes such calls to the plain path
+        too)."""
         B, Tq, _ = x.shape
         H, Dh = self.num_heads, self.head_dim
         src = x if x_kv is None else x_kv
@@ -97,7 +102,7 @@ class MultiheadAttention(nn.Module):
         # self-attention with a band, up to 1024 keys; the inference kernel
         # when not training, the train kernel when training and asked for
         fused = (pos_band is not None and x_kv is None and not causal
-                 and Tk <= MAX_FUSED_KEYS
+                 and Tk <= MAX_FUSED_KEYS and not return_weights
                  and (self.use_pallas_train if self.training else self.use_pallas))
         if fused:
             # [B, T, H, Dh] -> [B*H, T, Dh] rows; contiguous() matters at
@@ -137,7 +142,8 @@ class MultiheadAttention(nn.Module):
             logits = torch.where(mask, logits,
                                  torch.full((), NEG_INF, dtype=score_dtype,
                                             device=logits.device))
-        probs = torch.softmax(logits.float(), dim=-1).to(self.dtype)
-        probs = F.dropout(probs, self.dropout, self.training)
+        weights = torch.softmax(logits.float(), dim=-1)
+        probs = F.dropout(weights.to(self.dtype), self.dropout, self.training)
         out = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(self.dtype))
-        return self.out_proj(out.reshape(B, Tq, self.d_model))
+        out = self.out_proj(out.reshape(B, Tq, self.d_model))
+        return (out, weights) if return_weights else out

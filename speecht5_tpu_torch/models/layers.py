@@ -104,11 +104,18 @@ class DecoderLayer(nn.Module):
         return F.dropout(x, self.cfg.dropout, self.training)
 
     def forward(self, x, enc=None, enc_valid=None, self_valid=None,
-                causal: bool = True):
+                causal: bool = True, need_cross_weights: bool = False):
+        """-> x [B, Ttgt, D], or with ``need_cross_weights`` (x, the cross
+        attention's f32 weights [B, H, Ttgt, Tsrc], None without ``enc``)."""
         y = self.self_attn(x, self_valid, causal=causal)
         x = self.self_attn_layer_norm(x + self._drop(y)).to(self.dtype)
+        cross_w = None
         if enc is not None:
-            y = self.encoder_attn(x, enc_valid, x_kv=enc)
+            y = self.encoder_attn(x, enc_valid, x_kv=enc,
+                                  return_weights=need_cross_weights)
+            if need_cross_weights:
+                y, cross_w = y
             x = self.encoder_attn_layer_norm(x + self._drop(y)).to(self.dtype)
         x = x + self._drop(self.ffn(x))
-        return self.final_layer_norm(x).to(self.dtype)
+        x = self.final_layer_norm(x).to(self.dtype)
+        return (x, cross_w) if need_cross_weights else x

@@ -1,14 +1,31 @@
-"""Text decoder postnet (port of ``speecht5_tpu/models/postnets.py``
-:127-147): decoder features -> f32 vocabulary logits, through its own
-bias-free projection or, with ``share_input_output_embed``, the decoder
-embedding matrix.  The speech and HuBERT postnets arrive with their slices.
+"""Decoder postnets (port of ``speecht5_tpu/models/postnets.py`` :28-147).
+
+- ``TextDecoderPostnet`` (reference text_decoder_postnet.py:19-93):
+  decoder features -> f32 vocabulary logits, through its own bias-free
+  projection or, with ``share_input_output_embed``, the decoder embedding
+  matrix;
+- ``SpeechDecoderPostnet`` (reference speech_decoder_postnet.py:17-76):
+  ``feat_out`` (d -> n_mels * r) and ``prob_out`` (d -> r) in f32, and the
+  Tacotron2 conv postnet whose residual refines the frames.
+
+The postnet's BatchNorm follows flax's ``nn.BatchNorm(momentum=0.9,
+epsilon=1e-5, dtype=float32)``: statistics in f32 over every B x T
+position, padding included; the running statistics move by
+``momentum * old + (1 - momentum) * batch`` with the *biased* batch
+variance (``nn.BatchNorm1d`` would use torch's momentum convention and the
+unbiased variance), on training passes only, as JAX's mutable
+``batch_stats``.  ``project_frames``, ``stop_probs`` and ``refine`` arrive
+with TTS decoding.
 """
 
 from __future__ import annotations
 
+import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..config import SpeechT5Config
+from .common import Dense
 
 
 class TextDecoderPostnet(nn.Module):
@@ -27,3 +44,103 @@ class TextDecoderPostnet(nn.Module):
                 raise ValueError("share_input_output_embed needs embed_matrix")
             return x.float() @ embed_matrix.float().t()
         return self.output_projection(x.float())
+
+
+class BatchNorm32(nn.Module):
+    """flax ``nn.BatchNorm`` over the last axis of [B, T, C], computed in f32
+    (see the module docstring).  Parameters ``weight`` / ``bias``; buffers
+    ``running_mean`` / ``running_var`` (JAX ``batch_stats`` mean / var)."""
+
+    def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.9):
+        super().__init__()
+        self.eps = eps
+        self.momentum = momentum
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x):
+        """x: [B, T, C] -> f32 [B, T, C]."""
+        xf = x.float()
+        if self.training:
+            mean = xf.mean(dim=(0, 1))
+            var = ((xf * xf).mean(dim=(0, 1)) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
+                self.running_var.mul_(m).add_(var.detach(), alpha=1.0 - m)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+
+
+class TacotronPostnet(nn.Module):
+    """espnet Tacotron2 postnet: ``layers`` Conv1d (k ``kernel``, "same"
+    padding, no bias under BatchNorm) + BatchNorm, tanh after every layer
+    but the last, dropout after each on training passes; the caller adds
+    the residual.  Blocks ``conv_<i>`` / ``bn_<i>``."""
+
+    def __init__(self, n_mels: int, layers: int, chans: int, kernel: int,
+                 dropout: float, use_batch_norm: bool = True,
+                 dtype=torch.float32):
+        super().__init__()
+        self.layers = layers
+        self.kernel = kernel
+        self.dropout = dropout
+        self.use_batch_norm = use_batch_norm
+        self.dtype = dtype
+        for i in range(layers):
+            c_in = n_mels if i == 0 else chans
+            c_out = n_mels if i == layers - 1 else chans
+            conv = nn.Module()
+            conv.weight = nn.Parameter(torch.empty(c_out, c_in, kernel))
+            if not use_batch_norm:
+                conv.bias = nn.Parameter(torch.zeros(c_out))
+            self.add_module(f"conv_{i}", conv)
+            if use_batch_norm:
+                self.add_module(f"bn_{i}", BatchNorm32(c_out))
+
+    def forward(self, x):
+        """x: [B, T, n_mels] -> residual [B, T, n_mels] in the compute dtype."""
+        pad = (self.kernel - 1) // 2
+        dt = self.dtype
+        for i in range(self.layers):
+            conv = getattr(self, f"conv_{i}")
+            x = F.conv1d(x.to(dt).transpose(1, 2), conv.weight.to(dt),
+                         None if self.use_batch_norm else conv.bias.to(dt),
+                         padding=pad).transpose(1, 2)
+            if self.use_batch_norm:
+                x = getattr(self, f"bn_{i}")(x).to(dt)
+            if i != self.layers - 1:
+                x = torch.tanh(x)
+            x = F.dropout(x, self.dropout, self.training)
+        return x
+
+
+class SpeechDecoderPostnet(nn.Module):
+    def __init__(self, cfg: SpeechT5Config, dtype=torch.float32):
+        super().__init__()
+        self.cfg = cfg
+        r = cfg.reduction_factor
+        self.feat_out = Dense(cfg.d_model, cfg.n_mels * r, torch.float32)
+        self.prob_out = Dense(cfg.d_model, r, torch.float32)
+        sp = cfg.speech_postnet
+        self.postnet = None
+        if sp.postnet_layers > 0:
+            self.postnet = TacotronPostnet(
+                cfg.n_mels, sp.postnet_layers, sp.postnet_chans, sp.postnet_filts,
+                sp.postnet_dropout, sp.use_batch_norm, dtype)
+
+    def forward(self, z):
+        """z: [B, T_r, D] decoder features -> (before [B, T_r * r, n_mels],
+        after, stop_logits [B, T_r * r]), all f32."""
+        cfg = self.cfg
+        B, Tr, _ = z.shape
+        r = cfg.reduction_factor
+        before = self.feat_out(z).reshape(B, Tr * r, cfg.n_mels)
+        logits = self.prob_out(z).reshape(B, Tr * r)
+        after = before
+        if self.postnet is not None:
+            after = before + self.postnet(before).float()
+        return before, after, logits

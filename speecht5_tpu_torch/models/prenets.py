@@ -1,15 +1,18 @@
-"""Speech encoder prenet (waveform -> encoder input) and text decoder
-prenet (tokens -> decoder input).
+"""The modality prenets: speech encoder (waveform -> encoder input), text
+encoder (tokens -> encoder input), text decoder (tokens -> decoder input)
+and speech decoder (previous mel frames -> decoder input).
 
-Port of ``speecht5_tpu/models/prenets.py`` :34-427 (reference
-modules/speech_encoder_prenet.py:58-272, text_decoder_prenet.py): the
-wav2vec2 conv feature extractor, feature gradient scaling
-(``feature_grad_mult``), post-extract LayerNorm + 512->d projection,
-dropout, HuBERT time/channel masking on training passes, the weight-normed
-conv positional embedding and fairseq sinusoidal positions; the text
-decoder prenet in full-sequence mode (``.step`` arrives with the beam
-slice).  The text encoder and speech decoder prenets arrive with their
-slices.
+Port of ``speecht5_tpu/models/prenets.py`` :34-531 (reference
+modules/speech_encoder_prenet.py:58-272, text_encoder_prenet.py,
+text_decoder_prenet.py, speech_decoder_prenet.py): the wav2vec2 conv
+feature extractor, feature gradient scaling (``feature_grad_mult``),
+post-extract LayerNorm + 512->d projection, dropout, HuBERT time/channel
+masking on training passes, the weight-normed conv positional embedding and
+fairseq sinusoidal positions; the text encoder prenet (embedding + alpha x
+espnet positions); the text decoder prenet in full-sequence mode
+(``.step`` arrives with the beam slice); the speech decoder prenet
+(Tacotron2 prenet, projection, alpha x espnet positions, the ``pre``
+x-vector layer) in full-sequence mode.
 
 Parameters use torch layouts (Conv1d ``[C_out, C_in, k]``, Linear
 ``[out, in]``); ``utils/convert.from_jax_params`` maps the JAX trees.
@@ -24,7 +27,7 @@ from torch import nn
 from ..config import ConvFeatureConfig, SpeechT5Config
 from ..ops import cuda_kernels
 from ..ops.masking import apply_feature_masks, sample_feature_masks
-from ..ops.positional import fairseq_sinusoidal
+from ..ops.positional import espnet_sinusoidal, fairseq_sinusoidal
 from ..utils.masks import length_mask
 from .common import Dense, LayerNorm32
 
@@ -240,3 +243,100 @@ class TextDecoderPrenet(nn.Module):
         x = self.embed_tokens(tokens).to(self.dtype)
         x = x + fairseq_sinusoidal(valid, cfg.d_model, cfg.pad_id).to(self.dtype)
         return F.dropout(x, cfg.decoder.dropout, self.training), valid
+
+
+class TextEncoderPrenet(nn.Module):
+    """Embedding + espnet ScaledPositionalEncoding (alpha * pe) + dropout
+    (JAX prenets.py:377-400)."""
+
+    def __init__(self, cfg: SpeechT5Config, dtype=torch.float32):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = dtype
+        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.d_model)
+        self.alpha = nn.Parameter(torch.ones(1))
+
+    def forward(self, tokens):
+        """tokens: [B, T] -> (x [B, T, D], valid bool [B, T])."""
+        cfg = self.cfg
+        x = self.embed_tokens(tokens).to(self.dtype)
+        pe = espnet_sinusoidal(tokens.shape[1], cfg.d_model,
+                               device=tokens.device).to(self.dtype)
+        x = x + self.alpha.to(self.dtype) * pe[None]
+        x = F.dropout(x, cfg.encoder.dropout, self.training)
+        return x, tokens != cfg.pad_id
+
+
+class TacotronPrenet(nn.Module):
+    """Tacotron2 decoder prenet: Dense -> ReLU -> dropout blocks, the dropout
+    on in training AND in eval (espnet convention, config.py:185; JAX
+    prenets.py:445-468 applies it whenever it is given a ``prenet`` rng,
+    which its t2s step always gives).  Blocks ``layer_<i>``."""
+
+    def __init__(self, in_dim: int, layers: int, units: int, dropout: float,
+                 dtype=torch.float32):
+        super().__init__()
+        self.dropout = dropout
+        for i in range(layers):
+            self.add_module(f"layer_{i}", Dense(in_dim if i == 0 else units, units, dtype))
+        self.layers = layers
+
+    def forward(self, x, keep_masks=None):
+        """x: [B, T, in_dim] -> [B, T, units].  ``keep_masks``: one bool mask
+        [B, T, units] per block to use instead of drawing (the tests hand in
+        the JAX package's draws); otherwise the device generator draws, as
+        ``F.dropout`` does."""
+        for i in range(self.layers):
+            x = torch.relu(getattr(self, f"layer_{i}")(x))
+            if keep_masks is not None:
+                x = torch.where(keep_masks[i].to(x.device),
+                                x / (1.0 - self.dropout), torch.zeros((), dtype=x.dtype,
+                                                                      device=x.device))
+            else:
+                x = F.dropout(x, self.dropout, True)
+        return x
+
+
+class SpeechDecoderPrenet(nn.Module):
+    """Previous r-thinned mel frames -> decoder input (JAX prenets.py
+    :471-531): Tacotron prenet, ``proj`` to d_model, alpha x the espnet
+    table sliced at ``position_offset``, dropout, then with an x-vector and
+    ``spk_embed_integration == "pre"`` the L2-normalised x-vector
+    concatenated to every frame, ``spkembs_layer`` and ReLU."""
+
+    def __init__(self, cfg: SpeechT5Config, dtype=torch.float32):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = dtype
+        sp = cfg.speech_prenet
+        self.prenet = TacotronPrenet(cfg.n_mels, sp.layers, sp.units, sp.dropout, dtype)
+        self.proj = Dense(sp.units, cfg.d_model, dtype)
+        self.alpha = nn.Parameter(torch.ones(1))
+        self.spkembs_layer = None
+        if cfg.spk_embed_dim is not None and cfg.spk_embed_integration == "pre":
+            self.spkembs_layer = Dense(cfg.d_model + cfg.spk_embed_dim,
+                                       cfg.d_model, dtype)
+
+    def forward(self, prev_mel, tgt_lengths=None, spkembs=None, *,
+                position_offset: int = 0, keep_masks=None):
+        """prev_mel: [B, T, n_mels]; tgt_lengths: [B] or None; spkembs: [B,
+        spk_embed_dim] or None -> (x [B, T, D], valid bool [B, T] or None).
+        ``keep_masks``: the Tacotron prenet's masks (see TacotronPrenet)."""
+        cfg = self.cfg
+        x = self.prenet(prev_mel.to(self.dtype), keep_masks)
+        x = self.proj(x)
+        T = x.shape[1]
+        pe = espnet_sinusoidal(T, cfg.d_model, position_offset,
+                               device=x.device).to(self.dtype)
+        x = x + self.alpha.to(self.dtype) * pe[None]
+        x = F.dropout(x, cfg.decoder.dropout, self.training)
+        if spkembs is not None and self.spkembs_layer is not None:
+            s = spkembs.float()
+            s = s / torch.clamp_min(torch.linalg.vector_norm(s, dim=-1, keepdim=True),
+                                    1e-12)
+            s = s[:, None, :].to(self.dtype).expand(x.shape[0], T, s.shape[-1])
+            x = torch.relu(self.spkembs_layer(torch.cat([x, s], dim=-1)))
+        valid = None
+        if tgt_lengths is not None:
+            valid = length_mask(tgt_lengths.to(x.device), T)
+        return x, valid

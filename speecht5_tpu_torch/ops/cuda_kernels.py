@@ -21,6 +21,11 @@ loader that builds them.
   three kernels: ``banded_attention_train_fwd``,
   ``banded_attention_train_bwd_dq`` (dq and dband in one launch) and
   ``banded_attention_train_bwd_dkv``.
+- ``fused_log_mel`` (``csrc/log_mel.cu``): waveform -> log10-mel in one
+  pass, the DFT and mel products in f32 on the CUDA cores, the spectrum
+  kept on chip; replaces ``fused_log_mel`` (pallas_kernels.py:97, kernel
+  ``_mel_kernel`` :57, ``pallas_call`` :154).  No gradient: the TPU kernel
+  has none and the mel targets need none.
 
 Each wrapper takes its kernel's plain twin only because the tensors it was
 given lie on the CPU; on CUDA tensors it launches the kernel or raises.
@@ -43,8 +48,11 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .mel import _dft_matrices, hann_window, log_mel_spectrogram, mel_filterbank
 
 NEG_INF = -1e9
 
@@ -55,6 +63,7 @@ SOURCES = {
     "banded_attention": "banded_attention.cu",
     "banded_attention_train": "banded_attention_train.cu",
     "conv_stack": "conv_stack.cu",
+    "log_mel": "log_mel.cu",
 }
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
@@ -152,9 +161,14 @@ def _lib(name: str) -> ctypes.CDLL:
             for fn in (lib.bat_fwd_launch, lib.bat_bwd_dq_launch,
                        lib.bat_bwd_dkv_launch):
                 fn.restype = i
-        else:
+        elif name == "conv_stack":
             lib.conv_gelu_launch.argtypes = [vp] * 3 + [i] * 8 + [vp]
             lib.conv_gelu_launch.restype = i
+        else:
+            # wav, cos*win, sin*win, filterbank, out, then B, T, frames,
+            # n_fft, hop, n_mels, center, eps, stream
+            lib.log_mel_launch.argtypes = [vp] * 5 + [i] * 7 + [f, vp]
+            lib.log_mel_launch.restype = i
         _LIBS[name] = lib
     return lib
 
@@ -577,8 +591,83 @@ def banded_attention_train(q, k, v, pe_band, lengths=None, *,
                                        float(dropout_rate), int(seed))
 
 
+# ============================================================ fused log-mel
+
+# the kernel's limits (csrc/log_mel.cu): table rows are staged 32 at a time,
+# and a thread keeps at most 16 mel outputs of a 32-frame tile
+LOG_MEL_ROW_TILE = 32
+LOG_MEL_MAX_MELS = 128
+_MEL_TABLES: dict = {}
+
+
+# the plain twin: the all-product formulation in f32 (the caller keeps TF32
+# off on the card), [B, T] -> [B, frames, n_mels]
+fused_log_mel_plain = log_mel_spectrogram
+
+
+def log_mel_tables(n_fft: int, n_mels: int, sr: int, fmin: float, fmax: float,
+                   device) -> tuple:
+    """(cos*win, sin*win [n_fft, n_bins], filterbank [n_bins, n_mels]) f32
+    on ``device``, built once on the host (float64 bases cast to f32, the
+    window folded in as the TPU kernel does) and cached."""
+    key = (n_fft, n_mels, sr, float(fmin), float(fmax), str(device))
+    tables = _MEL_TABLES.get(key)
+    if tables is None:
+        win = hann_window(n_fft)[:, None]
+        cos_b, sin_b = _dft_matrices(n_fft)
+        fb = mel_filterbank(sr, n_fft, n_mels, fmin, fmax).T
+        tables = tuple(torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+                       for a in (cos_b * win, sin_b * win, fb))
+        _MEL_TABLES[key] = tables
+    return tables
+
+
+def fused_log_mel(wav, *, sr: int = 16000, n_fft: int = 1024, hop: int = 256,
+                  n_mels: int = 80, fmin: float = 80.0, fmax: float = 7600.0,
+                  eps: float = 1e-10, center: bool = True):
+    """[B, T] f32 waveform -> [B, frames, n_mels] f32 log10-mel, the contract
+    of the JAX package's ``fused_log_mel`` and ``log_mel_spectrogram``:
+    frames = 1 + T // hop with ``center`` (reflect pad n_fft // 2), else
+    1 + (T - n_fft) // hop (the caller reflect-padded each utterance).  One
+    kernel launch on CUDA tensors (hop | n_fft, n_fft a multiple of 32,
+    n_mels <= 128); the twin on CPU ones."""
+    if wav.device.type == "cpu":
+        return fused_log_mel_plain(wav, sr=sr, n_fft=n_fft, hop=hop, n_mels=n_mels,
+                                   fmin=fmin, fmax=fmax, eps=eps, center=center)
+    if wav.dim() != 2:
+        raise ValueError(f"wav must be [B, T], got {tuple(wav.shape)}")
+    if wav.dtype != torch.float32:
+        raise TypeError(f"wav must be float32, got {wav.dtype}")
+    _check_cuda(wav)
+    if n_fft % hop != 0:
+        raise ValueError(f"the kernel needs hop | n_fft; got n_fft={n_fft} hop={hop}")
+    if n_fft % LOG_MEL_ROW_TILE != 0 or not 0 < n_mels <= LOG_MEL_MAX_MELS:
+        raise ValueError(f"kernel limits: n_fft a multiple of {LOG_MEL_ROW_TILE}, "
+                         f"n_mels <= {LOG_MEL_MAX_MELS}; got {n_fft}, {n_mels}")
+    B, T = wav.shape
+    if center and T <= n_fft // 2:
+        raise ValueError(f"reflect padding needs T > n_fft // 2; got T={T}")
+    if not center and T < n_fft:
+        raise ValueError(f"center=False needs T >= n_fft; got T={T}")
+    n_frames = 1 + (T // hop if center else (T - n_fft) // hop)
+    cosw, sinw, fb = log_mel_tables(n_fft, n_mels, sr, fmin, fmax, wav.device)
+    out = torch.empty((B, n_frames, n_mels), dtype=torch.float32, device=wav.device)
+    stream = torch.cuda.current_stream(wav.device).cuda_stream
+    rc = _lib("log_mel").log_mel_launch(
+        wav.data_ptr(), cosw.data_ptr(), sinw.data_ptr(), fb.data_ptr(),
+        out.data_ptr(), B, T, n_frames, n_fft, hop, n_mels, int(bool(center)),
+        float(eps), stream)
+    _check_rc(rc, "fused_log_mel")
+    fused_log_mel.launches += 1
+    return out
+
+
+fused_log_mel.launches = 0
+
+
 WRAPPERS = (banded_flash_attention, conv_stack, banded_attention_train_fwd,
-            banded_attention_train_bwd_dq, banded_attention_train_bwd_dkv)
+            banded_attention_train_bwd_dq, banded_attention_train_bwd_dkv,
+            fused_log_mel)
 
 
 def reset_launch_counts():

@@ -1,8 +1,14 @@
-"""Speech-to-text loss (port of ``speecht5_tpu/train/criterions.py``
-:30-84): label-smoothed cross-entropy on the decoder plus weighted CTC on
-the encoder, token means with the JAX package's denominators (reference
-criterions/speech_to_text_loss.py:113-337).  The other tasks' losses arrive
-with their slices.
+"""Losses (port of ``speecht5_tpu/train/criterions.py``), means with the
+JAX package's denominators:
+
+- s2t (:30-84): label-smoothed cross-entropy on the decoder plus weighted
+  CTC on the encoder (reference criterions/speech_to_text_loss.py:113-337);
+- t2s (:133-217): Tacotron2 L1 (and L2) on the frames before and after the
+  postnet, BCE with pos_weight 5 on the stop logits, and the guided
+  attention loss on the cross weights (reference
+  criterions/text_to_speech_loss.py:72-427).
+
+The other tasks' losses arrive with their slices.
 """
 
 from __future__ import annotations
@@ -10,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.ctc import ctc_loss
+from ..utils.masks import length_mask
 
 
 def label_smoothed_ce(logits, targets, valid, eps: float = 0.1):
@@ -56,5 +63,70 @@ def s2t_loss(dec_logits, ctc_logits, enc_valid, targets, pad_id: int,
         ctc = nll_ctc.sum() / tgt_lengths.sum().clamp_min(1)
         loss = loss + ctc_weight * ctc
         metrics["ctc_loss"] = ctc
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+def guided_attention_loss(attn, enc_lengths, dec_lengths, sigma: float = 0.4,
+                          num_layers: int = 2, num_heads: int = 2):
+    """espnet GuidedAttentionLoss over the cross-attention maps of the first
+    ``num_layers`` layers x first ``num_heads`` heads (reference
+    text_to_speech_loss.py:370-427).  attn: [L, B, H, Tdec, Tenc]."""
+    attn = attn[:num_layers, :, :num_heads]
+    L, _, H, Td, Te = attn.shape
+    dev = attn.device
+    t_dec = torch.arange(Td, dtype=torch.float32, device=dev)[None, :, None]
+    t_enc = torch.arange(Te, dtype=torch.float32, device=dev)[None, None, :]
+    ilen = torch.clamp_min(enc_lengths, 1).float()[:, None, None]
+    olen = torch.clamp_min(dec_lengths, 1).float()[:, None, None]
+    w = 1.0 - torch.exp(-((t_enc / ilen - t_dec / olen) ** 2) / (2.0 * sigma ** 2))
+    valid = (t_dec < olen) & (t_enc < ilen)
+    w = torch.where(valid, w, torch.zeros((), device=dev))
+    num = (attn.float() * w[None, :, None]).sum()
+    return num / torch.clamp_min(valid.sum() * L * H, 1)
+
+
+def tts_loss(before, after, stop_logits, target_mel, dec_lengths, *,
+             reduction_factor: int = 2, bce_pos_weight: float = 5.0,
+             bce_loss_lambda: float = 1.0, loss_type: str = "L1", attn=None,
+             enc_lengths=None, use_guided_attn: bool = False,
+             guided_attn_lambda: float = 1.0, guided_attn_sigma: float = 0.4):
+    """Tacotron2 loss with the targets trimmed to a multiple of r (reference
+    text_to_speech_loss.py:162-169, 263-345).  before / after / target_mel
+    [B, T, n_mels]; stop_logits [B, T]; dec_lengths [B] full-rate frame
+    counts; attn [L, B, H, Td, Te] for the guided loss -> (loss, metrics
+    l1_loss, l2_loss, bce_loss[, enc_dec_attn_loss], loss)."""
+    T = before.shape[1]
+    r = reduction_factor
+    olens = dec_lengths - dec_lengths % r
+    mask = length_mask(olens, T)[..., None]
+    w = mask.float()
+    denom = torch.clamp_min(w.sum() * before.shape[-1], 1.0)
+    tgt = target_mel.float()
+    l1 = ((after - tgt).abs() * w).sum() / denom + ((before - tgt).abs() * w).sum() / denom
+    l2 = (((after - tgt) ** 2) * w).sum() / denom + (((before - tgt) ** 2) * w).sum() / denom
+
+    # stop label 1 at the last valid frame (reference :167-169)
+    pos = torch.arange(T, device=before.device)[None, :]
+    stop_labels = (pos == torch.clamp_min(olens - 1, 0)[:, None]).float()
+    z = stop_logits.float()
+    softplus_neg = torch.log1p(torch.exp(-z.abs()))
+    bce_el = (torch.clamp_min(z, 0.0) - z * stop_labels + softplus_neg
+              + (bce_pos_weight - 1.0) * stop_labels
+              * (softplus_neg + torch.clamp_min(-z, 0.0)))
+    wm = mask[..., 0].float()
+    bce = (bce_el * wm).sum() / torch.clamp_min(wm.sum(), 1.0)
+
+    if loss_type == "L1":
+        loss = l1 + bce_loss_lambda * bce
+    elif loss_type == "L2":
+        loss = l2 + bce_loss_lambda * bce
+    else:
+        loss = l1 + l2 + bce_loss_lambda * bce
+    metrics = {"l1_loss": l1, "l2_loss": l2, "bce_loss": bce}
+    if use_guided_attn and attn is not None:
+        ga = guided_attention_loss(attn, enc_lengths, olens // r, guided_attn_sigma)
+        loss = loss + guided_attn_lambda * ga
+        metrics["enc_dec_attn_loss"] = ga
     metrics["loss"] = loss
     return loss, metrics

@@ -1,8 +1,10 @@
-"""The s2t train step (port of the speech-to-text part of
-``speecht5_tpu/train/trainer.py`` :75-434).
+"""The s2t and t2s train steps (port of the speech-to-text and
+text-to-speech parts of ``speecht5_tpu/train/trainer.py`` :31-434).
 
 One update = ``accum_steps`` micro-batches (fairseq --update-freq), each a
-forward and backward of ``forward_s2t`` + ``s2t_loss``; the gradients are
+forward and backward of ``forward_s2t`` + ``s2t_loss`` or, for t2s,
+``device_mel_batch`` (the mel targets from the waveform, through the log-mel
+kernel on the card) + ``forward_t2s`` + ``tts_loss``; the gradients are
 averaged, then (as the JAX optax chain) clipped by their global norm and
 applied by AdamW:
 
@@ -17,7 +19,10 @@ applied by AdamW:
   starts lazily at release, which is what the JAX debias (trainer.py
   :373-391) emulates.  A parameter that the loss does not reach gets a zero
   gradient, as in JAX, so weight decay still applies to it;
-- ``grad_norm`` is the norm before clipping, the JAX metric.
+- ``grad_norm`` is the norm before clipping, the JAX metric;
+- the speech postnet's BatchNorm statistics move on every training
+  micro-batch, in order, as JAX threads its mutable ``batch_stats`` through
+  the micro-batches.
 
 The host-side random draws (HuBERT masks, layerdrop, the train kernel's
 dropout seeds) come from one CPU ``torch.Generator``; dropout of
@@ -30,8 +35,39 @@ from dataclasses import dataclass
 
 import torch
 
+from ..ops.cuda_kernels import fused_log_mel
 from . import criterions
 from .schedules import inverse_sqrt, polynomial_decay, tri_stage
+
+TASKS = ("s2t", "t2s")
+
+
+def device_mel_batch(batch, n_mels: int, r: int):
+    """The t2s mel targets from the collator's reflect-padded target
+    waveform (JAX trainer.py:31-62, t2s part): ``fused_log_mel`` with
+    center=False (each utterance was reflect-padded on the host, so valid
+    frames equal the per-utterance transform), frames past ``dec_lengths``
+    set to exact zeros, then the r-thinned frames shifted by a zero BOS
+    frame and masked by ``dec_lengths_r``.  Returns a new dict with
+    ``target_mel`` [B, F, n_mels] and ``prev_mel`` [B, F // r, n_mels] in
+    place of ``tgt_wav``; a batch without ``tgt_wav`` (host mels) is
+    returned as it is."""
+    if "tgt_wav" not in batch:
+        return batch
+    batch = dict(batch)
+    mel = fused_log_mel(batch.pop("tgt_wav"), n_mels=n_mels, center=False)
+    dev = mel.device
+    zero = torch.zeros((), device=dev)
+    frames = torch.arange(mel.shape[1], device=dev)[None, :]
+    valid = frames < batch["dec_lengths"].to(dev)[:, None]
+    mel = torch.where(valid[:, :, None], mel, zero)
+    thin = mel[:, r - 1::r]
+    prev = torch.cat([torch.zeros_like(thin[:, :1]), thin[:, :-1]], dim=1)
+    valid_r = (torch.arange(prev.shape[1], device=dev)[None, :]
+               < batch["dec_lengths_r"].to(dev)[:, None])
+    batch["target_mel"] = mel
+    batch["prev_mel"] = torch.where(valid_r[:, :, None], prev, zero)
+    return batch
 
 
 @dataclass(frozen=True)
@@ -50,6 +86,7 @@ class TrainConfig:
     ctc_weight: float = 0.0
     zero_infinity: bool = False
     label_smoothing: float = 0.1
+    use_guided_attn: bool = False
     freeze_encoder_updates: int = 0
     freeze_decoder_updates: int = 0
     no_freeze_encoder_layers: tuple = ()
@@ -66,16 +103,19 @@ def make_schedule(cfg: TrainConfig):
     return polynomial_decay(cfg.lr, cfg.warmup_steps, cfg.total_steps)
 
 
-# sub-nets covered by the reference freeze flags (JAX trainer.py:297-301)
+# sub-nets covered by the reference freeze flags (JAX trainer.py:286-292)
 _ENC_FREEZE_TOPS = ("speech_encoder_prenet",)
-_DEC_FREEZE_TOPS = ("decoder", "text_decoder_prenet", "text_decoder_postnet")
+_DEC_FREEZE_TOPS = (
+    "decoder", "speech_decoder_prenet", "speech_decoder_postnet",
+    "text_decoder_prenet", "text_decoder_postnet",
+)
 
 
 def freeze_horizon(name: str, cfg: TrainConfig) -> int:
     """Freeze horizon N of a parameter (0 = never frozen).  The encoder
     freeze covers the speech prenet and the encoder except its CTC
     projection and the exempt layers; the decoder freeze covers the decoder
-    and its text pre/postnets (JAX trainer.py:304-328)."""
+    and its four pre/postnets (JAX trainer.py:304-328)."""
     parts = name.split(".")
     top = parts[0]
     if cfg.freeze_encoder_updates:
@@ -92,11 +132,11 @@ def freeze_horizon(name: str, cfg: TrainConfig) -> int:
 
 
 class Trainer:
-    """s2t trainer: the model, its AdamW and the update count."""
+    """s2t / t2s trainer: the model, its AdamW and the update count."""
 
     def __init__(self, model, task: str, cfg: TrainConfig, *, generator=None):
-        if task != "s2t":
-            raise ValueError(f"task {task!r} is not ported; only 's2t' is")
+        if task not in TASKS:
+            raise ValueError(f"task {task!r} is not ported; only {TASKS} are")
         self.model = model
         self.cfg = cfg
         self.task = task
@@ -111,9 +151,14 @@ class Trainer:
                           else torch.Generator().manual_seed(0))
 
     def loss(self, batch):
-        """(loss, metrics) of one micro-batch: wav [B, T] f32, wav_lengths
-        [B] (CPU is best: the masks are drawn on the host), prev_tokens and
-        targets [B, L]."""
+        """(loss, metrics) of one micro-batch.  s2t: wav [B, T] f32,
+        wav_lengths [B] (CPU is best: the masks are drawn on the host),
+        prev_tokens and targets [B, L].  t2s: tokens [B, L], dec_lengths and
+        dec_lengths_r [B], spkembs [B, spk_dim] or absent, and either
+        tgt_wav [B, (F - 1) * hop + n_fft] (device mels) or target_mel /
+        prev_mel (host mels)."""
+        if self.task == "t2s":
+            return self._tts_loss(batch)
         mcfg = self.model.cfg
         cfg = self.cfg
         logits, ctc_logits, enc_valid = self.model.forward_s2t(
@@ -125,13 +170,31 @@ class Trainer:
             ctc_weight=cfg.ctc_weight, label_smoothing=cfg.label_smoothing,
             zero_infinity=cfg.zero_infinity)
 
+    def _tts_loss(self, batch):
+        """The t2s loss (JAX trainer.py:182-202)."""
+        mcfg = self.model.cfg
+        batch = device_mel_batch(batch, mcfg.n_mels, mcfg.reduction_factor)
+        before, after, stop_logits, attn = self.model.forward_t2s(
+            batch["tokens"], batch["prev_mel"], batch["dec_lengths_r"],
+            batch.get("spkembs"), generator=self.generator)
+        enc_lengths = (batch["tokens"] != mcfg.pad_id).sum(-1)
+        return criterions.tts_loss(
+            before, after, stop_logits, batch["target_mel"], batch["dec_lengths"],
+            reduction_factor=mcfg.reduction_factor, attn=attn,
+            enc_lengths=enc_lengths, use_guided_attn=self.cfg.use_guided_attn)
+
     @torch.no_grad()
     def eval_step(self, batch):
-        """Validation forward (no masking, dropout or layerdrop): the s2t
-        metrics with CTC always on, and the greedy CTC frame ids and frame
-        lengths for the caller's error rates (JAX trainer.py:505-545)."""
+        """Validation forward (no masking, dropout or layerdrop; the
+        BatchNorm reads its running statistics; the Tacotron prenet's
+        dropout stays on, as in JAX).  t2s: the ``tts_loss`` metrics.  s2t:
+        the s2t metrics with CTC always on, and the greedy CTC frame ids and
+        frame lengths for the caller's error rates (JAX trainer.py
+        :505-575)."""
         mcfg, cfg = self.model.cfg, self.cfg
         self.model.eval()
+        if self.task == "t2s":
+            return self._tts_loss(batch)[1]
         logits, ctc_logits, enc_valid = self.model.forward_s2t(
             batch["wav"], batch["wav_lengths"], batch["prev_tokens"], mask=False)
         _, metrics = criterions.s2t_loss(

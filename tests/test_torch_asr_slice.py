@@ -36,7 +36,7 @@ import chip_smoke
 import speecht5_tpu_torch.config as PC
 from speecht5_tpu_torch.decode.asr import CTCDecoder
 from speecht5_tpu_torch.models.speecht5 import init_model
-from speecht5_tpu_torch.utils.convert import from_jax_params
+from speecht5_tpu_torch.utils.convert import from_jax_batch_stats, from_jax_params
 
 torch.backends.cuda.matmul.allow_tf32 = False
 ATOL = 2e-4
@@ -49,17 +49,30 @@ def _wav(B, T, seed=0):
 
 
 def _init_jax(cfg, T=4000):
-    """Parameters of every sub-net the port has (the s2t forward's)."""
+    """Parameters (and BatchNorm statistics) of every sub-net the port has:
+    the s2t and t2s forwards'."""
+    def both(m, wav, lens, prev, tokens, prev_mel, tgt_lengths, spk):
+        m.forward_t2s(tokens, prev_mel, tgt_lengths, spk, deterministic=True)
+        return m.forward_s2t(wav, lens, prev, mask=False, deterministic=True)
+
     wav = jnp.zeros((1, T), jnp.float32)
     lens = jnp.full((1,), T, jnp.int32)
     prev = jnp.full((1, 4), cfg.eos_id, jnp.int32)
-    return JModel(cfg).init({"params": jax.random.PRNGKey(0)}, wav, lens, prev,
-                            mask=False, deterministic=True, method="forward_s2t")
+    return JModel(cfg).init(
+        {"params": jax.random.PRNGKey(0)}, wav, lens, prev, prev,
+        jnp.zeros((1, 2, cfg.n_mels)), jnp.full((1,), 2, jnp.int32),
+        jnp.ones((1, cfg.spk_embed_dim)), method=both)
 
 
-def _flat(variables):
+def _flat(variables, collection="params"):
     return {k: np.asarray(v) for k, v in
-            flatten_dict(variables["params"], sep="/").items()}
+            flatten_dict(variables[collection], sep="/").items()}
+
+
+def _state_dict(variables):
+    """The port state dict of JAX variables: parameters and BN statistics."""
+    return {**from_jax_params(_flat(variables)),
+            **from_jax_batch_stats(_flat(variables, "batch_stats"))}
 
 
 def _port(overrides=(), base=None, **kw):
@@ -73,7 +86,7 @@ def tiny():
     parameters flattened for the port."""
     cfg = JC.speecht5_tiny(**chip_smoke.DICT_CFG)
     variables = _init_jax(cfg)
-    return cfg, variables, from_jax_params(_flat(variables))
+    return cfg, variables, _state_dict(variables)
 
 
 @pytest.mark.parametrize("preset", ["speecht5_base", "speecht5_base_asr",
@@ -188,7 +201,7 @@ def test_base_width_one_layer_matches_jax():
     pcfg = PC.apply_overrides(PC.speecht5_base_asr(**kw),
                               KERNEL_FLAGS + ["encoder.num_layers=1"])
     model = init_model(pcfg, device="cpu")
-    model.load_state_dict(from_jax_params(_flat(variables)))
+    model.load_state_dict(_state_dict(variables))
     wav, lens = _wav(1, 6400, seed=3), np.array([6400], np.int32)
     jm = JModel(jcfg)
     jenc = jm.apply(variables, jnp.asarray(wav), jnp.asarray(lens),

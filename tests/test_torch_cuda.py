@@ -1,13 +1,15 @@
 """The port's CUDA kernels against their plain twins, on the card, the
-train kernels and the conv stack's gradient included, and the inference
-kernel's refusal to drop a gradient.
+train kernels, the conv stack's gradient and the log-mel kernel included,
+the inference kernel's refusal to drop a gradient and the wrappers'
+refusals of inputs their kernels do not take.
 
 Marked ``cuda``; each test skips when no card is present.  This file
 imports neither JAX nor the JAX package, so on a machine without JAX it
 runs with ``python -m pytest --noconftest -q tests/test_torch_cuda.py``.
 
 Tolerances: f32 1e-4 absolute (sums in another order); bf16 3e-2 of
-max |ref| (one bf16 rounding of probabilities or activations).
+max |ref| (one bf16 rounding of probabilities or activations); log10-mel
+2e-3 absolute (the JAX spec's).
 """
 
 import pytest
@@ -24,6 +26,7 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -139,3 +142,48 @@ def test_conv_stack_gradient_is_the_twin_vjp(card):
     K.conv_stack_plain(refs[0], refs[1:], specs).backward(cot)
     for a, b in zip(leaves, refs):
         _close(a.grad, b.grad, torch.float32)
+
+
+@pytest.mark.parametrize("B,T,n_fft,hop,n_mels,center", [
+    (2, 16000, 512, 128, 24, True),        # tests/test_pallas_kernels.py:15
+    (1, 5000, 512, 128, 24, True),         # frames not a multiple of the tile
+    (3, 767 * 256 + 1024, 1024, 256, 80, False),   # the t2s step's rows
+    (2, 4000, 1024, 256, 128, False),      # the most mels a thread tile holds
+])
+def test_log_mel_kernel_matches_twin(card, B, T, n_fft, hop, n_mels, center):
+    """One launch against the twin (f32, TF32 off), atol 2e-3 on log10-mel
+    (the JAX spec's, tests/test_pallas_kernels.py:23); a zero tail gives the
+    floor exactly."""
+    g = torch.Generator().manual_seed(T + n_mels)
+    wav = torch.randn(B, T, generator=g) * 0.2
+    wav[-1, T // 2:] = 0.0
+    wav = wav.to(card)
+    kw = dict(n_fft=n_fft, hop=hop, n_mels=n_mels, center=center)
+    before = K.fused_log_mel.launches
+    got = K.fused_log_mel(wav, **kw)
+    assert K.fused_log_mel.launches == before + 1
+    ref = K.fused_log_mel_plain(wav, **kw)
+    torch.cuda.synchronize()
+    frames = 1 + (T // hop if center else (T - n_fft) // hop)
+    assert got.shape == ref.shape == (B, frames, n_mels) and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= 2e-3
+    assert (got[-1, -2:] == -10.0).all()
+
+
+def test_log_mel_wrapper_rejects_what_the_kernel_does_not_take(card):
+    wav = torch.zeros(2, 8000, device=card)
+    before = K.fused_log_mel.launches
+    with pytest.raises(TypeError):
+        K.fused_log_mel(wav.double())
+    with pytest.raises(ValueError):
+        K.fused_log_mel(torch.zeros(8000, 2, device=card).t())      # strided
+    with pytest.raises(ValueError):
+        K.fused_log_mel(wav, n_fft=1024, hop=384)                   # hop does not divide
+    with pytest.raises(ValueError):
+        K.fused_log_mel(wav, n_mels=129)
+    with pytest.raises(ValueError):
+        K.fused_log_mel(wav[:, :1000], center=False)                # shorter than n_fft
+    with pytest.raises(ValueError):
+        K.fused_log_mel(wav[0])                                     # not [B, T]
+    assert K.fused_log_mel.launches == before

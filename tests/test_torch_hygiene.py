@@ -146,3 +146,42 @@ def test_chip_smoke_fails_without_card_or_repo(tmp_path):
     out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0 and '"ok": true' not in out.stdout
+
+
+def test_chip_smoke_t2s_phases_run_on_cpu_with_twins():
+    """The t2s train phase (cli/train.main --task t2s with device mels,
+    resume) and the t2s parity phase at the tiny preset on the CPU: the
+    twins run, so no launches; every text-encoder layer runs once per
+    micro-batch (the tiny preset has no layerdrop)."""
+    flags = ["--guided-attn", "--batch-size", "2", "--accum", "2"]
+    trained = chip_smoke.phase_train_t2s("speecht5_tiny", device="cpu", n_utts=4,
+                                         updates=2, seconds=(0.3, 0.8), flags=flags)
+    assert set(trained["counts"].values()) == {0}
+    assert trained["micro_batches"] == 4 and trained["layer_runs"] == 2 * 4
+    assert len(trained["history"]) == 3
+    with pytest.raises(AssertionError, match="t2s path launches wrong"):
+        chip_smoke.check_t2s_counts(trained)     # the card's launch check
+    parity = chip_smoke.phase_t2s_parity(C.speecht5_tiny(), device="cpu", batch=2,
+                                         seconds=(0.3, 0.8))
+    assert parity["mel_max_abs_err"] == 0.0 and parity["loss_rel_diff"] < 1e-6
+
+
+def test_chip_smoke_kernels_line_lists_every_kernel():
+    assert set(chip_smoke.KERNELS) == {fn.__name__ for fn in K.WRAPPERS}
+    assert set(chip_smoke.MAIN_CASE) == set(chip_smoke.KERNELS)
+    for meta in chip_smoke.KERNELS.values():
+        assert (REPO / meta["source"]).is_file()
+    rec = {"max_abs_err": 0.0, "ms": 1.0, "plain_ms": 1.0, "bound_ms": 0.1,
+           "bound_by": "operations", "library_ms": None, "tolerance": "atol 0",
+           "shape": {}}
+    records = {n: {case: rec} for n, case in chip_smoke.MAIN_CASE.items()}
+    by_path = {"a": {n: 1 for n in chip_smoke.KERNELS}, "b": {n: 2 for n in chip_smoke.KERNELS}}
+    line = chip_smoke.kernels_line(records, {n: 3 for n in chip_smoke.KERNELS}, by_path)
+    assert len(line["kernels"]) == 6
+    for k in line["kernels"]:
+        assert k["route"] == "cuda" and k["launches"] == 3
+        assert k["launches_by_path"] == {"a": 1, "b": 2}
+        assert {"name", "source", "replaces", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms"} <= set(k)
+    mel = [k for k in line["kernels"] if k["name"] == "fused_log_mel"][0]
+    assert mel["dtype"] == "float32" and mel["replaces"].endswith("pallas_kernels.py:154")

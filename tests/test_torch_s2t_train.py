@@ -51,7 +51,7 @@ from speecht5_tpu_torch.ops.masking import apply_feature_masks, compute_span_mas
 from speecht5_tpu_torch.train import criterions as PCr
 from speecht5_tpu_torch.train import schedules as PS
 from speecht5_tpu_torch.train import trainer as PT
-from speecht5_tpu_torch.utils.convert import from_jax_params
+from speecht5_tpu_torch.utils.convert import from_jax_batch_stats, from_jax_params
 
 torch.backends.cuda.matmul.allow_tf32 = False
 DETERMINISTIC = ["masking.mask_prob=0.0", "encoder.layerdrop=0.0",
@@ -77,9 +77,16 @@ def _flat(params):
     return {k: np.asarray(v) for k, v in flatten_dict(params, sep="/").items()}
 
 
+def _init_both(m, wav, lens, prev, prev_mel, tgt_lengths, spk):
+    """Create the parameters of the t2s and s2t forwards (every sub-net the
+    port has)."""
+    m.forward_t2s(prev, prev_mel, tgt_lengths, spk, deterministic=True)
+    return m.forward_s2t(wav, lens, prev, mask=False, deterministic=True)
+
+
 def _setup(overrides=(), **kw):
-    """JAX model + variables (initialised through forward_s2t) and the port
-    model with the same weights."""
+    """JAX model + variables (initialised through forward_s2t and
+    forward_t2s) and the port model with the same weights."""
     kw = {**chip_smoke.DICT_CFG, **kw}
     ov = DETERMINISTIC + list(overrides)
     jcfg = JC.apply_overrides(JC.speecht5_tiny(**kw), ov)
@@ -87,10 +94,13 @@ def _setup(overrides=(), **kw):
     variables = jm.init(
         {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, T_WAV)),
         jnp.full((1,), T_WAV, jnp.int32), jnp.full((1, 4), 2, jnp.int32),
-        mask=False, deterministic=True, method="forward_s2t")
+        jnp.zeros((1, 2, jcfg.n_mels)), jnp.full((1,), 2, jnp.int32),
+        jnp.ones((1, jcfg.spk_embed_dim)), method=_init_both)
     pcfg = PC.apply_overrides(PC.speecht5_tiny(**kw), ov)
     model = init_model(pcfg, device="cpu")
-    model.load_state_dict(from_jax_params(_flat(variables["params"])), strict=True)
+    model.load_state_dict({**from_jax_params(_flat(variables["params"])),
+                           **from_jax_batch_stats(_flat(variables["batch_stats"]))},
+                          strict=True)
     return jcfg, jm, variables, pcfg, model
 
 
@@ -356,5 +366,5 @@ def test_cli_train_runs_resumes_and_validates_on_cpu(tmp_path, capsys):
         "best", "checkpoint_2.pt", "checkpoint_3.pt"]
     assert sorted(os.listdir(f"{d}/ckpt/best")) == ["best.json", "checkpoint_3.pt"]
     with pytest.raises(SystemExit, match="not ported"):
-        cli_train.main(["--task", "t2s", "--manifest", "m", "--save-dir", d,
+        cli_train.main(["--task", "s2s", "--manifest", "m", "--save-dir", d,
                         "--device", "cpu"])

@@ -1,14 +1,20 @@
 #!/usr/bin/env python3
-"""Where an s2t train update's time goes on the card, for the PyTorch port.
+"""Where a train update's time goes on the card, for the PyTorch port.
 
-    python3 torch_train_profile.py
+    python3 torch_train_profile.py [--task s2t|t2s|all]
 
-Builds the train step of ``chip_smoke.py``'s train phase (SpeechT5-Base ASR
-at full width, random weights from a seed, bf16, the recipe's loss weights,
-accum 2 x batch 16 of 8-16 s utterances) once with the train-attention and
-conv kernels on and once with the flags off (the plain PyTorch path), times
-one update (median of 3, after one warm-up update), then profiles one more
-with ``torch.profiler``.  Prints one JSON line per path: update wall time
+s2t (the default) builds the train step of ``chip_smoke.py``'s train phase
+(SpeechT5-Base ASR at full width, random weights from a seed, bf16, the
+recipe's loss weights, accum 2 x batch 16 of 8-16 s utterances); t2s that of
+its t2s phase (SpeechT5-Base at full width, bf16, guided attention, batch 16
+of 2-10 s utterances with x-vectors, 768 mel frames and 192 token slots).
+Each is built once with the kernels on (s2t: train attention and conv
+stack; t2s: the log-mel kernel making the targets from the waveform inside
+the update, and train attention) and once with the flags off (the plain
+PyTorch path; for t2s the log-mel twin makes the targets on the card
+inside the update, in the kernel's place, with TF32 off),
+times one update (median of 3, after one warm-up update), then profiles one
+more with ``torch.profiler``.  Prints one JSON line per path: update wall time
 (host clock, ending in a synchronize), the card's busy time (the union of
 the kernels' intervals in the trace) and idle share, launches of the port's
 kernels and the kernels that take the most device time.  Prints the card's
@@ -17,9 +23,12 @@ name and power limit first.  Needs a card.
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import json
 import time
 from collections import defaultdict
+from unittest import mock
 
 import numpy as np
 import torch
@@ -29,15 +38,24 @@ import chip_smoke as S
 from speecht5_tpu_torch import config as C
 from speecht5_tpu_torch.models.speecht5 import init_model
 from speecht5_tpu_torch.ops import cuda_kernels as K
+from speecht5_tpu_torch.train import trainer as T
 from speecht5_tpu_torch.train.trainer import Trainer, TrainConfig
 
 REPS = 3
 
 
+def device_events(prof):
+    """The device's kernels and copies in the trace; user annotations that
+    PyTorch also puts on the device timeline (e.g. "Optimizer.step#AdamW.step",
+    a span around many kernels) are not device work and are left out."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def busy_ms(prof) -> float:
     """Union of the device kernels' intervals (overlaps counted once)."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device_events(prof))
     total, cur_s, cur_e = 0, None, None
     for s, e in spans:
         if cur_e is None or s > cur_e:
@@ -51,15 +69,35 @@ def busy_ms(prof) -> float:
     return total / 1e3
 
 
-def profile_path(kernels: bool, seed: int = 0):
-    cfg = C.replace(C.speecht5_base_asr(), dtype="bfloat16", **S.DICT_CFG)
+def _step_inputs(task: str, kernels: bool, seed: int):
+    """(cfg, TrainConfig, micro-batches) of the task's chip_smoke phase."""
+    if task == "s2t":
+        cfg = C.replace(C.speecht5_base_asr(), dtype="bfloat16", **S.DICT_CFG)
+        if kernels:
+            cfg = C.apply_overrides(cfg, S.TRAIN_OVERRIDES)
+        mbs = [S.synthetic_batch(cfg, 16, seed=seed + 100 * m) for m in range(2)]
+        return cfg, TrainConfig(ctc_weight=0.5, accum_steps=2), mbs
+    cfg = C.replace(C.speecht5_base(), dtype="bfloat16", **S.DICT_CFG)
     if kernels:
-        cfg = C.apply_overrides(cfg, S.TRAIN_OVERRIDES)
+        cfg = C.apply_overrides(cfg, S.T2S_OVERRIDES)
+    b = S.synthetic_t2s_batch(cfg, 16, seed=seed)
+    return cfg, TrainConfig(use_guided_attn=True, warmup_steps=10000), [b]
+
+
+def profile_path(task: str, kernels: bool, seed: int = 0):
+    """One path's record; the plain t2s path runs with the log-mel twin in
+    the kernel's place inside the update."""
+    with (contextlib.nullcontext() if kernels or task != "t2s" else
+          mock.patch.object(T, "fused_log_mel", K.fused_log_mel_plain)):
+        return _profile_path(task, kernels, seed)
+
+
+def _profile_path(task: str, kernels: bool, seed: int):
     torch.manual_seed(seed)
+    cfg, tcfg, mbs = _step_inputs(task, kernels, seed)
     model = init_model(cfg, torch.Generator().manual_seed(seed), "cuda")
-    trainer = Trainer(model, "s2t", TrainConfig(ctc_weight=0.5, accum_steps=2),
+    trainer = Trainer(model, task, tcfg,
                       generator=torch.Generator().manual_seed(seed + 7))
-    mbs = [S.synthetic_batch(cfg, 16, seed=seed + 100 * m) for m in range(2)]
     trainer.train_step(mbs)
     walls = []
     for _ in range(REPS):
@@ -77,14 +115,14 @@ def profile_path(kernels: bool, seed: int = 0):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = defaultdict(lambda: [0.0, 0])
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[evt.name][0] += evt.time_range.elapsed_us() / 1e3
-            by_name[evt.name][1] += 1
+    for evt in device_events(prof):
+        by_name[evt.name][0] += evt.time_range.elapsed_us() / 1e3
+        by_name[evt.name][1] += 1
     busy = busy_ms(prof)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]
     return {
-        "path": "kernels" if kernels else "plain", "accum": 2, "batch": 16,
+        "task": task, "path": "kernels" if kernels else "plain",
+        "accum": tcfg.accum_steps, "batch": 16,
         "update_wall_ms_median": float(np.median(walls)), "update_wall_ms_reps": walls,
         "profiled_wall_ms": wall_ms, "device_busy_ms": busy,
         "device_idle_share": (1.0 - busy / wall_ms) if busy else None,
@@ -95,13 +133,20 @@ def profile_path(kernels: bool, seed: int = 0):
 
 
 def main():
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--task", default="s2t", choices=("s2t", "t2s", "all"))
+    args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_train_profile: needs an NVIDIA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     print(S.card_line(), flush=True)
-    for kernels in (True, False):
-        torch.cuda.reset_peak_memory_stats()
-        print(json.dumps(profile_path(kernels)), flush=True)
-        torch.cuda.empty_cache()
+    for task in (("s2t", "t2s") if args.task == "all" else (args.task,)):
+        for kernels in (True, False):
+            torch.cuda.reset_peak_memory_stats()
+            print(json.dumps(profile_path(task, kernels)), flush=True)
+            torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
