@@ -5,9 +5,9 @@
 
 Phases, each timed; any failure raises and the exit code is non-zero:
 
-1. build    -- compile the four CUDA sources with nvcc for sm_90a from this
+1. build    -- compile the five CUDA sources with nvcc for sm_90a from this
                checkout, one nvcc each, all started together.
-2. kernels  -- hold each of the six kernels against its plain PyTorch twin
+2. kernels  -- hold each of the seven kernels against its plain PyTorch twin
                on the card and time kernel, twin and one PyTorch library call
                that computes the same function (a yardstick only):
                the inference attention and the conv stack at SpeechT5-Base
@@ -18,7 +18,10 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                0.1 at a fixed seed; the log-mel kernel at the t2s step's
                batch ([16, 197376] reflect-padded rows, center=False, 80
                mels: 768 frames) and at [2, 48000] with center=True, f32,
-               atol 2e-3 (the JAX spec's, tests/test_pallas_kernels.py:23).
+               atol 2e-3 (the JAX spec's, tests/test_pallas_kernels.py:23);
+               the decode-step attention at the beam's two shapes (grouped
+               cross-attention N 12, Tq 5, Tk 799; cached self-attention N
+               60, Tq 1, Tk 201), f32 and bf16.
 3. serve    -- the serving path: the port's ASR Service (ctc_greedy, bf16,
                both inference kernels on) at full speecht5_base_asr width
                with random weights, answering 3 s, 11 s and 21 s requests in
@@ -27,7 +30,18 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                kernels and with the flags off: the CTC frame ids must agree
                (a differing frame is tolerated only where the top-2 logit gap
                is < 1e-4, and on under 0.1% of frames).
-5. train    -- the training path: ``cli/train.main`` with the ASR fine-tune
+5. serve beam -- the beam arm, Service(--decoder beam: beam 5, max_len
+               200, CTC weight 0.3) at speecht5_base_asr, bf16, batch 1,
+               every kernel on (decoder.use_pallas_attn too), warming each
+               bucket (random weights: every warm-up and chunk runs all 200
+               steps) and serving the 3 s, 11 s and 21 s requests; per
+               request the decode steps and each kernel's launches: the
+               decode-step kernel 12 a step (6 layers x self + cross), the
+               inference attention 12 and the conv stack 6 a chunk.
+6. beam parity -- f32 weights through Service(--decoder beam) with every
+               kernel flag on and off, chunk by chunk (see
+               ``phase_beam_parity``).
+7. train    -- the training path: ``cli/train.main`` with the ASR fine-tune
                recipe's flags (recipes/asr_finetune.sh: CTC weight 0.5,
                label smoothing 0.1, accum 2, batch 16, bf16, --normalize,
                the train-attention kernel and the conv kernel on) on
@@ -37,13 +51,13 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                more.  Every loss and grad norm must be finite; each train
                kernel must launch once per encoder layer run (layerdrop
                skips some), and the inference kernel never.
-6. train parity -- one micro-batch in f32 with dropout, layerdrop and
+8. train parity -- one micro-batch in f32 with dropout, layerdrop and
                masking at 0, same weights, kernel route against the plain
                route: loss within 1e-4 relative, every parameter gradient
                within 1e-3 of that parameter's max |g| (the k_proj biases,
                whose gradient is analytically 0, within 1e-6 of the largest
                gradient).
-7. train t2s -- the TTS fine-tune path: ``cli/train.main --task t2s`` with
+9. train t2s -- the TTS fine-tune path: ``cli/train.main --task t2s`` with
                the recipe's flags (recipes/tts_finetune.sh: guided
                attention, lr 1e-4, warmup 10000, batch 16, bf16, x-vectors,
                mel targets on the card, the train-attention kernel on) on
@@ -54,20 +68,20 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                must be finite; the log-mel kernel must launch once per
                micro-batch, each train kernel once per text-encoder layer
                run, the inference and conv kernels never.
-8. t2s parity -- one f32 micro-batch with every dropout, the Tacotron
+10. t2s parity -- one f32 micro-batch with every dropout, the Tacotron
                prenet's and layerdrop at 0, same weights, kernel route (log
                mel and train attention on the card) against the plain route
                (the twins' mels, plain attention): target_mel within 2e-3,
                loss within 1e-4 relative, every parameter gradient within
                1e-3 of that parameter's max |g| (k_proj biases as in 6).
 
-The launch counts are zeroed just before each driven path (serve, train,
-train t2s) and read just after; a kernel of that path that was never
-launched fails.
+The launch counts are zeroed just before each driven path (serve, serve
+beam, train, train t2s) and read just after; a kernel of that path that was
+never launched fails.
 Output: an early line with the card's name and power limit as nvidia-smi
 gives them, one ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  A watchdog ends a hung run with a
-traceback after 900 s.  The script opens no socket; the training loop's
+traceback after 1100 s.  The script opens no socket; the training loop's
 data prefetch thread ends with each run.
 """
 
@@ -99,7 +113,7 @@ from speecht5_tpu_torch.ops import cuda_kernels as K
 from speecht5_tpu_torch.ops.mel import mel_filterbank
 from speecht5_tpu_torch.train.trainer import Trainer, TrainConfig, device_mel_batch
 
-WATCHDOG_S = 900
+WATCHDOG_S = 1100
 # published peaks of one H100 SXM (dense): bf16 tensor cores, f32 outside
 # the tensor cores, and HBM3 bandwidth
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -129,16 +143,25 @@ KERNELS = {
         "source": "speecht5_tpu_torch/csrc/log_mel.cu",
         "replaces": "speecht5_tpu/ops/pallas_kernels.py:154",
     },
+    "flash_attention_bias": {
+        "source": "speecht5_tpu_torch/csrc/flash_attention_bias.cu",
+        "replaces": "speecht5_tpu/ops/pallas_kernels.py:624",
+    },
 }
 TRAIN_KERNELS = ("banded_attention_train_fwd", "banded_attention_train_bwd_dq",
                  "banded_attention_train_bwd_dkv")
 # the case of each kernel that its path runs: the served chunk (bf16, batch
-# 1), the recipe's train step (bf16, attention dropout 0.1) and the t2s
-# step's mel targets (f32, 16 rows of 768 frames)
+# 1), the recipe's train step (bf16, attention dropout 0.1), the t2s step's
+# mel targets (f32, 16 rows of 768 frames) and the beam's grouped
+# cross-attention step (bf16, batch 1, beam 5)
 MAIN_CASE = {"banded_flash_attention": "bfloat16/b1", "conv_stack": "bfloat16/b1",
              **{n: "bfloat16/r0.1" for n in TRAIN_KERNELS},
-             "fused_log_mel": "float32/b16"}
+             "fused_log_mel": "float32/b16", "flash_attention_bias": "bfloat16/cross"}
 KERNEL_OVERRIDES = ["encoder.use_pallas_attn=True", "conv_features.impl='pallas'"]
+# the beam arm's decode steps through flash_attention_bias as well
+BEAM_OVERRIDES = KERNEL_OVERRIDES + ["decoder.use_pallas_attn=True"]
+# cli/serve.py's beam defaults (JAX cli/serve.py:549-551)
+BEAM, BEAM_MAX_LEN = 5, 200
 TRAIN_OVERRIDES = ["encoder.use_pallas_attn_train=True", "conv_features.impl='pallas'"]
 # recipes/asr_finetune.sh (the flags of the s2t path; its lr/warmup/updates
 # and --finetune-from are the run's, not the step's)
@@ -205,15 +228,17 @@ def write_dictionary(directory: str) -> str:
     return path
 
 
-def serve_config(base: C.SpeechT5Config, dtype: str, kernels: bool):
+def serve_config(base: C.SpeechT5Config, dtype: str, kernels: bool,
+                 overrides=KERNEL_OVERRIDES):
     cfg = C.replace(base, dtype=dtype, **DICT_CFG)
-    return C.apply_overrides(cfg, KERNEL_OVERRIDES) if kernels else cfg
+    return C.apply_overrides(cfg, overrides) if kernels else cfg
 
 
-def make_service(cfg, model, dict_path, device, buckets):
+def make_service(cfg, model, dict_path, device, buckets, decoder="ctc_greedy",
+                 max_len=BEAM_MAX_LEN):
     args = build_parser().parse_args([
         "--ckpt", "random-init", "--dict", dict_path,
-        "--decoder", "ctc_greedy", "--max-batch", "1",
+        "--decoder", decoder, "--max-batch", "1", "--max-len", str(max_len),
         "--asr-buckets", buckets, "--dtype", cfg.dtype,
     ])
     return Service(args, model=model, cfg=cfg, device=device)
@@ -251,18 +276,29 @@ def phase_build():
 
 
 def time_ms(fn, reps: int = 20) -> float:
-    """Median of ``reps`` single-call CUDA-event timings after one warm-up."""
+    """Per-call time: the median over ``reps`` samples, each a run of
+    back-to-back calls between one pair of CUDA events, divided by the
+    calls.  The calls per sample are set from a timed warm-up so that a
+    sample lasts about 2 ms: a call of tens of microseconds is then timed
+    as the card runs it in a stream, not with one event pair's and one
+    host round trip's overhead on top."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
     fn()
     torch.cuda.synchronize()
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    calls = int(min(200, max(1, 2.0 // max(a.elapsed_time(b), 1e-3))))
     times = []
     for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(calls):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / calls)
     return float(np.median(times))
 
 
@@ -524,12 +560,67 @@ def _mel_record(batch, samples, center, n_mels=80, n_fft=1024, hop=256):
     }
 
 
+def flash_bias_case(case, dtype, device="cuda", seed=4):
+    """The beam's decode-step shapes at batch 1, beam 5, Dh 64: "cross",
+    the grouped cross-attention of a 16 s chunk (N = 12 heads, G = 5 beam
+    queries, Tk = 799 frames, the 11 s request's 549 valid); "self", the
+    cached self-attention at step 100 of max_len 200 (N = 5 x 12 rows, one
+    query, Tk = 201 cache positions, the causal 101 valid).  The key mask
+    comes as the path gives it: one row per sample (cross, [1, Tk]) or per
+    beam row (self, [5, Tk]), each serving its 12 heads."""
+    g = torch.Generator().manual_seed(seed)
+    N, Tq, Tk, valid, mask_rows = {"cross": (12, 5, 799, 549, 1),
+                                   "self": (60, 1, 201, 101, 5)}[case]
+    q = (torch.randn(N, Tq, 64, generator=g) * 64 ** -0.5).to(dtype)
+    k, v = (torch.randn(N, Tk, 64, generator=g).to(dtype) for _ in range(2))
+    key_valid = (torch.arange(Tk) < valid)[None, :].expand(mask_rows, Tk).contiguous()
+    return [t.to(device) for t in (q, k, v, key_valid)]
+
+
+def _flash_bias_record(case, dtype):
+    q, k, v, key_valid = flash_bias_case(case, dtype)
+    N, Tq, D = q.shape
+    Tk = k.shape[1]
+    got = K.flash_attention_bias(q, k, v, None, key_valid)
+    ref = K.flash_attention_bias_plain(q, k, v, None, key_valid)
+    torch.cuda.synchronize()
+    err, tol, ok = _check(dtype, got, ref)
+    # what the function needs: q and out, the K and V of the valid keys
+    # (an invalid key's weight is exp(-1e9 - m) = 0 once a row has a valid
+    # key, so its K and V are never needed) and the mask, each once; flops:
+    # q.k and p.v over the valid keys
+    valid_keys = key_valid.sum().item() * (N // key_valid.shape[0])
+    nbytes = (2 * N * Tq * D + 2 * D * valid_keys) * q.element_size() + key_valid.numel()
+    flops = 4.0 * Tq * D * valid_keys
+    bound_ms, bound_by = _bound(nbytes, flops, dtype)
+    full_mask = key_valid.repeat_interleave(N // key_valid.shape[0], 0)
+    mask = torch.where(full_mask[:, None, :], 0.0, K.NEG_INF).expand(N, Tq, Tk)
+    call = "F.scaled_dot_product_attention(attn_mask=f32 0/-1e9, scale=1)"
+    try:
+        F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0)
+    except RuntimeError:    # a backend that wants the mask in q's dtype
+        mask = mask.to(dtype)
+        call = call.replace("f32", str(dtype).split(".")[-1])
+    return ok, {
+        "max_abs_err": err, "tolerance": tol,
+        "ms": time_ms(lambda: K.flash_attention_bias(q, k, v, None, key_valid)),
+        "plain_ms": time_ms(lambda: K.flash_attention_bias_plain(q, k, v, None, key_valid)),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=1.0)),
+        "library_call": call, "bound_ms": bound_ms, "bound_by": bound_by,
+        "shape": {"N": N, "Tq": Tq, "Tk": Tk, "D": D,
+                  "valid_keys": int(key_valid[0].sum().item())},
+    }
+
+
 def phase_kernels():
     """The inference kernels against their twins at batch 1 (what a served
     16 s chunk gives them) and batch 2, in f32 and bf16 (keys
     "<dtype>/b<batch>"); the train kernels at the train step's shapes in f32
     and bf16 with dropout 0 and 0.1 (keys "<dtype>/r<rate>"); the log-mel
-    kernel at the t2s batch and a centred case (keys "float32/b<batch>")."""
+    kernel at the t2s batch and a centred case (keys "float32/b<batch>");
+    the decode-step kernel at the beam's cross and self shapes in f32 and
+    bf16 (keys "<dtype>/cross", "<dtype>/self")."""
     records = {name: {} for name in KERNELS}
     failures = []
     for batch in (1, 2):
@@ -559,6 +650,14 @@ def phase_kernels():
         if not ok:
             failures.append(f"fused_log_mel b{batch}: max|diff| {rec['max_abs_err']} "
                             f"> {rec['tolerance']}")
+    for case in ("cross", "self"):
+        for dtype in (torch.float32, torch.bfloat16):
+            key = f"{str(dtype).split('.')[-1]}/{case}"
+            ok, rec = _flash_bias_record(case, dtype)
+            records["flash_attention_bias"][key] = rec
+            if not ok:
+                failures.append(f"flash_attention_bias {key}: max|diff| "
+                                f"{rec['max_abs_err']} > {rec['tolerance']}")
     log(json.dumps({"phase": "kernels", "records": records}))
     if failures:
         raise AssertionError("kernel disagrees with its twin: " + "; ".join(failures))
@@ -650,6 +749,136 @@ def phase_parity(base_cfg, device="cuda", requests_s=(3, 11, 21),
     log(json.dumps({"phase": "parity", **result}))
     if differ > max_frac * frames or worst_gap >= gap_tol:
         raise AssertionError(f"CTC ids of the kernel path differ: {result}")
+    return result
+
+
+# ------------------------------------------------------------- serve beam
+
+
+def beam_launches_expected(cfg, chunks: int, steps: int) -> dict:
+    """The beam path's launches: per chunk one inference-attention launch
+    per encoder layer and one conv launch per strided FE layer (1..n), as
+    in the greedy phase; per decode step one decode-step launch per decoder
+    layer for self- and one for cross-attention; nothing else."""
+    want = dict.fromkeys(KERNELS, 0)
+    want["banded_flash_attention"] = chunks * cfg.encoder.num_layers
+    want["conv_stack"] = chunks * (len(cfg.conv_features.layers) - 1)
+    want["flash_attention_bias"] = 2 * cfg.decoder.num_layers * steps
+    return want
+
+
+def phase_serve_beam(base_cfg, device="cuda", dtype="bfloat16",
+                     requests_s=(3, 11, 21), buckets="4,8,16", seed=0,
+                     max_len=BEAM_MAX_LEN):
+    """The beam arm: Service(--decoder beam, beam 5, CTC weight 0.3) with
+    every kernel on, answering the requests one at a time.  Per request:
+    wall ms, decode steps and each kernel's launches, which must be
+    ``beam_launches_expected`` on a card.  Returns the launches of the
+    request window and the per-request records."""
+    cfg = serve_config(base_cfg, dtype, kernels=True, overrides=BEAM_OVERRIDES)
+    model = init_model(cfg, torch.Generator().manual_seed(seed), device)
+    with tempfile.TemporaryDirectory() as d:
+        svc = make_service(cfg, model, write_dictionary(d), device, buckets,
+                           decoder="beam", max_len=max_len)
+    wavs = [synth_audio(s, seed=100 + i) for i, s in enumerate(requests_s)]
+    card = card_line() if torch.device(device).type == "cuda" else "cpu"
+    on_card = torch.device(device).type == "cuda"
+    _sync(device)
+    K.reset_launch_counts()
+    results = []
+    for secs, wav in zip(requests_s, wavs):
+        before, steps0 = K.launch_counts(), svc.asr.steps_run
+        t0 = time.perf_counter()
+        text = svc.transcribe(wav)
+        _sync(device)
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = {n: c - before[n] for n, c in K.launch_counts().items()}
+        chunks, steps = len(svc._chunk(wav)), svc.asr.steps_run - steps0
+        results.append({"request_s": secs, "chunks": chunks, "decode_steps": steps,
+                        "wall_ms": wall, "launches": launches, "chars": len(text),
+                        "card": card})
+        want = (beam_launches_expected(cfg, chunks, steps) if on_card
+                else dict.fromkeys(KERNELS, 0))
+        if launches != want or not 0 < steps <= chunks * max_len:
+            raise AssertionError(f"beam request of {secs} s: launches {launches}, "
+                                 f"want {want}, steps {steps}")
+    counts = K.launch_counts()
+    for r in results:
+        log(json.dumps({"served_beam": r}))
+    if svc.asr_requests != sum(r["chunks"] for r in results):
+        raise AssertionError(f"Service counted {svc.asr_requests} chunks")
+    # well formed: per sample K hypotheses framed BOS ... EOS, finite
+    # scores sorted best first
+    wav = np.zeros((1, svc.buckets()[0] * SR), np.float32)
+    wav[0, : len(wavs[0])] = wavs[0][: wav.shape[1]]
+    res = svc.asr(wav, [min(len(wavs[0]), wav.shape[1])])
+    toks, scores, lens = (t.cpu() for t in res)
+    best = toks[0, 0, : int(lens[0, 0])]
+    if (tuple(toks.shape) != (1, BEAM, max_len + 1) or not torch.isfinite(scores).all()
+            or (scores[:, :-1] < scores[:, 1:]).any() or best[0] != cfg.eos_id
+            or best[-1] != cfg.eos_id or (best[1:-1] == cfg.eos_id).any()):
+        raise AssertionError(f"beam result malformed: {tuple(toks.shape)} {scores} "
+                             f"{best.tolist()}")
+    return {"counts": counts, "requests": results}
+
+
+def phase_beam_parity(base_cfg, device="cuda", requests_s=(3, 11, 21),
+                      buckets="4,8,16", seed=0, max_len=BEAM_MAX_LEN,
+                      gap_tol=1e-4, score_rtol=1e-4):
+    """f32 weights through Service(--decoder beam) with every kernel flag on
+    and with them off, chunk by chunk: the best scores within
+    ``score_rtol`` relative and the best hypotheses equal, unless the plain
+    path's top two were a near tie (the kernel path's best is the plain
+    path's second, scored within ``gap_tol`` of its best).  Such
+    differences are printed."""
+    cfg_k = serve_config(base_cfg, "float32", kernels=True, overrides=BEAM_OVERRIDES)
+    cfg_t = serve_config(base_cfg, "float32", kernels=False)
+    model_k = init_model(cfg_k, torch.Generator().manual_seed(seed), device)
+    model_t = init_model(cfg_t, torch.Generator().manual_seed(seed + 1), device)
+    model_t.load_state_dict(model_k.state_dict())
+    with tempfile.TemporaryDirectory() as d:
+        path = write_dictionary(d)
+        svc_k, svc_t = (make_service(c, m, path, device, buckets, decoder="beam",
+                                     max_len=max_len)
+                        for c, m in ((cfg_k, model_k), (cfg_t, model_t)))
+    chunks = equal = 0
+    worst_rel, near_ties = 0.0, []
+    for i, secs in enumerate(requests_s):
+        wav = synth_audio(secs, seed=200 + i)
+        for chunk in svc_k._chunk(wav):
+            T = svc_k._bucket_for(len(chunk))
+            padded = np.zeros((1, T), np.float32)
+            padded[0, : len(chunk)] = chunk
+            res_k = svc_k.asr(padded, [len(chunk)])
+            res_t = svc_t.asr(padded, [len(chunk)])
+            hyps_t = [res_t.tokens[0, j, : int(res_t.lengths[0, j])].tolist()
+                      for j in range(BEAM)]
+            a = res_k.tokens[0, 0, : int(res_k.lengths[0, 0])].tolist()
+            scores_t = res_t.scores[0].tolist()
+            sk = res_k.scores[0, 0].item()
+            chunks += 1
+            worst_rel = max(worst_rel, abs(sk - scores_t[0]) / abs(scores_t[0]))
+            if a == hyps_t[0]:
+                equal += 1
+                continue
+            first = next((j for j, (x, y) in enumerate(zip(a, hyps_t[0])) if x != y),
+                         min(len(a), len(hyps_t[0])))
+            top2_gap = scores_t[0] - scores_t[1] if a == hyps_t[1] else float("inf")
+            log(json.dumps({"beam_parity_difference": {
+                "request_s": secs, "first_position": first, "kernel": a,
+                "plain": hyps_t[0], "kernel_score": sk, "plain_scores": scores_t,
+                "plain_top2_gap": top2_gap}}))
+            if top2_gap >= gap_tol:
+                raise AssertionError(f"beam tokens of the kernel path differ at "
+                                     f"position {first} with no near tie of the "
+                                     f"plain path's top two")
+            near_ties.append(first)
+    result = {"chunks": chunks, "equal_best": equal, "near_tie_differences": near_ties,
+              "worst_score_rel_diff": worst_rel,
+              "decode_steps": {"kernel": svc_k.asr.steps_run, "plain": svc_t.asr.steps_run}}
+    log(json.dumps({"phase": "beam_parity", **result}))
+    if worst_rel > score_rtol:
+        raise AssertionError(f"beam scores of the kernel path differ: {result}")
     return result
 
 
@@ -1035,6 +1264,15 @@ def main():
     walls["parity"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
+    beam = phase_serve_beam(base)
+    walls["serve_beam"] = time.perf_counter() - t0
+    log(json.dumps({"phase": "serve_beam", "launches": beam["counts"]}))
+
+    t0 = time.perf_counter()
+    phase_beam_parity(base)
+    walls["beam_parity"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
     trained = phase_train()
     walls["train"] = time.perf_counter() - t0
     tc = trained["counts"]
@@ -1061,7 +1299,8 @@ def main():
 
     walls["total"] = time.perf_counter() - t_start
     log(json.dumps({"phase_seconds": walls, "card": card_line()}))
-    by_path = {"serve": served["counts"], "train_s2t": tc, "train_t2s": t2s["counts"]}
+    by_path = {"serve": served["counts"], "serve_beam": beam["counts"],
+               "train_s2t": tc, "train_t2s": t2s["counts"]}
     counts = {n: sum(c[n] for c in by_path.values()) for n in KERNELS}
     log(json.dumps(kernels_line(records, counts, by_path)))
     torch.cuda.synchronize()

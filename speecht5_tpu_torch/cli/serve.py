@@ -14,16 +14,19 @@ Design notes (one card):
   and decodes them as one batch;
 - device access is serialized with a lock — one batch in flight.
 
-Only ``--decoder ctc_greedy`` is ported; ``beam`` and ``ctc_rescore`` arrive
-with the beam slice.  The model is restored from the newest
-``checkpoint_<step>.pt`` that the port's ``cli/train.py`` wrote in
-``--ckpt`` (its model state only); a caller may instead hand in a model it
-made (``Service(args, model=..., cfg=...)``), as the tests and
-``chip_smoke.py`` do.  Runs on the card unless ``--device cpu``.
+Decoders: ``--decoder beam`` (the default), the joint CTC/attention beam
+search (``decode/asr.py:ASRDecoder`` with ``--beam``, ``--max-len`` and
+``--ctc-weight``; the text is the best hypothesis), and ``ctc_greedy``, the
+encoder-only CTC viterbi.  ``ctc_rescore`` is not ported yet (ROADMAP
+A.4).  The model is restored from the newest ``checkpoint_<step>.pt`` that
+the port's ``cli/train.py`` wrote in ``--ckpt`` (its model state only); a
+caller may instead hand in a model it made (``Service(args, model=...,
+cfg=...)``), as the tests and ``chip_smoke.py`` do.  Runs on the card
+unless ``--device cpu``.
 
 Usage:
     python -m speecht5_tpu_torch.cli.serve --arch speecht5_base_asr \\
-        --ckpt ckpt/ --dict dict.ltr.txt --decoder ctc_greedy --port 8080
+        --ckpt ckpt/ --dict dict.ltr.txt --port 8080
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import wave
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
+import torch
 
 from ..data.dictionary import letters_to_text, load_cli_dictionary
 from ..utils.device import resolve_device
@@ -107,16 +111,15 @@ class Service:
     """Owns the decoder; one device batch in flight at a time."""
 
     def __init__(self, args, *, model=None, cfg=None, device="cuda"):
-        from ..decode.asr import CTCDecoder
+        from ..decode.asr import ASRDecoder, CTCDecoder
 
         self.device = resolve_device(device)
         self.lock = threading.Lock()
         self.args = args
-        if args.decoder != "ctc_greedy":
+        if args.decoder == "ctc_rescore":
             raise NotImplementedError(
-                f"--decoder {args.decoder} arrives with the beam slice of the "
-                "port (decode/ctc_prefix.py, decode/beam_search.py); only "
-                "ctc_greedy is ported")
+                "--decoder ctc_rescore is not ported yet (ROADMAP A.4: "
+                "RescoreDecoder, decode/nbest.py and the native N-best beam)")
         if model is None:
             cfg, model = restore_model(args, self.device)
         elif cfg is None:
@@ -138,13 +141,20 @@ class Service:
         self.asr_requests = 0   # chunks decoded (>= calls under batching)
         self._queue = []
         self._queue_cv = threading.Condition()
-        self.asr = _CTCAdapter(CTCDecoder(model, blank_id=cfg.blank_id,
-                                          device=self.device))
+        if args.decoder == "beam":
+            self.asr = ASRDecoder(model, beam_size=args.beam, max_len=args.max_len,
+                                  ctc_weight=args.ctc_weight, device=self.device)
+        else:
+            self.asr = _CTCAdapter(CTCDecoder(model, blank_id=cfg.blank_id,
+                                              device=self.device))
         for secs in self.buckets():
             for bs in sorted({1, self.max_batch}):
                 wav = np.zeros((bs, secs * SR), np.float32)
+                steps = getattr(self.asr, "steps_run", None)   # the beam's
                 self.asr(wav, np.full((bs,), secs * SR, np.int32))
-                print(f"warmed ASR bucket {secs}s batch {bs}", flush=True)
+                note = ("" if steps is None else
+                        f" ({self.asr.steps_run - steps} decode steps)")
+                print(f"warmed ASR bucket {secs}s batch {bs}{note}", flush=True)
         if self.max_batch > 1:
             threading.Thread(target=self._batcher_loop, daemon=True).start()
 
@@ -178,9 +188,11 @@ class Service:
         n_real = len(wavs) if n_real is None else n_real
         with self.lock:
             res = self.asr(wavs, np.asarray(lengths, np.int32))
+            # the best hypothesis, framed BOS ... EOS (JAX cli/serve.py:253)
+            toks, lens = (np.asarray(torch.as_tensor(t)[:, 0].cpu())
+                          for t in (res.tokens, res.lengths))
             self.asr_calls += 1
             self.asr_requests += n_real
-        toks, lens = res.tokens[:, 0], res.lengths[:, 0]
         out = []
         for b in range(n_real):
             hyp_ids = toks[b, 1 : max(int(lens[b]) - 1, 1)]
@@ -334,7 +346,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--decoder", default="beam", choices=DECODERS,
                    help="/asr algorithm: joint CTC/attention beam search, "
                         "encoder-only CTC viterbi, or two-pass CTC N-best + "
-                        "attention rescore (only ctc_greedy is ported)")
+                        "attention rescore (not ported yet)")
+    p.add_argument("--beam", type=int, default=5)
+    p.add_argument("--max-len", type=int, default=200,
+                   help="beam: most tokens a hypothesis may have")
+    p.add_argument("--ctc-weight", type=float, default=0.3,
+                   help="beam: weight of the CTC prefix score")
     p.add_argument("--asr-buckets", default=",".join(
         str(s) for s in ASR_BUCKETS_S))
     p.add_argument("--max-batch", type=int, default=1,

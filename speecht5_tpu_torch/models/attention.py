@@ -8,8 +8,13 @@ masks use -1e9, not -inf, so a fully masked row gives a uniform softmax.
 Self-attention (encoder, causal decoder) and cross-attention against the
 encoder output are ported with probability dropout on the training path,
 and the attention weights (the f32 softmax before dropout, JAX
-attention.py:305-316) on request; the KV cache, ``cache_rows`` and
-``precompute_kv`` arrive with the beam slice.
+attention.py:305-316) on request.  Decode steps (JAX attention.py:159-221):
+the self-attention KV cache is written at ``cache_index`` (in place: the
+beam loop never needs the old buffer), read through the ancestry map
+``cache_rows`` with one flattened gather of (row, position) pairs, and
+masked causally at the step; cross-attention reads K/V from
+``precompute_kv``, untiled when the queries are a beam's tiles (grouped:
+each sample's K/V read once for its G beams).
 """
 
 from __future__ import annotations
@@ -53,10 +58,13 @@ def relative_bias_banded(q, pos_band):
 
 class MultiheadAttention(nn.Module):
     """Projections + attention.  ``use_pallas`` routes inference passes of
-    full self-attention with a band to the CUDA inference kernel and
-    ``use_pallas_train`` training passes to the differentiable train kernel,
-    as ``config.use_pallas_attn`` / ``use_pallas_attn_train`` do in the JAX
-    package; everything else takes the plain path."""
+    full self-attention with a band to the CUDA inference kernel, and the
+    softmax-times-V of decode steps (a cache or precomputed cross K/V, no
+    weights asked for) to ``flash_attention_bias``; ``use_pallas_train``
+    routes training passes to the differentiable train kernel, as
+    ``config.use_pallas_attn`` / ``use_pallas_attn_train`` do in the JAX
+    package (whose decode steps take XLA whatever the flag: its tokens are
+    the oracle either way); everything else takes the plain path."""
 
     def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0, *,
                  dtype=torch.float32, use_pallas: bool = False,
@@ -80,7 +88,8 @@ class MultiheadAttention(nn.Module):
 
     def forward(self, x, key_valid=None, pos_band=None, *, x_kv=None,
                 causal: bool = False, generator=None,
-                return_weights: bool = False):
+                return_weights: bool = False, cache=None, cache_index=None,
+                cache_rows=None, cross_kv=None):
         """x: [B, Tq, D]; key_valid: bool [B, Tk] (True = attend, a
         contiguous prefix); pos_band: [Dh, T, T] or None; x_kv: [B, Tk, D]
         for cross-attention (None = self-attention); causal: mask keys after
@@ -89,13 +98,28 @@ class MultiheadAttention(nn.Module):
         seed costs no device sync.  -> [B, Tq, D], or with
         ``return_weights`` (out, f32 weights [B, H, Tq, Tk]), which the
         fused kernels do not give (JAX routes such calls to the plain path
-        too)."""
+        too).
+
+        Decode steps: ``cache`` {"k", "v": [B, Tmax, H, Dh]} with
+        ``cache_index`` (int or 0-d int64 tensor: the write position) and
+        optionally ``cache_rows`` (int [B, Tmax] ancestry map: position j of
+        logical row b lives in physical row cache_rows[b, j]) -> (out,
+        cache), the buffers written in place; ``cross_kv`` {"k", "v": [B /
+        G, Tk, H, Dh]} from ``precompute_kv`` -> out (or (out, weights)),
+        ``key_valid`` then [B / G, Tk] or tiled [B, Tk]."""
         B, Tq, _ = x.shape
         H, Dh = self.num_heads, self.head_dim
-        src = x if x_kv is None else x_kv
         q = self.q_proj(x).view(B, Tq, H, Dh) * (Dh ** -0.5)
+        if cross_kv is not None:
+            return self._cross_step(q, cross_kv, key_valid, return_weights)
+        src = x if x_kv is None else x_kv
         k = self.k_proj(src).view(B, -1, H, Dh)
         v = self.v_proj(src).view(B, -1, H, Dh)
+        if cache is not None:
+            if return_weights:
+                raise NotImplementedError("weights of a cached self-attention step")
+            return self._cached_step(q, k, v, cache, cache_index, cache_rows,
+                                     key_valid, causal)
         Tk = k.shape[1]
 
         # the JAX routing (models/attention.py:225-236): full, non-causal
@@ -128,16 +152,23 @@ class MultiheadAttention(nn.Module):
             o = o.view(B, H, Tq, Dh).transpose(1, 2).reshape(B, Tq, self.d_model)
             return self.out_proj(o)
 
-        score_dtype = torch.float32 if self.scores_f32 else self.dtype
-        logits = torch.einsum("bqhd,bkhd->bhqk", q, k).to(score_dtype)
-        if pos_band is not None:
-            logits = logits + relative_bias_banded(q, pos_band).to(score_dtype)
         mask = None
         if key_valid is not None:
             mask = key_valid[:, None, None, :]
         if causal:
             cm = torch.ones(Tq, Tk, dtype=torch.bool, device=x.device).tril()
             mask = cm if mask is None else mask & cm
+        return self._dense(q, k, v, pos_band, mask, return_weights)
+
+    def _dense(self, q, k, v, pos_band, mask, return_weights):
+        """The plain path: logits in the score dtype (+ the band's bias),
+        -1e9 where ``mask`` (broadcast to [B, H, Tq, Tk]) is False, f32
+        softmax, probabilities in the compute dtype, dropout, P.V."""
+        B, Tq = q.shape[:2]
+        score_dtype = torch.float32 if self.scores_f32 else self.dtype
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k).to(score_dtype)
+        if pos_band is not None:
+            logits = logits + relative_bias_banded(q, pos_band).to(score_dtype)
         if mask is not None:
             logits = torch.where(mask, logits,
                                  torch.full((), NEG_INF, dtype=score_dtype,
@@ -147,3 +178,102 @@ class MultiheadAttention(nn.Module):
         out = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(self.dtype))
         out = self.out_proj(out.reshape(B, Tq, self.d_model))
         return (out, weights) if return_weights else out
+
+    def _decode_kernel(self, return_weights: bool) -> bool:
+        return self.use_pallas and not self.training and not return_weights
+
+    def _flash(self, q, k, v, key_valid):
+        """The decode-step kernel on [Bq, Tq, H, Dh] queries against [Bq, Tk,
+        H, Dh] keys and values, key_valid bool [Bq, Tk] or None (one mask row
+        serves a sample's H heads) -> [Bq, Tq, H, Dh]: one launch over Bq * H
+        rows.  K/V held head-major (``precompute_kv``) are read in place."""
+        Bq, Tq, H, Dh = q.shape
+        Tk = k.shape[1]
+        rows = lambda t, T: t.to(q.dtype).transpose(1, 2).reshape(Bq * H, T, Dh).contiguous()
+        o = cuda_kernels.flash_attention_bias(rows(q, Tq), rows(k, Tk), rows(v, Tk),
+                                              None, key_valid)
+        return o.view(Bq, H, Tq, Dh).transpose(1, 2)
+
+    def _cached_step(self, q, k, v, cache, cache_index, cache_rows, key_valid,
+                     causal):
+        """Self-attention of a decode step (JAX attention.py:203-221,
+        :289-298): write the step's K/V at ``cache_index`` (cast to the cache
+        dtype), read the buffers through ``cache_rows`` if given, mask keys
+        past the query's position when ``causal``."""
+        B, Tq, H, Dh = q.shape
+        k_c, v_c = cache["k"], cache["v"]
+        pos = cache_index + torch.arange(Tq, device=q.device)
+        k_c.index_copy_(1, pos, k.to(k_c.dtype))
+        v_c.index_copy_(1, pos, v.to(v_c.dtype))
+        Tc = k_c.shape[1]
+        if cache_rows is not None:
+            # the ancestry view: one leading-axis gather of (row, position)
+            # pairs, contiguous H*Dh blocks; the buffers stay unpermuted
+            flat = (cache_rows.long() * Tc
+                    + torch.arange(Tc, device=q.device)[None, :]).reshape(-1)
+            k = k_c.reshape(B * Tc, H, Dh)[flat].view(B, Tc, H, Dh)
+            v = v_c.reshape(B * Tc, H, Dh)[flat].view(B, Tc, H, Dh)
+        else:
+            k, v = k_c, v_c
+        cm = None
+        if causal:   # key j is visible from the query at position p iff j <= p
+            cm = torch.arange(Tc, device=q.device)[None, :] <= pos[:, None]
+        new_cache = {"k": k_c, "v": v_c}
+        if self._decode_kernel(False) and Tq == 1:
+            # one query: the causal limit is a key mask
+            valid = torch.ones(B, Tc, dtype=torch.bool, device=q.device)
+            if key_valid is not None:
+                valid = valid & key_valid
+            if cm is not None:
+                valid = valid & cm
+            o = self._flash(q, k, v, valid)
+            return self.out_proj(o.reshape(B, Tq, self.d_model)), new_cache
+        mask = None if key_valid is None else key_valid[:, None, None, :]
+        if cm is not None:
+            mask = cm[None, None] if mask is None else mask & cm[None, None]
+        return self._dense(q, k.to(q.dtype), v, None, mask, False), new_cache
+
+    def _cross_step(self, q, cross_kv, key_valid, return_weights):
+        """Cross-attention against precomputed K/V (JAX attention.py:159-198).
+        When the K/V have B / G rows, the queries of each group of G beams
+        attend as one row of G * Tq queries (grouped), and the weights come
+        back per row."""
+        B, Tq, H, Dh = q.shape
+        k, v = cross_kv["k"], cross_kv["v"]
+        Bkv, Tk = k.shape[:2]
+        G = B // Bkv
+        q = q.reshape(Bkv, G * Tq, H, Dh)
+        mask = key_valid
+        if mask is not None and mask.shape[0] != Bkv:   # a tiled mask
+            mask = mask.reshape(Bkv, G, Tk)[:, 0].contiguous()
+        if self._decode_kernel(return_weights):
+            o = self._flash(q, k, v, mask)
+            return self.out_proj(o.reshape(B, Tq, self.d_model))
+        if G == 1:
+            # untiled K/V: JAX's general path (its score dtype)
+            return self._dense(q, k, v, None, None if mask is None else
+                               mask[:, None, None, :], return_weights)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
+        if mask is not None:
+            logits = torch.where(mask[:, None, None, :], logits,
+                                 torch.full((), NEG_INF, device=logits.device))
+        weights = torch.softmax(logits, dim=-1)
+        probs = F.dropout(weights.to(self.dtype), self.dropout, self.training)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(self.dtype))
+        out = self.out_proj(out.reshape(B, Tq, self.d_model))
+        if not return_weights:
+            return out
+        # grouped weights back to per-row [B, H, Tq, Tk]
+        w = weights.reshape(Bkv, H, G, Tq, Tk).transpose(1, 2).reshape(B, H, Tq, Tk)
+        return out, w
+
+    def precompute_kv(self, x_kv):
+        """Project the encoder output once for decode-step cross-attention
+        (static_kv, reference multihead_attention.py:207-209) -> {"k", "v":
+        [B, Tk, H, Dh]}, views of head-major [B, H, Tk, Dh] storage: the
+        decode-step kernel reads them as its [B * H, Tk, Dh] rows with no
+        copy at every step."""
+        B, Tk, _ = x_kv.shape
+        H, Dh = self.num_heads, self.head_dim
+        head_major = lambda t: t.view(B, Tk, H, Dh).transpose(1, 2).contiguous().transpose(1, 2)
+        return {"k": head_major(self.k_proj(x_kv)), "v": head_major(self.v_proj(x_kv))}

@@ -9,8 +9,11 @@ and neither does the port.  The cross-attention weights of every layer are
 returned on request (decoder.py:60-99), for the TTS guided-attention loss.
 The JAX decoder applies no layerdrop (only the encoder does,
 encoder.py:114), whatever ``layerdrop`` says, and neither does the port.
-The KV cache (``init_cache``, ``decode_step``, ``reorder_cache``) arrives
-with the beam slice.
+
+Incremental decoding (JAX decoder.py:101-170) keeps the cache as a plain
+dict of tensors, ``{"index": 0-d int64, "layers": [{"k", "v"}], "cross":
+[{"k", "v"} or None]}``, with fixed [B, max_len, H, Dh] self-attention
+buffers that each step writes in place at ``index``.
 """
 
 from __future__ import annotations
@@ -49,3 +52,40 @@ class TransformerDecoder(nn.Module):
         if not need_cross_weights:
             return x
         return x, torch.stack(all_w)
+
+    def init_cache(self, enc, batch_size: int, max_len: int, cache_dtype=None):
+        """Zeroed self-attention buffers (one pair per layer) and the
+        precomputed cross K/V of ``enc`` [B_enc, Tsrc, D] (None: a
+        decoder-only cache)."""
+        cfg = self.cfg
+        dev = next(self.parameters()).device
+        shape = (batch_size, max_len, cfg.num_heads, cfg.head_dim)
+        dt = cache_dtype or self.dtype
+        layers = [{"k": torch.zeros(shape, dtype=dt, device=dev),
+                   "v": torch.zeros(shape, dtype=dt, device=dev)}
+                  for _ in self.layers]
+        cross = [None if enc is None else layer.init_cross_kv(enc)
+                 for layer in self.layers]
+        return {"index": torch.zeros((), dtype=torch.int64, device=dev),
+                "layers": layers, "cross": cross}
+
+    def decode_step(self, x, cache, *, enc_valid=None, cache_rows=None):
+        """One AR step.  x: [B, Tq, D] prenet output at positions
+        ``cache["index"]`` + i (the causal mask hides the unwritten cache
+        positions); ``cache_rows`` int [B, max_len] ancestry map.  ->
+        (features [B, Tq, D], new cache)."""
+        idx = cache["index"]
+        layers = []
+        for layer, c, kv in zip(self.layers, cache["layers"], cache["cross"]):
+            x, c = layer.step(x, c, kv, idx, enc_valid=enc_valid, cache_rows=cache_rows)
+            layers.append(c)
+        return x, {"index": idx + x.shape[1], "layers": layers, "cross": cache["cross"]}
+
+
+def reorder_cache(cache, order):
+    """Gather every batch-major cache tensor by ``order`` (the beam
+    reorder of the "gather" mode)."""
+    gather = lambda d: None if d is None else {k: v[order] for k, v in d.items()}
+    return {"index": cache["index"],
+            "layers": [gather(c) for c in cache["layers"]],
+            "cross": [gather(c) for c in cache["cross"]]}

@@ -6,7 +6,8 @@ modules/transformer_layer.py:23-404): BERT-style post-LN layers; the
 encoder layer passes the rel-pos band through to self-attention; the
 decoder layer runs causal self-attention without the rel-pos bias (the
 reference never passes the bias hook, transformer_layer.py:229-242),
-cross-attention against the encoder output and the FFN.  Activation is the
+cross-attention against the encoder output and the FFN, teacher-forced or
+one cached decode step at a time.  Activation is the
 exact (erf) GELU; dropout follows each sub-block and activation dropout the
 GELU, on training passes only.  The post-LN path never applies ``norm_k``
 (reference transformer_layer.py:112-119), so the JAX tree holds no
@@ -78,7 +79,9 @@ class EncoderLayer(nn.Module):
 
 class DecoderLayer(nn.Module):
     """reference transformer_layer.py:137-404 (TransformerDecoderLayer),
-    post-LN, teacher-forced (no cache)."""
+    post-LN: teacher-forced (``forward``) and one cached decode step
+    (``step``, JAX layers.py:160-230).  ``use_pallas_attn`` sends the
+    decode steps' attention to the ``flash_attention_bias`` kernel."""
 
     def __init__(self, cfg: TransformerConfig, dtype=torch.float32):
         super().__init__()
@@ -89,12 +92,11 @@ class DecoderLayer(nn.Module):
                 "(SpeechT5 decoders run without it)")
         self.cfg = cfg
         self.dtype = dtype
-        self.self_attn = MultiheadAttention(
+        attn = lambda: MultiheadAttention(
             cfg.d_model, cfg.num_heads, cfg.attention_dropout, dtype=dtype,
-            scores_f32=cfg.attn_scores_f32)
-        self.encoder_attn = MultiheadAttention(
-            cfg.d_model, cfg.num_heads, cfg.attention_dropout, dtype=dtype,
-            scores_f32=cfg.attn_scores_f32)
+            use_pallas=cfg.use_pallas_attn, scores_f32=cfg.attn_scores_f32)
+        self.self_attn = attn()
+        self.encoder_attn = attn()
         self.self_attn_layer_norm = LayerNorm32(cfg.d_model, eps=cfg.layer_norm_eps)
         self.encoder_attn_layer_norm = LayerNorm32(cfg.d_model, eps=cfg.layer_norm_eps)
         self.final_layer_norm = LayerNorm32(cfg.d_model, eps=cfg.layer_norm_eps)
@@ -102,6 +104,10 @@ class DecoderLayer(nn.Module):
 
     def _drop(self, x):
         return F.dropout(x, self.cfg.dropout, self.training)
+
+    def _ffn_block(self, x):
+        x = x + self._drop(self.ffn(x))
+        return self.final_layer_norm(x).to(self.dtype)
 
     def forward(self, x, enc=None, enc_valid=None, self_valid=None,
                 causal: bool = True, need_cross_weights: bool = False):
@@ -116,6 +122,22 @@ class DecoderLayer(nn.Module):
             if need_cross_weights:
                 y, cross_w = y
             x = self.encoder_attn_layer_norm(x + self._drop(y)).to(self.dtype)
-        x = x + self._drop(self.ffn(x))
-        x = self.final_layer_norm(x).to(self.dtype)
+        x = self._ffn_block(x)
         return (x, cross_w) if need_cross_weights else x
+
+    def step(self, x, cache, cross_kv, cache_index, *, enc_valid=None,
+             cache_rows=None):
+        """One decode step: x [B, Tq, D] at positions ``cache_index`` + i;
+        ``cache`` this layer's {"k", "v"} buffers (written in place);
+        ``cross_kv`` from ``init_cross_kv`` or None (no cross-attention).
+        -> (x, cache)."""
+        y, cache = self.self_attn(x, causal=True, cache=cache,
+                                  cache_index=cache_index, cache_rows=cache_rows)
+        x = self.self_attn_layer_norm(x + self._drop(y)).to(self.dtype)
+        if cross_kv is not None:
+            y = self.encoder_attn(x, enc_valid, cross_kv=cross_kv)
+            x = self.encoder_attn_layer_norm(x + self._drop(y)).to(self.dtype)
+        return self._ffn_block(x), cache
+
+    def init_cross_kv(self, enc):
+        return self.encoder_attn.precompute_kv(enc)

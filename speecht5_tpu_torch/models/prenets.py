@@ -27,7 +27,8 @@ from torch import nn
 from ..config import ConvFeatureConfig, SpeechT5Config
 from ..ops import cuda_kernels
 from ..ops.masking import apply_feature_masks, sample_feature_masks
-from ..ops.positional import espnet_sinusoidal, fairseq_sinusoidal
+from ..ops.positional import (espnet_sinusoidal, fairseq_sinusoidal,
+                              fairseq_sinusoidal_table)
 from ..utils.masks import length_mask
 from .common import Dense, LayerNorm32
 
@@ -228,13 +229,19 @@ class SpeechEncoderPrenet(nn.Module):
 
 class TextDecoderPrenet(nn.Module):
     """Embedding (unscaled) + fairseq sinusoidal positions + dropout, in
-    full-sequence mode (JAX prenets.py:403-427)."""
+    full-sequence mode (JAX prenets.py:403-427) and one step at a time
+    (``step``, :428-443)."""
 
     def __init__(self, cfg: SpeechT5Config, dtype=torch.float32):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.d_model)
+        # the step's position table, as JAX builds it (not a parameter)
+        table = fairseq_sinusoidal_table(cfg.pad_id + 2 + cfg.max_text_positions,
+                                         cfg.d_model, cfg.pad_id)
+        self.register_buffer("step_positions", torch.from_numpy(table),
+                             persistent=False)
 
     def forward(self, tokens):
         """tokens: [B, T] -> (x [B, T, D], valid bool [B, T])."""
@@ -243,6 +250,16 @@ class TextDecoderPrenet(nn.Module):
         x = self.embed_tokens(tokens).to(self.dtype)
         x = x + fairseq_sinusoidal(valid, cfg.d_model, cfg.pad_id).to(self.dtype)
         return F.dropout(x, cfg.decoder.dropout, self.training), valid
+
+    def step(self, tokens_t, position):
+        """tokens_t: [B, 1]; position: the 0-based step (int or 0-d tensor)
+        -> [B, 1, D].  Live beams hold no padding, so the fairseq position
+        is pad_id + 1 + position."""
+        cfg = self.cfg
+        x = self.embed_tokens(tokens_t).to(self.dtype)
+        pos = self.step_positions[cfg.pad_id + 1 + position]
+        x = x + pos[None, None, :].to(self.dtype)
+        return F.dropout(x, cfg.decoder.dropout, self.training)
 
 
 class TextEncoderPrenet(nn.Module):

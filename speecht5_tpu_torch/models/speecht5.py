@@ -1,9 +1,10 @@
 """SpeechT5 model: speech-to-text and text-to-speech.
 
-Port of the parts of ``speecht5_tpu/models/speecht5.py`` that the CTC
-serving path and the s2t and t2s train steps run: ``encode_speech``
+Port of the parts of ``speecht5_tpu/models/speecht5.py`` that the CTC and
+beam serving paths and the s2t and t2s train steps run: ``encode_speech``
 (:140-172), ``encode_text`` (:174), ``decode_text`` and ``_text_logits``
-(:180-200), ``decode_speech`` (:216), ``integrate_spk_embed`` (:244),
+(:180-200), ``init_text_cache`` and ``text_decode_step`` (:202-214),
+``decode_speech`` (:216), ``integrate_spk_embed`` (:244),
 ``ctc_logits`` (:301), ``forward_s2t`` (:327-334) and ``forward_t2s``
 (:336).  The other task heads arrive with their slices.  Submodule names
 follow the JAX tree, so ``utils/convert.from_jax_params`` maps one onto the
@@ -69,6 +70,19 @@ class SpeechT5Model(nn.Module):
         feats = self.decoder(x, enc["encoder_out"], enc_valid=enc["valid_mask"],
                              self_valid=self_valid)
         return self._text_logits(feats)
+
+    def init_text_cache(self, enc, batch_size: int, max_len: int):
+        """The decoder's cache for ``batch_size`` rows of up to ``max_len``
+        positions, cross K/V from ``enc["encoder_out"]`` (untiled)."""
+        return self.decoder.init_cache(enc["encoder_out"], batch_size, max_len)
+
+    def text_decode_step(self, tokens_t, cache, *, enc_valid=None,
+                         cache_rows=None):
+        """tokens_t: [B, 1] -> (f32 logits [B, V], new cache)."""
+        x = self.text_decoder_prenet.step(tokens_t, cache["index"])
+        feats, new_cache = self.decoder.decode_step(
+            x, cache, enc_valid=enc_valid, cache_rows=cache_rows)
+        return self._text_logits(feats)[:, 0], new_cache
 
     def _text_logits(self, feats):
         emb = (self.text_decoder_prenet.embed_tokens.weight

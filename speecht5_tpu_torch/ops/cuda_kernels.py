@@ -26,6 +26,11 @@ loader that builds them.
   kept on chip; replaces ``fused_log_mel`` (pallas_kernels.py:97, kernel
   ``_mel_kernel`` :57, ``pallas_call`` :154).  No gradient: the TPU kernel
   has none and the mel targets need none.
+- ``flash_attention_bias`` (``csrc/flash_attention_bias.cu``): streaming
+  attention with an additive f32 bias and a key mask, the beam search's
+  decode-step attention (grouped cross-attention, cached self-attention);
+  replaces ``flash_attention_bias`` (pallas_kernels.py:592, kernel
+  ``_flash_kernel`` :553, ``pallas_call`` :624).  Forward only, as in JAX.
 
 Each wrapper takes its kernel's plain twin only because the tensors it was
 given lie on the CPU; on CUDA tensors it launches the kernel or raises.
@@ -63,6 +68,7 @@ SOURCES = {
     "banded_attention": "banded_attention.cu",
     "banded_attention_train": "banded_attention_train.cu",
     "conv_stack": "conv_stack.cu",
+    "flash_attention_bias": "flash_attention_bias.cu",
     "log_mel": "log_mel.cu",
 }
 NVCC_FLAGS = (
@@ -164,6 +170,11 @@ def _lib(name: str) -> ctypes.CDLL:
         elif name == "conv_stack":
             lib.conv_gelu_launch.argtypes = [vp] * 3 + [i] * 8 + [vp]
             lib.conv_gelu_launch.restype = i
+        elif name == "flash_attention_bias":
+            # q, k, v, bias or NULL, key_valid or NULL, out, then N, Tq,
+            # Tk, D, rows per mask row, dtype, stream
+            lib.flash_bias_launch.argtypes = [vp] * 6 + [i] * 6 + [vp]
+            lib.flash_bias_launch.restype = i
         else:
             # wav, cos*win, sin*win, filterbank, out, then B, T, frames,
             # n_fft, hop, n_mels, center, eps, stream
@@ -665,9 +676,85 @@ def fused_log_mel(wav, *, sr: int = 16000, n_fft: int = 1024, hop: int = 256,
 fused_log_mel.launches = 0
 
 
+# ================================================ flash attention + bias
+
+FLASH_BIAS_MAX_D = 128
+
+
+def flash_attention_bias_plain(q, k, v, bias=None, key_valid=None):
+    """Plain PyTorch twin of the kernel, the dense formula of the spec
+    (tests/test_pallas_kernels.py:105-112): q.k in f32, plus the f32 bias,
+    -1e9 where a key is invalid, f32 softmax, the probabilities cast to V's
+    dtype, times V.  q [N, Tq, D] (scaled by the caller), k/v [N, Tk, D],
+    bias [N, Tq, Tk] or None (zero), key_valid bool [N / R, Tk] (row n
+    reads mask row n // R) or None -> [N, Tq, D] in q's dtype.  A row with
+    no valid key returns the mean of V over its Tk keys."""
+    s = q.float() @ k.float().transpose(1, 2)
+    if bias is not None:
+        s = s + bias.float()
+    if key_valid is not None:
+        key_valid = key_valid.repeat_interleave(q.shape[0] // key_valid.shape[0], 0)
+        s = torch.where(key_valid[:, None, :], s,
+                        torch.full((), NEG_INF, device=s.device))
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return (p.float() @ v.float()).to(q.dtype)
+
+
+def flash_attention_bias(q, k, v, bias=None, key_valid=None):
+    """softmax(q.k + bias, keys masked by key_valid) . v: the contract of the
+    JAX package's ``flash_attention_bias`` (no scale inside: q comes
+    scaled).  q [N, Tq, D], k/v [N, Tk, D] of one dtype (f32 or bf16);
+    bias f32 [N, Tq, Tk] or None for a zero bias (nothing is allocated);
+    key_valid bool [N / R, Tk] or None, row n reading mask row n // R (one
+    row per sample serves its R heads) -> [N, Tq, D] in q's dtype.  One kernel
+    launch on CUDA tensors (D <= 128, any Tq and Tk: the kernel streams the
+    keys); the twin on CPU ones.  Forward only."""
+    if q.device.type == "cpu":
+        return flash_attention_bias_plain(q, k, v, bias, key_valid)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention_bias is forward-only; call it "
+                           "under torch.no_grad()")
+    N, Tq, D = q.shape
+    Tk = k.shape[1]
+    if k.shape != (N, Tk, D) or v.shape != k.shape or Tk == 0:
+        raise ValueError(f"q/k/v shapes do not fit: {q.shape} {k.shape} {v.shape}")
+    if D > FLASH_BIAS_MAX_D:
+        raise ValueError(f"kernel limit D <= {FLASH_BIAS_MAX_D}; got D={D}")
+    extra = []
+    if bias is not None:
+        if bias.dtype != torch.float32 or bias.shape != (N, Tq, Tk):
+            raise TypeError(f"bias must be float32 {(N, Tq, Tk)}, got "
+                            f"{bias.dtype} {tuple(bias.shape)}")
+        extra.append(bias)
+    rows_per_mask = 1
+    if key_valid is not None:
+        if (key_valid.dtype != torch.bool or key_valid.dim() != 2
+                or key_valid.shape[1] != Tk or not 0 < key_valid.shape[0] <= N
+                or N % key_valid.shape[0] != 0):
+            raise TypeError(f"key_valid must be bool [N / R, {Tk}] with R | N = {N}, "
+                            f"got {key_valid.dtype} {tuple(key_valid.shape)}")
+        rows_per_mask = N // key_valid.shape[0]
+        extra.append(key_valid)
+    _check_cuda(q, k, v, *extra)
+    code = _dtype_code(q, k, v)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _lib("flash_attention_bias").flash_bias_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if bias is None else bias.data_ptr(),
+        None if key_valid is None else key_valid.data_ptr(),
+        out.data_ptr(), N, Tq, Tk, D, rows_per_mask, code, stream)
+    _check_rc(rc, "flash_attention_bias")
+    flash_attention_bias.launches += 1
+    return out
+
+
+flash_attention_bias.launches = 0
+
+
 WRAPPERS = (banded_flash_attention, conv_stack, banded_attention_train_fwd,
             banded_attention_train_bwd_dq, banded_attention_train_bwd_dkv,
-            fused_log_mel)
+            fused_log_mel, flash_attention_bias)
 
 
 def reset_launch_counts():

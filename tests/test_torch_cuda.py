@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain twins, on the card, the
-train kernels, the conv stack's gradient and the log-mel kernel included,
+train kernels, the conv stack's gradient, the log-mel kernel and the
+decode-step attention kernel (alone and inside the decoder) included,
 the inference kernel's refusal to drop a gradient and the wrappers'
 refusals of inputs their kernels do not take.
 
@@ -187,3 +188,134 @@ def test_log_mel_wrapper_rejects_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError):
         K.fused_log_mel(wav[0])                                     # not [B, T]
     assert K.fused_log_mel.launches == before
+
+
+def _flash_case(N, Tq, Tk, D, seed, bias=True, lengths=None):
+    """q (scaled), k, v, an f32 bias or None, and a prefix key mask from
+    ``lengths`` (a row of length 0 has no valid key) or None."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(N, Tq, D, generator=g) * D ** -0.5
+    k, v = torch.randn(N, Tk, D, generator=g), torch.randn(N, Tk, D, generator=g)
+    b = torch.randn(N, Tq, Tk, generator=g) * 0.5 if bias else None
+    valid = None
+    if lengths is not None:
+        valid = torch.arange(Tk)[None, :] < torch.tensor(lengths)[:, None]
+    return q, k, v, b, valid
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,Tq,Tk,D,bias,lengths", [
+    (3, 64, 64, 32, True, [64, 40, 64]),          # tests/test_pallas_kernels.py:114
+    (4, 48, 48, 16, True, None),                  # :131, the rel-pos bias case
+    (2, 37, 53, 16, False, [30, 53]),             # :149, tails of Tq and Tk
+    (12, 5, 799, 64, False, [799] * 6 + [613] * 6),   # grouped cross, a 16 s chunk
+    (60, 1, 201, 64, False, [101] * 30 + [1] * 30),   # cached self-attention step
+    (2, 9, 1500, 128, True, [1500, 0]),           # long keys, D 128, no valid key
+])
+def test_flash_bias_kernel_matches_twin(card, dtype, N, Tq, Tk, D, bias, lengths):
+    """One launch against the dense twin: f32 1e-4 (sums in another order),
+    bf16 3e-2 x max|ref| (the kernel rounds the running probabilities to
+    bf16, the twin the normalised ones)."""
+    q, k, v, b, valid = _flash_case(N, Tq, Tk, D, seed=N + Tk, bias=bias,
+                                    lengths=lengths)
+    q, k, v = (t.to(dtype).to(card) for t in (q, k, v))
+    b = None if b is None else b.to(card)
+    valid = None if valid is None else valid.to(card)
+    before = K.flash_attention_bias.launches
+    got = K.flash_attention_bias(q, k, v, b, valid)
+    assert K.flash_attention_bias.launches == before + 1
+    ref = K.flash_attention_bias_plain(q, k, v, b, valid)
+    torch.cuda.synchronize()
+    assert got.shape == (N, Tq, D) and got.dtype == dtype
+    assert torch.isfinite(got.float()).all()
+    _close(got, ref, dtype)
+    if lengths is not None and 0 in lengths:   # the dense formula: mean of V
+        n = lengths.index(0)
+        _close(got[n], v[n].float().mean(0).expand(Tq, D), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bias_kernel_shares_mask_rows_and_skips_masked_tiles(card, dtype):
+    """The decode path's mask, one row per 12 heads ([5, 201] for 60 rows):
+    bit-equal to the same launch with the mask expanded to [60, 201], and
+    close to the twin.  Tiles past a row's last valid key are skipped, so
+    NaN K and V there change no bit; a row whose first tile has no valid
+    key (keys 70..99) still reads that tile."""
+    N, H, Tk, D = 60, 12, 201, 64
+    starts, ends = [0, 0, 0, 0, 70], [101, 1, 64, 201, 100]
+    q, k, v, _, _ = _flash_case(N, 1, Tk, D, seed=7, bias=False)
+    pos = torch.arange(Tk)[None, :]
+    mask = (pos >= torch.tensor(starts)[:, None]) & (pos < torch.tensor(ends)[:, None])
+    q, k, v, mask = (t.to(card) for t in (q.to(dtype), k.to(dtype), v.to(dtype), mask))
+    got = K.flash_attention_bias(q, k, v, None, mask)
+    full = mask.repeat_interleave(H, 0)
+    assert torch.equal(got, K.flash_attention_bias(q, k, v, None, full))
+    _close(got, K.flash_attention_bias_plain(q, k, v, None, mask), dtype)
+    k_nan, v_nan = k.clone(), v.clone()
+    for b, e in enumerate(ends):
+        rows = slice(b * H, (b + 1) * H)
+        k_nan[rows, -(-e // 64) * 64:] = float("nan")
+        v_nan[rows, -(-e // 64) * 64:] = float("nan")
+    assert torch.equal(got, K.flash_attention_bias(q, k_nan, v_nan, None, mask))
+
+
+def test_flash_bias_wrapper_rejects_what_the_kernel_does_not_take(card):
+    q = torch.zeros(2, 3, 16, device=card)
+    k = torch.zeros(2, 7, 16, device=card)
+    before = K.flash_attention_bias.launches
+    with pytest.raises(TypeError):
+        K.flash_attention_bias(q, k, k, torch.zeros(2, 3, 7, device=card).half())
+    with pytest.raises(TypeError):
+        K.flash_attention_bias(q, k, k, None, torch.ones(2, 7, device=card))
+    with pytest.raises(TypeError):   # mask rows must divide the rows
+        K.flash_attention_bias(q, k, k, None, torch.ones(3, 7, device=card).bool())
+    with pytest.raises(ValueError):
+        K.flash_attention_bias(q, k.transpose(0, 1).contiguous().transpose(0, 1), k)
+    with pytest.raises(ValueError):
+        K.flash_attention_bias(torch.zeros(2, 3, 160, device=card),
+                               torch.zeros(2, 7, 160, device=card),
+                               torch.zeros(2, 7, 160, device=card))
+    with pytest.raises(RuntimeError, match="forward-only"):
+        K.flash_attention_bias(q.requires_grad_(), k, k)
+    assert K.flash_attention_bias.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_step_kernel_route_matches_plain_route(card, dtype):
+    """speecht5_base_asr's decoder width (d 768, 12 heads) with two layers:
+    5 steps of ``text_decode_step`` (beam 3 over 2 samples, grouped cross
+    attention, a shuffled ancestry map) with decoder.use_pallas_attn on and
+    off: the kernel launches twice a layer a step (self and cross), the
+    plain route never."""
+    from speecht5_tpu_torch import config as C
+    from speecht5_tpu_torch.models.speecht5 import init_model
+
+    base = C.replace(C.speecht5_base_asr(dtype="float32" if dtype == torch.float32
+                                         else "bfloat16"), vocab_size=81, blank_id=80)
+    base = C.apply_overrides(base, ["decoder.num_layers=2", "encoder.num_layers=1"])
+    models = [init_model(C.apply_overrides(base, [f"decoder.use_pallas_attn={on}"]),
+                         torch.Generator().manual_seed(0), card) for on in (True, False)]
+    models[1].load_state_dict(models[0].state_dict())
+    g = torch.Generator().manual_seed(1)
+    B, K3, Tsrc, steps = 2, 3, 50, 5
+    enc = {"encoder_out": torch.randn(B, Tsrc, 768, generator=g).to(card),
+           "valid_mask": (torch.arange(Tsrc)[None, :] < torch.tensor([[50], [31]])).to(card)}
+    toks = torch.randint(4, 80, (B * K3, steps), generator=g).to(card)
+    rows = torch.randint(0, B * K3, (B * K3, steps + 1), generator=g).to(card)
+    outs = []
+    with torch.inference_mode():
+        for m in models:
+            cache = m.init_text_cache(enc, B * K3, steps + 1)
+            before = K.flash_attention_bias.launches
+            logits = []
+            for t in range(steps):
+                lg, cache = m.text_decode_step(toks[:, t : t + 1], cache,
+                                               enc_valid=enc["valid_mask"],
+                                               cache_rows=rows)
+                logits.append(lg)
+            outs.append((torch.stack(logits), K.flash_attention_bias.launches - before))
+    torch.cuda.synchronize()
+    (got, n_k), (ref, n_p) = outs
+    assert n_k == 2 * 2 * steps and n_p == 0
+    assert torch.isfinite(got).all()
+    _close(got, ref, dtype)

@@ -40,12 +40,15 @@ def test_port_and_smoke_import_with_jax_blocked():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "import chip_smoke, torch_serve_profile, torch_train_profile\n"
-        "print(len(names))\n"
+        "print(' '.join(names))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15
+    names = set(out.stdout.split())
+    assert len(names) >= 15
+    assert {"speecht5_tpu_torch.decode.beam_search", "speecht5_tpu_torch.decode.ctc_prefix",
+            "speecht5_tpu_torch.decode.asr", "speecht5_tpu_torch.cli.serve"} <= names
 
 
 def test_no_import_lines_reach_jax():
@@ -177,7 +180,7 @@ def test_chip_smoke_kernels_line_lists_every_kernel():
     records = {n: {case: rec} for n, case in chip_smoke.MAIN_CASE.items()}
     by_path = {"a": {n: 1 for n in chip_smoke.KERNELS}, "b": {n: 2 for n in chip_smoke.KERNELS}}
     line = chip_smoke.kernels_line(records, {n: 3 for n in chip_smoke.KERNELS}, by_path)
-    assert len(line["kernels"]) == 6
+    assert len(line["kernels"]) == 7
     for k in line["kernels"]:
         assert k["route"] == "cuda" and k["launches"] == 3
         assert k["launches_by_path"] == {"a": 1, "b": 2}

@@ -112,10 +112,12 @@ def test_twins_count_no_launches_on_cpu():
     K.banded_attention_train(q, _t(k), _t(v), band_from_table(_t(table), 8, 2),
                              dropout_rate=0.1, seed=1).sum().backward()
     K.fused_log_mel(torch.zeros(1, 2048), n_fft=512, hop=128, n_mels=8)
+    K.flash_attention_bias(q.detach(), _t(k), _t(v))
     assert K.launch_counts() == {
         "banded_flash_attention": 0, "conv_stack": 0,
         "banded_attention_train_fwd": 0, "banded_attention_train_bwd_dq": 0,
-        "banded_attention_train_bwd_dkv": 0, "fused_log_mel": 0}
+        "banded_attention_train_bwd_dkv": 0, "fused_log_mel": 0,
+        "flash_attention_bias": 0}
 
 
 SPECS = ((3, 2), (3, 2), (2, 2))
