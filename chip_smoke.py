@@ -9,7 +9,9 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                checkout, one nvcc each, all started together.
 2. kernels  -- hold each of the seven kernels against its plain PyTorch twin
                on the card and time kernel, twin and one PyTorch library call
-               that computes the same function (a yardstick only):
+               that computes the same function (a yardstick only; for the
+               conv stack and the log-mel also the share of the bound
+               reached and the TFLOP/s of the work the function needs):
                the inference attention and the conv stack at SpeechT5-Base
                shapes (batch 1, as a served 16 s chunk gives them, and batch
                2), f32 and bf16; the three train-attention kernels at the
@@ -308,6 +310,13 @@ def _bound(nbytes: float, flops: float, dtype):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _achieved(flops: float, bound_ms: float, ms: float) -> dict:
+    """The share of the bound a kernel reaches (bound_ms / ms) and its
+    rate in TFLOP/s, both over the work the function needs (the flops the
+    bound counts), not the kernel's own."""
+    return {"bound_share": bound_ms / ms, "achieved_tflops": flops / (ms * 1e-3) / 1e12}
+
+
 def _check(dtype, got, ref):
     err = (got.float() - ref.float()).abs().max().item()
     if dtype == torch.float32:
@@ -396,13 +405,14 @@ def _conv_record(batch, dtype):
             y = F.gelu(F.conv1d(y, w, stride=s))
         return y
 
+    ms = time_ms(lambda: K.conv_stack(x, ws, specs))
     return ok, {
-        "max_abs_err": err, "tolerance": tol,
-        "ms": time_ms(lambda: K.conv_stack(x, ws, specs)),
+        "max_abs_err": err, "tolerance": tol, "ms": ms,
         "plain_ms": time_ms(lambda: K.conv_stack_plain(x, ws, specs)),
         "library_ms": time_ms(library),
         "library_call": "F.conv1d + F.gelu per layer",
         "bound_ms": bound_ms, "bound_by": bound_by,
+        **_achieved(flops, bound_ms, ms),
         "shape": {"B": B, "T_in": x.shape[1], "C": x.shape[2], "T_out": got.shape[1]},
     }
 
@@ -528,7 +538,7 @@ def _mel_record(batch, samples, center, n_mels=80, n_fft=1024, hop=256):
     ok = err <= TOL_MEL and bool(torch.isfinite(got).all())
     B, frames, _ = got.shape
     n_bins = n_fft // 2 + 1
-    # the operations the function needs, not the kernel's O(n^2) DFT: per
+    # the operations the function needs, not the twin's O(n^2) DFT: per
     # frame the window, one real FFT (2.5 n log2 n flops, the usual count),
     # the magnitudes (two products, two sums and a root per bin), a
     # multiply-add for each non-zero filterbank entry and a log per mel;
@@ -547,9 +557,10 @@ def _mel_record(batch, samples, center, n_mels=80, n_fft=1024, hop=256):
                           pad_mode="reflect", return_complex=True)
         return torch.log10(torch.clamp_min(spec.abs().transpose(1, 2) @ fb.t(), 1e-10))
 
+    ms = time_ms(lambda: K.fused_log_mel(wav, **kw))
     return ok, {
-        "max_abs_err": err, "tolerance": f"atol {TOL_MEL}",
-        "ms": time_ms(lambda: K.fused_log_mel(wav, **kw)),
+        "max_abs_err": err, "tolerance": f"atol {TOL_MEL}", "ms": ms,
+        **_achieved(flops, bound_ms, ms),
         "plain_ms": time_ms(lambda: K.fused_log_mel_plain(wav, **kw), reps=10),
         "library_ms": time_ms(library),
         "library_call": "torch.stft(return_complex) -> abs -> f32 matmul with the "
@@ -1199,16 +1210,18 @@ def kernels_line(records, counts, by_path=None):
     per path under "launches_by_path"."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "tolerance")
+    rates = ("bound_share", "achieved_tflops")      # the redesigned kernels'
     out = []
     for name, meta in KERNELS.items():
         main = records[name][MAIN_CASE[name]]
         out.append({
             "name": name, "route": "cuda", "impl": "cuda", **meta,
             "launches": counts[name], **{k: main[k] for k in keys},
+            **{k: main[k] for k in rates if k in main},
             "launches_by_path": {p: c[name] for p, c in (by_path or {}).items()},
             "dtype": MAIN_CASE[name].split("/")[0], "case": MAIN_CASE[name],
             "shape": main["shape"],
-            "other": {case: {k: rec[k] for k in keys + ("shape",)}
+            "other": {case: {k: rec[k] for k in keys + rates + ("shape",) if k in rec}
                       for case, rec in records[name].items()
                       if case != MAIN_CASE[name]},
         })

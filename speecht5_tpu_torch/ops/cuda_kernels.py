@@ -11,9 +11,10 @@ loader that builds them.
 - ``conv_stack`` (``csrc/conv_stack.cu``): feature-extractor layers 1..n,
   each a VALID strided Conv1d without bias followed by the exact GELU;
   replaces ``conv_stack_pallas`` / ``conv_stack_fused`` (pallas_kernels.py
-  :714, :783).  One launch per layer; an autograd function whose backward
-  is the vjp of the plain twin, as ``conv_stack_fused``'s is the vjp of
-  ``_conv_stack_ref``.
+  :714, :783).  One launch per layer: bf16 an implicit GEMM on wgmma tensor
+  cores fed by TMA, f32 the CUDA-core kernel; an autograd function whose
+  backward is the vjp of the plain twin, as ``conv_stack_fused``'s is the
+  vjp of ``_conv_stack_ref``.
 - ``banded_attention_train`` (``csrc/banded_attention_train.cu``): the
   differentiable form of the attention with in-kernel counter-hash
   probability dropout; replaces ``banded_flash_attention_train``
@@ -22,8 +23,8 @@ loader that builds them.
   ``banded_attention_train_bwd_dq`` (dq and dband in one launch) and
   ``banded_attention_train_bwd_dkv``.
 - ``fused_log_mel`` (``csrc/log_mel.cu``): waveform -> log10-mel in one
-  pass, the DFT and mel products in f32 on the CUDA cores, the spectrum
-  kept on chip; replaces ``fused_log_mel`` (pallas_kernels.py:97, kernel
+  pass, an f32 four-step FFT in registers and warp shuffles and a sparse
+  filterbank, the spectrum kept on chip; replaces ``fused_log_mel`` (pallas_kernels.py:97, kernel
   ``_mel_kernel`` :57, ``pallas_call`` :154).  No gradient: the TPU kernel
   has none and the mel targets need none.
 - ``flash_attention_bias`` (``csrc/flash_attention_bias.cu``): streaming
@@ -57,7 +58,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .mel import _dft_matrices, hann_window, log_mel_spectrogram, mel_filterbank
+from .mel import hann_window, log_mel_spectrogram, mel_filterbank
 
 NEG_INF = -1e9
 
@@ -168,17 +169,21 @@ def _lib(name: str) -> ctypes.CDLL:
                        lib.bat_bwd_dkv_launch):
                 fn.restype = i
         elif name == "conv_stack":
-            lib.conv_gelu_launch.argtypes = [vp] * 3 + [i] * 8 + [vp]
-            lib.conv_gelu_launch.restype = i
+            # x, w [k, Cin, Cout], y, then B, T_in, Cin, T_out, Cout, k, s,
+            # stream
+            for fn in (lib.conv_gelu_f32_launch, lib.conv_gelu_bf16_launch):
+                fn.argtypes = [vp] * 3 + [i] * 7 + [vp]
+                fn.restype = i
         elif name == "flash_attention_bias":
             # q, k, v, bias or NULL, key_valid or NULL, out, then N, Tq,
             # Tk, D, rows per mask row, dtype, stream
             lib.flash_bias_launch.argtypes = [vp] * 6 + [i] * 6 + [vp]
             lib.flash_bias_launch.restype = i
         else:
-            # wav, cos*win, sin*win, filterbank, out, then B, T, frames,
-            # n_fft, hop, n_mels, center, eps, stream
-            lib.log_mel_launch.argtypes = [vp] * 5 + [i] * 7 + [f, vp]
+            # wav, window, twiddles, filterbank weights [max len, n_mels],
+            # their [n_mels, 2] index, out, then B, T, frames, n_fft, hop,
+            # n_mels, center, eps, stream
+            lib.log_mel_launch.argtypes = [vp] * 6 + [i] * 7 + [f, vp]
             lib.log_mel_launch.restype = i
         _LIBS[name] = lib
     return lib
@@ -279,6 +284,9 @@ banded_flash_attention.launches = 0
 
 # ====================================================== conv-FE stack
 
+# the bf16 kernel's limit (csrc/conv_stack.cu): one TMA tensor map per tap
+CONV_WGMMA_MAX_TAPS = 8
+
 
 def conv_stack_plain(x, weights, specs):
     """Plain PyTorch twin of the conv stack: per layer, a VALID strided conv
@@ -301,29 +309,56 @@ def conv_stack_plain(x, weights, specs):
     return x
 
 
-def _conv_stack_forward(x, weights, specs):
-    """The kernel on CUDA tensors (one launch per layer), the twin on CPU
-    ones."""
-    if x.device.type == "cpu":
-        return conv_stack_plain(x, weights, specs)
+def _conv_stack_shapes(x, weights, specs):
+    """Check every layer against what its kernel takes before any launch:
+    [(k, s, Cin, T_out, Cout), ...]."""
     if x.dim() != 3:
         raise ValueError(f"x must be [B, T, C], got {tuple(x.shape)}")
-    code = _dtype_code(x)
-    lib = _lib("conv_stack")
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _dtype_code(x)
+    bf16 = x.dtype == torch.bfloat16
+    T, Cin = x.shape[1:]
+    layers = []
     for (k, s), w in zip(specs, weights):
-        B, T, Cin = x.shape
         if w.dim() != 3 or w.shape[0] != k or w.shape[1] != Cin:
             raise ValueError(f"weight {tuple(w.shape)} does not match k={k}, Cin={Cin}")
-        w = w.to(x.dtype).contiguous()
-        _check_cuda(x, w)
         n_out = (T - k) // s + 1
         if n_out <= 0:
             raise ValueError(f"input of {T} frames is shorter than kernel {k}")
         Cout = w.shape[2]
+        if bf16 and (Cin % 8 or Cout % 8 or k > CONV_WGMMA_MAX_TAPS):
+            raise ValueError(
+                "the bf16 (wgmma/TMA) conv kernel needs Cin % 8 == 0, Cout % 8 == 0 "
+                f"and k <= {CONV_WGMMA_MAX_TAPS}; got Cin={Cin}, Cout={Cout}, k={k}")
+        layers.append((k, s, Cin, n_out, Cout))
+        T, Cin = n_out, Cout
+    return layers
+
+
+def _conv_stack_forward(x, weights, specs):
+    """The kernel on CUDA tensors (one launch per layer: bf16 on the wgmma
+    kernel, f32 on the CUDA-core kernel), the twin on CPU ones."""
+    if x.device.type == "cpu":
+        return conv_stack_plain(x, weights, specs)
+    layers = _conv_stack_shapes(x, weights, specs)
+    _check_cuda(x)
+    if x.data_ptr() % 16:
+        raise ValueError("the conv kernel needs x 16-byte aligned")
+    lib = _lib("conv_stack")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    for (k, s, Cin, n_out, Cout), w in zip(layers, weights):
+        if w.device != x.device:
+            raise ValueError(f"weight on {w.device}, x on {x.device}")
+        B, T = x.shape[:2]
+        if w.dtype != x.dtype or not w.is_contiguous():
+            # one copy (cast and layout) into the kernels' [k, Cin, Cout]
+            w = torch.empty((k, Cin, Cout), dtype=x.dtype, device=x.device).copy_(w)
+        if w.data_ptr() % 16:
+            raise ValueError("the conv kernel needs w 16-byte aligned")
+        launch = (lib.conv_gelu_bf16_launch if x.dtype == torch.bfloat16
+                  else lib.conv_gelu_f32_launch)
         y = torch.empty((B, n_out, Cout), dtype=x.dtype, device=x.device)
-        rc = lib.conv_gelu_launch(x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                                  B, T, Cin, n_out, Cout, k, s, code, stream)
+        rc = launch(x.data_ptr(), w.data_ptr(), y.data_ptr(), B, T, Cin, n_out, Cout,
+                    k, s, stream)
         _check_rc(rc, "conv_stack")
         conv_stack.launches += 1
         x = y
@@ -360,8 +395,9 @@ def conv_stack(x, weights, specs):
 
     ``specs``: ((k, s), ...) per layer; ``weights``: matching [k, Cin, Cout]
     tensors, cast to x's dtype as the JAX kernel does.  VALID padding, no
-    bias.  On CUDA: one kernel launch per layer.  Differentiable in x and
-    the weights (the backward is the plain twin's vjp)."""
+    bias.  On CUDA: one kernel launch per layer; bf16 needs every Cin and
+    Cout a multiple of 8 and k <= 8 (it raises otherwise).  Differentiable
+    in x and the weights (the backward is the plain twin's vjp)."""
     return _ConvStack.apply(x, tuple(specs), *weights)
 
 
@@ -604,9 +640,9 @@ def banded_attention_train(q, k, v, pe_band, lengths=None, *,
 
 # ============================================================ fused log-mel
 
-# the kernel's limits (csrc/log_mel.cu): table rows are staged 32 at a time,
-# and a thread keeps at most 16 mel outputs of a 32-frame tile
-LOG_MEL_ROW_TILE = 32
+# the kernel's limits (csrc/log_mel.cu): a power-of-two FFT whose frames
+# fit its shared memory, and at most 128 mels
+LOG_MEL_N_FFT_RANGE = (256, 2048)
 LOG_MEL_MAX_MELS = 128
 _MEL_TABLES: dict = {}
 
@@ -618,17 +654,41 @@ fused_log_mel_plain = log_mel_spectrogram
 
 def log_mel_tables(n_fft: int, n_mels: int, sr: int, fmin: float, fmax: float,
                    device) -> tuple:
-    """(cos*win, sin*win [n_fft, n_bins], filterbank [n_bins, n_mels]) f32
-    on ``device``, built once on the host (float64 bases cast to f32, the
-    window folded in as the TPU kernel does) and cached."""
+    """The log-mel kernel's tables on ``device``, built once on the host in
+    float64, cast to f32 and cached:
+
+    - window: the periodic Hann window, [n_fft] f32;
+    - twiddles: [3 n_fft / 2, 2] f32 (re, im): exp(-2 pi i k / n_fft) for
+      k < n_fft (the in-register and cross-lane FFT steps and the split
+      into the real transform's bins), then exp(-2 pi i l k1 / M) at row
+      n_fft + 32 k1 + l (M = n_fft / 2 = 32 N1, k1 < N1, lane l < 32: the
+      four-step FFT's middle twiddles, one row a k1 so that a warp reads
+      them in one load);
+    - fb_weights: [max len, n_mels] f32, the filterbank's [start, start +
+      len) slice of mel m in column m, zero below its len (transposed, so
+      that the kernel's threads, one a mel, read a row in one load);
+    - fb_index: [n_mels, 2] int32 (start bin, len); a mel with no non-zero
+      weight has len 0.
+    """
     key = (n_fft, n_mels, sr, float(fmin), float(fmax), str(device))
     tables = _MEL_TABLES.get(key)
     if tables is None:
-        win = hann_window(n_fft)[:, None]
-        cos_b, sin_b = _dft_matrices(n_fft)
-        fb = mel_filterbank(sr, n_fft, n_mels, fmin, fmax).T
+        M = n_fft // 2
+        k1, lane = np.arange(M // 32)[:, None], np.arange(32)[None, :]
+        tw = np.concatenate([np.exp(-2j * np.pi * np.arange(n_fft) / n_fft),
+                             np.exp(-2j * np.pi * lane * k1 / M).ravel()])
+        fb = mel_filterbank(sr, n_fft, n_mels, fmin, fmax)
+        index = []
+        for row in fb:
+            nz = np.flatnonzero(row)
+            index.append((int(nz[0]), int(nz[-1] - nz[0] + 1)) if len(nz) else (0, 0))
+        weights = np.zeros((max(1, max(n for _, n in index)), n_mels), np.float32)
+        for m, (start, n) in enumerate(index):
+            weights[:n, m] = fb[m, start : start + n]
+        arrays = (hann_window(n_fft), np.stack([tw.real, tw.imag], axis=1), weights)
         tables = tuple(torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
-                       for a in (cos_b * win, sin_b * win, fb))
+                       for a in arrays)
+        tables += (torch.tensor(index, dtype=torch.int32, device=device),)
         _MEL_TABLES[key] = tables
     return tables
 
@@ -640,8 +700,8 @@ def fused_log_mel(wav, *, sr: int = 16000, n_fft: int = 1024, hop: int = 256,
     of the JAX package's ``fused_log_mel`` and ``log_mel_spectrogram``:
     frames = 1 + T // hop with ``center`` (reflect pad n_fft // 2), else
     1 + (T - n_fft) // hop (the caller reflect-padded each utterance).  One
-    kernel launch on CUDA tensors (hop | n_fft, n_fft a multiple of 32,
-    n_mels <= 128); the twin on CPU ones."""
+    kernel launch on CUDA tensors (n_fft a power of two in [256, 2048],
+    hop | n_fft, n_mels <= 128); the twin on CPU ones."""
     if wav.device.type == "cpu":
         return fused_log_mel_plain(wav, sr=sr, n_fft=n_fft, hop=hop, n_mels=n_mels,
                                    fmin=fmin, fmax=fmax, eps=eps, center=center)
@@ -650,22 +710,25 @@ def fused_log_mel(wav, *, sr: int = 16000, n_fft: int = 1024, hop: int = 256,
     if wav.dtype != torch.float32:
         raise TypeError(f"wav must be float32, got {wav.dtype}")
     _check_cuda(wav)
-    if n_fft % hop != 0:
+    lo, hi = LOG_MEL_N_FFT_RANGE
+    if not lo <= n_fft <= hi or n_fft & (n_fft - 1):
+        raise ValueError(f"the kernel needs n_fft a power of two in [{lo}, {hi}]; "
+                         f"got {n_fft}")
+    if hop <= 0 or n_fft % hop != 0:
         raise ValueError(f"the kernel needs hop | n_fft; got n_fft={n_fft} hop={hop}")
-    if n_fft % LOG_MEL_ROW_TILE != 0 or not 0 < n_mels <= LOG_MEL_MAX_MELS:
-        raise ValueError(f"kernel limits: n_fft a multiple of {LOG_MEL_ROW_TILE}, "
-                         f"n_mels <= {LOG_MEL_MAX_MELS}; got {n_fft}, {n_mels}")
+    if not 0 < n_mels <= LOG_MEL_MAX_MELS:
+        raise ValueError(f"kernel limit n_mels <= {LOG_MEL_MAX_MELS}; got {n_mels}")
     B, T = wav.shape
     if center and T <= n_fft // 2:
         raise ValueError(f"reflect padding needs T > n_fft // 2; got T={T}")
     if not center and T < n_fft:
         raise ValueError(f"center=False needs T >= n_fft; got T={T}")
     n_frames = 1 + (T // hop if center else (T - n_fft) // hop)
-    cosw, sinw, fb = log_mel_tables(n_fft, n_mels, sr, fmin, fmax, wav.device)
+    win, tw, fb_w, fb_idx = log_mel_tables(n_fft, n_mels, sr, fmin, fmax, wav.device)
     out = torch.empty((B, n_frames, n_mels), dtype=torch.float32, device=wav.device)
     stream = torch.cuda.current_stream(wav.device).cuda_stream
     rc = _lib("log_mel").log_mel_launch(
-        wav.data_ptr(), cosw.data_ptr(), sinw.data_ptr(), fb.data_ptr(),
+        wav.data_ptr(), win.data_ptr(), tw.data_ptr(), fb_w.data_ptr(), fb_idx.data_ptr(),
         out.data_ptr(), B, T, n_frames, n_fft, hop, n_mels, int(bool(center)),
         float(eps), stream)
     _check_rc(rc, "fused_log_mel")

@@ -56,20 +56,45 @@ def test_attention_kernel_matches_twin(card, dtype, T, Dh):
     _close(got, ref, dtype)
 
 
+BASE_SPECS = ((3, 2),) * 4 + ((2, 2),) * 2
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("C,T", [(32, 333), (512, 1000)])
-def test_conv_stack_kernel_matches_twin(card, dtype, C, T):
-    g = torch.Generator().manual_seed(C + T)
-    specs = ((3, 2),) * 4 + ((2, 2),) * 2
-    x = torch.randn(2, T, C, generator=g).to(dtype).to(card)
-    ws = [(torch.randn(k, C, C, generator=g) / (k * C) ** 0.5).to(dtype).to(card)
-          for k, _ in specs]
+@pytest.mark.parametrize("B,T,channels,specs", [
+    (2, 333, (32,) * 7, BASE_SPECS),
+    (2, 1000, (512,) * 7, BASE_SPECS),
+    (3, 261, (64, 64), ((3, 2),)),                 # T_out 130: M not a multiple of 128
+    (2, 700, (64, 72, 72), ((3, 2), (2, 2))),      # Cout 72: N and K tails of the tiles
+    (2, 4000, (32, 32, 64), ((8, 4), (4, 4))),     # the tiny preset's layers 1-2
+], ids=["c32", "c512", "m-tail", "cout72", "tiny"])
+def test_conv_stack_kernel_matches_twin(card, dtype, B, T, channels, specs):
+    """One launch per layer against the twin; bf16 runs the wgmma/TMA
+    kernel, f32 the CUDA-core kernel."""
+    g = torch.Generator().manual_seed(T + channels[-1])
+    x = torch.randn(B, T, channels[0], generator=g).to(dtype).to(card)
+    ws = [(torch.randn(k, ci, co, generator=g) / (k * ci) ** 0.5).to(dtype).to(card)
+          for (k, _), ci, co in zip(specs, channels, channels[1:])]
     before = K.conv_stack.launches
     got = K.conv_stack(x, ws, specs)
     assert K.conv_stack.launches == before + len(specs)
     ref = K.conv_stack_plain(x, ws, specs)
     torch.cuda.synchronize()
     assert got.shape == ref.shape and got.dtype == dtype
+    _close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_stack_kernel_takes_more_rows_than_the_old_grid_cap(card, dtype):
+    """B 16 x T_out 262,200 = 4,195,200 output rows, past the 65535 x 64
+    rows that the first design's grid.y could hold: the row tiles run along
+    grid.x."""
+    g = torch.Generator().manual_seed(16)
+    x = torch.randn(16, 2 * 262_200, 8, generator=g).to(dtype).to(card)
+    w = (torch.randn(2, 8, 16, generator=g) / 4).to(dtype).to(card)
+    got = K.conv_stack(x, [w], ((2, 2),))
+    ref = K.conv_stack_plain(x, [w], ((2, 2),))
+    torch.cuda.synchronize()
+    assert got.shape == (16, 262_200, 16)
     _close(got, ref, dtype)
 
 
@@ -83,6 +108,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError):
         K.banded_flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
                                  q, q, band)
+    # the bf16 conv kernel's TMA strides need Cin and Cout multiples of 8
+    x = torch.zeros(1, 100, 12, dtype=torch.bfloat16, device=card)
+    before = K.conv_stack.launches
+    with pytest.raises(ValueError, match="Cin=12"):
+        K.conv_stack(x, [torch.zeros(3, 12, 16, dtype=torch.bfloat16, device=card)], ((3, 2),))
+    with pytest.raises(ValueError, match="Cout=12"):
+        K.conv_stack(x[..., :8], [torch.zeros(3, 8, 16, dtype=torch.bfloat16, device=card),
+                                  torch.zeros(2, 16, 12, dtype=torch.bfloat16, device=card)],
+                     ((3, 2), (2, 2)))
+    assert K.conv_stack.launches == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -149,7 +184,9 @@ def test_conv_stack_gradient_is_the_twin_vjp(card):
     (2, 16000, 512, 128, 24, True),        # tests/test_pallas_kernels.py:15
     (1, 5000, 512, 128, 24, True),         # frames not a multiple of the tile
     (3, 767 * 256 + 1024, 1024, 256, 80, False),   # the t2s step's rows
-    (2, 4000, 1024, 256, 128, False),      # the most mels a thread tile holds
+    (2, 4000, 1024, 256, 128, False),      # the most mels the kernel takes
+    (2, 3001, 256, 64, 40, True),          # the smallest FFT; rows not 16-byte aligned
+    (1, 9000, 2048, 512, 80, True),        # the largest: 64 values a lane
 ])
 def test_log_mel_kernel_matches_twin(card, B, T, n_fft, hop, n_mels, center):
     """One launch against the twin (f32, TF32 off), atol 2e-3 on log10-mel
@@ -181,6 +218,10 @@ def test_log_mel_wrapper_rejects_what_the_kernel_does_not_take(card):
         K.fused_log_mel(torch.zeros(8000, 2, device=card).t())      # strided
     with pytest.raises(ValueError):
         K.fused_log_mel(wav, n_fft=1024, hop=384)                   # hop does not divide
+    with pytest.raises(ValueError):
+        K.fused_log_mel(wav, n_fft=768, hop=256)                    # not a power of two
+    with pytest.raises(ValueError):
+        K.fused_log_mel(wav, n_fft=4096, hop=256)                   # past the largest FFT
     with pytest.raises(ValueError):
         K.fused_log_mel(wav, n_mels=129)
     with pytest.raises(ValueError):

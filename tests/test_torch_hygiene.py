@@ -177,7 +177,9 @@ def test_chip_smoke_kernels_line_lists_every_kernel():
     rec = {"max_abs_err": 0.0, "ms": 1.0, "plain_ms": 1.0, "bound_ms": 0.1,
            "bound_by": "operations", "library_ms": None, "tolerance": "atol 0",
            "shape": {}}
-    records = {n: {case: rec} for n, case in chip_smoke.MAIN_CASE.items()}
+    records = {n: {case: dict(rec)} for n, case in chip_smoke.MAIN_CASE.items()}
+    records["conv_stack"][chip_smoke.MAIN_CASE["conv_stack"]].update(
+        chip_smoke._achieved(flops=1e9, bound_ms=0.1, ms=1.0))
     by_path = {"a": {n: 1 for n in chip_smoke.KERNELS}, "b": {n: 2 for n in chip_smoke.KERNELS}}
     line = chip_smoke.kernels_line(records, {n: 3 for n in chip_smoke.KERNELS}, by_path)
     assert len(line["kernels"]) == 7
@@ -188,3 +190,6 @@ def test_chip_smoke_kernels_line_lists_every_kernel():
                 "bound_ms", "bound_by", "library_ms"} <= set(k)
     mel = [k for k in line["kernels"] if k["name"] == "fused_log_mel"][0]
     assert mel["dtype"] == "float32" and mel["replaces"].endswith("pallas_kernels.py:154")
+    conv = [k for k in line["kernels"] if k["name"] == "conv_stack"][0]
+    assert conv["bound_share"] == 0.1 and conv["achieved_tflops"] == 1.0
+    assert "bound_share" not in mel

@@ -95,14 +95,93 @@ def test_fused_log_mel_twin_matches_pallas_interpret(shape, block, center):
         got.numpy(), K.fused_log_mel_plain(torch.from_numpy(wav), **kw).numpy())
 
 
-def test_log_mel_tables_fold_the_window_as_the_tpu_kernel():
-    cosw, sinw, fb = K.log_mel_tables(512, 24, 16000, 80.0, 7600.0, "cpu")
-    cos_b, sin_b = JM._dft_matrices(512)
-    win = JM.hann_window(512)[:, None]
-    np.testing.assert_array_equal(cosw.numpy(), cos_b * win)
-    np.testing.assert_array_equal(sinw.numpy(), sin_b * win)
-    np.testing.assert_array_equal(fb.numpy(), JM.mel_filterbank(16000, 512, 24).T)
-    assert K.log_mel_tables(512, 24, 16000, 80.0, 7600.0, "cpu")[0] is cosw
+@pytest.mark.parametrize("n_fft,n_mels,fmin,fmax", [
+    (1024, 80, 80.0, 7600.0), (512, 24, 80.0, 7600.0), (256, 128, 0.0, 8000.0)])
+def test_log_mel_sparse_filterbank_unpacks_to_the_dense_one(n_fft, n_mels, fmin, fmax):
+    """The kernel's sparse filterbank (per mel a [start, start + len) slice,
+    its weights in column m, zero below len) unpacks to ``mel_filterbank``
+    exactly, mels with no non-zero weight included; the window is the
+    twin's."""
+    win, tw, fb_w, fb_idx = K.log_mel_tables(n_fft, n_mels, 16000, fmin, fmax, "cpu")
+    dense = JM.mel_filterbank(16000, n_fft, n_mels, fmin, fmax)
+    got = np.zeros_like(dense)
+    for m, (start, n) in enumerate(fb_idx.numpy()):
+        got[m, start : start + n] = fb_w.numpy()[:n, m]
+        assert (fb_w.numpy()[n:, m] == 0).all()
+    np.testing.assert_array_equal(got, dense)
+    assert fb_idx[:, 1].sum().item() == np.count_nonzero(dense)   # no zero inside
+    assert fb_w.shape == (fb_idx[:, 1].max().item(), n_mels)
+    np.testing.assert_array_equal(win.numpy(), JM.hann_window(n_fft))
+    assert tw.shape == (3 * n_fft // 2, 2) and fb_idx.dtype == torch.int32
+    assert K.log_mel_tables(n_fft, n_mels, 16000, fmin, fmax, "cpu")[0] is win
+
+
+def _dif(a, N, tw):
+    """Radix-2 DIF over the last axis, as the kernel runs it (in registers,
+    or across a warp's lanes by shuffles): output in bit-reversed order."""
+    a, L = a.copy(), a.shape[-1]
+    h = L // 2
+    while h >= 1:
+        j = np.arange(h)
+        for s in range(0, L, 2 * h):
+            u, v = a[..., s + j], a[..., s + j + h]
+            a[..., s + j], a[..., s + j + h] = u + v, (u - v) * tw[j * (N // (2 * h))]
+        h //= 2
+    return a
+
+
+def _bitrev(k, bits):
+    return int(format(k, f"0{bits}b")[::-1], 2) if bits else 0
+
+
+def _kernel_model(wav, n_fft, hop, n_mels, center, eps=1e-10):
+    """numpy model of the log-mel kernel's algorithm on its own f32 tables:
+    framing (reflect padding when ``center``), the windowed samples packed
+    as z[n] = x[2n] + i x[2n+1], the four-step FFT of M = N1 x 32 points in
+    complex64 (an N1-point DIF per lane over z[lane + 32 n1], the middle
+    twiddles, a 32-point DIF across the lanes; lane l holds Z[k1 + N1
+    bitrev5(l)]), the split into the real transform's bins, the
+    magnitudes, the sparse filterbank and the log."""
+    win, tw, fb_w, fb_idx = (t.numpy() for t in
+                             K.log_mel_tables(n_fft, n_mels, 16000, 80.0, 7600.0, "cpu"))
+    tw = (tw[:, 0] + 1j * tw[:, 1]).astype(np.complex64)
+    N, M = n_fft, n_fft // 2
+    N1, tw_n, tw_m = M // 32, tw[:n_fft], tw[n_fft:]
+    frames = PM.frame_signal(torch.from_numpy(wav), n_fft, hop, center).numpy() * win
+    z = (frames[..., 0::2] + 1j * frames[..., 1::2]).astype(np.complex64)
+    a = _dif(np.swapaxes(z.reshape(*z.shape[:-1], N1, 32), -1, -2), N, tw_n)  # [lane, n1]
+    a = a[..., [_bitrev(k, N1.bit_length() - 1) for k in range(N1)]]
+    c = _dif(np.swapaxes(a * tw_m.reshape(N1, 32).T, -1, -2), N, tw_n)       # [k1, lane]
+    Z = np.empty_like(z)
+    for lane in range(32):
+        Z[..., np.arange(N1) + N1 * _bitrev(lane, 5)] = c[..., lane]
+    kk = np.arange(M + 1)
+    za, zc = Z[..., kk & (M - 1)], np.conj(Z[..., (M - kk) & (M - 1)])
+    e, dd = np.complex64(0.5) * (za + zc), np.complex64(0.5) * (za - zc)
+    X = e + tw_n[: M + 1] * (dd.imag - 1j * dd.real).astype(np.complex64)
+    mag = np.sqrt(X.real * X.real + X.imag * X.imag + np.float32(1e-30))
+    mel = np.stack([mag[..., s : s + n] @ fb_w[:n, m] for m, (s, n) in enumerate(fb_idx)],
+                   -1)
+    return np.log10(np.maximum(np.float32(eps), mel))
+
+
+@pytest.mark.parametrize("center", [True, False])
+@pytest.mark.parametrize("n_fft,hop,n_mels", [(512, 128, 24), (1024, 256, 80),
+                                              (256, 64, 40), (2048, 512, 80)])
+def test_fft_model_of_the_log_mel_kernel_matches_the_twin(n_fft, hop, n_mels, center):
+    """The kernel's algorithm and table layout, checked here because the
+    kernel itself runs only on the card: the numpy model agrees with the
+    twin (the f32 all-product DFT) within 1e-5 on log10-mel at every FFT
+    size the kernel takes (N1 = 4, 8, 16, 32), and a zero tail gives the
+    floor exactly."""
+    wav = _wav((2, 6000), seed=n_fft)
+    wav[-1, 3000:] = 0.0
+    want = K.fused_log_mel_plain(torch.from_numpy(wav), n_fft=n_fft, hop=hop,
+                                 n_mels=n_mels, center=center).numpy()
+    got = _kernel_model(wav, n_fft, hop, n_mels, center)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    assert (got[-1, -2:] == np.log10(np.float32(1e-10))).all()    # the floor
 
 
 def _items(lengths, seed=0):

@@ -157,6 +157,41 @@ def test_text_decoder_path_and_forward_s2t_match_jax(tied):
     assert (model.text_decoder_postnet.output_projection is None) == tied
 
 
+def test_forward_s2t_in_bf16_through_the_conv_stack_route_matches_jax():
+    """forward_s2t at tiny in eval, bf16, with ``conv_features.impl='pallas'``
+    (the port's conv-stack wrapper, its twin on the CPU; JAX's Pallas stack
+    in interpret mode) against JAX bf16: decoder and CTC logits within
+    3e-2 x max|ref| (one bf16 rounding of activations in each framework,
+    rounded at other places).  The CTC argmax equals JAX f32's (same
+    weights and batch) on at least 99.5% of the valid frames, and where it
+    differs from JAX bf16's, JAX bf16's top two logits lie within that
+    tolerance of each other: on this batch JAX bf16 itself differs from JAX
+    f32 on 2 of 81 frames, ties of 0.003-0.007 that bf16 rounding decides."""
+    jcfg, jm, variables, _, model = _setup(["conv_features.impl='pallas'"],
+                                           dtype="bfloat16")
+    b = _batch()
+    jlogits, jctc, jvalid = jax.jit(lambda p: _jax_forward(jm, p, b))(variables["params"])
+    jf32 = JModel(JC.replace(jcfg, dtype="float32"))
+    f32_ctc = jax.jit(lambda p: _jax_forward(jf32, p, b))(variables["params"])[1]
+    model.eval()
+    with torch.no_grad():
+        logits, ctc, valid = _port_forward(model, b)
+    np.testing.assert_array_equal(valid.numpy(), np.asarray(jvalid))
+    tol = {}
+    for name, got, want in (("decoder", logits, jlogits), ("ctc", ctc, jctc)):
+        got, want = got.float().numpy(), np.asarray(want, np.float32)
+        assert got.shape == want.shape, name
+        tol[name] = 3e-2 * np.abs(want).max()
+        np.testing.assert_allclose(got, want, rtol=0, atol=tol[name], err_msg=name)
+    v = np.asarray(jvalid)
+    ids = ctc.float().numpy().argmax(-1)
+    assert (ids == np.asarray(f32_ctc).argmax(-1))[v].mean() >= 0.995
+    ref = np.asarray(jctc, np.float32)
+    top2 = np.sort(ref, axis=-1)[..., -2:]
+    differ = (ids != ref.argmax(-1)) & v
+    assert (top2[..., 1] - top2[..., 0])[differ].max(initial=0.0) <= tol["ctc"]
+
+
 def _grad_close(name, got, want, gmax):
     if name.endswith("k_proj.bias"):
         assert np.abs(got).max() <= 1e-6 * gmax and np.abs(want).max() <= 1e-6 * gmax
