@@ -5,7 +5,7 @@
 
 Phases, each timed; any failure raises and the exit code is non-zero:
 
-1. build    -- compile the five CUDA sources with nvcc for sm_90a from this
+1. build    -- compile the six CUDA sources with nvcc for sm_90a from this
                checkout, one nvcc each, all started together.
 2. kernels  -- hold each of the seven kernels against its plain PyTorch twin
                on the card and time kernel, twin and one PyTorch library call
@@ -17,7 +17,9 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                2), f32 and bf16; the three train-attention kernels at the
                train step's shapes (N = 16 x 12, T = 799, Dh = 64, ragged
                lengths with a row of length 0), f32 and bf16, dropout 0 and
-               0.1 at a fixed seed; the log-mel kernel at the t2s step's
+               0.1 at a fixed seed, and for bf16 the time of each launch of
+               the wgmma backward (bias pass, dq's main loop and band pass,
+               dk/dv's main loop); the log-mel kernel at the t2s step's
                batch ([16, 197376] reflect-padded rows, center=False, 80
                mels: 768 frames) and at [2, 48000] with center=True, f32,
                atol 2e-3 (the JAX spec's, tests/test_pallas_kernels.py:23);
@@ -51,8 +53,9 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                synthetic corpus of 32 seeded 8-16 s utterances written to a
                temporary directory: 3 updates, then a resume that takes one
                more.  Every loss and grad norm must be finite; each train
-               kernel must launch once per encoder layer run (layerdrop
-               skips some), and the inference kernel never.
+               wrapper must launch its kernels once per encoder layer run
+               (layerdrop skips some; bf16 dq/dband three launches: bias
+               pass, main loop, band pass), and the inference kernel never.
 8. train parity -- one micro-batch in f32 with dropout, layerdrop and
                masking at 0, same weights, kernel route against the plain
                route: loss within 1e-4 relative, every parameter gradient
@@ -68,8 +71,8 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                transcripts (~14 a second) and a 512-d x-vector each: 3
                updates, then a resume that takes one more.  Every metric
                must be finite; the log-mel kernel must launch once per
-               micro-batch, each train kernel once per text-encoder layer
-               run, the inference and conv kernels never.
+               micro-batch, the train kernels once per text-encoder layer
+               run (as in 7), the inference and conv kernels never.
 10. t2s parity -- one f32 micro-batch with every dropout, the Tacotron
                prenet's and layerdrop at 0, same weights, kernel route (log
                mel and train attention on the card) against the plain route
@@ -133,12 +136,15 @@ KERNELS = {
         "source": "speecht5_tpu_torch/csrc/banded_attention_train.cu",
         "replaces": "speecht5_tpu/ops/pallas_kernels.py:427",
     },
+    # the path's bf16 route; f32 keeps the CUDA-core kernels of source_f32
     "banded_attention_train_bwd_dq": {
-        "source": "speecht5_tpu_torch/csrc/banded_attention_train.cu",
+        "source": "speecht5_tpu_torch/csrc/banded_attention_train_bwd.cu",
+        "source_f32": "speecht5_tpu_torch/csrc/banded_attention_train.cu",
         "replaces": "speecht5_tpu/ops/pallas_kernels.py:446",
     },
     "banded_attention_train_bwd_dkv": {
-        "source": "speecht5_tpu_torch/csrc/banded_attention_train.cu",
+        "source": "speecht5_tpu_torch/csrc/banded_attention_train_bwd.cu",
+        "source_f32": "speecht5_tpu_torch/csrc/banded_attention_train.cu",
         "replaces": "speecht5_tpu/ops/pallas_kernels.py:456",
     },
     "fused_log_mel": {
@@ -432,6 +438,21 @@ def train_attention_case(dtype, device="cuda", batch=16, T=799, seed=2):
     return [t.to(device) for t in (q, k, v, band, lengths, do)]
 
 
+def _train_bwd_parts_ms(args) -> dict:
+    """The time of each launch of the bf16 (wgmma) backward on one case:
+    the bias pass (with the band's copy into rows of Tp when T % 8), dq's main loop
+    and band pass, dk/dv's main loop."""
+    q, k, v, band, lengths, o, do, stats, rate, seed = args
+    count = K.banded_attention_train_bwd_dq
+    padded, bias, delta = K.train_bwd_bias(q, band, o, do, count)
+    main = (q, k, v, do, lengths, stats, bias, delta, rate, seed)
+    ds, dq_acc = K.train_bwd_dq_main(*main)
+    return {"bias_pass": time_ms(lambda: K.train_bwd_bias(q, band, o, do, count), reps=10),
+            "dq_main": time_ms(lambda: K.train_bwd_dq_main(*main), reps=10),
+            "dq_band_pass": time_ms(lambda: K.train_bwd_band(q, padded, ds, dq_acc), reps=10),
+            "dkv_main": time_ms(lambda: K.train_bwd_dkv_main(*main), reps=10)}
+
+
 def _train_records(dtype, rate, seed=1234):
     """The three train kernels against their twins on one case, with the
     twin's forward outputs feeding both backward versions."""
@@ -486,17 +507,20 @@ def _train_records(dtype, rate, seed=1234):
             "banded_attention_train_bwd_dq": (6 * big + band_b + Dh * T * T * 4 + small,
                                               12 * Dh * pairs),
             "banded_attention_train_bwd_dkv": (7 * big + band_b + small, 10 * Dh * pairs)}
+    parts = _train_bwd_parts_ms(args) if dtype == torch.bfloat16 else None
     records, ok = {}, True
     for name, (got, ref, labels) in outs.items():
-        errs = {}
+        errs, rel = {}, {}
         for lab, a, b in zip(labels, got, ref):
             err, _, good = _check(dtype, a, b)
             errs[lab] = err
+            rel[lab] = err / max(b.float().abs().max().item(), 1e-30)
             ok = ok and good
         bound_ms, bound_by = _bound(*work[name], dtype)
         kern, twin = fns[name]
         records[name] = {
             "max_abs_err": max(errs.values()), "errors": errs,
+            "errors_over_max_ref": rel,
             "tolerance": (f"atol {TOL_F32}" if dtype == torch.float32 else
                           f"{TOL_BF16_REL} x max|ref| of each output"),
             "ms": time_ms(kern, reps=10), "plain_ms": time_ms(twin, reps=5),
@@ -507,6 +531,11 @@ def _train_records(dtype, rate, seed=1234):
             "bound_ms": bound_ms, "bound_by": bound_by,
             "shape": {"N": N, "T": T, "Dh": Dh, "rate": rate},
         }
+    if parts is not None:
+        records["banded_attention_train_bwd_dq"]["parts_ms"] = {
+            k: parts[k] for k in ("bias_pass", "dq_main", "dq_band_pass")}
+        records["banded_attention_train_bwd_dkv"]["parts_ms"] = {
+            k: parts[k] for k in ("bias_pass", "dkv_main")}
     return ok, records
 
 
@@ -1210,7 +1239,8 @@ def kernels_line(records, counts, by_path=None):
     per path under "launches_by_path"."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "tolerance")
-    rates = ("bound_share", "achieved_tflops")      # the redesigned kernels'
+    rates = ("bound_share", "achieved_tflops",      # the redesigned kernels'
+             "parts_ms")
     out = []
     for name, meta in KERNELS.items():
         main = records[name][MAIN_CASE[name]]
@@ -1228,17 +1258,25 @@ def kernels_line(records, counts, by_path=None):
     return {"kernels": out}
 
 
+def check_train_counts(counts, runs, what):
+    """Each train wrapper launched its kernels once per attention layer run
+    at the train paths' bf16 (``K.train_launches_per_layer``: dq/dband 3,
+    the others 1)."""
+    per = K.train_launches_per_layer(torch.bfloat16)
+    if not runs or any(counts[n] != runs * per[n] for n in TRAIN_KERNELS):
+        raise AssertionError(f"train kernels launched {counts}, {what} layers ran "
+                             f"{runs}, expected {per} a run")
+
+
 def check_t2s_counts(result):
     """The t2s path's launches: the log-mel kernel once per micro-batch,
-    each train kernel once per text-encoder layer run, the inference
-    attention and conv kernels never."""
+    the train kernels once per text-encoder layer run (bf16 dq/dband three
+    times), the inference attention and conv kernels never."""
     c, runs = result["counts"], result["layer_runs"]
     if (c["fused_log_mel"] != result["micro_batches"] or c["banded_flash_attention"]
             or c["conv_stack"]):
         raise AssertionError(f"t2s path launches wrong: {c}")
-    if not runs or any(c[n] != runs for n in TRAIN_KERNELS):
-        raise AssertionError(f"t2s train kernels launched {c}, text-encoder "
-                             f"layers ran {runs}")
+    check_train_counts(c, runs, "text-encoder")
 
 
 def main():
@@ -1291,9 +1329,7 @@ def main():
     tc = trained["counts"]
     if tc["banded_flash_attention"] != 0 or tc["conv_stack"] == 0:
         raise AssertionError(f"train path launches wrong: {tc}")
-    runs = trained["layer_runs"]
-    if not runs or any(tc[n] != runs for n in TRAIN_KERNELS):
-        raise AssertionError(f"train kernels launched {tc}, encoder layers ran {runs}")
+    check_train_counts(tc, trained["layer_runs"], "encoder")
     if not all(math.isfinite(v) for r in trained["history"] for v in r.values()):
         raise AssertionError("non-finite train metrics")
 

@@ -4,8 +4,8 @@
 // Replaces the TPU kernels of speecht5_tpu/ops/pallas_kernels.py
 // banded_flash_attention_train (:411):
 //   bat_fwd_launch     <- pallas_call :427 (_train_attn_fwd_kernel :310)
-//   bat_bwd_dq_launch  <- pallas_call :446 (_train_attn_bwd_dq_kernel :342)
-//   bat_bwd_dkv_launch <- pallas_call :456 (_train_attn_bwd_dkv_kernel :374)
+//   bat_bwd_dq_launch  <- pallas_call :446 (_train_attn_bwd_dq_kernel :342), f32
+//   bat_bwd_dkv_launch <- pallas_call :456 (_train_attn_bwd_dkv_kernel :374), f32
 //
 // Contract (q pre-scaled; q, k, v, o, dO: [N, T, Dh]; band: [Dh, T, T];
 // lengths: int32 [N]; every product and sum in f32):
@@ -24,6 +24,11 @@
 // zero at masked keys, the dense path's gradient: a row of length 0 (uniform
 // p over the T keys) then gives dv but no dq, dk or dband, where the Pallas
 // kernel lets such a row leak into all three (ROADMAP.md C).
+//
+// Routes.  The forward runs here for both dtypes.  The two backward kernels
+// here are the f32 route only: the bf16 backward (the training path's dtype)
+// runs on wgmma tensor cores in banded_attention_train_bwd.cu, and wgmma has
+// no full-f32 product, so f32 stays on these CUDA-core kernels.
 //
 // Design.
 // - Forward: one block owns 16 query rows of one n and keeps the whole score
@@ -47,14 +52,17 @@
 //
 // What bounds it on an H100: the flops, ~14 N T^2 Dh in all three kernels
 // over the valid keys; the bytes (q, k, v, o, dO, dq, dk, dv and two band
-// sized tensors) are far smaller.  This first version computes on the CUDA
-// cores in f32 out of shared memory, so it sits well above the tensor-core
-// bound; tensor-core (wgmma) tiles and a table-resident bias that reads the
-// [2M, Dh] table instead of the band are later work.
+// sized tensors) are far smaller.  These kernels compute on the CUDA cores
+// in f32 out of shared memory, so they sit well above the tensor-core bound
+// (at f32 that bound is the 67 TFLOP/s of the CUDA cores).  The forward on
+// wgmma tiles and a table-resident bias that reads the [2M, Dh] table
+// instead of the band are later work.
 //
 // Limits: T <= 1024 (the forward's score row lives in shared memory; the
 // module routes longer sequences to the plain path, as the JAX module
 // does), Dh <= 64 (register accumulators; every SpeechT5 preset has 64).
+// The bf16 backward in banded_attention_train_bwd.cu also needs Dh a
+// multiple of 16.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -575,7 +583,8 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* band,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  dropout: 0 or 1; thresh and scale are
+// dtype: 0 = float32, 1 = bfloat16 (the forward; the backward launchers
+// take float32 only).  dropout: 0 or 1; thresh and scale are
 // computed on the host as the TPU kernel computes them.  stats: [2, N, T]
 // f32 (row max, row sum).  Each returns a cudaError_t (0 on success).
 extern "C" int bat_fwd_launch(const void* q, const void* k, const void* v, const void* band,
@@ -598,11 +607,10 @@ extern "C" int bat_bwd_dq_launch(const void* q, const void* k, const void* v,
                                  void* stream) {
   int err = check(N, T_len, Dh, dtype);
   if (err) return err;
+  if (dtype != 0) return (int)cudaErrorInvalidValue;  // bf16: banded_attention_train_bwd.cu
   const Params P{N, T_len, Dh, dropout, seed, thresh, scale};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return bwd_dq<float>(q, k, v, band, lengths, o, dout, stats, dq, dband, P, s);
-  return bwd_dq<__nv_bfloat16>(q, k, v, band, lengths, o, dout, stats, dq, dband, P, s);
+  return bwd_dq<float>(q, k, v, band, lengths, o, dout, stats, dq, dband, P,
+                       static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int bat_bwd_dkv_launch(const void* q, const void* k, const void* v,
@@ -613,9 +621,8 @@ extern "C" int bat_bwd_dkv_launch(const void* q, const void* k, const void* v,
                                   void* stream) {
   int err = check(N, T_len, Dh, dtype);
   if (err) return err;
+  if (dtype != 0) return (int)cudaErrorInvalidValue;  // bf16: banded_attention_train_bwd.cu
   const Params P{N, T_len, Dh, dropout, seed, thresh, scale};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return bwd_dkv<float>(q, k, v, band, lengths, o, dout, stats, dk, dv, P, s);
-  return bwd_dkv<__nv_bfloat16>(q, k, v, band, lengths, o, dout, stats, dk, dv, P, s);
+  return bwd_dkv<float>(q, k, v, band, lengths, o, dout, stats, dk, dv, P,
+                        static_cast<cudaStream_t>(stream));
 }

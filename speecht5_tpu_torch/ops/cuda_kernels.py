@@ -15,13 +15,17 @@ loader that builds them.
   cores fed by TMA, f32 the CUDA-core kernel; an autograd function whose
   backward is the vjp of the plain twin, as ``conv_stack_fused``'s is the
   vjp of ``_conv_stack_ref``.
-- ``banded_attention_train`` (``csrc/banded_attention_train.cu``): the
-  differentiable form of the attention with in-kernel counter-hash
-  probability dropout; replaces ``banded_flash_attention_train``
-  (pallas_kernels.py:411, ``pallas_call`` sites :427, :446, :456) with
-  three kernels: ``banded_attention_train_fwd``,
-  ``banded_attention_train_bwd_dq`` (dq and dband in one launch) and
-  ``banded_attention_train_bwd_dkv``.
+- ``banded_attention_train`` (``csrc/banded_attention_train.cu``,
+  ``csrc/banded_attention_train_bwd.cu``): the differentiable form of the
+  attention with in-kernel counter-hash probability dropout; replaces
+  ``banded_flash_attention_train`` (pallas_kernels.py:411, ``pallas_call``
+  sites :427, :446, :456) with three wrappers:
+  ``banded_attention_train_fwd`` (one CUDA-core launch),
+  ``banded_attention_train_bwd_dq`` (dq and dband) and
+  ``banded_attention_train_bwd_dkv``.  The backward routes by dtype: bf16
+  on wgmma tensor cores fed by TMA (a bias pass, then each wrapper's main
+  loop, and dq's band pass: the band terms as GEMMs over the batch-heads),
+  f32 on one CUDA-core launch each.
 - ``fused_log_mel`` (``csrc/log_mel.cu``): waveform -> log10-mel in one
   pass, an f32 four-step FFT in registers and warp shuffles and a sparse
   filterbank, the spectrum kept on chip; replaces ``fused_log_mel`` (pallas_kernels.py:97, kernel
@@ -68,6 +72,7 @@ BUILD_ROOT = _PKG_DIR.parent / "build" / "torch_kernels"
 SOURCES = {
     "banded_attention": "banded_attention.cu",
     "banded_attention_train": "banded_attention_train.cu",
+    "banded_attention_train_bwd": "banded_attention_train_bwd.cu",
     "conv_stack": "conv_stack.cu",
     "flash_attention_bias": "flash_attention_bias.cu",
     "log_mel": "log_mel.cu",
@@ -167,6 +172,16 @@ def _lib(name: str) -> ctypes.CDLL:
             lib.bat_bwd_dkv_launch.argtypes = [vp] * 10 + tail
             for fn in (lib.bat_fwd_launch, lib.bat_bwd_dq_launch,
                        lib.bat_bwd_dkv_launch):
+                fn.restype = i
+        elif name == "banded_attention_train_bwd":
+            # pointers, then N, T, Dh (and for the main loops dropout on,
+            # seed, keep threshold, keep scale), stream
+            lib.batb_bias_launch.argtypes = [vp] * 6 + [i] * 3 + [vp]
+            lib.batb_band_launch.argtypes = [vp] * 6 + [i] * 3 + [vp]
+            for fn in (lib.batb_dq_launch, lib.batb_dkv_launch):
+                fn.argtypes = [vp] * 10 + [i] * 4 + [u, u, f, vp]
+            for fn in (lib.batb_bias_launch, lib.batb_dq_launch, lib.batb_band_launch,
+                       lib.batb_dkv_launch):
                 fn.restype = i
         elif name == "conv_stack":
             # x, w [k, Cin, Cout], y, then B, T_in, Cin, T_out, Cout, k, s,
@@ -521,6 +536,14 @@ def banded_attention_train_bwd_dkv_plain(q, k, v, pe_band, lengths, o, do,
     return dk.to(q.dtype), dv.to(q.dtype)
 
 
+def _dropout_args(rate: float, seed: int) -> tuple:
+    """(dropout on, seed, keep threshold, keep scale) as the kernels take
+    them, computed as the TPU kernel computes them."""
+    on = 1 if rate > 0.0 else 0
+    return (on, int(seed) & _M32, dropout_threshold(rate) if on else _M32,
+            1.0 / (1.0 - rate) if on else 1.0)
+
+
 def _train_args(q, k, v, pe_band, lengths, rate, seed):
     """Validate the CUDA inputs; returns the launch's scalar tail."""
     N, T, Dh = q.shape
@@ -535,10 +558,7 @@ def _train_args(q, k, v, pe_band, lengths, rate, seed):
     _check_cuda(q, k, v, pe_band, lengths)
     code = _dtype_code(q, k, v, pe_band)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    on = 1 if rate > 0.0 else 0
-    scale = 1.0 / (1.0 - rate) if on else 1.0
-    return (N, T, Dh, code, on, int(seed) & _M32,
-            dropout_threshold(rate) if on else _M32, scale, stream)
+    return (N, T, Dh, code, *_dropout_args(rate, seed), stream)
 
 
 def banded_attention_train_fwd(q, k, v, pe_band, lengths, rate, seed):
@@ -557,14 +577,133 @@ def banded_attention_train_fwd(q, k, v, pe_band, lengths, rate, seed):
     return out, stats
 
 
+# ---- the bf16 backward on wgmma tensor cores (csrc/banded_attention_train_bwd.cu)
+#
+# Four launches, each counted on the wrapper it works for: the bias pass
+# (bias = q.band per query row, f32 [N, T, Tp], and delta = rowsum(dO * o)),
+# dq's main loop (ds in bf16 [T, N, Tp] and ds.k), dq's band pass (dq and
+# dband, the band terms as GEMMs over n) and dk/dv's main loop.  Tp = T
+# rounded up to 8.  The autograd function runs the bias pass once for both
+# backward wrappers; each wrapper called alone runs its own.
+
+
+def _check_wgmma_bwd(q, k, v, pe_band, lengths, o, do, stats, rate, seed):
+    """Raise, before any launch, on a bf16 backward call the wgmma kernels
+    do not take."""
+    _train_args(q, k, v, pe_band, lengths, rate, seed)
+    _check_cuda(o, do, stats)
+    N, T, Dh = q.shape
+    if Dh % 16:
+        raise ValueError("the bf16 train backward (wgmma) needs Dh a multiple of 16 "
+                         f"up to 64; got Dh={Dh}")
+    if o.dtype != torch.bfloat16 or do.dtype != torch.bfloat16 or o.shape != q.shape \
+            or do.shape != q.shape:
+        raise TypeError(f"o and do must be bfloat16 {tuple(q.shape)}, got "
+                        f"{o.dtype} {tuple(o.shape)} and {do.dtype} {tuple(do.shape)}")
+    if stats.dtype != torch.float32 or stats.shape != (2, N, T):
+        raise TypeError(f"stats must be float32 {(2, N, T)}")
+    if any(t.data_ptr() % 16 for t in (q, k, v, pe_band, o, do)):
+        raise ValueError("the wgmma kernels need 16-byte aligned tensors")
+
+
+def train_bwd_bias(q, pe_band, o, do, count):
+    """The bias pass: (band [Dh, T, Tp] (pe_band, copied into rows of Tp
+    when T % 8), bias f32 [N, T, Tp], delta f32 [N, T]).  One launch,
+    counted on ``count``."""
+    N, T, Dh = q.shape
+    Tp = -(-T // 8) * 8
+    band = pe_band
+    if Tp != T:     # the columns past T are never read (the kernels' extent is T)
+        band = torch.empty((Dh, T, Tp), dtype=pe_band.dtype, device=q.device)
+        band[..., :T].copy_(pe_band)
+    bias = torch.empty((N, T, Tp), dtype=torch.float32, device=q.device)
+    delta = torch.empty((N, T), dtype=torch.float32, device=q.device)
+    rc = _lib("banded_attention_train_bwd").batb_bias_launch(
+        *(t.data_ptr() for t in (q, band, o, do, bias, delta)), N, T, Dh,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _check_rc(rc, "banded_attention_train bias pass")
+    count.launches += 1
+    return band, bias, delta
+
+
+def train_bwd_dq_main(q, k, v, do, lengths, stats, bias, delta, rate, seed):
+    """dq's main loop: (ds bf16 [T, N, Tp], dq_acc = ds.k f32 [N, T, Dh]).
+    One launch."""
+    N, T, Dh = q.shape
+    ds = torch.empty((T, N, bias.shape[2]), dtype=torch.bfloat16, device=q.device)
+    dq_acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    rc = _lib("banded_attention_train_bwd").batb_dq_launch(
+        *(t.data_ptr() for t in (q, k, v, do, lengths, stats, bias, delta, ds, dq_acc)),
+        N, T, Dh, *_dropout_args(rate, seed),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _check_rc(rc, "banded_attention_train_bwd_dq main loop")
+    banded_attention_train_bwd_dq.launches += 1
+    return ds, dq_acc
+
+
+def train_bwd_band(q, band, ds, dq_acc):
+    """dq's band pass: (dq [N, T, Dh] bf16, dband [Dh, T, T] f32).  ``band``
+    is the bias pass's.  One launch."""
+    N, T, Dh = q.shape
+    dq = torch.empty_like(q)
+    dband = torch.empty((Dh, T, T), dtype=torch.float32, device=q.device)
+    rc = _lib("banded_attention_train_bwd").batb_band_launch(
+        *(t.data_ptr() for t in (q, band, ds, dq_acc, dq, dband)), N, T, Dh,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _check_rc(rc, "banded_attention_train_bwd_dq band pass")
+    banded_attention_train_bwd_dq.launches += 1
+    return dq, dband
+
+
+def train_bwd_dkv_main(q, k, v, do, lengths, stats, bias, delta, rate, seed):
+    """dk/dv's main loop: (dk, dv) [N, T, Dh] bf16.  One launch."""
+    N, T, Dh = q.shape
+    dk, dv = torch.empty_like(q), torch.empty_like(q)
+    rc = _lib("banded_attention_train_bwd").batb_dkv_launch(
+        *(t.data_ptr() for t in (q, k, v, do, lengths, stats, bias, delta, dk, dv)),
+        N, T, Dh, *_dropout_args(rate, seed),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _check_rc(rc, "banded_attention_train_bwd_dkv main loop")
+    banded_attention_train_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def _train_bwd_wgmma(q, k, v, pe_band, lengths, o, do, stats, rate, seed,
+                     dq=True, dkv=True) -> dict:
+    """The bf16 backward: one bias pass (counted on the dq wrapper when dq
+    is wanted), then dq's main loop and band pass and/or dk/dv's main loop.
+    Returns {"dq", "dband"} and/or {"dk", "dv"}."""
+    _check_wgmma_bwd(q, k, v, pe_band, lengths, o, do, stats, rate, seed)
+    band, bias, delta = train_bwd_bias(
+        q, pe_band, o, do,
+        banded_attention_train_bwd_dq if dq else banded_attention_train_bwd_dkv)
+    main = (q, k, v, do, lengths, stats, bias, delta, rate, seed)
+    out = {}
+    if dq:
+        ds, dq_acc = train_bwd_dq_main(*main)
+    if dkv:
+        out["dk"], out["dv"] = train_bwd_dkv_main(*main)
+    del main, bias      # free the bias before the band pass
+    if dq:
+        out["dq"], out["dband"] = train_bwd_band(q, band, ds, dq_acc)
+    return out
+
+
 def banded_attention_train_bwd_dq(q, k, v, pe_band, lengths, o, do, stats,
                                   rate, seed):
-    """Train backward K1: (dq [N, T, Dh], dband [Dh, T, T] f32).  One launch
-    whose blocks either own a (n, 16-row query tile) of dq or a 16 x 16
-    (query, key) tile of dband summed over every n in a fixed order."""
+    """Train backward K1: (dq [N, T, Dh], dband [Dh, T, T] f32).  The twin on
+    CPU tensors.  On the card, bf16 takes the wgmma kernels (three launches:
+    the bias pass, the main loop, the band pass; Dh a multiple of 16) and
+    f32 the CUDA-core kernel (one launch whose blocks either own a (n,
+    16-row query tile) of dq or a 16 x 16 (query, key) tile of dband summed
+    over every n in a fixed order)."""
     if q.device.type == "cpu":
         return banded_attention_train_bwd_dq_plain(
             q, k, v, pe_band, lengths, o, do, stats, rate, seed)
+    if q.dtype == torch.bfloat16:
+        out = _train_bwd_wgmma(q, k, v, pe_band, lengths, o, do, stats, rate, seed,
+                               dkv=False)
+        return out["dq"], out["dband"]
     tail = _train_args(q, k, v, pe_band, lengths, rate, seed)
     _check_cuda(o, do, stats)
     dq = torch.empty_like(q)
@@ -579,10 +718,16 @@ def banded_attention_train_bwd_dq(q, k, v, pe_band, lengths, o, do, stats,
 
 def banded_attention_train_bwd_dkv(q, k, v, pe_band, lengths, o, do, stats,
                                    rate, seed):
-    """Train backward K2: (dk, dv), each [N, T, Dh]."""
+    """Train backward K2: (dk, dv), each [N, T, Dh].  The twin on CPU
+    tensors; on the card bf16 takes the wgmma kernels (two launches: the
+    bias pass, the main loop) and f32 the CUDA-core kernel (one)."""
     if q.device.type == "cpu":
         return banded_attention_train_bwd_dkv_plain(
             q, k, v, pe_band, lengths, o, do, stats, rate, seed)
+    if q.dtype == torch.bfloat16:
+        out = _train_bwd_wgmma(q, k, v, pe_band, lengths, o, do, stats, rate, seed,
+                               dq=False)
+        return out["dk"], out["dv"]
     tail = _train_args(q, k, v, pe_band, lengths, rate, seed)
     _check_cuda(o, do, stats)
     dk, dv = torch.empty_like(q), torch.empty_like(q)
@@ -599,9 +744,21 @@ banded_attention_train_bwd_dq.launches = 0
 banded_attention_train_bwd_dkv.launches = 0
 
 
+def train_launches_per_layer(dtype) -> dict:
+    """Each train wrapper's launches for one attention layer run forward and
+    backward through ``banded_attention_train`` on the card: bf16 runs the
+    bias pass once, counted on the dq wrapper with its main loop and band
+    pass."""
+    bf16 = dtype == torch.bfloat16
+    return {"banded_attention_train_fwd": 1,
+            "banded_attention_train_bwd_dq": 3 if bf16 else 1,
+            "banded_attention_train_bwd_dkv": 1}
+
+
 class _BandedAttentionTrain(torch.autograd.Function):
-    """Forward kernel saves the row statistics; the two backward kernels
-    regenerate p and the dropout mask from them and the seed."""
+    """Forward kernel saves the row statistics; the backward kernels
+    regenerate p and the dropout mask from them and the seed (bf16 on the
+    card: one bias pass shared by dq/dband and dk/dv)."""
 
     @staticmethod
     def forward(ctx, q, k, v, pe_band, lengths, rate, seed):
@@ -616,8 +773,12 @@ class _BandedAttentionTrain(torch.autograd.Function):
         q, k, v, pe_band, lengths, o, stats = ctx.saved_tensors
         args = (q, k, v, pe_band, lengths, o, g.to(q.dtype).contiguous(),
                 stats, ctx.rate, ctx.seed)
-        dq, dband = banded_attention_train_bwd_dq(*args)
-        dk, dv = banded_attention_train_bwd_dkv(*args)
+        if q.device.type == "cuda" and q.dtype == torch.bfloat16:
+            out = _train_bwd_wgmma(*args)       # one bias pass for both
+            dq, dband, dk, dv = out["dq"], out["dband"], out["dk"], out["dv"]
+        else:
+            dq, dband = banded_attention_train_bwd_dq(*args)
+            dk, dv = banded_attention_train_bwd_dkv(*args)
         # the cotangent takes the primal's dtype, as in the JAX custom VJP
         return dq, dk, dv, dband.to(pe_band.dtype), None, None, None
 

@@ -120,20 +120,42 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
     assert K.conv_stack.launches == before
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("T,Dh", [(77, 16), (300, 64)])
-def test_train_kernels_match_twins(card, dtype, rate, T, Dh):
-    """Forward, dq/dband and dk/dv kernels against their twins, ragged
-    lengths with a row of length 0, each launch counted once."""
+def _train_case(card, dtype, T, Dh, N=6):
+    """Seeded train-attention inputs on the card, ragged lengths with rows of
+    length 0 and 1."""
     g = torch.Generator().manual_seed(T + Dh)
-    N, M, seed = 6, 16, 77
+    M = 16
     q, k, v, do = (torch.randn(N, T, Dh, generator=g) * s
                    for s in (Dh ** -0.5, 1, 1, 1))
     table = torch.randn(2 * M, Dh, generator=g) * 0.2
     q, k, v, do, band = [t.to(dtype).to(card) for t in
                          (q, k, v, do, band_from_table(table, T, M))]
-    lengths = torch.tensor([T, 0, 1, T // 2, T - 1, 33], dtype=torch.int32, device=card)
+    lens = ([T, 0, 1, T // 2, T - 1, 33, 613 % T, T, 64, 65, 128, T // 3] * N)[:N]
+    lengths = torch.tensor(lens, dtype=torch.int32, device=card)
+    return q, k, v, do, band, lengths
+
+
+# launches of one standalone call of each train wrapper: bf16 runs the
+# wgmma backward (dq/dband: bias pass, main loop, band pass; dk/dv: bias
+# pass, main loop), f32 the CUDA-core kernels (one launch each)
+STANDALONE_LAUNCHES = {
+    torch.float32: {"banded_attention_train_fwd": 1, "banded_attention_train_bwd_dq": 1,
+                    "banded_attention_train_bwd_dkv": 1},
+    torch.bfloat16: {"banded_attention_train_fwd": 1, "banded_attention_train_bwd_dq": 3,
+                     "banded_attention_train_bwd_dkv": 2},
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("T,Dh,N", [(77, 16, 6), (300, 64, 6), (799, 64, 12),
+                                    (130, 32, 200)])   # four blocks of n, one partial
+def test_train_kernels_match_twins(card, dtype, rate, T, Dh, N):
+    """Forward, dq/dband and dk/dv kernels against their twins, ragged
+    lengths with rows of length 0 and 1, each launch counted once (bf16's
+    backward on the wgmma kernels, f32's on the CUDA-core ones)."""
+    q, k, v, do, band, lengths = _train_case(card, dtype, T, Dh, N)
+    seed = 77
     before = K.launch_counts()
     o, stats = K.banded_attention_train_fwd(q, k, v, band, lengths, rate, seed)
     o_ref, stats_ref = K.banded_attention_train_fwd_plain(q, k, v, band, lengths,
@@ -145,13 +167,72 @@ def test_train_kernels_match_twins(card, dtype, rate, T, Dh):
            *K.banded_attention_train_bwd_dkv_plain(*args))
     torch.cuda.synchronize()
     after = K.launch_counts()
-    for name in ("banded_attention_train_fwd", "banded_attention_train_bwd_dq",
-                 "banded_attention_train_bwd_dkv"):
-        assert after[name] == before[name] + 1, name
+    for name, n in STANDALONE_LAUNCHES[dtype].items():
+        assert after[name] == before[name] + n, name
     assert got[2].dtype == torch.float32       # dband accumulates in f32
     for a, b in zip(got, ref):
-        assert a.shape == b.shape
+        assert a.shape == b.shape and a.dtype == b.dtype
         _close(a, b, dtype)
+
+
+def test_bf16_train_backward_is_bit_equal_across_calls(card):
+    """dband sums over n inside wgmma's K loop and nothing uses float
+    atomics, so two calls give the same bits."""
+    q, k, v, do, band, lengths = _train_case(card, torch.bfloat16, 799, 64, 12)
+    o, stats = K.banded_attention_train_fwd(q, k, v, band, lengths, 0.1, 5)
+    args = (q, k, v, band, lengths, o, do, stats, 0.1, 5)
+    first = (*K.banded_attention_train_bwd_dq(*args), *K.banded_attention_train_bwd_dkv(*args))
+    second = (*K.banded_attention_train_bwd_dq(*args), *K.banded_attention_train_bwd_dkv(*args))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dband", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+def test_bf16_train_autograd_shares_one_bias_pass(card):
+    """The autograd function's bf16 backward runs the bias pass once for
+    both wrappers (K.train_launches_per_layer) and gives the standalone
+    wrappers' gradients bit for bit."""
+    q, k, v, do, band, lengths = _train_case(card, torch.bfloat16, 300, 64)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v, band)]
+    before = K.launch_counts()
+    out = K.banded_attention_train(*leaves, lengths, dropout_rate=0.1, seed=9)
+    out.backward(do)
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    for name, n in K.train_launches_per_layer(torch.bfloat16).items():
+        assert after[name] == before[name] + n, name
+    o, stats = K.banded_attention_train_fwd(q, k, v, band, lengths, 0.1, 9)
+    args = (q, k, v, band, lengths, o, do, stats, 0.1, 9)
+    dq, dband = K.banded_attention_train_bwd_dq(*args)
+    dk, dv = K.banded_attention_train_bwd_dkv(*args)
+    for leaf, want in zip(leaves, (dq, dk, dv, dband.to(torch.bfloat16))):
+        assert torch.equal(leaf.grad, want)
+
+
+def test_bf16_train_backward_raises_for_dh_it_does_not_take(card):
+    """Dh 24 is not a multiple of 16: the bf16 backward raises before any
+    launch; the f32 route still takes it on the CUDA-core kernels."""
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do, band, lengths = _train_case(card, dtype, 40, 24)
+        o, stats = K.banded_attention_train_fwd_plain(q, k, v, band, lengths, 0.0, 0)
+        args = (q, k, v, band, lengths, o, do, stats, 0.0, 0)
+        before = K.launch_counts()
+        if dtype == torch.bfloat16:
+            for fn in (K.banded_attention_train_bwd_dq, K.banded_attention_train_bwd_dkv):
+                with pytest.raises(ValueError, match="Dh a multiple of 16"):
+                    fn(*args)
+            assert K.launch_counts() == before
+        else:
+            got = (*K.banded_attention_train_bwd_dq(*args),
+                   *K.banded_attention_train_bwd_dkv(*args))
+            ref = (*K.banded_attention_train_bwd_dq_plain(*args),
+                   *K.banded_attention_train_bwd_dkv_plain(*args))
+            torch.cuda.synchronize()
+            after = K.launch_counts()
+            for name in ("banded_attention_train_bwd_dq", "banded_attention_train_bwd_dkv"):
+                assert after[name] == before[name] + 1, name
+            for a, b in zip(got, ref):
+                _close(a, b, dtype)
 
 
 def test_inference_kernel_raises_under_grad(card):

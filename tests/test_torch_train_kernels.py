@@ -111,6 +111,47 @@ def test_train_twins_match_pallas(N, T, D, M, lengths, rate, dtype):
             assert err <= REL_BF16 * np.abs(w).max(), (name, err)
 
 
+def _wgmma_bwd_model(q, k, v, band, lengths, o, do, stats, rate, seed):
+    """The bf16 backward as the wgmma kernels round it
+    (csrc/banded_attention_train_bwd.cu): the twin's f32 ds, rounded to
+    bf16 once, feeds all four of its products (ds.k, ds.band, q^T.ds and
+    ds^T.q); p keep is rounded to bf16 for dv; dq's two terms are summed in
+    f32 and rounded once.  Returns (dq, dk, dv) in bf16 and dband in f32."""
+    p, ks, ds = K._train_ds(q, k, v, band, lengths, o, do, stats, rate, seed)
+    ds = ds.to(torch.bfloat16).float()
+    dq = ds @ k.float() + torch.einsum("nqk,dqk->nqd", ds, band.float())
+    dband = torch.einsum("nqd,nqk->dqk", q.float(), ds)
+    pd = p if ks is None else p * ks
+    dv = pd.to(torch.bfloat16).float().transpose(1, 2) @ do.float()
+    dk = ds.transpose(1, 2) @ q.float()
+    return [t.to(torch.bfloat16) for t in (dq, dk, dv)] + [dband]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("N,T,D,M,lengths", [
+    (4, 40, 8, 5, [40, 33, 39, 9]),
+    (3, 128, 16, 8, [128, 100, 61]),
+])
+def test_wgmma_backward_rounding_matches_pallas(N, T, D, M, lengths, rate):
+    """bf16: the forward's twin, then the backward with ds rounded to bf16
+    at exactly the wgmma kernels' rounding points, against the Pallas
+    kernels (interpret mode) within REL_BF16 of max |ref|: the design's
+    error budget, checked before the card sees it."""
+    seed = 11
+    q, k, v, table, cot = _inputs(N, T, D, M, seed=T)
+    want = _jax_pallas(q, k, v, table, cot, T, M, lengths, rate, seed, jnp.bfloat16)
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v, cot))
+    band = band_from_table(torch.from_numpy(table).to(torch.bfloat16), T, M)
+    L = torch.tensor(lengths, dtype=torch.int32)
+    o, stats = K.banded_attention_train_fwd_plain(tq, tk, tv, band, L, rate, seed)
+    dq, dk, dv, dband = _wgmma_bwd_model(tq, tk, tv, band, L, o, tdo, stats, rate, seed)
+    got = [x.float().numpy() for x in (o, dq, dk, dv, dband)]
+    for name, g, w in zip(NAMES, got, want):
+        assert g.shape == w.shape, name
+        err = np.abs(g - w).max()
+        assert err <= REL_BF16 * np.abs(w).max(), (name, err)
+
+
 @pytest.mark.parametrize("seed,rate", [(0, 0.1), (11, 0.3), (2 ** 31 - 2, 0.5)])
 def test_dropout_keep_mask_is_the_tpu_hash(seed, rate):
     N, Tq, Tk = 5, 37, 130

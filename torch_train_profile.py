@@ -17,7 +17,8 @@ times one update (median of 3, after one warm-up update), then profiles one
 more with ``torch.profiler``.  Prints one JSON line per path: update wall time
 (host clock, ending in a synchronize), the card's busy time (the union of
 the kernels' intervals in the trace) and idle share, launches of the port's
-kernels and the kernels that take the most device time.  Prints the card's
+kernels, the device time of the train attention's backward kernels (by
+kernel and in all) and the kernels that take the most device time.  Prints the card's
 name and power limit first.  Needs a card.
 """
 
@@ -42,6 +43,11 @@ from speecht5_tpu_torch.train import trainer as T
 from speecht5_tpu_torch.train.trainer import Trainer, TrainConfig
 
 REPS = 3
+# the train attention's backward kernels, by the name the trace gives them:
+# bf16 the four launches of csrc/banded_attention_train_bwd.cu, f32 the two
+# CUDA-core kernels of csrc/banded_attention_train.cu
+ATTN_BWD_KERNELS = ("::bias_kernel(", "::dq_kernel(", "::band_kernel(", "::dkv_kernel(",
+                    "::bwd_dq_kernel<", "::bwd_dkv_kernel<")
 
 
 def device_events(prof):
@@ -120,6 +126,8 @@ def _profile_path(task: str, kernels: bool, seed: int):
         by_name[evt.name][1] += 1
     busy = busy_ms(prof)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]
+    attn_bwd = {key.strip(":(<"): sum(v[0] for n, v in by_name.items() if key in n)
+                for key in ATTN_BWD_KERNELS}
     return {
         "task": task, "path": "kernels" if kernels else "plain",
         "accum": tcfg.accum_steps, "batch": 16,
@@ -128,6 +136,8 @@ def _profile_path(task: str, kernels: bool, seed: int):
         "device_idle_share": (1.0 - busy / wall_ms) if busy else None,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": K.launch_counts(),
+        "attention_backward_ms": {"total": sum(attn_bwd.values()),
+                                  **{k: v for k, v in attn_bwd.items() if v}},
         "top_kernels": [{"name": n[:90], "ms": v[0], "count": v[1]} for n, v in top],
     }
 
