@@ -5,7 +5,7 @@
 
 Phases, each timed; any failure raises and the exit code is non-zero:
 
-1. build    -- compile the six CUDA sources with nvcc for sm_90a from this
+1. build    -- compile the seven CUDA sources with nvcc for sm_90a from this
                checkout, one nvcc each, all started together.
 2. kernels  -- hold each of the seven kernels against its plain PyTorch twin
                on the card and time kernel, twin and one PyTorch library call
@@ -14,12 +14,15 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                reached and the TFLOP/s of the work the function needs):
                the inference attention and the conv stack at SpeechT5-Base
                shapes (batch 1, as a served 16 s chunk gives them, and batch
-               2), f32 and bf16; the three train-attention kernels at the
-               train step's shapes (N = 16 x 12, T = 799, Dh = 64, ragged
+               2), f32 and bf16, the band row-padded as the encoder builds
+               it, and for bf16 the time of each launch of the wgmma forward
+               (bias pass, main loop); the three train-attention kernels at
+               the train step's shapes (N = 16 x 12, T = 799, Dh = 64, ragged
                lengths with a row of length 0), f32 and bf16, dropout 0 and
                0.1 at a fixed seed, and for bf16 the time of each launch of
-               the wgmma backward (bias pass, dq's main loop and band pass,
-               dk/dv's main loop); the log-mel kernel at the t2s step's
+               the wgmma forward (bias pass, main loop) and backward (bias
+               pass, dq's main loop and band pass, dk/dv's main loop); the
+               log-mel kernel at the t2s step's
                batch ([16, 197376] reflect-padded rows, center=False, 80
                mels: 768 frames) and at [2, 48000] with center=True, f32,
                atol 2e-3 (the JAX spec's, tests/test_pallas_kernels.py:23);
@@ -41,7 +44,8 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                steps) and serving the 3 s, 11 s and 21 s requests; per
                request the decode steps and each kernel's launches: the
                decode-step kernel 12 a step (6 layers x self + cross), the
-               inference attention 12 and the conv stack 6 a chunk.
+               inference attention 24 (12 layers x bias pass and main loop)
+               and the conv stack 6 a chunk.
 6. beam parity -- f32 weights through Service(--decoder beam) with every
                kernel flag on and off, chunk by chunk (see
                ``phase_beam_parity``).
@@ -54,8 +58,9 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                temporary directory: 3 updates, then a resume that takes one
                more.  Every loss and grad norm must be finite; each train
                wrapper must launch its kernels once per encoder layer run
-               (layerdrop skips some; bf16 dq/dband three launches: bias
-               pass, main loop, band pass), and the inference kernel never.
+               (layerdrop skips some; bf16: the forward two launches, bias
+               pass and main loop, dq/dband three, bias pass, main loop and
+               band pass), and the inference kernel never.
 8. train parity -- one micro-batch in f32 with dropout, layerdrop and
                masking at 0, same weights, kernel route against the plain
                route: loss within 1e-4 relative, every parameter gradient
@@ -112,6 +117,7 @@ from speecht5_tpu_torch.data.audio import layer_norm_wav, write_wav
 from speecht5_tpu_torch.data.manifests import (TOKEN_BUCKETS, SpeechToTextDataset,
                                                bucket_length, collate_mel_targets)
 from speecht5_tpu_torch.models.attention import band_from_table
+from speecht5_tpu_torch.models.encoder import BAND_ROW_MULTIPLE
 from speecht5_tpu_torch.models.layers import EncoderLayer
 from speecht5_tpu_torch.models.speecht5 import init_model
 from speecht5_tpu_torch.ops import cuda_kernels as K
@@ -124,8 +130,10 @@ WATCHDOG_S = 1100
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 KERNELS = {
+    # the path's bf16 route; f32 keeps the CUDA-core kernels of source_f32
     "banded_flash_attention": {
-        "source": "speecht5_tpu_torch/csrc/banded_attention.cu",
+        "source": "speecht5_tpu_torch/csrc/banded_attention_fwd.cu",
+        "source_f32": "speecht5_tpu_torch/csrc/banded_attention.cu",
         "replaces": "speecht5_tpu/ops/pallas_kernels.py:253",
     },
     "conv_stack": {
@@ -133,10 +141,10 @@ KERNELS = {
         "replaces": "speecht5_tpu/ops/pallas_kernels.py:753",
     },
     "banded_attention_train_fwd": {
-        "source": "speecht5_tpu_torch/csrc/banded_attention_train.cu",
+        "source": "speecht5_tpu_torch/csrc/banded_attention_fwd.cu",
+        "source_f32": "speecht5_tpu_torch/csrc/banded_attention_train.cu",
         "replaces": "speecht5_tpu/ops/pallas_kernels.py:427",
     },
-    # the path's bf16 route; f32 keeps the CUDA-core kernels of source_f32
     "banded_attention_train_bwd_dq": {
         "source": "speecht5_tpu_torch/csrc/banded_attention_train_bwd.cu",
         "source_f32": "speecht5_tpu_torch/csrc/banded_attention_train.cu",
@@ -335,19 +343,26 @@ def _check(dtype, got, ref):
     return err, tol, ok
 
 
+def path_band(table, T, M, device):
+    """The band as the encoder hands it to the kernels: a [Dh, T, T] view of
+    rows padded to a multiple of 8, built on ``device``."""
+    return band_from_table(table.to(device), T, M, row_multiple=BAND_ROW_MULTIPLE)
+
+
 def attention_case(batch, dtype, device="cuda", seed=0):
     """Base encoder shapes: batch x 12 heads, T=799 (16 s bucket), Dh=64,
-    max distance 160, ragged lengths including a row of length 0."""
+    max distance 160, ragged lengths including a row of length 0; the band
+    row-padded, as the encoder builds it."""
     g = torch.Generator().manual_seed(seed)
     N, T, Dh, M = 12 * batch, 799, 64, 160
     q = (torch.randn(N, T, Dh, generator=g) * Dh ** -0.5).to(dtype)
     k = torch.randn(N, T, Dh, generator=g).to(dtype)
     v = torch.randn(N, T, Dh, generator=g).to(dtype)
     table = (torch.randn(2 * M, Dh, generator=g) * 0.125).to(dtype)
-    band = band_from_table(table, T, M).contiguous()
+    band = path_band(table, T, M, device)
     lengths = torch.randint(1, T + 1, (N,), generator=g, dtype=torch.int32)
     lengths[0], lengths[1], lengths[5] = 0, T, 613
-    return [t.to(device) for t in (q, k, v, band, lengths)]
+    return [t.to(device) for t in (q, k, v)] + [band, lengths.to(device)]
 
 
 def conv_case(batch, dtype, device="cuda", seed=1):
@@ -376,8 +391,9 @@ def _attention_record(batch, dtype):
     nbytes = (4 * N * T * Dh + Dh * T * T) * q.element_size() + 4 * N
     flops = 6.0 * T * Dh * lengths.double().sum().item()
     bound_ms, bound_by = _bound(nbytes, flops, dtype)
-    return ok, {
+    rec = {
         "max_abs_err": err, "tolerance": tol,
+        "errors_over_max_ref": err / max(ref.float().abs().max().item(), 1e-30),
         "ms": time_ms(lambda: K.banded_flash_attention(q, k, v, band, lengths)),
         "plain_ms": time_ms(lambda: K.banded_flash_attention_plain(q, k, v, band, lengths)),
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
@@ -386,6 +402,18 @@ def _attention_record(batch, dtype):
         "bound_ms": bound_ms, "bound_by": bound_by,
         "shape": {"N": N, "T": T, "Dh": Dh},
     }
+    if dtype == torch.bfloat16:
+        rec["parts_ms"] = _fwd_parts_ms(q, k, v, band, lengths, K.banded_flash_attention)
+    return ok, rec
+
+
+def _fwd_parts_ms(q, k, v, band, lengths, count, train=False, rate=0.0, seed=0) -> dict:
+    """The time of each launch of a bf16 (wgmma) forward on one case, each
+    counted on ``count``: the bias pass and the main loop."""
+    bias = K.fwd_bias(q, band, count)
+    return {"bias_pass": time_ms(lambda: K.fwd_bias(q, band, count), reps=10),
+            "main_loop": time_ms(lambda: K.fwd_main(q, k, v, lengths, bias, count, train,
+                                                    rate, seed), reps=10)}
 
 
 def _conv_record(batch, dtype):
@@ -432,16 +460,16 @@ def train_attention_case(dtype, device="cuda", batch=16, T=799, seed=2):
     q = (torch.randn(N, T, Dh, generator=g) * Dh ** -0.5).to(dtype)
     k, v, do = (torch.randn(N, T, Dh, generator=g).to(dtype) for _ in range(3))
     table = (torch.randn(2 * M, Dh, generator=g) * 0.125).to(dtype)
-    band = band_from_table(table, T, M).contiguous()
+    band = path_band(table, T, M, device)
     lengths = torch.randint(1, T + 1, (N,), generator=g, dtype=torch.int32)
     lengths[0], lengths[1] = 0, T
-    return [t.to(device) for t in (q, k, v, band, lengths, do)]
+    return [t.to(device) for t in (q, k, v)] + [band] + [t.to(device) for t in (lengths, do)]
 
 
 def _train_bwd_parts_ms(args) -> dict:
     """The time of each launch of the bf16 (wgmma) backward on one case:
-    the bias pass (with the band's copy into rows of Tp when T % 8), dq's main loop
-    and band pass, dk/dv's main loop."""
+    the bias pass (with delta; the band comes row-padded, so no copy), dq's
+    main loop and band pass, dk/dv's main loop."""
     q, k, v, band, lengths, o, do, stats, rate, seed = args
     count = K.banded_attention_train_bwd_dq
     padded, bias, delta = K.train_bwd_bias(q, band, o, do, count)
@@ -508,6 +536,8 @@ def _train_records(dtype, rate, seed=1234):
                                               12 * Dh * pairs),
             "banded_attention_train_bwd_dkv": (7 * big + band_b + small, 10 * Dh * pairs)}
     parts = _train_bwd_parts_ms(args) if dtype == torch.bfloat16 else None
+    fwd_parts = (_fwd_parts_ms(q, k, v, band, lengths, K.banded_attention_train_fwd,
+                               True, rate, seed) if dtype == torch.bfloat16 else None)
     records, ok = {}, True
     for name, (got, ref, labels) in outs.items():
         errs, rel = {}, {}
@@ -532,6 +562,7 @@ def _train_records(dtype, rate, seed=1234):
             "shape": {"N": N, "T": T, "Dh": Dh, "rate": rate},
         }
     if parts is not None:
+        records["banded_attention_train_fwd"]["parts_ms"] = fwd_parts
         records["banded_attention_train_bwd_dq"]["parts_ms"] = {
             k: parts[k] for k in ("bias_pass", "dq_main", "dq_band_pass")}
         records["banded_attention_train_bwd_dkv"]["parts_ms"] = {
@@ -796,12 +827,14 @@ def phase_parity(base_cfg, device="cuda", requests_s=(3, 11, 21),
 
 
 def beam_launches_expected(cfg, chunks: int, steps: int) -> dict:
-    """The beam path's launches: per chunk one inference-attention launch
-    per encoder layer and one conv launch per strided FE layer (1..n), as
+    """The beam path's launches: per chunk ``K.fwd_launches`` inference-
+    attention launches per encoder layer (bf16: bias pass and main loop)
+    and one conv launch per strided FE layer (1..n), as
     in the greedy phase; per decode step one decode-step launch per decoder
     layer for self- and one for cross-attention; nothing else."""
     want = dict.fromkeys(KERNELS, 0)
-    want["banded_flash_attention"] = chunks * cfg.encoder.num_layers
+    want["banded_flash_attention"] = (chunks * cfg.encoder.num_layers
+                                      * K.fwd_launches(cfg.compute_dtype))
     want["conv_stack"] = chunks * (len(cfg.conv_features.layers) - 1)
     want["flash_attention_bias"] = 2 * cfg.decoder.num_layers * steps
     return want
@@ -1260,8 +1293,8 @@ def kernels_line(records, counts, by_path=None):
 
 def check_train_counts(counts, runs, what):
     """Each train wrapper launched its kernels once per attention layer run
-    at the train paths' bf16 (``K.train_launches_per_layer``: dq/dband 3,
-    the others 1)."""
+    at the train paths' bf16 (``K.train_launches_per_layer``: the forward 2,
+    dq/dband 3, dk/dv 1)."""
     per = K.train_launches_per_layer(torch.bfloat16)
     if not runs or any(counts[n] != runs * per[n] for n in TRAIN_KERNELS):
         raise AssertionError(f"train kernels launched {counts}, {what} layers ran "
@@ -1270,8 +1303,9 @@ def check_train_counts(counts, runs, what):
 
 def check_t2s_counts(result):
     """The t2s path's launches: the log-mel kernel once per micro-batch,
-    the train kernels once per text-encoder layer run (bf16 dq/dband three
-    times), the inference attention and conv kernels never."""
+    the train kernels once per text-encoder layer run (bf16: the forward
+    twice, dq/dband three times), the inference attention and conv kernels
+    never."""
     c, runs = result["counts"], result["layer_runs"]
     if (c["fused_log_mel"] != result["micro_batches"] or c["banded_flash_attention"]
             or c["conv_stack"]):

@@ -9,10 +9,13 @@
 //   p        = exp(s - rowmax(s))          (f32)
 //   out[n,i] = sum_j cast_to_v_type(p[i,j]) * v[n,j] / max(sum_j p[i,j], 1e-30)
 //
-// q, k, v, out: [N, T, Dh]; band: [Dh, T, T]; lengths: int32 [N].  All float
-// tensors share one dtype (f32 or bf16); every product and sum is f32.  A row
-// whose length is 0 sees -1e9 on every key and so returns the mean of V over
-// the T keys, never NaN.
+// q, k, v, out: [N, T, Dh]; band: [Dh, T, T] with rows of ldb elements (T,
+// or Tp = T rounded up to 8 for the encoder's row-padded band, so that no
+// route copies it); lengths: int32 [N].  This file is the f32 route: the
+// bf16 route runs on wgmma tensor cores in banded_attention_fwd.cu (wgmma
+// has no full-f32 product).  Every product and sum is f32.  A row whose
+// length is 0 sees -1e9 on every key and so returns the mean of V over the
+// T keys, never NaN.
 //
 // Design.  One block owns BQ = 16 query rows of one (batch*head) row n.  The
 // grid is (N, ceil(T / BQ)) with n in blockIdx.x, so the blocks that share a
@@ -25,13 +28,11 @@
 // values are staged through shared memory in tiles of BK = 64 rows.
 //
 // What bounds it on an H100: the work is ~6*N*T*T*Dh flops and, at the
-// least, one read of the band (Dh*T*T elements, the largest input).  In bf16
-// the band's bytes set the floor (the tensor-core rate makes the flops
-// cheap); in f32 the flops do.  This first kernel runs every product on the
-// CUDA cores in f32 and so sits well above either floor; the design keeps
-// only the band traffic in check (L2 reuse across heads, above).  A
-// table-resident variant that reads the [2M, Dh] table instead of the band,
-// and a tensor-core (wgmma) version, are later work.
+// least, one read of the band (Dh*T*T elements, the largest input).  In f32
+// the flops set the floor.  This kernel runs every product on the CUDA
+// cores in f32; the design keeps the band traffic in check (L2 reuse across
+// heads, above).  A table-resident variant that reads the [2M, Dh] table
+// instead of the band is later work.
 //
 // Limits: T <= 1024 (the row of scores must fit in shared memory; the
 // caller routes longer sequences to the plain path, as the JAX module does),
@@ -80,7 +81,7 @@ __global__ void __launch_bounds__(THREADS)
 banded_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const T* __restrict__ band,
                    const int* __restrict__ lengths, T* __restrict__ out,
-                   int T_len, int Dh) {
+                   int T_len, int Dh, int ldb) {
   extern __shared__ float smem[];
   __shared__ float s_l[BQ];
   const int t_pad = (T_len + BK - 1) / BK * BK;
@@ -94,7 +95,7 @@ banded_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int len = lengths[n];
   const size_t base = (size_t)n * T_len * Dh;
-  const size_t dstride = (size_t)T_len * T_len;
+  const size_t dstride = (size_t)T_len * ldb;
 
   for (int idx = tid; idx < BQ * Dh; idx += THREADS) {
     const int i = idx / Dh, d = idx - i * Dh;
@@ -118,7 +119,7 @@ banded_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int row = q0 + i;
       float acc = 0.f;
       if (row < T_len && col < T_len) {
-        const T* bp = band + (size_t)row * T_len + col;
+        const T* bp = band + (size_t)row * ldb + col;
         const float* qi = s_q + i * Dh;
         const float* kj = s_kv + j * ldkv;
         for (int d = 0; d < Dh; ++d) acc += qi[d] * (kj[d] + to_f32(bp[d * dstride]));
@@ -185,7 +186,7 @@ banded_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* band,
-           const int* lengths, void* out, int N, int T_len, int Dh,
+           const int* lengths, void* out, int N, int T_len, int Dh, int ldb,
            cudaStream_t stream) {
   const size_t smem = smem_bytes(T_len, Dh);
   cudaError_t err = cudaFuncSetAttribute(
@@ -194,20 +195,21 @@ int launch(const void* q, const void* k, const void* v, const void* band,
   dim3 grid(N, (T_len + BQ - 1) / BQ);
   banded_attn_kernel<T><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(band), lengths, static_cast<T*>(out), T_len, Dh);
+      static_cast<const T*>(band), lengths, static_cast<T*>(out), T_len, Dh, ldb);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 on success).
+// dtype: 0 = float32 (bf16: banded_attention_fwd.cu); ldb: the band's row
+// stride in elements, T <= ldb.  Returns a cudaError_t (0 on success).
 extern "C" int banded_attention_launch(const void* q, const void* k, const void* v,
                                        const void* band, const int* lengths, void* out,
-                                       int N, int T_len, int Dh, int dtype, void* stream) {
-  if (N <= 0 || T_len <= 0 || T_len > MAX_T || Dh <= 0 || Dh > MAX_DH)
+                                       int N, int T_len, int Dh, int ldb, int dtype,
+                                       void* stream) {
+  if (N <= 0 || T_len <= 0 || T_len > MAX_T || Dh <= 0 || Dh > MAX_DH || ldb < T_len ||
+      dtype != 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(q, k, v, band, lengths, out, N, T_len, Dh, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(q, k, v, band, lengths, out, N, T_len, Dh, s);
-  return (int)cudaErrorInvalidValue;
+  return launch<float>(q, k, v, band, lengths, out, N, T_len, Dh, ldb,
+                       static_cast<cudaStream_t>(stream));
 }

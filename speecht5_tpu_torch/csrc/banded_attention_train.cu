@@ -25,10 +25,12 @@
 // p over the T keys) then gives dv but no dq, dk or dband, where the Pallas
 // kernel lets such a row leak into all three (ROADMAP.md C).
 //
-// Routes.  The forward runs here for both dtypes.  The two backward kernels
-// here are the f32 route only: the bf16 backward (the training path's dtype)
-// runs on wgmma tensor cores in banded_attention_train_bwd.cu, and wgmma has
-// no full-f32 product, so f32 stays on these CUDA-core kernels.
+// Routes.  The three kernels here are the f32 route only: the bf16 forward
+// (the training path's dtype) runs on wgmma tensor cores in
+// banded_attention_fwd.cu and the bf16 backward in
+// banded_attention_train_bwd.cu; wgmma has no full-f32 product, so f32 stays
+// on these CUDA-core kernels.  The band may come with rows of Tp = T rounded
+// up to 8 (the encoder's row-padded band): every kernel takes its row stride.
 //
 // Design.
 // - Forward: one block owns 16 query rows of one n and keeps the whole score
@@ -54,15 +56,14 @@
 // over the valid keys; the bytes (q, k, v, o, dO, dq, dk, dv and two band
 // sized tensors) are far smaller.  These kernels compute on the CUDA cores
 // in f32 out of shared memory, so they sit well above the tensor-core bound
-// (at f32 that bound is the 67 TFLOP/s of the CUDA cores).  The forward on
-// wgmma tiles and a table-resident bias that reads the [2M, Dh] table
-// instead of the band are later work.
+// (at f32 that bound is the 67 TFLOP/s of the CUDA cores).  A
+// table-resident bias that reads the [2M, Dh] table instead of the band is
+// later work.
 //
 // Limits: T <= 1024 (the forward's score row lives in shared memory; the
 // module routes longer sequences to the plain path, as the JAX module
 // does), Dh <= 64 (register accumulators; every SpeechT5 preset has 64).
-// The bf16 backward in banded_attention_train_bwd.cu also needs Dh a
-// multiple of 16.
+// The bf16 route also needs Dh a multiple of 16.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -87,7 +88,7 @@ constexpr int PSTRIDE = BK + 1;
 constexpr int DCH = MAX_DH / 16;    // d values per thread in the accumulations
 
 struct Params {
-  int N, T, Dh, dropout;
+  int N, T, Dh, ldb, dropout;  // ldb: the band's row stride in elements
   uint32_t seed, thresh;
   float scale;
 };
@@ -142,15 +143,16 @@ __device__ __forceinline__ void load_rows(float* dst, int ld, const T* src, int 
 }
 
 // band[:, q0:q0+BQ, k0:k0+BK] into dst[d * BSTRIDE + i * BK + j], 0 past T
+// (rows of ldb elements)
 template <typename T>
 __device__ __forceinline__ void load_band_tile(float* dst, const T* band, int q0, int k0,
-                                               int T_len, int Dh) {
+                                               int T_len, int Dh, int ldb) {
   for (int idx = threadIdx.x; idx < Dh * TILE; idx += THREADS) {
     const int d = idx / TILE, t = idx - d * TILE;
     const int row = q0 + t / BK, col = k0 + t % BK;
     dst[d * BSTRIDE + t] =
         (row < T_len && col < T_len)
-            ? to_f32(band[(size_t)d * T_len * T_len + (size_t)row * T_len + col])
+            ? to_f32(band[((size_t)d * T_len + row) * ldb + col])
             : 0.f;
   }
 }
@@ -221,7 +223,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   const int tid = threadIdx.x;
   const int len = lengths[n];
   const size_t base = (size_t)n * T_len * Dh;
-  const size_t dstride = (size_t)T_len * T_len;
+  const size_t dstride = (size_t)T_len * P.ldb;
 
   load_rows(s_q, Dh, q + base, q0, FQ, T_len, Dh);
 
@@ -236,7 +238,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
       const int row = q0 + i;
       float acc = 0.f;
       if (row < T_len && col < T_len) {
-        const T* bp = band + (size_t)row * T_len + col;
+        const T* bp = band + (size_t)row * P.ldb + col;
         const float* qi = s_q + i * Dh;
         const float* kj = s_kv + j * ldkv;
         for (int d = 0; d < Dh; ++d) acc += qi[d] * (kj[d] + to_f32(bp[d * dstride]));
@@ -336,7 +338,7 @@ __device__ void dband_block(const T* q, const T* k, const T* v, const T* band,
   const int i = tid / BK, j = tid % BK;
   const int q0 = qt * BQ, k0 = kt * BK;
   const int row = q0 + i, col = k0 + j;
-  load_band_tile(S.band, band, q0, k0, T_len, Dh);
+  load_band_tile(S.band, band, q0, k0, T_len, Dh, P.ldb);
 
   float acc[MAX_DH];
 #pragma unroll
@@ -405,7 +407,7 @@ __device__ void dq_block(const T* q, const T* k, const T* v, const T* band,
     __syncthreads();
     load_rows(S.k, ldk, k + base, k0, BK, T_len, Dh);
     load_rows(S.v, ldk, v + base, k0, BK, T_len, Dh);
-    load_band_tile(S.band, band, q0, k0, T_len, Dh);
+    load_band_tile(S.band, band, q0, k0, T_len, Dh, P.ldb);
     __syncthreads();
     const Pair g = pair_grad(P, S.q + i * Dh, S.dO + i * Dh, S.k + j * ldk, S.v + j * ldk,
                              S.band + tid, n, row, k0 + j, len, m, l, delta);
@@ -484,7 +486,7 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
       __syncthreads();
       load_rows(S.q, Dh, q + base, q0, BQ, T_len, Dh);
       load_rows(S.dO, Dh, dout + base, q0, BQ, T_len, Dh);
-      load_band_tile(S.band, band, q0, k0, T_len, Dh);
+      load_band_tile(S.band, band, q0, k0, T_len, Dh, P.ldb);
       __syncthreads();
       const int row = q0 + i;
       const float delta = row_delta(S.dO + i * Dh, o + base, row, T_len, Dh);
@@ -534,9 +536,11 @@ int set_smem(K kernel, size_t smem) {
                                    (int)smem);
 }
 
-int check(int N, int T_len, int Dh, int dtype) {
-  if (N <= 0 || T_len <= 0 || T_len > MAX_T || Dh <= 0 || Dh > MAX_DH ||
-      (dtype != 0 && dtype != 1))
+// The launchers take f32 only (dtype 0): the bf16 forward runs on wgmma in
+// banded_attention_fwd.cu, the bf16 backward in banded_attention_train_bwd.cu.
+int check(int N, int T_len, int Dh, int ldb, int dtype) {
+  if (N <= 0 || T_len <= 0 || T_len > MAX_T || Dh <= 0 || Dh > MAX_DH || ldb < T_len ||
+      dtype != 0)
     return (int)cudaErrorInvalidValue;
   return 0;
 }
@@ -583,32 +587,30 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* band,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (the forward; the backward launchers
-// take float32 only).  dropout: 0 or 1; thresh and scale are
-// computed on the host as the TPU kernel computes them.  stats: [2, N, T]
-// f32 (row max, row sum).  Each returns a cudaError_t (0 on success).
+// dtype: 0 = float32 (the only one these take).  ldb: the band's row stride
+// in elements (T, or Tp = T rounded up to 8 for the encoder's row-padded
+// band).  dropout: 0 or 1; thresh and scale are computed on the host as the
+// TPU kernel computes them.  stats: [2, N, T] f32 (row max, row sum).  Each
+// returns a cudaError_t (0 on success).
 extern "C" int bat_fwd_launch(const void* q, const void* k, const void* v, const void* band,
                               const int* lengths, void* out, float* stats, int N, int T_len,
-                              int Dh, int dtype, int dropout, unsigned seed, unsigned thresh,
-                              float scale, void* stream) {
-  int err = check(N, T_len, Dh, dtype);
+                              int Dh, int ldb, int dtype, int dropout, unsigned seed,
+                              unsigned thresh, float scale, void* stream) {
+  int err = check(N, T_len, Dh, ldb, dtype);
   if (err) return err;
-  const Params P{N, T_len, Dh, dropout, seed, thresh, scale};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return fwd<float>(q, k, v, band, lengths, out, stats, P, s);
-  return fwd<__nv_bfloat16>(q, k, v, band, lengths, out, stats, P, s);
+  const Params P{N, T_len, Dh, ldb, dropout, seed, thresh, scale};
+  return fwd<float>(q, k, v, band, lengths, out, stats, P, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int bat_bwd_dq_launch(const void* q, const void* k, const void* v,
                                  const void* band, const int* lengths, const void* o,
                                  const void* dout, const float* stats, void* dq,
-                                 float* dband, int N, int T_len, int Dh, int dtype,
+                                 float* dband, int N, int T_len, int Dh, int ldb, int dtype,
                                  int dropout, unsigned seed, unsigned thresh, float scale,
                                  void* stream) {
-  int err = check(N, T_len, Dh, dtype);
+  int err = check(N, T_len, Dh, ldb, dtype);
   if (err) return err;
-  if (dtype != 0) return (int)cudaErrorInvalidValue;  // bf16: banded_attention_train_bwd.cu
-  const Params P{N, T_len, Dh, dropout, seed, thresh, scale};
+  const Params P{N, T_len, Dh, ldb, dropout, seed, thresh, scale};
   return bwd_dq<float>(q, k, v, band, lengths, o, dout, stats, dq, dband, P,
                        static_cast<cudaStream_t>(stream));
 }
@@ -616,13 +618,12 @@ extern "C" int bat_bwd_dq_launch(const void* q, const void* k, const void* v,
 extern "C" int bat_bwd_dkv_launch(const void* q, const void* k, const void* v,
                                   const void* band, const int* lengths, const void* o,
                                   const void* dout, const float* stats, void* dk, void* dv,
-                                  int N, int T_len, int Dh, int dtype, int dropout,
+                                  int N, int T_len, int Dh, int ldb, int dtype, int dropout,
                                   unsigned seed, unsigned thresh, float scale,
                                   void* stream) {
-  int err = check(N, T_len, Dh, dtype);
+  int err = check(N, T_len, Dh, ldb, dtype);
   if (err) return err;
-  if (dtype != 0) return (int)cudaErrorInvalidValue;  // bf16: banded_attention_train_bwd.cu
-  const Params P{N, T_len, Dh, dropout, seed, thresh, scale};
+  const Params P{N, T_len, Dh, ldb, dropout, seed, thresh, scale};
   return bwd_dkv<float>(q, k, v, band, lengths, o, dout, stats, dk, dv, P,
                         static_cast<cudaStream_t>(stream));
 }

@@ -38,17 +38,30 @@ def rel_position_index(q_pos, k_pos, max_dist: int):
     return torch.clamp(rel, -max_dist, max_dist - 1) + max_dist
 
 
-def band_from_table(pos_table, T: int, max_dist: int):
-    """pe_band[d, i, j] = pos_table[clip(i-j, -M, M-1) + M, d] -> [Dh, T, T].
+def band_from_table(pos_table, T: int, max_dist: int, dtype=None,
+                    row_multiple: int = 1):
+    """pe_band[d, i, j] = pos_table[clip(i-j, -M, M-1) + M, d] -> [Dh, T, T],
+    cast to ``dtype`` (default: the table's).
 
     Built once per encoder forward and shared by every layer and head of the
     post-LN stack (the reference applies norm_k to the table only on the
     pre-LN path, transformer_layer.py:90-93).  The JAX package realises the
     same band with a gather-free skew (``_skew_band``); here it is one
-    gather."""
-    pos = torch.arange(T, device=pos_table.device)
-    idx = rel_position_index(pos, pos, max_dist)          # [T, T]
-    return pos_table.t()[:, idx]                           # [Dh, T, T]
+    gather.  With ``row_multiple`` > 1 the band's rows are stored padded to
+    Tp, a multiple of it, and the result is the ``[Dh, T, T]`` view of that
+    ``[Dh, T, Tp]`` storage (strides ``(T * Tp, Tp, 1)``): the layout the
+    wgmma kernels read through TMA (16-byte row strides at ``row_multiple``
+    8), made here once instead of copied in every attention call.  The
+    padding columns hold gathered values that no kernel reads; the gradient
+    reaches the table through the view alone."""
+    Tp = -(-T // row_multiple) * row_multiple
+    dev = pos_table.device
+    idx = rel_position_index(torch.arange(T, device=dev), torch.arange(Tp, device=dev),
+                             max_dist)                     # [T, Tp]
+    band = pos_table.t()[:, idx]                           # [Dh, T, Tp]
+    if dtype is not None:
+        band = band.to(dtype)
+    return band[..., :T]
 
 
 def relative_bias_banded(q, pos_band):
@@ -134,7 +147,8 @@ class MultiheadAttention(nn.Module):
             N = B * H
             qf, kf, vf = (t.transpose(1, 2).reshape(N, Tq, Dh).contiguous()
                           for t in (q, k, v))
-            band = pos_band.to(qf.dtype).contiguous()
+            # the band as the encoder built it (row-padded): no copy
+            band = pos_band.to(qf.dtype)
             lengths = None
             if key_valid is not None:
                 lengths = torch.repeat_interleave(

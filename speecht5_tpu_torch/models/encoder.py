@@ -25,6 +25,10 @@ from .attention import band_from_table
 from .common import LayerNorm32
 from .layers import EncoderLayer
 
+# the band's rows are stored padded to a multiple of 8 elements (16 bytes in
+# bf16), the row stride the wgmma kernels' TMA maps need
+BAND_ROW_MULTIPLE = 8
+
 
 class RelPosTable(nn.Module):
     """Embedding table for clipped relative distances (reference encoder.py:40-59)."""
@@ -68,10 +72,11 @@ class TransformerEncoder(nn.Module):
         if self.pos_emb is not None:
             # built from the f32 table and then cast, so the gather's
             # backward sums in f32; at T == 1 the band is the single entry
-            # pe_k[M], the value the JAX package gathers on that path
+            # pe_k[M], the value the JAX package gathers on that path.  Its
+            # rows are padded once here, so no attention call copies it.
             pos_band = band_from_table(
-                self.pos_emb().float(), x.shape[1],
-                cfg.rel_pos.max_distance).to(self.dtype)
+                self.pos_emb().float(), x.shape[1], cfg.rel_pos.max_distance,
+                dtype=self.dtype, row_multiple=BAND_ROW_MULTIPLE)
         for layer in self.layers:
             if self.training and cfg.layerdrop > 0.0:
                 if torch.rand((), generator=generator) < cfg.layerdrop:

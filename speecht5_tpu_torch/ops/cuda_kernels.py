@@ -3,11 +3,14 @@ loader that builds them.
 
 ``speecht5_tpu/ops/pallas_kernels.py`` holds the TPU kernels they replace:
 
-- ``banded_flash_attention`` (``csrc/banded_attention.cu``): inference
-  encoder self-attention with the clipped relative-position bias computed
-  in-kernel from the shared ``[Dh, T, T]`` band; replaces
-  ``banded_flash_attention`` (pallas_kernels.py:215).  Inference only: it
-  raises when asked to carry a gradient.
+- ``banded_flash_attention`` (``csrc/banded_attention_fwd.cu``, f32
+  ``csrc/banded_attention.cu``): inference encoder self-attention with the
+  clipped relative-position bias from the shared ``[Dh, T, T]`` band;
+  replaces ``banded_flash_attention`` (pallas_kernels.py:215).  bf16 runs on
+  wgmma tensor cores fed by TMA (two launches: the bias pass q.band per
+  query row as a GEMM over the batch-heads, then a FlashAttention-style
+  main loop), f32 on one CUDA-core launch.  Inference only: it raises when
+  asked to carry a gradient.
 - ``conv_stack`` (``csrc/conv_stack.cu``): feature-extractor layers 1..n,
   each a VALID strided Conv1d without bias followed by the exact GELU;
   replaces ``conv_stack_pallas`` / ``conv_stack_fused`` (pallas_kernels.py
@@ -20,12 +23,14 @@ loader that builds them.
   attention with in-kernel counter-hash probability dropout; replaces
   ``banded_flash_attention_train`` (pallas_kernels.py:411, ``pallas_call``
   sites :427, :446, :456) with three wrappers:
-  ``banded_attention_train_fwd`` (one CUDA-core launch),
-  ``banded_attention_train_bwd_dq`` (dq and dband) and
-  ``banded_attention_train_bwd_dkv``.  The backward routes by dtype: bf16
-  on wgmma tensor cores fed by TMA (a bias pass, then each wrapper's main
-  loop, and dq's band pass: the band terms as GEMMs over the batch-heads),
-  f32 on one CUDA-core launch each.
+  ``banded_attention_train_fwd``, ``banded_attention_train_bwd_dq`` (dq and
+  dband) and ``banded_attention_train_bwd_dkv``.  Each routes by dtype:
+  bf16 on wgmma tensor cores fed by TMA (the forward in
+  ``csrc/banded_attention_fwd.cu``: the bias pass and the main loop; the
+  backward a bias pass, each wrapper's main loop, and dq's band pass: the
+  band terms as GEMMs over the batch-heads; forward and backward share one
+  bias pass code, so their scores are the same bits), f32 on one CUDA-core
+  launch each.
 - ``fused_log_mel`` (``csrc/log_mel.cu``): waveform -> log10-mel in one
   pass, an f32 four-step FFT in registers and warp shuffles and a sparse
   filterbank, the spectrum kept on chip; replaces ``fused_log_mel`` (pallas_kernels.py:97, kernel
@@ -36,6 +41,11 @@ loader that builds them.
   decode-step attention (grouped cross-attention, cached self-attention);
   replaces ``flash_attention_bias`` (pallas_kernels.py:592, kernel
   ``_flash_kernel`` :553, ``pallas_call`` :624).  Forward only, as in JAX.
+
+The attention wrappers take the band contiguous or as the encoder builds it,
+a ``[Dh, T, T]`` view of storage with rows of Tp = T rounded up to 8
+(strides ``(T * Tp, Tp, 1)``, ``band_row_stride``), so that TMA's 16-byte
+strides need no copy of it per call.
 
 Each wrapper takes its kernel's plain twin only because the tensors it was
 given lie on the CPU; on CUDA tensors it launches the kernel or raises.
@@ -71,6 +81,7 @@ CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_ROOT = _PKG_DIR.parent / "build" / "torch_kernels"
 SOURCES = {
     "banded_attention": "banded_attention.cu",
+    "banded_attention_fwd": "banded_attention_fwd.cu",
     "banded_attention_train": "banded_attention_train.cu",
     "banded_attention_train_bwd": "banded_attention_train_bwd.cu",
     "conv_stack": "conv_stack.cu",
@@ -106,12 +117,16 @@ def find_nvcc() -> str:
 
 
 def build_dir() -> Path:
-    """``build/torch_kernels/<hash>``: the hash covers every source and the
-    flags, so an edited source never loads a stale library."""
+    """``build/torch_kernels/<hash>``: the hash covers every source, every
+    header of ``csrc/`` and the flags, so an edited file never loads a
+    stale library."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in sorted(SOURCES):
         h.update(name.encode())
         h.update((CSRC_DIR / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
@@ -160,13 +175,22 @@ def _lib(name: str) -> ctypes.CDLL:
         vp, i = ctypes.c_void_p, ctypes.c_int
         u, f = ctypes.c_uint, ctypes.c_float
         if name == "banded_attention":
-            lib.banded_attention_launch.argtypes = [vp] * 6 + [i] * 4 + [vp]
+            # q, k, v, band, lengths, out, then N, T, Dh, the band's row
+            # stride, dtype, stream
+            lib.banded_attention_launch.argtypes = [vp] * 6 + [i] * 5 + [vp]
             lib.banded_attention_launch.restype = i
+        elif name == "banded_attention_fwd":
+            # bias pass: q, band, bias, then N, T, Dh, stream; main loop: q,
+            # k, v, lengths, bias, out, stats, then N, T, Dh, train, dropout
+            # on, seed, keep threshold, keep scale, stream
+            lib.baf_bias_launch.argtypes = [vp] * 3 + [i] * 3 + [vp]
+            lib.baf_main_launch.argtypes = [vp] * 7 + [i] * 5 + [u, u, f, vp]
+            lib.baf_bias_launch.restype = lib.baf_main_launch.restype = i
         elif name == "banded_attention_train":
             # q, k, v, band, lengths, then the outputs / saved tensors, then
-            # N, T, Dh, dtype, dropout on, seed, keep threshold, keep
-            # scale, stream
-            tail = [i] * 5 + [u, u, f, vp]
+            # N, T, Dh, the band's row stride, dtype, dropout on, seed, keep
+            # threshold, keep scale, stream
+            tail = [i] * 6 + [u, u, f, vp]
             lib.bat_fwd_launch.argtypes = [vp] * 7 + tail
             lib.bat_bwd_dq_launch.argtypes = [vp] * 10 + tail
             lib.bat_bwd_dkv_launch.argtypes = [vp] * 10 + tail
@@ -256,13 +280,110 @@ def banded_flash_attention_plain(q, k, v, pe_band, lengths=None):
     return (o / l.clamp_min(1e-30)).to(q.dtype)
 
 
+def band_row_stride(pe_band) -> int:
+    """The row stride, in elements, of a ``[Dh, T, T]`` band the attention
+    kernels take: T for a contiguous band, Tp = T rounded up to 8 for the
+    encoder's row-padded band (a view of ``[Dh, T, Tp]`` storage, strides
+    ``(T * Tp, Tp, 1)``).  Raises ValueError on any other layout."""
+    if pe_band.dim() != 3 or pe_band.shape[1] != pe_band.shape[2]:
+        raise ValueError(f"pe_band must be [Dh, T, T], got {tuple(pe_band.shape)}")
+    T = pe_band.shape[1]
+    if pe_band.is_contiguous():
+        return T
+    Tp = -(-T // 8) * 8
+    if pe_band.stride() == (T * Tp, Tp, 1):
+        return Tp
+    raise ValueError(
+        f"pe_band strides {pe_band.stride()}: the kernels take a contiguous band or "
+        f"a [Dh, T, T] view of rows of Tp = {Tp}, strides {(T * Tp, Tp, 1)}")
+
+
+def _check_band(pe_band, q) -> int:
+    """The band against q [N, T, Dh]: its shape, device and layout; returns
+    its row stride."""
+    N, T, Dh = q.shape
+    if pe_band.shape != (Dh, T, T):
+        raise ValueError(f"pe_band shape {tuple(pe_band.shape)} != {(Dh, T, T)}")
+    if pe_band.device != q.device:
+        raise ValueError(f"pe_band on {pe_band.device}, q on {q.device}")
+    return band_row_stride(pe_band)
+
+
+def _tma_band(pe_band):
+    """The band as the wgmma kernels' TMA maps read it, with rows of Tp = T
+    rounded up to 8 (16-byte strides): the encoder's row-padded band as it
+    is; a contiguous band with T % 8 copied into such rows (the columns
+    past T are never read)."""
+    Dh, T, _ = pe_band.shape
+    Tp = -(-T // 8) * 8
+    if band_row_stride(pe_band) == Tp:
+        return pe_band
+    band = torch.empty((Dh, T, Tp), dtype=pe_band.dtype, device=pe_band.device)
+    band[..., :T].copy_(pe_band)
+    return band[..., :T]
+
+
+def _check_wgmma(q, *tensors, what: str):
+    """Raise, before any launch, on a bf16 call that the wgmma kernels do
+    not take: Dh a multiple of 16 up to 64, T <= 1024, 16-byte aligned
+    tensors."""
+    N, T, Dh = q.shape
+    if Dh % 16 or not 16 <= Dh <= 64 or T > 1024:
+        raise ValueError(f"the bf16 {what} (wgmma) needs Dh a multiple of 16 up to 64 "
+                         f"and T <= 1024; got Dh={Dh}, T={T}")
+    if any(t.data_ptr() % 16 for t in (q, *tensors)):
+        raise ValueError("the wgmma kernels need 16-byte aligned tensors")
+
+
+def fwd_launches(dtype) -> int:
+    """Launches of one call of either attention forward on the card: bf16
+    the bias pass and the main loop, f32 one CUDA-core kernel."""
+    return 2 if dtype == torch.bfloat16 else 1
+
+
+def fwd_bias(q, pe_band, count):
+    """The forward's bias pass: bias = q.band per query row, f32 [N, T,
+    Tp], the same kernel (and so the same bits) as the backward's bias pass
+    without delta.  One launch, counted on ``count``."""
+    N, T, Dh = q.shape
+    band = _tma_band(pe_band)
+    bias = torch.empty((N, T, -(-T // 8) * 8), dtype=torch.float32, device=q.device)
+    rc = _lib("banded_attention_fwd").baf_bias_launch(
+        q.data_ptr(), band.data_ptr(), bias.data_ptr(), N, T, Dh,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _check_rc(rc, "attention forward bias pass")
+    count.launches += 1
+    return bias
+
+
+def fwd_main(q, k, v, lengths, bias, count, train=False, rate=0.0, seed=0):
+    """The forward's main loop on the bias pass's bias: out bf16 [N, T, Dh]
+    and, with ``train``, stats f32 [2, N, T] (dropout at ``rate`` from
+    ``seed``), else None.  One launch, counted on ``count``."""
+    N, T, Dh = q.shape
+    out = torch.empty_like(q)
+    stats = (torch.empty((2, N, T), dtype=torch.float32, device=q.device)
+             if train else None)
+    rc = _lib("banded_attention_fwd").baf_main_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), None if stats is None else stats.data_ptr(), N, T, Dh,
+        int(train), *_dropout_args(rate, seed),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _check_rc(rc, "attention forward main loop")
+    count.launches += 1
+    return out, stats
+
+
 def banded_flash_attention(q, k, v, pe_band, lengths=None):
-    """Fused self-attention with the SpeechT5 rel-pos bias computed in-kernel
-    from the shared band.  Same contract as the JAX package's
+    """Fused self-attention with the SpeechT5 rel-pos bias computed from the
+    shared band.  Same contract as the JAX package's
     ``banded_flash_attention``: q/k/v [N, T, Dh] (q pre-scaled), pe_band
-    [Dh, T, T], lengths [N] -> [N, T, Dh] in q's dtype.  CUDA: T <= 1024,
-    Dh <= 128.  Inference only: raises under grad mode when an input
-    requires grad (training passes take ``banded_attention_train``)."""
+    [Dh, T, T] (contiguous or row-padded, ``band_row_stride``), lengths [N]
+    -> [N, T, Dh] in q's dtype.  On the card T <= 1024; bf16 takes the
+    wgmma kernels (two launches; Dh a multiple of 16 up to 64), f32 the
+    CUDA-core kernel (one launch; Dh <= 128).  Inference only: raises under
+    grad mode when an input requires grad (training passes take
+    ``banded_attention_train``)."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v, pe_band)):
         raise RuntimeError(
@@ -273,22 +394,24 @@ def banded_flash_attention(q, k, v, pe_band, lengths=None):
     N, T, Dh = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q/k/v shapes differ: {q.shape} {k.shape} {v.shape}")
-    if pe_band.shape != (Dh, T, T):
-        raise ValueError(f"pe_band shape {tuple(pe_band.shape)} != {(Dh, T, T)}")
-    if T > 1024 or Dh > 128:
-        raise ValueError(f"kernel limits T <= 1024, Dh <= 128; got T={T} Dh={Dh}")
     if lengths is None:
         lengths = torch.full((N,), T, dtype=torch.int32, device=q.device)
     if lengths.dtype != torch.int32 or lengths.shape != (N,):
         raise TypeError("lengths must be int32 [N]")
-    _check_cuda(q, k, v, pe_band, lengths)
+    _check_cuda(q, k, v, lengths)
+    ldb = _check_band(pe_band, q)
     code = _dtype_code(q, k, v, pe_band)
-    lib = _lib("banded_attention")
+    if T > 1024 or Dh > 128:
+        raise ValueError(f"kernel limits T <= 1024, Dh <= 128; got T={T} Dh={Dh}")
+    if q.dtype == torch.bfloat16:
+        _check_wgmma(q, k, v, pe_band, what="attention")
+        bias = fwd_bias(q, pe_band, banded_flash_attention)
+        return fwd_main(q, k, v, lengths, bias, banded_flash_attention)[0]
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.banded_attention_launch(
+    rc = _lib("banded_attention").banded_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pe_band.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), N, T, Dh, code, stream)
+        lengths.data_ptr(), out.data_ptr(), N, T, Dh, ldb, code, stream)
     _check_rc(rc, "banded_attention")
     banded_flash_attention.launches += 1
     return out
@@ -545,29 +668,35 @@ def _dropout_args(rate: float, seed: int) -> tuple:
 
 
 def _train_args(q, k, v, pe_band, lengths, rate, seed):
-    """Validate the CUDA inputs; returns the launch's scalar tail."""
+    """Validate the CUDA inputs; returns the f32 launches' scalar tail."""
     N, T, Dh = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q/k/v shapes differ: {q.shape} {k.shape} {v.shape}")
-    if pe_band.shape != (Dh, T, T):
-        raise ValueError(f"pe_band shape {tuple(pe_band.shape)} != {(Dh, T, T)}")
     if T > 1024 or Dh > 64:
         raise ValueError(f"train kernel limits T <= 1024, Dh <= 64; got T={T} Dh={Dh}")
     if lengths.dtype != torch.int32 or lengths.shape != (N,):
         raise TypeError("lengths must be int32 [N]")
-    _check_cuda(q, k, v, pe_band, lengths)
+    _check_cuda(q, k, v, lengths)
+    ldb = _check_band(pe_band, q)
     code = _dtype_code(q, k, v, pe_band)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    return (N, T, Dh, code, *_dropout_args(rate, seed), stream)
+    return (N, T, Dh, ldb, code, *_dropout_args(rate, seed), stream)
 
 
 def banded_attention_train_fwd(q, k, v, pe_band, lengths, rate, seed):
-    """Train forward: (out [N, T, Dh], stats [2, N, T] f32).  The kernel on
-    CUDA tensors, the twin on CPU ones."""
+    """Train forward: (out [N, T, Dh], stats [2, N, T] f32).  The twin on
+    CPU tensors.  On the card bf16 takes the wgmma kernels (two launches:
+    the bias pass and the main loop; Dh a multiple of 16) and f32 the
+    CUDA-core kernel (one launch)."""
     if q.device.type == "cpu":
         return banded_attention_train_fwd_plain(q, k, v, pe_band, lengths,
                                                 rate, seed)
     tail = _train_args(q, k, v, pe_band, lengths, rate, seed)
+    if q.dtype == torch.bfloat16:
+        _check_wgmma(q, k, v, pe_band, what="train forward")
+        bias = fwd_bias(q, pe_band, banded_attention_train_fwd)
+        return fwd_main(q, k, v, lengths, bias, banded_attention_train_fwd,
+                        train=True, rate=rate, seed=seed)
     out = torch.empty_like(q)
     stats = torch.empty((2,) + q.shape[:2], dtype=torch.float32, device=q.device)
     rc = _lib("banded_attention_train").bat_fwd_launch(
@@ -593,30 +722,22 @@ def _check_wgmma_bwd(q, k, v, pe_band, lengths, o, do, stats, rate, seed):
     _train_args(q, k, v, pe_band, lengths, rate, seed)
     _check_cuda(o, do, stats)
     N, T, Dh = q.shape
-    if Dh % 16:
-        raise ValueError("the bf16 train backward (wgmma) needs Dh a multiple of 16 "
-                         f"up to 64; got Dh={Dh}")
+    _check_wgmma(q, k, v, pe_band, o, do, what="train backward")
     if o.dtype != torch.bfloat16 or do.dtype != torch.bfloat16 or o.shape != q.shape \
             or do.shape != q.shape:
         raise TypeError(f"o and do must be bfloat16 {tuple(q.shape)}, got "
                         f"{o.dtype} {tuple(o.shape)} and {do.dtype} {tuple(do.shape)}")
     if stats.dtype != torch.float32 or stats.shape != (2, N, T):
         raise TypeError(f"stats must be float32 {(2, N, T)}")
-    if any(t.data_ptr() % 16 for t in (q, k, v, pe_band, o, do)):
-        raise ValueError("the wgmma kernels need 16-byte aligned tensors")
 
 
 def train_bwd_bias(q, pe_band, o, do, count):
-    """The bias pass: (band [Dh, T, Tp] (pe_band, copied into rows of Tp
-    when T % 8), bias f32 [N, T, Tp], delta f32 [N, T]).  One launch,
-    counted on ``count``."""
+    """The bias pass: (band with rows of Tp (``_tma_band``: the encoder's
+    row-padded band as it is), bias f32 [N, T, Tp], delta f32 [N, T]).  One
+    launch, counted on ``count``."""
     N, T, Dh = q.shape
-    Tp = -(-T // 8) * 8
-    band = pe_band
-    if Tp != T:     # the columns past T are never read (the kernels' extent is T)
-        band = torch.empty((Dh, T, Tp), dtype=pe_band.dtype, device=q.device)
-        band[..., :T].copy_(pe_band)
-    bias = torch.empty((N, T, Tp), dtype=torch.float32, device=q.device)
+    band = _tma_band(pe_band)
+    bias = torch.empty((N, T, -(-T // 8) * 8), dtype=torch.float32, device=q.device)
     delta = torch.empty((N, T), dtype=torch.float32, device=q.device)
     rc = _lib("banded_attention_train_bwd").batb_bias_launch(
         *(t.data_ptr() for t in (q, band, o, do, bias, delta)), N, T, Dh,
@@ -747,10 +868,10 @@ banded_attention_train_bwd_dkv.launches = 0
 def train_launches_per_layer(dtype) -> dict:
     """Each train wrapper's launches for one attention layer run forward and
     backward through ``banded_attention_train`` on the card: bf16 runs the
-    bias pass once, counted on the dq wrapper with its main loop and band
-    pass."""
+    forward's bias pass and main loop, and the backward's bias pass once,
+    counted on the dq wrapper with its main loop and band pass."""
     bf16 = dtype == torch.bfloat16
-    return {"banded_attention_train_fwd": 1,
+    return {"banded_attention_train_fwd": fwd_launches(dtype),
             "banded_attention_train_bwd_dq": 3 if bf16 else 1,
             "banded_attention_train_bwd_dkv": 1}
 
@@ -758,7 +879,9 @@ def train_launches_per_layer(dtype) -> dict:
 class _BandedAttentionTrain(torch.autograd.Function):
     """Forward kernel saves the row statistics; the backward kernels
     regenerate p and the dropout mask from them and the seed (bf16 on the
-    card: one bias pass shared by dq/dband and dk/dv)."""
+    card: one bias pass shared by dq/dband and dk/dv, whose scores are the
+    forward's bits).  The band is saved as given: the encoder's row-padded
+    view needs no copy in either direction."""
 
     @staticmethod
     def forward(ctx, q, k, v, pe_band, lengths, rate, seed):
@@ -791,7 +914,8 @@ def banded_attention_train(q, k, v, pe_band, lengths=None, *,
 
     q/k/v [N, T, Dh] (q pre-scaled); pe_band [Dh, T, T]; lengths [N] int32
     contiguous valid key counts; seed: a Python int.  Gradients reach q, k,
-    v and pe_band.  CUDA: T <= 1024, Dh <= 64."""
+    v and pe_band (contiguous or row-padded, ``band_row_stride``).  CUDA:
+    T <= 1024, Dh <= 64 (bf16: a multiple of 16)."""
     N, T, _ = q.shape
     if lengths is None:
         lengths = torch.full((N,), T, dtype=torch.int32, device=q.device)

@@ -265,6 +265,10 @@ def test_chip_smoke_beam_phases_run_on_cpu_with_twins():
     want = chip_smoke.beam_launches_expected(PC.speecht5_base_asr(), chunks=2, steps=7)
     assert (want["banded_flash_attention"], want["conv_stack"],
             want["flash_attention_bias"]) == (24, 12, 84)
+    # bf16 (the served dtype): the attention's bias pass and main loop
+    want = chip_smoke.beam_launches_expected(PC.speecht5_base_asr(dtype="bfloat16"),
+                                             chunks=2, steps=7)
+    assert want["banded_flash_attention"] == 48
     parity = chip_smoke.phase_beam_parity(base, device="cpu", requests_s=(0.3,),
                                           buckets="2", max_len=6)
     assert parity["equal_best"] == parity["chunks"] == 1

@@ -2,7 +2,9 @@
 train kernels, the conv stack's gradient, the log-mel kernel and the
 decode-step attention kernel (alone and inside the decoder) included,
 the inference kernel's refusal to drop a gradient and the wrappers'
-refusals of inputs their kernels do not take.
+refusals of inputs their kernels do not take; the bf16 attention forwards'
+row statistics, their bit-equal scores with the backward's, and a forward
+and backward through the encoder's row-padded band.
 
 Marked ``cuda``; each test skips when no card is present.  This file
 imports neither JAX nor the JAX package, so on a machine without JAX it
@@ -10,7 +12,9 @@ runs with ``python -m pytest --noconftest -q tests/test_torch_cuda.py``.
 
 Tolerances: f32 1e-4 absolute (sums in another order); bf16 3e-2 of
 max |ref| (one bf16 rounding of probabilities or activations); log10-mel
-2e-3 absolute (the JAX spec's).
+2e-3 absolute (the JAX spec's); the bf16 train forward's row statistics
+1e-4 relative plus 1e-5 absolute (f32 scores summed in another order by
+wgmma; the absolute term covers row maxima near 0).
 """
 
 import pytest
@@ -39,20 +43,41 @@ def _close(got, ref, dtype):
         assert err <= 3e-2 * ref.float().abs().max().item(), err
 
 
+def _band(table, T, M, dtype, card, padded):
+    """The band on the card: contiguous, or the encoder's row-padded view."""
+    return band_from_table(table.to(card), T, M, dtype=dtype,
+                           row_multiple=8 if padded else 1)
+
+
+def _lengths(N, T, card):
+    """Ragged lengths with rows of length 0, 1 and T."""
+    lens = ([T, 0, 1, T // 2, T - 1, 33, 613 % T, T, 64, 65, 128, T // 3] * N)[:N]
+    return torch.tensor(lens, dtype=torch.int32, device=card)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("T,Dh", [(77, 16), (199, 64), (1024, 64)])
-def test_attention_kernel_matches_twin(card, dtype, T, Dh):
+@pytest.mark.parametrize("T,Dh,N,padded", [
+    (77, 16, 6, False), (199, 64, 6, False), (1024, 64, 6, False),
+    (130, 32, 200, True),      # N not a multiple of 64, T % 64 != 0
+    (799, 64, 12, True),       # the served chunk's shape, as the encoder gives it
+])
+def test_attention_kernel_matches_twin(card, dtype, T, Dh, N, padded):
+    """The inference attention against its twin, ragged lengths with rows
+    of length 0, 1 and T; bf16 runs the wgmma kernels (bias pass and main
+    loop: two launches), f32 the CUDA-core kernel (one)."""
     g = torch.Generator().manual_seed(T)
-    N, M = 6, 16
+    M = 16
     q, k, v = (torch.randn(N, T, Dh, generator=g) * s for s in (Dh ** -0.5, 1, 1))
     table = torch.randn(2 * M, Dh, generator=g) * 0.2
-    args = [t.to(dtype).to(card) for t in (q, k, v, band_from_table(table, T, M))]
-    lengths = torch.tensor([T, 0, 1, T // 2, T - 1, 33], dtype=torch.int32, device=card)
+    args = [t.to(dtype).to(card) for t in (q, k, v)]
+    args.append(_band(table, T, M, dtype, card, padded))
+    lengths = _lengths(N, T, card)
     before = K.banded_flash_attention.launches
     got = K.banded_flash_attention(*args, lengths)
-    assert K.banded_flash_attention.launches == before + 1
+    assert K.banded_flash_attention.launches == before + K.fwd_launches(dtype)
     ref = K.banded_flash_attention_plain(*args, lengths)
     torch.cuda.synchronize()
+    assert got.shape == ref.shape and got.dtype == dtype
     _close(got, ref, dtype)
 
 
@@ -120,41 +145,42 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
     assert K.conv_stack.launches == before
 
 
-def _train_case(card, dtype, T, Dh, N=6):
+def _train_case(card, dtype, T, Dh, N=6, padded=False):
     """Seeded train-attention inputs on the card, ragged lengths with rows of
-    length 0 and 1."""
+    length 0 and 1; the band contiguous or row-padded."""
     g = torch.Generator().manual_seed(T + Dh)
     M = 16
     q, k, v, do = (torch.randn(N, T, Dh, generator=g) * s
                    for s in (Dh ** -0.5, 1, 1, 1))
     table = torch.randn(2 * M, Dh, generator=g) * 0.2
-    q, k, v, do, band = [t.to(dtype).to(card) for t in
-                         (q, k, v, do, band_from_table(table, T, M))]
-    lens = ([T, 0, 1, T // 2, T - 1, 33, 613 % T, T, 64, 65, 128, T // 3] * N)[:N]
-    lengths = torch.tensor(lens, dtype=torch.int32, device=card)
-    return q, k, v, do, band, lengths
+    q, k, v, do = [t.to(dtype).to(card) for t in (q, k, v, do)]
+    return q, k, v, do, _band(table, T, M, dtype, card, padded), _lengths(N, T, card)
 
 
 # launches of one standalone call of each train wrapper: bf16 runs the
-# wgmma backward (dq/dband: bias pass, main loop, band pass; dk/dv: bias
-# pass, main loop), f32 the CUDA-core kernels (one launch each)
+# wgmma forward (bias pass, main loop) and backward (dq/dband: bias pass,
+# main loop, band pass; dk/dv: bias pass, main loop), f32 the CUDA-core
+# kernels (one launch each)
 STANDALONE_LAUNCHES = {
     torch.float32: {"banded_attention_train_fwd": 1, "banded_attention_train_bwd_dq": 1,
                     "banded_attention_train_bwd_dkv": 1},
-    torch.bfloat16: {"banded_attention_train_fwd": 1, "banded_attention_train_bwd_dq": 3,
+    torch.bfloat16: {"banded_attention_train_fwd": 2, "banded_attention_train_bwd_dq": 3,
                      "banded_attention_train_bwd_dkv": 2},
 }
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("T,Dh,N", [(77, 16, 6), (300, 64, 6), (799, 64, 12),
-                                    (130, 32, 200)])   # four blocks of n, one partial
-def test_train_kernels_match_twins(card, dtype, rate, T, Dh, N):
+@pytest.mark.parametrize("T,Dh,N,padded", [
+    (77, 16, 6, False), (300, 64, 6, False), (799, 64, 12, False),
+    (130, 32, 200, False),     # four blocks of n, one partial
+    (199, 64, 6, True),        # the 4 s bucket, the band as the encoder gives it
+])
+def test_train_kernels_match_twins(card, dtype, rate, T, Dh, N, padded):
     """Forward, dq/dband and dk/dv kernels against their twins, ragged
-    lengths with rows of length 0 and 1, each launch counted once (bf16's
-    backward on the wgmma kernels, f32's on the CUDA-core ones)."""
-    q, k, v, do, band, lengths = _train_case(card, dtype, T, Dh, N)
+    lengths with rows of length 0 and 1, each launch counted (bf16 on the
+    wgmma kernels, f32 on the CUDA-core ones)."""
+    q, k, v, do, band, lengths = _train_case(card, dtype, T, Dh, N, padded)
     seed = 77
     before = K.launch_counts()
     o, stats = K.banded_attention_train_fwd(q, k, v, band, lengths, rate, seed)
@@ -233,6 +259,97 @@ def test_bf16_train_backward_raises_for_dh_it_does_not_take(card):
                 assert after[name] == before[name] + 1, name
             for a, b in zip(got, ref):
                 _close(a, b, dtype)
+
+
+@pytest.mark.parametrize("T,Dh,N", [(77, 16, 6), (799, 64, 12), (130, 32, 200)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_bf16_train_forward_stats_match_twin(card, T, Dh, N, rate):
+    """The wgmma forward's row statistics (max, sum) against the twin's,
+    rows of length 0 (m = -1e9, l = T) and 1 included."""
+    q, k, v, _, band, lengths = _train_case(card, torch.bfloat16, T, Dh, N, padded=True)
+    _, stats = K.banded_attention_train_fwd(q, k, v, band, lengths, rate, 3)
+    _, ref = K.banded_attention_train_fwd_plain(q, k, v, band, lengths, rate, 3)
+    torch.cuda.synchronize()
+    assert stats.shape == ref.shape == (2, N, T) and stats.dtype == torch.float32
+    torch.testing.assert_close(stats, ref, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("T,Dh,N,padded", [(77, 16, 6, False), (799, 64, 12, True),
+                                           (130, 32, 200, True)])
+def test_bf16_forward_scores_are_the_backwards_bits(card, T, Dh, N, padded):
+    """The forwards' bias pass and the backward's compute the score's band
+    term with one code: the same bits (and the same Q.K^T wgmma tiles), so
+    the backward recomputes the forward's scores exactly."""
+    q, k, v, do, band, lengths = _train_case(card, torch.bfloat16, T, Dh, N, padded)
+    fwd = K.fwd_bias(q, band, K.banded_attention_train_fwd)
+    _, bwd, _ = K.train_bwd_bias(q, band, v, do, K.banded_attention_train_bwd_dq)
+    torch.cuda.synchronize()
+    assert fwd.shape == bwd.shape == (N, T, -(-T // 8) * 8)
+    assert torch.equal(fwd, bwd)
+
+
+def test_bf16_forwards_are_bit_equal_across_calls(card):
+    """No float atomics in either forward: two calls give the same bits."""
+    q, k, v, _, band, lengths = _train_case(card, torch.bfloat16, 799, 64, 12, padded=True)
+    first = (K.banded_flash_attention(q, k, v, band, lengths),
+             *K.banded_attention_train_fwd(q, k, v, band, lengths, 0.1, 5))
+    second = (K.banded_flash_attention(q, k, v, band, lengths),
+              *K.banded_attention_train_fwd(q, k, v, band, lengths, 0.1, 5))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out", "train out", "stats"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_bf16_train_autograd_through_row_padded_band_matches_twins(card, rate):
+    """Forward and backward through ``banded_attention_train`` at bf16 with
+    the band as a row-padded view of a leaf: out, dq, dk, dv and the band's
+    gradient against the twin forward and the twin backward; the padding
+    columns get no gradient."""
+    N, T, Dh, M = 12, 199, 64, 16
+    q, k, v, do, _, lengths = _train_case(card, torch.bfloat16, T, Dh, N)
+    g = torch.Generator().manual_seed(11)
+    table = (torch.randn(2 * M, Dh, generator=g) * 0.2).to(card)
+    storage = torch.zeros(Dh, T, 200, dtype=torch.bfloat16, device=card)
+    storage[..., :T] = band_from_table(table, T, M, dtype=torch.bfloat16)
+    band = storage.requires_grad_()[..., :T]        # strides (T * 200, 200, 1)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = K.launch_counts()
+    out = K.banded_attention_train(*leaves, band, lengths, dropout_rate=rate, seed=21)
+    out.backward(do)
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    for name, n in K.train_launches_per_layer(torch.bfloat16).items():
+        assert after[name] == before[name] + n, name
+    bd = band.detach()
+    o_ref, stats_ref = K.banded_attention_train_fwd_plain(q, k, v, bd, lengths, rate, 21)
+    args = (q, k, v, bd, lengths, o_ref, do, stats_ref, rate, 21)
+    dq, dband = K.banded_attention_train_bwd_dq_plain(*args)
+    dk, dv = K.banded_attention_train_bwd_dkv_plain(*args)
+    for got, ref in zip((out, *(t.grad for t in leaves), storage.grad[..., :T]),
+                        (o_ref, dq, dk, dv, dband)):
+        _close(got, ref, torch.bfloat16)
+    assert not storage.grad[..., T:].any()
+
+
+def test_bf16_forwards_raise_before_any_launch(card):
+    """Dh 24 (not a multiple of 16) and a band of any stride but the two
+    layouts: both forwards raise before any launch."""
+    q, k, v, _, band, lengths = _train_case(card, torch.bfloat16, 40, 24)
+    before = K.launch_counts()
+    with pytest.raises(ValueError, match="Dh a multiple of 16"):
+        K.banded_flash_attention(q, k, v, band, lengths)
+    with pytest.raises(ValueError, match="Dh a multiple of 16"):
+        K.banded_attention_train_fwd(q, k, v, band, lengths, 0.0, 0)
+    q, k, v, _, band, lengths = _train_case(card, torch.bfloat16, 40, 32)
+    wide = torch.zeros(32, 40, 56, dtype=torch.bfloat16, device=card)
+    wide[..., :40] = band
+    for bad in (band.transpose(1, 2), wide[..., :40]):
+        with pytest.raises(ValueError, match="strides"):
+            K.banded_flash_attention(q, k, v, bad, lengths)
+        with pytest.raises(ValueError, match="strides"):
+            K.banded_attention_train_fwd(q, k, v, bad, lengths, 0.0, 0)
+    assert K.launch_counts() == before
 
 
 def test_inference_kernel_raises_under_grad(card):

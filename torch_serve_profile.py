@@ -12,9 +12,10 @@ off (the plain PyTorch path, bf16), times ``Service.transcribe`` on one
 Prints one JSON line per path: request wall time (host clock, ending in a
 synchronize), decode steps (beam), the card's busy time (the union of the
 device kernels' intervals in the trace, as ``torch_train_profile.py``
-counts it) and idle share, the launches of
-each kernel, and the kernels that take the most device time.  Prints the
-card's name and power limit first.  Needs a card.
+counts it) and idle share, the launches of each kernel, the device time of
+the attention forward's kernels and of the copies, and the kernels that
+take the most device time.  Prints the card's name and power limit first.
+Needs a card.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ import chip_smoke as S
 from speecht5_tpu_torch import config as C
 from speecht5_tpu_torch.models.speecht5 import init_model
 from speecht5_tpu_torch.ops import cuda_kernels as K
-from torch_train_profile import busy_ms, device_events
+from torch_train_profile import ATTN_FWD_KERNELS, busy_ms, copies, device_events, kernel_ms
 
 REQUEST_S = 16.0   # the largest bucket: one full chunk
 REPS = 3
@@ -78,6 +79,8 @@ def profile_path(decoder: str, kernels: bool, seconds: float, reps: int,
         "device_busy_ms": busy,
         "device_idle_share": (1.0 - busy / wall_ms) if busy else None,
         "launches": K.launch_counts(),
+        "attention_forward_ms": kernel_ms(by_name, ATTN_FWD_KERNELS),
+        "copies": copies(by_name),
         "top_kernels": [{"name": n[:90], "ms": v[0], "count": v[1]} for n, v in top],
     }
 

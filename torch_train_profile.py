@@ -17,9 +17,13 @@ times one update (median of 3, after one warm-up update), then profiles one
 more with ``torch.profiler``.  Prints one JSON line per path: update wall time
 (host clock, ending in a synchronize), the card's busy time (the union of
 the kernels' intervals in the trace) and idle share, launches of the port's
-kernels, the device time of the train attention's backward kernels (by
-kernel and in all) and the kernels that take the most device time.  Prints the card's
-name and power limit first.  Needs a card.
+kernels, the device time of the train attention's forward and backward
+kernels (by kernel and in all), of the device copies (kernels and memcpys
+named copy: the band copies show there) and the kernels that take the most
+device time.  Prints the card's name and power limit first.  Needs a card.
+The kernel names are matched as both this tree and the one before the
+attention forwards moved to wgmma name them, so one copy of this script
+profiles either.
 """
 
 from __future__ import annotations
@@ -43,11 +47,33 @@ from speecht5_tpu_torch.train import trainer as T
 from speecht5_tpu_torch.train.trainer import Trainer, TrainConfig
 
 REPS = 3
-# the train attention's backward kernels, by the name the trace gives them:
-# bf16 the four launches of csrc/banded_attention_train_bwd.cu, f32 the two
-# CUDA-core kernels of csrc/banded_attention_train.cu
-ATTN_BWD_KERNELS = ("::bias_kernel(", "::dq_kernel(", "::band_kernel(", "::dkv_kernel(",
-                    "::bwd_dq_kernel<", "::bwd_dkv_kernel<")
+# the attention kernels, by a piece of the name the trace gives them.
+# Forward: bf16 the bias pass and main loop of csrc/banded_attention_fwd.cu,
+# f32 (and bf16 before it) the CUDA-core kernels of csrc/banded_attention.cu
+# and csrc/banded_attention_train.cu.  Backward: bf16 the four launches of
+# csrc/banded_attention_train_bwd.cu (its bias pass untemplated before the
+# forward shared it), f32 the two CUDA-core kernels.
+ATTN_FWD_KERNELS = {"bias_pass": "::bias_kernel<false>(", "main_loop": "::main_kernel<",
+                    "cuda_core_train": "::fwd_kernel<",
+                    "cuda_core_inference": "::banded_attn_kernel<"}
+ATTN_BWD_KERNELS = {"bias_pass": "::bias_kernel<true>(", "bias_pass_untemplated": "::bias_kernel(",
+                    "dq_main": "::dq_kernel(", "band_pass": "::band_kernel(",
+                    "dkv_main": "::dkv_kernel(", "cuda_core_dq": "::bwd_dq_kernel<",
+                    "cuda_core_dkv": "::bwd_dkv_kernel<"}
+
+
+def kernel_ms(by_name, patterns: dict) -> dict:
+    """Device ms of the kernels whose names hold each pattern, in all and
+    by label (labels with no time left out)."""
+    ms = {label: sum(v[0] for n, v in by_name.items() if pat in n)
+          for label, pat in patterns.items()}
+    return {"total": sum(ms.values()), **{k: v for k, v in ms.items() if v}}
+
+
+def copies(by_name) -> dict:
+    """Device ms and count of the copies: kernels and memcpys named copy."""
+    hits = [v for n, v in by_name.items() if "copy" in n.lower()]
+    return {"ms": sum(v[0] for v in hits), "count": sum(v[1] for v in hits)}
 
 
 def device_events(prof):
@@ -126,8 +152,6 @@ def _profile_path(task: str, kernels: bool, seed: int):
         by_name[evt.name][1] += 1
     busy = busy_ms(prof)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]
-    attn_bwd = {key.strip(":(<"): sum(v[0] for n, v in by_name.items() if key in n)
-                for key in ATTN_BWD_KERNELS}
     return {
         "task": task, "path": "kernels" if kernels else "plain",
         "accum": tcfg.accum_steps, "batch": 16,
@@ -136,8 +160,9 @@ def _profile_path(task: str, kernels: bool, seed: int):
         "device_idle_share": (1.0 - busy / wall_ms) if busy else None,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": K.launch_counts(),
-        "attention_backward_ms": {"total": sum(attn_bwd.values()),
-                                  **{k: v for k, v in attn_bwd.items() if v}},
+        "attention_forward_ms": kernel_ms(by_name, ATTN_FWD_KERNELS),
+        "attention_backward_ms": kernel_ms(by_name, ATTN_BWD_KERNELS),
+        "copies": copies(by_name),
         "top_kernels": [{"name": n[:90], "ms": v[0], "count": v[1]} for n, v in top],
     }
 
