@@ -27,8 +27,15 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                mels: 768 frames) and at [2, 48000] with center=True, f32,
                atol 2e-3 (the JAX spec's, tests/test_pallas_kernels.py:23);
                the decode-step attention at the beam's two shapes (grouped
-               cross-attention N 12, Tq 5, Tk 799; cached self-attention N
-               60, Tq 1, Tk 201), f32 and bf16.
+               cross-attention N 12, Tq 5, Tk 799; cached self-attention
+               N 60, Tq 1, Tk 201), each through the contract entry on
+               [N, T, D] rows and through the cached entry as the decoder
+               calls it ("cross_cached": the head-major K/V of
+               ``precompute_kv``; "self_cache": the cache [5, 201, 12, 64]
+               and an ancestry row map, as ``_cached_step``), f32 and bf16,
+               timed back to back on the stream and, with its SDPA
+               yardstick, as the card runs it (calls captured in one CUDA
+               graph and replayed).
 3. serve    -- the serving path: the port's ASR Service (ctc_greedy, bf16,
                both inference kernels on) at full speecht5_base_asr width
                with random weights, answering 3 s, 11 s and 21 s requests in
@@ -45,7 +52,9 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                request the decode steps and each kernel's launches: the
                decode-step kernel 12 a step (6 layers x self + cross), the
                inference attention 24 (12 layers x bias pass and main loop)
-               and the conv stack 6 a chunk.
+               and the conv stack 6 a chunk.  Then one more request under
+               ``torch.profiler``: every device launch (kernels, copies,
+               fills) over its decode steps.
 6. beam parity -- f32 weights through Service(--decoder beam) with every
                kernel flag on and off, chunk by chunk (see
                ``phase_beam_parity``).
@@ -169,10 +178,10 @@ TRAIN_KERNELS = ("banded_attention_train_fwd", "banded_attention_train_bwd_dq",
 # the case of each kernel that its path runs: the served chunk (bf16, batch
 # 1), the recipe's train step (bf16, attention dropout 0.1), the t2s step's
 # mel targets (f32, 16 rows of 768 frames) and the beam's grouped
-# cross-attention step (bf16, batch 1, beam 5)
+# cross-attention step through the cached entry (bf16, batch 1, beam 5)
 MAIN_CASE = {"banded_flash_attention": "bfloat16/b1", "conv_stack": "bfloat16/b1",
              **{n: "bfloat16/r0.1" for n in TRAIN_KERNELS},
-             "fused_log_mel": "float32/b16", "flash_attention_bias": "bfloat16/cross"}
+             "fused_log_mel": "float32/b16", "flash_attention_bias": "bfloat16/cross_cached"}
 KERNEL_OVERRIDES = ["encoder.use_pallas_attn=True", "conv_features.impl='pallas'"]
 # the beam arm's decode steps through flash_attention_bias as well
 BEAM_OVERRIDES = KERNEL_OVERRIDES + ["decoder.use_pallas_attn=True"]
@@ -315,6 +324,37 @@ def time_ms(fn, reps: int = 20) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b) / calls)
+    return float(np.median(times))
+
+
+def graph_ms(fn, calls: int = 100, reps: int = 10) -> float:
+    """Device time a call: ``calls`` calls captured in one CUDA graph,
+    replayed between one pair of CUDA events, the median over ``reps``
+    replays divided by the calls.  The card runs the launches back to back
+    with no host enqueue between them, so a call of a few microseconds is
+    timed as the card runs it, not as fast as the host can issue it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):      # warm-up off the capture, as capture wants
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(reps):
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    del graph
     return float(np.median(times))
 
 
@@ -636,9 +676,10 @@ def flash_bias_case(case, dtype, device="cuda", seed=4):
     the grouped cross-attention of a 16 s chunk (N = 12 heads, G = 5 beam
     queries, Tk = 799 frames, the 11 s request's 549 valid); "self", the
     cached self-attention at step 100 of max_len 200 (N = 5 x 12 rows, one
-    query, Tk = 201 cache positions, the causal 101 valid).  The key mask
-    comes as the path gives it: one row per sample (cross, [1, Tk]) or per
-    beam row (self, [5, Tk]), each serving its 12 heads."""
+    query, Tk = 201 cache positions, the causal 101 valid), as [N, T, D]
+    rows.  The key mask comes as the path gives it: one row per sample
+    (cross, [1, Tk]) or per beam row (self, [5, Tk]), each serving its 12
+    heads.  -> q, k, v, key_valid."""
     g = torch.Generator().manual_seed(seed)
     N, Tq, Tk, valid, mask_rows = {"cross": (12, 5, 799, 549, 1),
                                    "self": (60, 1, 201, 101, 5)}[case]
@@ -648,39 +689,102 @@ def flash_bias_case(case, dtype, device="cuda", seed=4):
     return [t.to(device) for t in (q, k, v, key_valid)]
 
 
+def flash_bias_cache_case(case, dtype, device="cuda", seed=4):
+    """The decode-step shapes as the decoder hands them to the cached entry.
+    "self_cache": ``MultiheadAttention._cached_step`` at step 100: q [5, 1,
+    12, 64], the cache buffers [5, 201, 12, 64] as they lie, the int64
+    ancestry map [5, 201] (beams that share and swap ancestors) and the
+    causal mask [1, 201] of position 100 (101 valid).  "cross_cached":
+    ``_cross_step``, the 5 beams' queries grouped as q [1, 5, 12, 64]
+    against the head-major K/V of ``precompute_kv`` ([1, 12, 799, 64]
+    storage viewed as [1, 799, 12, 64]) and the sample's mask [1, 799]
+    (549 valid), no row map.  -> q4, k4, v4, key_valid, rows."""
+    g = torch.Generator().manual_seed(seed)
+    H = 12
+    if case == "self_cache":
+        B, Tc, pos = BEAM, BEAM_MAX_LEN + 1, 100
+        q4 = (torch.randn(B, 1, H, 64, generator=g) * 64 ** -0.5).to(dtype)
+        k4, v4 = (torch.randn(B, Tc, H, 64, generator=g).to(dtype) for _ in range(2))
+        rows = torch.randint(0, B, (B, Tc), generator=g)
+        rows[:, pos + 1:] = torch.arange(B)[:, None]     # the rows' own next writes
+        key_valid = torch.arange(Tc)[None, :] <= pos
+    else:
+        Tk = 799
+        q4 = (torch.randn(1, BEAM, H, 64, generator=g) * 64 ** -0.5).to(dtype)
+        k4, v4 = (torch.randn(1, H, Tk, 64, generator=g).to(dtype).transpose(1, 2)
+                  for _ in range(2))
+        rows = None
+        key_valid = torch.arange(Tk)[None, :] < 549
+    out = [t.to(device) for t in (q4, k4, v4, key_valid)]
+    return (*out, None if rows is None else rows.to(device))
+
+
 def _flash_bias_record(case, dtype):
-    q, k, v, key_valid = flash_bias_case(case, dtype)
-    N, Tq, D = q.shape
-    Tk = k.shape[1]
-    got = K.flash_attention_bias(q, k, v, None, key_valid)
-    ref = K.flash_attention_bias_plain(q, k, v, None, key_valid)
+    """The decode-step kernel at one shape against its twin, timed back to
+    back on the stream (``ms``) and as the card runs it (``graph_ms``), with
+    SDPA (an f32 0/-1e9 mask, scale 1) on the same K/V as the yardstick,
+    timed both ways.  "cross" and "self" call the contract entry on [N, T,
+    D] rows, "cross_cached" and "self_cache" the cached entry on the
+    decoder's layouts."""
+    if case in ("self_cache", "cross_cached"):
+        q4, k4, v4, key_valid, rows = flash_bias_cache_case(case, dtype)
+        B, Tq, H, D = q4.shape
+        N, Tk = B * H, k4.shape[1]
+        call = lambda: K.flash_attention_bias_cached(q4, k4, v4, key_valid, rows)
+        plain = lambda: K.flash_attention_bias_cached_plain(q4, k4, v4, key_valid, rows)
+        # SDPA on the gathered, head-major K/V (the gather not timed)
+        pos = torch.arange(Tk, device=q4.device)
+        kg, vg = (k4, v4) if rows is None else (k4[rows, pos], v4[rows, pos])
+        q, k, v = (t.transpose(1, 2).reshape(N, -1, D).contiguous()
+                   for t in (q4, kg, vg))
+    else:
+        q, k, v, key_valid = flash_bias_case(case, dtype)
+        N, Tq, D = q.shape
+        B, H, Tk, rows = N, 1, k.shape[1], None
+        call = lambda: K.flash_attention_bias(q, k, v, None, key_valid)
+        plain = lambda: K.flash_attention_bias_plain(q, k, v, None, key_valid)
+    got, ref = call(), plain()
     torch.cuda.synchronize()
     err, tol, ok = _check(dtype, got, ref)
+    ok = ok and torch.equal(got, call())       # two calls, the same bits
     # what the function needs: q and out, the K and V of the valid keys
     # (an invalid key's weight is exp(-1e9 - m) = 0 once a row has a valid
-    # key, so its K and V are never needed) and the mask, each once; flops:
-    # q.k and p.v over the valid keys
-    valid_keys = key_valid.sum().item() * (N // key_valid.shape[0])
-    nbytes = (2 * N * Tq * D + 2 * D * valid_keys) * q.element_size() + key_valid.numel()
+    # key, so its K and V are never needed), each distinct (physical row,
+    # position, head) once however many beams share it through the row
+    # map, the mask and the row map's entries of the valid keys; flops: q.k
+    # and p.v over the valid keys of every row
+    full_mask = key_valid.repeat_interleave(N // key_valid.shape[0], 0)
+    valid_keys = full_mask.sum().item()
+    phys = (torch.arange(B, device=q.device)[:, None].expand(B, Tk)
+            if rows is None else rows)
+    kv_index = ((phys * Tk + torch.arange(Tk, device=q.device))[:, None, :] * H
+                + torch.arange(H, device=q.device)[None, :, None])
+    kv_keys = torch.unique(kv_index[full_mask.view(B, H, Tk)]).numel()
+    nbytes = ((2 * N * Tq * D + 2 * D * kv_keys) * q.element_size()
+              + key_valid.numel())
+    if rows is not None:
+        nbytes += key_valid.sum().item() * B * rows.element_size()
     flops = 4.0 * Tq * D * valid_keys
     bound_ms, bound_by = _bound(nbytes, flops, dtype)
-    full_mask = key_valid.repeat_interleave(N // key_valid.shape[0], 0)
     mask = torch.where(full_mask[:, None, :], 0.0, K.NEG_INF).expand(N, Tq, Tk)
-    call = "F.scaled_dot_product_attention(attn_mask=f32 0/-1e9, scale=1)"
+    library_call = "F.scaled_dot_product_attention(attn_mask=f32 0/-1e9, scale=1)"
     try:
         F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0)
     except RuntimeError:    # a backend that wants the mask in q's dtype
         mask = mask.to(dtype)
-        call = call.replace("f32", str(dtype).split(".")[-1])
+        library_call = library_call.replace("f32", str(dtype).split(".")[-1])
+    library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0)
+    ms, graph = time_ms(call), graph_ms(call)
+    library_ms, library_graph = time_ms(library), graph_ms(library)
     return ok, {
-        "max_abs_err": err, "tolerance": tol,
-        "ms": time_ms(lambda: K.flash_attention_bias(q, k, v, None, key_valid)),
-        "plain_ms": time_ms(lambda: K.flash_attention_bias_plain(q, k, v, None, key_valid)),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, scale=1.0)),
-        "library_call": call, "bound_ms": bound_ms, "bound_by": bound_by,
+        "max_abs_err": err, "tolerance": tol, "ms": ms, "graph_ms": graph,
+        "plain_ms": time_ms(plain), "library_ms": library_ms,
+        "library_graph_ms": library_graph, "library_call": library_call,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_share_graph": bound_ms / graph,
         "shape": {"N": N, "Tq": Tq, "Tk": Tk, "D": D,
-                  "valid_keys": int(key_valid[0].sum().item())},
+                  "valid_keys": int(key_valid[0].sum().item()),
+                  "distinct_kv_keys": kv_keys, "row_map": rows is not None},
     }
 
 
@@ -690,8 +794,10 @@ def phase_kernels():
     "<dtype>/b<batch>"); the train kernels at the train step's shapes in f32
     and bf16 with dropout 0 and 0.1 (keys "<dtype>/r<rate>"); the log-mel
     kernel at the t2s batch and a centred case (keys "float32/b<batch>");
-    the decode-step kernel at the beam's cross and self shapes in f32 and
-    bf16 (keys "<dtype>/cross", "<dtype>/self")."""
+    the decode-step kernel at the beam's cross and self shapes through the
+    contract entry and through the cached entry in f32 and bf16 (keys
+    "<dtype>/cross", "<dtype>/self", "<dtype>/cross_cached",
+    "<dtype>/self_cache")."""
     records = {name: {} for name in KERNELS}
     failures = []
     for batch in (1, 2):
@@ -721,14 +827,15 @@ def phase_kernels():
         if not ok:
             failures.append(f"fused_log_mel b{batch}: max|diff| {rec['max_abs_err']} "
                             f"> {rec['tolerance']}")
-    for case in ("cross", "self"):
+    for case in ("cross", "self", "cross_cached", "self_cache"):
         for dtype in (torch.float32, torch.bfloat16):
             key = f"{str(dtype).split('.')[-1]}/{case}"
             ok, rec = _flash_bias_record(case, dtype)
             records["flash_attention_bias"][key] = rec
             if not ok:
                 failures.append(f"flash_attention_bias {key}: max|diff| "
-                                f"{rec['max_abs_err']} > {rec['tolerance']}")
+                                f"{rec['max_abs_err']} (tolerance {rec['tolerance']}), "
+                                "or two calls differ")
     log(json.dumps({"phase": "kernels", "records": records}))
     if failures:
         raise AssertionError("kernel disagrees with its twin: " + "; ".join(failures))
@@ -880,6 +987,8 @@ def phase_serve_beam(base_cfg, device="cuda", dtype="bfloat16",
         log(json.dumps({"served_beam": r}))
     if svc.asr_requests != sum(r["chunks"] for r in results):
         raise AssertionError(f"Service counted {svc.asr_requests} chunks")
+    if on_card:
+        log(json.dumps({"beam_device_launches": beam_device_launches(svc, wavs[0])}))
     # well formed: per sample K hypotheses framed BOS ... EOS, finite
     # scores sorted best first
     wav = np.zeros((1, svc.buckets()[0] * SR), np.float32)
@@ -893,6 +1002,25 @@ def phase_serve_beam(base_cfg, device="cuda", dtype="bfloat16",
         raise AssertionError(f"beam result malformed: {tuple(toks.shape)} {scores} "
                              f"{best.tolist()}")
     return {"counts": counts, "requests": results}
+
+
+def beam_device_launches(svc, wav) -> dict:
+    """Every launch the card runs for one beam request (kernels, copies and
+    fills, from ``torch.profiler``'s device events), and per decode step:
+    the encoder's few hundred launches a chunk are in the total too."""
+    from torch.profiler import ProfilerActivity, profile
+
+    steps0 = svc.asr.steps_run
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        svc.transcribe(wav)
+        torch.cuda.synchronize()
+    steps = svc.asr.steps_run - steps0
+    n = sum(1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False))
+    return {"device_launches": n, "decode_steps": steps,
+            "per_step": n / steps if steps else None}
 
 
 def phase_beam_parity(base_cfg, device="cuda", requests_s=(3, 11, 21),
@@ -1273,7 +1401,7 @@ def kernels_line(records, counts, by_path=None):
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "tolerance")
     rates = ("bound_share", "achieved_tflops",      # the redesigned kernels'
-             "parts_ms")
+             "parts_ms", "graph_ms", "library_graph_ms", "bound_share_graph")
     out = []
     for name, meta in KERNELS.items():
         main = records[name][MAIN_CASE[name]]

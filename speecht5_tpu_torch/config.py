@@ -150,7 +150,9 @@ class TransformerConfig:
     # so its pos_emb is computed but never added; we replicate with use_rel_pos_bias=False.
     use_rel_pos_bias: bool = True
     # activation checkpointing: recompute each layer in the backward pass
-    # (the reference's optional checkpoint_wrapper, decoder.py:88-91).
+    # (the reference's optional checkpoint_wrapper, decoder.py:88-91); in
+    # the port torch.utils.checkpoint around each layer of a training
+    # forward (models/encoder.py, models/decoder.py).
     remat: bool = False
     # materialize attention logits (scores + rel-pos bias) in f32.  The
     # default False keeps the [B, H, T, T] tensors in compute dtype —
@@ -163,7 +165,8 @@ class TransformerConfig:
     # for full (non-causal, uncached) self-attention at inference.
     use_pallas_attn: bool = False
     # differentiable fused attention for TRAINING passes (in-kernel
-    # counter-hash dropout); not ported yet — it arrives with the train slice.
+    # counter-hash dropout; in the port the CUDA kernels of
+    # ops/cuda_kernels.banded_attention_train).
     use_pallas_attn_train: bool = False
 
     @property

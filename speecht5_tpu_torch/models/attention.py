@@ -11,10 +11,12 @@ and the attention weights (the f32 softmax before dropout, JAX
 attention.py:305-316) on request.  Decode steps (JAX attention.py:159-221):
 the self-attention KV cache is written at ``cache_index`` (in place: the
 beam loop never needs the old buffer), read through the ancestry map
-``cache_rows`` with one flattened gather of (row, position) pairs, and
-masked causally at the step; cross-attention reads K/V from
-``precompute_kv``, untiled when the queries are a beam's tiles (grouped:
-each sample's K/V read once for its G beams).
+``cache_rows`` and masked causally at the step; cross-attention reads K/V
+from ``precompute_kv``, untiled when the queries are a beam's tiles
+(grouped: each sample's K/V read once for its G beams).  The decode-step
+kernel reads the cache and the cross K/V where they lie, the ancestry map
+included; the plain path gathers the cache with one flattened gather of
+(row, position) pairs.
 """
 
 from __future__ import annotations
@@ -99,19 +101,31 @@ class MultiheadAttention(nn.Module):
     def head_dim(self):
         return self.d_model // self.num_heads
 
+    def train_seed(self, pos_band, Tk: int, generator=None):
+        """The train kernel's dropout seed for a training self-attention
+        pass over ``Tk`` keys with ``pos_band``, drawn now from
+        ``generator`` (a CPU ``torch.Generator``, the default one when None:
+        no device sync), or None when such a pass draws none (another route,
+        or no dropout).  The caller draws it, once, outside any recomputed
+        (checkpointed) call, and hands it to ``forward`` as ``dropout_seed``."""
+        if (self.training and self.use_pallas_train and self.dropout > 0.0
+                and pos_band is not None and Tk <= MAX_FUSED_KEYS):
+            # an int32 draw, as jax.random.randint(.., 0, 2**31-1)
+            return int(torch.randint(0, 2 ** 31 - 1, (), generator=generator))
+        return None
+
     def forward(self, x, key_valid=None, pos_band=None, *, x_kv=None,
-                causal: bool = False, generator=None,
+                causal: bool = False, dropout_seed=None,
                 return_weights: bool = False, cache=None, cache_index=None,
                 cache_rows=None, cross_kv=None):
         """x: [B, Tq, D]; key_valid: bool [B, Tk] (True = attend, a
         contiguous prefix); pos_band: [Dh, T, T] or None; x_kv: [B, Tk, D]
         for cross-attention (None = self-attention); causal: mask keys after
-        the query.  ``generator``: CPU ``torch.Generator`` for the train
-        kernel's dropout seed (the default CPU generator when None), so the
-        seed costs no device sync.  -> [B, Tq, D], or with
-        ``return_weights`` (out, f32 weights [B, H, Tq, Tk]), which the
-        fused kernels do not give (JAX routes such calls to the plain path
-        too).
+        the query.  ``dropout_seed``: the train kernel's dropout seed from
+        ``train_seed`` (required when that pass drops out).  -> [B, Tq, D],
+        or with ``return_weights`` (out, f32 weights [B, H, Tq, Tk]), which
+        the fused kernels do not give (JAX routes such calls to the plain
+        path too).
 
         Decode steps: ``cache`` {"k", "v": [B, Tmax, H, Dh]} with
         ``cache_index`` (int or 0-d int64 tensor: the write position) and
@@ -154,10 +168,12 @@ class MultiheadAttention(nn.Module):
                 lengths = torch.repeat_interleave(
                     key_valid.sum(-1, dtype=torch.int32), H)
             if self.training:
-                seed = 0
-                if self.dropout > 0.0:
-                    # an int32 draw, as jax.random.randint(.., 0, 2**31-1)
-                    seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=generator))
+                seed = dropout_seed
+                if seed is None:
+                    if self.dropout > 0.0:
+                        raise ValueError("the train kernel's dropout needs "
+                                         "dropout_seed (train_seed)")
+                    seed = 0
                 o = cuda_kernels.banded_attention_train(
                     qf, kf, vf, band, lengths,
                     dropout_rate=self.dropout, seed=seed)
@@ -196,30 +212,30 @@ class MultiheadAttention(nn.Module):
     def _decode_kernel(self, return_weights: bool) -> bool:
         return self.use_pallas and not self.training and not return_weights
 
-    def _flash(self, q, k, v, key_valid):
-        """The decode-step kernel on [Bq, Tq, H, Dh] queries against [Bq, Tk,
-        H, Dh] keys and values, key_valid bool [Bq, Tk] or None (one mask row
-        serves a sample's H heads) -> [Bq, Tq, H, Dh]: one launch over Bq * H
-        rows.  K/V held head-major (``precompute_kv``) are read in place."""
-        Bq, Tq, H, Dh = q.shape
-        Tk = k.shape[1]
-        rows = lambda t, T: t.to(q.dtype).transpose(1, 2).reshape(Bq * H, T, Dh).contiguous()
-        o = cuda_kernels.flash_attention_bias(rows(q, Tq), rows(k, Tk), rows(v, Tk),
-                                              None, key_valid)
-        return o.view(Bq, H, Tq, Dh).transpose(1, 2)
-
     def _cached_step(self, q, k, v, cache, cache_index, cache_rows, key_valid,
                      causal):
         """Self-attention of a decode step (JAX attention.py:203-221,
         :289-298): write the step's K/V at ``cache_index`` (cast to the cache
         dtype), read the buffers through ``cache_rows`` if given, mask keys
-        past the query's position when ``causal``."""
+        past the query's position when ``causal``.  One query with the
+        kernel on: the kernel reads the buffers and the ancestry map where
+        they lie, and the causal limit is a key mask shared by every row."""
         B, Tq, H, Dh = q.shape
         k_c, v_c = cache["k"], cache["v"]
         pos = cache_index + torch.arange(Tq, device=q.device)
         k_c.index_copy_(1, pos, k.to(k_c.dtype))
         v_c.index_copy_(1, pos, v.to(v_c.dtype))
         Tc = k_c.shape[1]
+        new_cache = {"k": k_c, "v": v_c}
+        cm = None
+        if causal:   # key j is visible from the query at position p iff j <= p
+            cm = torch.arange(Tc, device=q.device)[None, :] <= pos[:, None]
+        if self._decode_kernel(False) and Tq == 1:
+            valid = cm if key_valid is None else (key_valid if cm is None
+                                                  else key_valid & cm)
+            o = cuda_kernels.flash_attention_bias_cached(
+                q, k_c.to(q.dtype), v_c.to(q.dtype), valid, cache_rows)
+            return self.out_proj(o.reshape(B, Tq, self.d_model)), new_cache
         if cache_rows is not None:
             # the ancestry view: one leading-axis gather of (row, position)
             # pairs, contiguous H*Dh blocks; the buffers stay unpermuted
@@ -229,19 +245,6 @@ class MultiheadAttention(nn.Module):
             v = v_c.reshape(B * Tc, H, Dh)[flat].view(B, Tc, H, Dh)
         else:
             k, v = k_c, v_c
-        cm = None
-        if causal:   # key j is visible from the query at position p iff j <= p
-            cm = torch.arange(Tc, device=q.device)[None, :] <= pos[:, None]
-        new_cache = {"k": k_c, "v": v_c}
-        if self._decode_kernel(False) and Tq == 1:
-            # one query: the causal limit is a key mask
-            valid = torch.ones(B, Tc, dtype=torch.bool, device=q.device)
-            if key_valid is not None:
-                valid = valid & key_valid
-            if cm is not None:
-                valid = valid & cm
-            o = self._flash(q, k, v, valid)
-            return self.out_proj(o.reshape(B, Tq, self.d_model)), new_cache
         mask = None if key_valid is None else key_valid[:, None, None, :]
         if cm is not None:
             mask = cm[None, None] if mask is None else mask & cm[None, None]
@@ -261,7 +264,9 @@ class MultiheadAttention(nn.Module):
         if mask is not None and mask.shape[0] != Bkv:   # a tiled mask
             mask = mask.reshape(Bkv, G, Tk)[:, 0].contiguous()
         if self._decode_kernel(return_weights):
-            o = self._flash(q, k, v, mask)
+            # the head-major K/V read in place, the output in [B, Tq, H, Dh]
+            o = cuda_kernels.flash_attention_bias_cached(
+                q, k.to(q.dtype), v.to(q.dtype), mask)
             return self.out_proj(o.reshape(B, Tq, self.d_model))
         if G == 1:
             # untiled K/V: JAX's general path (its score dtype)
@@ -285,8 +290,8 @@ class MultiheadAttention(nn.Module):
         """Project the encoder output once for decode-step cross-attention
         (static_kv, reference multihead_attention.py:207-209) -> {"k", "v":
         [B, Tk, H, Dh]}, views of head-major [B, H, Tk, Dh] storage: the
-        decode-step kernel reads them as its [B * H, Tk, Dh] rows with no
-        copy at every step."""
+        decode-step kernel reads each (sample, head)'s keys as one
+        contiguous block at every step."""
         B, Tk, _ = x_kv.shape
         H, Dh = self.num_heads, self.head_dim
         head_major = lambda t: t.view(B, Tk, H, Dh).transpose(1, 2).contiguous().transpose(1, 2)

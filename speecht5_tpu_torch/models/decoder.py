@@ -9,6 +9,10 @@ and neither does the port.  The cross-attention weights of every layer are
 returned on request (decoder.py:60-99), for the TTS guided-attention loss.
 The JAX decoder applies no layerdrop (only the encoder does,
 encoder.py:114), whatever ``layerdrop`` says, and neither does the port.
+``remat`` (JAX decoder.py:37-40) recomputes each teacher-forced layer in the
+backward pass of a training forward (``torch.utils.checkpoint``, which
+restores the global RNG states of the layer's dropout); decode steps never
+checkpoint.
 
 Incremental decoding (JAX decoder.py:101-170) keeps the cache as a plain
 dict of tensors, ``{"index": 0-d int64, "layers": [{"k", "v"}], "cross":
@@ -20,6 +24,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import TransformerConfig
 from .layers import DecoderLayer
@@ -43,9 +48,14 @@ class TransformerDecoder(nn.Module):
         every layer's f32 cross weights [L, B, H, Ttgt, Tsrc]), JAX's
         ``alignment_layer=-1``."""
         all_w = []
+        remat = self.cfg.remat and self.training
         for layer in self.layers:
-            x = layer(x, enc, enc_valid, self_valid, causal,
-                      need_cross_weights=need_cross_weights)
+            args = (x, enc, enc_valid, self_valid, causal)
+            if remat:
+                x = checkpoint(layer, *args, need_cross_weights=need_cross_weights,
+                               use_reentrant=False)
+            else:
+                x = layer(*args, need_cross_weights=need_cross_weights)
             if need_cross_weights:
                 x, w = x
                 all_w.append(w)

@@ -9,7 +9,13 @@ the CTC projection reads the dropped-out encoder output (encoder.py
 :138-142: a second dropout draw on training passes -- the contract, not a
 slip).  Layerdrop (training only, JAX encoder.py:114-124) skips a layer
 with probability ``layerdrop``; the JAX package runs the layer and selects,
-which gives the same output and gradient for the same draw.
+which gives the same output and gradient for the same draw.  ``remat``
+(JAX encoder.py:51-56, ``nn.remat``) recomputes each layer in the backward
+pass of a training forward (``torch.utils.checkpoint``): the layer's draws
+from the CPU generator (the train kernel's dropout seed) are made before
+the checkpointed call and handed in, and the checkpoint restores the global
+RNG states of the layer's dropout, so the recompute repeats the forward bit
+for bit.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import TransformerConfig
 from .attention import band_from_table
@@ -81,7 +88,12 @@ class TransformerEncoder(nn.Module):
             if self.training and cfg.layerdrop > 0.0:
                 if torch.rand((), generator=generator) < cfg.layerdrop:
                     continue
-            x = layer(x, valid_mask, pos_band, generator=generator)
+            seed = layer.self_attn.train_seed(pos_band, x.shape[1], generator)
+            if cfg.remat and self.training:
+                x = checkpoint(layer, x, valid_mask, pos_band, dropout_seed=seed,
+                               use_reentrant=False)
+            else:
+                x = layer(x, valid_mask, pos_band, dropout_seed=seed)
         out = {"encoder_out": x, "valid_mask": valid_mask}
         if with_ctc and self.proj is not None:
             out["ctc_logits"] = self.ctc_head(

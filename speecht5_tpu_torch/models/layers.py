@@ -68,9 +68,9 @@ class EncoderLayer(nn.Module):
     def _drop(self, x):
         return F.dropout(x, self.cfg.dropout, self.training)
 
-    def forward(self, x, key_valid=None, pos_band=None, *, generator=None):
+    def forward(self, x, key_valid=None, pos_band=None, *, dropout_seed=None):
         residual = x
-        y = self.self_attn(x, key_valid, pos_band, generator=generator)
+        y = self.self_attn(x, key_valid, pos_band, dropout_seed=dropout_seed)
         x = self.self_attn_layer_norm(residual + self._drop(y)).to(self.dtype)
         residual = x
         x = residual + self._drop(self.ffn(x))

@@ -36,11 +36,16 @@ loader that builds them.
   filterbank, the spectrum kept on chip; replaces ``fused_log_mel`` (pallas_kernels.py:97, kernel
   ``_mel_kernel`` :57, ``pallas_call`` :154).  No gradient: the TPU kernel
   has none and the mel targets need none.
-- ``flash_attention_bias`` (``csrc/flash_attention_bias.cu``): streaming
-  attention with an additive f32 bias and a key mask, the beam search's
-  decode-step attention (grouped cross-attention, cached self-attention);
-  replaces ``flash_attention_bias`` (pallas_kernels.py:592, kernel
-  ``_flash_kernel`` :553, ``pallas_call`` :624).  Forward only, as in JAX.
+- ``flash_attention_bias`` (``csrc/flash_attention_bias.cu``): attention
+  with an additive f32 bias and a key mask, the beam search's decode-step
+  attention (grouped cross-attention, cached self-attention); replaces
+  ``flash_attention_bias`` (pallas_kernels.py:592, kernel ``_flash_kernel``
+  :553, ``pallas_call`` :624).  The keys split over a thread-block cluster
+  whose partials are combined in distributed shared memory, one launch.
+  Two entries: ``flash_attention_bias`` on ``[N, T, D]`` rows (the JAX
+  contract) and ``flash_attention_bias_cached``, which reads ``[B, T, H,
+  D]`` K/V in place through strides and the beam's ancestry row map.
+  Forward only, as in JAX.
 
 The attention wrappers take the band contiguous or as the encoder builds it,
 a ``[Dh, T, T]`` view of storage with rows of Tp = T rounded up to 8
@@ -214,9 +219,10 @@ def _lib(name: str) -> ctypes.CDLL:
                 fn.argtypes = [vp] * 3 + [i] * 7 + [vp]
                 fn.restype = i
         elif name == "flash_attention_bias":
-            # q, k, v, bias or NULL, key_valid or NULL, out, then N, Tq,
-            # Tk, D, rows per mask row, dtype, stream
-            lib.flash_bias_launch.argtypes = [vp] * 6 + [i] * 6 + [vp]
+            # q, k, v, bias, key_valid, rows (each may be NULL but q, k, v),
+            # out, 12 element strides (int64, host), then B, H, Tq, Tk, D,
+            # rows per mask row, dtype, stream
+            lib.flash_bias_launch.argtypes = [vp] * 8 + [i] * 7 + [vp]
             lib.flash_bias_launch.restype = i
         else:
             # wav, window, twiddles, filterbank weights [max len, n_mels],
@@ -1048,26 +1054,83 @@ def flash_attention_bias_plain(q, k, v, bias=None, key_valid=None):
     return (p.float() @ v.float()).to(q.dtype)
 
 
+def flash_attention_bias_cached_plain(q4, k4, v4, key_valid=None, rows=None):
+    """Plain twin of the cached entry: gather the keys through ``rows``
+    (key j of sample b from physical row rows[b, j]), lay the heads out as
+    ``[B * H, T, D]`` rows and call ``flash_attention_bias_plain`` -> [B, Tq,
+    H, D]."""
+    B, Tq, H, D = q4.shape
+    Tk = k4.shape[1]
+    if rows is not None:
+        idx = (rows, torch.arange(Tk, device=k4.device))
+        k4, v4 = k4[idx], v4[idx]
+    heads = lambda t: t.transpose(1, 2).reshape(B * H, t.shape[1], D)
+    o = flash_attention_bias_plain(heads(q4), heads(k4), heads(v4), None, key_valid)
+    return o.view(B, H, Tq, D).transpose(1, 2).contiguous()
+
+
+def _check_mask(key_valid, N: int, Tk: int) -> int:
+    """bool [N / R, Tk] with R | N -> R (the rows that share a mask row)."""
+    if (key_valid.dtype != torch.bool or key_valid.dim() != 2
+            or key_valid.shape[1] != Tk or not 0 < key_valid.shape[0] <= N
+            or N % key_valid.shape[0] != 0):
+        raise TypeError(f"key_valid must be bool [N / R, {Tk}] with R | N = {N}, "
+                        f"got {key_valid.dtype} {tuple(key_valid.shape)}")
+    if not key_valid.is_contiguous():
+        raise ValueError("key_valid must be contiguous")
+    return N // key_valid.shape[0]
+
+
+def _check_flash_d(q) -> int:
+    """D a power of two from one 16-byte vector up to 128 -> elements a
+    vector."""
+    D, per_vec = q.shape[-1], 16 // q.element_size()
+    if D > FLASH_BIAS_MAX_D or D < per_vec or D & (D - 1):
+        raise ValueError(f"kernel limit: D a power of two in [{per_vec}, "
+                         f"{FLASH_BIAS_MAX_D}] for {q.dtype}; got D={D}")
+    return per_vec
+
+
+def _flash_launch(q, k, v, bias, key_valid, rows, out, strides, B, H, Tq, Tk, D,
+                  rows_per_mask):
+    """One launch of the split-key kernel; ``strides`` the batch, token and
+    head element strides of q, k, v and out (12 ints)."""
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _lib("flash_attention_bias").flash_bias_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if bias is None else bias.data_ptr(),
+        None if key_valid is None else key_valid.data_ptr(),
+        None if rows is None else rows.data_ptr(), out.data_ptr(),
+        (ctypes.c_longlong * 12)(*strides), B, H, Tq, Tk, D, rows_per_mask,
+        _dtype_code(q, k, v), stream)
+    _check_rc(rc, "flash_attention_bias")
+    flash_attention_bias.launches += 1
+
+
+def _forward_only(*tensors):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError("flash_attention_bias is forward-only; call it "
+                           "under torch.no_grad()")
+
+
 def flash_attention_bias(q, k, v, bias=None, key_valid=None):
     """softmax(q.k + bias, keys masked by key_valid) . v: the contract of the
     JAX package's ``flash_attention_bias`` (no scale inside: q comes
-    scaled).  q [N, Tq, D], k/v [N, Tk, D] of one dtype (f32 or bf16);
-    bias f32 [N, Tq, Tk] or None for a zero bias (nothing is allocated);
-    key_valid bool [N / R, Tk] or None, row n reading mask row n // R (one
-    row per sample serves its R heads) -> [N, Tq, D] in q's dtype.  One kernel
-    launch on CUDA tensors (D <= 128, any Tq and Tk: the kernel streams the
-    keys); the twin on CPU ones.  Forward only."""
+    scaled).  q [N, Tq, D], k/v [N, Tk, D] of one dtype (f32 or bf16),
+    contiguous; bias f32 [N, Tq, Tk] or None for a zero bias (nothing is
+    allocated); key_valid bool [N / R, Tk] or None, row n reading mask row
+    n // R (one row per sample serves its R heads) -> [N, Tq, D] in q's
+    dtype.  One kernel launch on CUDA tensors (D a power of two up to 128,
+    any Tq and Tk: the kernel streams the keys); the twin on CPU ones.
+    Forward only."""
     if q.device.type == "cpu":
         return flash_attention_bias_plain(q, k, v, bias, key_valid)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("flash_attention_bias is forward-only; call it "
-                           "under torch.no_grad()")
+    _forward_only(q, k, v)
     N, Tq, D = q.shape
     Tk = k.shape[1]
     if k.shape != (N, Tk, D) or v.shape != k.shape or Tk == 0:
         raise ValueError(f"q/k/v shapes do not fit: {q.shape} {k.shape} {v.shape}")
-    if D > FLASH_BIAS_MAX_D:
-        raise ValueError(f"kernel limit D <= {FLASH_BIAS_MAX_D}; got D={D}")
+    _check_flash_d(q)
     extra = []
     if bias is not None:
         if bias.dtype != torch.float32 or bias.shape != (N, Tq, Tk):
@@ -1076,24 +1139,66 @@ def flash_attention_bias(q, k, v, bias=None, key_valid=None):
         extra.append(bias)
     rows_per_mask = 1
     if key_valid is not None:
-        if (key_valid.dtype != torch.bool or key_valid.dim() != 2
-                or key_valid.shape[1] != Tk or not 0 < key_valid.shape[0] <= N
-                or N % key_valid.shape[0] != 0):
-            raise TypeError(f"key_valid must be bool [N / R, {Tk}] with R | N = {N}, "
-                            f"got {key_valid.dtype} {tuple(key_valid.shape)}")
-        rows_per_mask = N // key_valid.shape[0]
+        rows_per_mask = _check_mask(key_valid, N, Tk)
         extra.append(key_valid)
     _check_cuda(q, k, v, *extra)
-    code = _dtype_code(q, k, v)
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _lib("flash_attention_bias").flash_bias_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if bias is None else bias.data_ptr(),
-        None if key_valid is None else key_valid.data_ptr(),
-        out.data_ptr(), N, Tq, Tk, D, rows_per_mask, code, stream)
-    _check_rc(rc, "flash_attention_bias")
-    flash_attention_bias.launches += 1
+    # [N, T, D] rows are samples of one head
+    strides = [Tq * D, D, 0, Tk * D, D, 0, Tk * D, D, 0, Tq * D, D, 0]
+    _flash_launch(q, k, v, bias, key_valid, None, out, strides, N, 1, Tq, Tk, D,
+                  rows_per_mask)
+    return out
+
+
+def flash_attention_bias_cached(q4, k4, v4, key_valid=None, rows=None):
+    """The same function on the decoder's layouts, K and V read where they
+    lie: q4 [B, Tq, H, D] (scaled), k4/v4 [Bk, Tk, H, D] with any strides
+    whose last is 1 and whose others are whole 16-byte vectors (the KV cache
+    [B, Tmax, H, D], or the head-major cross K/V of ``precompute_kv``);
+    ``rows`` int64 [B, Tk] or None: key j of sample b is k4[rows[b,
+    j], j] (the beam's ancestry map; None: Bk == B and key j of b is k4[b,
+    j]); key_valid bool [B * H / R, Tk] or None, row b * H + h reading mask
+    row (b * H + h) // R ([B, Tk]: one row per sample; [1, Tk]: one for
+    all) -> [B, Tq, H, D] contiguous in q4's dtype.  One kernel launch on
+    CUDA tensors, counted in ``flash_attention_bias.launches``; the twin
+    (gather, then the dense formula) on CPU ones.  Forward only."""
+    if q4.device.type == "cpu":
+        return flash_attention_bias_cached_plain(q4, k4, v4, key_valid, rows)
+    _forward_only(q4, k4, v4)
+    if (q4.dim() != 4 or k4.dim() != 4 or k4.shape[2:] != q4.shape[2:]
+            or v4.shape != k4.shape or k4.shape[1] == 0
+            or (rows is None and k4.shape[0] != q4.shape[0])):
+        raise ValueError(f"q/k/v shapes do not fit: {tuple(q4.shape)} "
+                         f"{tuple(k4.shape)} {tuple(v4.shape)}")
+    B, Tq, H, D = q4.shape
+    Tk = k4.shape[1]
+    per_vec = _check_flash_d(q4)
+    for name, t in (("k", k4), ("v", v4)):
+        if (t.stride(3) != 1 or any(st % per_vec for st in t.stride()[:3])
+                or t.data_ptr() % 16):
+            raise ValueError(f"{name} must have d contiguous, 16-byte aligned "
+                             f"rows and strides of whole 16-byte vectors; got "
+                             f"strides {t.stride()}")
+    if q4.stride(3) != 1:
+        raise ValueError(f"q must have d contiguous; got strides {q4.stride()}")
+    tensors = [q4, k4, v4]
+    rows_per_mask = 1
+    if key_valid is not None:
+        rows_per_mask = _check_mask(key_valid, B * H, Tk)
+        tensors.append(key_valid)
+    if rows is not None:
+        if (rows.dtype != torch.int64 or tuple(rows.shape) != (B, Tk)
+                or not rows.is_contiguous()):
+            raise ValueError(f"rows must be contiguous int64 {(B, Tk)}, got "
+                             f"{rows.dtype} {tuple(rows.shape)}")
+        tensors.append(rows)
+    if any(t.device != q4.device for t in tensors):
+        raise ValueError(f"expected all tensors on one CUDA device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    out = torch.empty(B, Tq, H, D, dtype=q4.dtype, device=q4.device)
+    strides = [*q4.stride()[:3], *k4.stride()[:3], *v4.stride()[:3], *out.stride()[:3]]
+    _flash_launch(q4, k4, v4, None, key_valid, rows, out, strides, B, H, Tq, Tk, D,
+                  rows_per_mask)
     return out
 
 

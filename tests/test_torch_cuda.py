@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain twins, on the card, the
 train kernels, the conv stack's gradient, the log-mel kernel and the
-decode-step attention kernel (alone and inside the decoder) included,
+decode-step attention kernel (alone, in its cached form on the decoder's
+layouts, and inside the decoder) included,
 the inference kernel's refusal to drop a gradient and the wrappers'
 refusals of inputs their kernels do not take; the bf16 attention forwards'
 row statistics, their bit-equal scores with the backward's, and a forward
@@ -450,11 +451,19 @@ def _flash_case(N, Tq, Tk, D, seed, bias=True, lengths=None):
     (12, 5, 799, 64, False, [799] * 6 + [613] * 6),   # grouped cross, a 16 s chunk
     (60, 1, 201, 64, False, [101] * 30 + [1] * 30),   # cached self-attention step
     (2, 9, 1500, 128, True, [1500, 0]),           # long keys, D 128, no valid key
+    (4, 3, 40, 64, True, [40, 17, 1, 0]),         # Tk under one tile
+    (6, 2, 1, 64, False, [1, 1, 1, 0, 1, 1]),     # Tk = 1
+    (12, 5, 799, 64, False, [100] * 12),          # blocks 2-7 hold only invalid keys
+    (3, 17, 2000, 32, True, [2000, 1000, 5]),     # 32 tiles: four a block, Tq > 8
+    # cluster sizes 1-8: ceil(Tk / 64) tiles, tails of Tk and Tq
+    *[(5, 5, 64 * c - 13, 64, False, [64 * c - 13, 64 * c - 70, 3, 0, 64 * c - 13])
+      for c in range(2, 9)],
 ])
 def test_flash_bias_kernel_matches_twin(card, dtype, N, Tq, Tk, D, bias, lengths):
     """One launch against the dense twin: f32 1e-4 (sums in another order),
-    bf16 3e-2 x max|ref| (the kernel rounds the running probabilities to
-    bf16, the twin the normalised ones)."""
+    bf16 3e-2 x max|ref| (each block of the cluster rounds its running
+    probabilities to bf16, the twin the normalised ones); a second call
+    gives the same bits (the cluster combines in a fixed order)."""
     q, k, v, b, valid = _flash_case(N, Tq, Tk, D, seed=N + Tk, bias=bias,
                                     lengths=lengths)
     q, k, v = (t.to(dtype).to(card) for t in (q, k, v))
@@ -468,6 +477,7 @@ def test_flash_bias_kernel_matches_twin(card, dtype, N, Tq, Tk, D, bias, lengths
     assert got.shape == (N, Tq, D) and got.dtype == dtype
     assert torch.isfinite(got.float()).all()
     _close(got, ref, dtype)
+    assert torch.equal(got, K.flash_attention_bias(q, k, v, b, valid))
     if lengths is not None and 0 in lengths:   # the dense formula: mean of V
         n = lengths.index(0)
         _close(got[n], v[n].float().mean(0).expand(Tq, D), dtype)
@@ -478,8 +488,8 @@ def test_flash_bias_kernel_shares_mask_rows_and_skips_masked_tiles(card, dtype):
     """The decode path's mask, one row per 12 heads ([5, 201] for 60 rows):
     bit-equal to the same launch with the mask expanded to [60, 201], and
     close to the twin.  Tiles past a row's last valid key are skipped, so
-    NaN K and V there change no bit; a row whose first tile has no valid
-    key (keys 70..99) still reads that tile."""
+    NaN K and V there change no bit; one row's first tile has no valid key
+    (keys 70..99)."""
     N, H, Tk, D = 60, 12, 201, 64
     starts, ends = [0, 0, 0, 0, 70], [101, 1, 64, 201, 100]
     q, k, v, _, _ = _flash_case(N, 1, Tk, D, seed=7, bias=False)
@@ -516,6 +526,81 @@ def test_flash_bias_wrapper_rejects_what_the_kernel_does_not_take(card):
                                torch.zeros(2, 7, 160, device=card))
     with pytest.raises(RuntimeError, match="forward-only"):
         K.flash_attention_bias(q.requires_grad_(), k, k)
+    assert K.flash_attention_bias.launches == before
+
+
+def _cached_case(case, dtype, card, seed=9):
+    """The beam's step layouts at Base width: "self", q [5, 1, 12, 64]
+    against the cache [5, 201, 12, 64] through an ancestry map (rows
+    repeated and permuted) with the causal [1, 201] mask of position 100;
+    "cross", 5 grouped queries [1, 5, 12, 64] against head-major K/V
+    [1, 12, 799, 64] viewed as [1, 799, 12, 64], 549 valid frames."""
+    g = torch.Generator().manual_seed(seed)
+    if case == "self":
+        B, Tq, Tk = 5, 1, 201
+        k4, v4 = (torch.randn(B, Tk, 12, 64, generator=g) for _ in range(2))
+        rows = torch.randint(0, B, (B, Tk), generator=g)
+        rows[:, 0] = torch.randperm(B, generator=g)
+        rows[1] = rows[0]
+        valid = torch.arange(Tk)[None, :] <= 100
+    else:
+        B, Tq, Tk = 1, 5, 799
+        k4, v4 = (torch.randn(B, 12, Tk, 64, generator=g).transpose(1, 2) for _ in range(2))
+        rows = None
+        valid = torch.arange(Tk)[None, :] < 549
+    q4 = torch.randn(B, Tq, 12, 64, generator=g) * 64 ** -0.5
+    out = [t.to(dtype).to(card) for t in (q4, k4, v4)]
+    return (*out, valid.to(card), None if rows is None else rows.to(card))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["self", "cross"])
+def test_flash_bias_cached_kernel_matches_twin(card, dtype, case):
+    """The cached entry reads the cache and the head-major cross K/V in
+    place (one launch) and agrees with its twin (gather, then the dense
+    formula); two calls give the same bits; K/V that no valid key reads
+    may hold NaN."""
+    q4, k4, v4, valid, rows = _cached_case(case, dtype, card)
+    before = K.flash_attention_bias.launches
+    got = K.flash_attention_bias_cached(q4, k4, v4, valid, rows)
+    assert K.flash_attention_bias.launches == before + 1
+    ref = K.flash_attention_bias_cached_plain(q4, k4, v4, valid, rows)
+    torch.cuda.synchronize()
+    assert got.shape == q4.shape and got.dtype == dtype and got.is_contiguous()
+    _close(got, ref, dtype)
+    assert torch.equal(got, K.flash_attention_bias_cached(q4, k4, v4, valid, rows))
+    # only valid keys are read: NaN in every invalid position (and, through
+    # the row map, in every cache row that no valid key reads) changes no bit
+    k_nan, v_nan = k4.clone(), v4.clone()
+    invalid = ~valid[0]
+    k_nan[:, invalid], v_nan[:, invalid] = float("nan"), float("nan")
+    if rows is not None:
+        unread = torch.ones(k4.shape[0], dtype=torch.bool, device=card)
+        unread[rows[:, valid[0]].flatten()] = False
+        k_nan[unread], v_nan[unread] = float("nan"), float("nan")
+    assert torch.equal(got, K.flash_attention_bias_cached(q4, k_nan, v_nan, valid, rows))
+
+
+def test_flash_bias_cached_wrapper_refuses_what_the_kernel_does_not_take(card):
+    q4, k4, v4, valid, rows = _cached_case("self", torch.bfloat16, card)
+    before = K.flash_attention_bias.launches
+    big = torch.zeros(5, 201, 2, 160, dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError):                  # D > 128
+        K.flash_attention_bias_cached(big[:, :1], big, big, valid, rows)
+    with pytest.raises(ValueError):                  # d not contiguous
+        K.flash_attention_bias_cached(q4, k4.transpose(2, 3).contiguous().transpose(2, 3),
+                                      v4, valid, rows)
+    wide = torch.zeros(5, 201, 12, 72, dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError):                  # rows not 16-byte aligned
+        K.flash_attention_bias_cached(q4, wide[..., 1:65], v4, valid, rows)
+    with pytest.raises(ValueError):                  # a row map of the wrong shape
+        K.flash_attention_bias_cached(q4, k4, v4, valid, rows[:, :100])
+    with pytest.raises(ValueError):                  # nor type
+        K.flash_attention_bias_cached(q4, k4, v4, valid, rows.int())
+    with pytest.raises(ValueError):                  # no row map: one K/V row a sample
+        K.flash_attention_bias_cached(q4, k4[:3], v4[:3], valid)
+    with pytest.raises(TypeError):                   # mask rows must divide B * H
+        K.flash_attention_bias_cached(q4, k4, v4, valid.expand(7, 201).contiguous(), rows)
     assert K.flash_attention_bias.launches == before
 
 

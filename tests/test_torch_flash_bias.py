@@ -138,3 +138,85 @@ def test_row_without_valid_keys_is_the_mean_of_v():
     np.testing.assert_allclose(pallas[0], got[0], atol=2e-4)
     np.testing.assert_allclose(pallas[1], np.broadcast_to(v[1].sum(0) / 64, (3, 16)),
                                atol=1e-5)
+
+
+# ------------------------------------------------- the cached (in-place) entry
+
+
+def _cache_case(rng, B, H, Tc, D, dtype=torch.float32):
+    """The beam's self step: q [B, 1, H, D] (scaled), a [B, Tc, H, D] cache
+    and an ancestry map that repeats and permutes physical rows."""
+    q = torch.from_numpy(rng.standard_normal((B, 1, H, D)).astype(np.float32) * 0.3)
+    k = torch.from_numpy(rng.standard_normal((B, Tc, H, D)).astype(np.float32) * 0.3)
+    v = torch.from_numpy(rng.standard_normal((B, Tc, H, D)).astype(np.float32))
+    rows = torch.from_numpy(rng.integers(0, B, (B, Tc)))
+    rows[:, 0] = torch.from_numpy(rng.permutation(B))
+    rows[0, 1:4] = rows[1, 1:4] = 2            # two rows share an ancestor
+    return q.to(dtype), k.to(dtype), v.to(dtype), rows
+
+
+def _gather_heads(t4, rows):
+    """[B, T, H, D] read through ``rows`` as the plain path gathers it (one
+    flat gather of (row, position) pairs), as [B * H, T, D] rows."""
+    B, T, H, D = t4.shape
+    if rows is not None:
+        flat = (rows.long() * T + torch.arange(T)[None, :]).reshape(-1)
+        t4 = t4.reshape(B * T, H, D)[flat].view(B, T, H, D)
+    return t4.transpose(1, 2).reshape(B * H, T, D)
+
+
+@pytest.mark.parametrize("case", ["self", "cross"])
+def test_cached_twin_matches_pallas_on_the_gathered_keys(case):
+    """The cached entry at the beam's step shapes (tiny width) against the
+    Pallas kernel on the gathered K/V, f32 at 1e-5.  self: 5 beam rows, one
+    query against a 21-position cache read through a repeating, permuting
+    row map, causal at position 9 (a [1, Tc] mask for every row); cross:
+    2 samples x 5 grouped queries against head-major [B, H, Tk, D] K/V
+    viewed as [B, Tk, H, D], ragged frames (a [B, Tk] mask)."""
+    rng = np.random.default_rng(11)
+    H, D = 2, 16
+    if case == "self":
+        B, Tq, Tk = 5, 1, 21
+        q4, k4, v4, rows = _cache_case(rng, B, H, Tk, D)
+        valid = torch.arange(Tk)[None, :] <= 9
+        full = valid.expand(B * H, Tk)
+    else:
+        B, Tq, Tk = 2, 5, 37
+        q4 = torch.from_numpy(rng.standard_normal((B, Tq, H, D)).astype(np.float32) * 0.3)
+        k4, v4 = (torch.from_numpy(rng.standard_normal((B, H, Tk, D)).astype(np.float32) * s)
+                  .transpose(1, 2) for s in (0.3, 1.0))
+        rows = None
+        valid = torch.arange(Tk)[None, :] < torch.tensor([[37], [20]])
+        full = valid.repeat_interleave(H, 0)
+    got = K.flash_attention_bias_cached(q4, k4, v4, valid, rows)
+    assert got.shape == (B, Tq, H, D) and got.is_contiguous()
+    heads = lambda t: t.transpose(1, 2).reshape(B * H, Tq, D).numpy()
+    want = _pallas(heads(q4), _gather_heads(k4, rows).numpy(),
+                   _gather_heads(v4, rows).numpy(),
+                   np.zeros((B * H, Tq, Tk), np.float32), full.numpy(), 16)
+    np.testing.assert_allclose(heads(got), want, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cached_twin_is_the_gather_then_the_plain_twin(dtype):
+    """Bit for bit: the cached twin = the decoder's flat gather of the cache
+    through the row map + ``flash_attention_bias_plain`` on [B * H, T, D]
+    rows, with the mask as one row for all ([1, Tc]) or one per sample."""
+    B, H, Tc, D = 5, 3, 17, 32
+    q4, k4, v4, rows = _cache_case(np.random.default_rng(12), B, H, Tc, D, dtype)
+    for valid in (torch.arange(Tc)[None, :] <= 6,
+                  torch.arange(Tc)[None, :] < torch.tensor([[3], [17], [9], [1], [6]])):
+        K.reset_launch_counts()
+        got = K.flash_attention_bias_cached(q4, k4, v4, valid, rows)
+        assert K.flash_attention_bias.launches == 0      # the CPU takes the twin
+        ref = K.flash_attention_bias_plain(
+            q4.transpose(1, 2).reshape(B * H, 1, D), _gather_heads(k4, rows),
+            _gather_heads(v4, rows), None, valid)
+        assert got.dtype == dtype
+        assert torch.equal(got, ref.view(B, H, 1, D).transpose(1, 2))
+    # no row map: the cache read as it is
+    got = K.flash_attention_bias_cached(q4, k4, v4, None, None)
+    ref = K.flash_attention_bias_plain(q4.transpose(1, 2).reshape(B * H, 1, D),
+                                       _gather_heads(k4, None), _gather_heads(v4, None))
+    assert torch.equal(got, ref.view(B, H, 1, D).transpose(1, 2))
+

@@ -255,9 +255,11 @@ def test_attention_module_routes_by_training_mode(monkeypatch):
     gen = torch.Generator().manual_seed(3)
     attn = MultiheadAttention(32, 4, 0.1, use_pallas=True, use_pallas_train=True)
     attn.train()
-    attn(x, valid, band, generator=gen)
-    seed = calls[-1][2]
+    seed = attn.train_seed(band, T, gen)
+    attn(x, valid, band, dropout_seed=seed)
     assert calls == [("train", 0.1, seed)] and 0 <= seed < 2 ** 31 - 1
+    with pytest.raises(ValueError, match="dropout_seed"):   # no seed drawn inside
+        attn(x, valid, band)
     attn.eval()
     with torch.no_grad():
         attn(x, valid, band)

@@ -2,6 +2,7 @@
 """Where a served request's time goes on the card, for the PyTorch port.
 
     python3 torch_serve_profile.py [--decoder ctc_greedy|beam]
+    python3 torch_serve_profile.py --decode-step-kernel
 
 Builds the same Service as ``chip_smoke.py``'s serve phases (SpeechT5-Base
 ASR, batch 1, random weights from a seed, buckets 4/8/16 s; ``beam``: beam
@@ -12,10 +13,19 @@ off (the plain PyTorch path, bf16), times ``Service.transcribe`` on one
 Prints one JSON line per path: request wall time (host clock, ending in a
 synchronize), decode steps (beam), the card's busy time (the union of the
 device kernels' intervals in the trace, as ``torch_train_profile.py``
-counts it) and idle share, the launches of each kernel, the device time of
-the attention forward's kernels and of the copies, and the kernels that
-take the most device time.  Prints the card's name and power limit first.
-Needs a card.
+counts it) and idle share, the launches of each kernel, every device
+launch of the profiled request (kernels, copies, fills) and their number
+per decode step, the device time of the attention forward's kernels, of
+the decode-step attention's and of the copies, and the kernels that take
+the most device time.  Prints the card's name and power limit first.
+With ``--decode-step-kernel`` it prints instead ``chip_smoke.py``'s record
+of the decode-step attention at the beam's shapes in bf16 (kernel against
+twin; stream and CUDA-graph times of the kernel and of its SDPA yardstick):
+cross and self through ``flash_attention_bias``, and cross_cached and
+self_cache through ``flash_attention_bias_cached`` where the tree has it.
+Needs a card.  The kernel names it matches are those of this tree and of
+the trees before the decode-step kernel's cluster design, so a copy of this
+script profiles an archive of an earlier commit in the same call.
 """
 
 from __future__ import annotations
@@ -38,6 +48,8 @@ from torch_train_profile import ATTN_FWD_KERNELS, busy_ms, copies, device_events
 
 REQUEST_S = 16.0   # the largest bucket: one full chunk
 REPS = 3
+DECODE_STEP_KERNELS = {"cluster_split": "::flash_split_kernel<",
+                       "single_block": "::flash_bias_kernel<"}
 
 
 def profile_path(decoder: str, kernels: bool, seconds: float, reps: int,
@@ -66,20 +78,25 @@ def profile_path(decoder: str, kernels: bool, seconds: float, reps: int,
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = defaultdict(lambda: [0.0, 0])
-    for evt in device_events(prof):
+    events = device_events(prof)
+    for evt in events:
         by_name[evt.name][0] += evt.time_range.elapsed_us() / 1e3
         by_name[evt.name][1] += 1
     busy = busy_ms(prof)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    steps = getattr(svc.asr, "steps_run", 0) - steps0
     return {
         "decoder": decoder, "path": "kernels" if kernels else "plain",
         "request_s": seconds, "wall_ms_median": float(np.median(walls)),
         "wall_ms_reps": walls, "profiled_wall_ms": wall_ms,
-        "decode_steps": getattr(svc.asr, "steps_run", 0) - steps0,
+        "decode_steps": steps,
         "device_busy_ms": busy,
+        "device_launches": len(events),
+        "device_launches_per_step": len(events) / steps if steps else None,
         "device_idle_share": (1.0 - busy / wall_ms) if busy else None,
         "launches": K.launch_counts(),
         "attention_forward_ms": kernel_ms(by_name, ATTN_FWD_KERNELS),
+        "decode_step_attention_ms": kernel_ms(by_name, DECODE_STEP_KERNELS),
         "copies": copies(by_name),
         "top_kernels": [{"name": n[:90], "ms": v[0], "count": v[1]} for n, v in top],
     }
@@ -88,10 +105,20 @@ def profile_path(decoder: str, kernels: bool, seconds: float, reps: int,
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--decoder", default="ctc_greedy", choices=("ctc_greedy", "beam"))
+    p.add_argument("--decode-step-kernel", action="store_true",
+                   help="time the decode-step attention at the beam's shapes")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("torch_serve_profile: needs an NVIDIA card")
     print(S.card_line(), flush=True)
+    if args.decode_step_kernel:
+        cases = ["cross", "self"]
+        if hasattr(K, "flash_attention_bias_cached"):
+            cases += ["cross_cached", "self_cache"]
+        for case in cases:
+            ok, rec = S._flash_bias_record(case, torch.bfloat16)
+            print(json.dumps({"decode_step_kernel": case, "ok": ok, **rec}), flush=True)
+        return
     for kernels in (True, False):
         print(json.dumps(profile_path(args.decoder, kernels, REQUEST_S, REPS)),
               flush=True)
