@@ -16,7 +16,9 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                shapes (batch 1, as a served 16 s chunk gives them, and batch
                2), f32 and bf16, the band row-padded as the encoder builds
                it, and for bf16 the time of each launch of the wgmma forward
-               (bias pass, main loop); the three train-attention kernels at
+               (bias pass, main loop); the inference attention also as the
+               /tts text encoder runs it ("tts_text": N 12, T 128, every row
+               the longer text's 58 valid keys); the three train-attention kernels at
                the train step's shapes (N = 16 x 12, T = 799, Dh = 64, ragged
                lengths with a row of length 0), f32 and bf16, dropout 0 and
                0.1 at a fixed seed, and for bf16 the time of each launch of
@@ -32,10 +34,14 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                [N, T, D] rows and through the cached entry as the decoder
                calls it ("cross_cached": the head-major K/V of
                ``precompute_kv``; "self_cache": the cache [5, 201, 12, 64]
-               and an ancestry row map, as ``_cached_step``), f32 and bf16,
-               timed back to back on the stream and, with its SDPA
-               yardstick, as the card runs it (calls captured in one CUDA
-               graph and replayed).
+               and an ancestry row map, as ``_cached_step``) and at the TTS
+               decoder's two ("tts_self": the cache [1, 513, 12, 64] at step
+               200; "tts_cross": a 128-token text, 58 valid, with the
+               max-probability output held against the twin's, f32 1e-4,
+               bf16 3e-2 of max |ref|, and timed with and without it), f32
+               and bf16, timed back to back on the stream and, with its
+               SDPA yardstick, as the card runs it (calls captured in one
+               CUDA graph and replayed).
 3. serve    -- the serving path: the port's ASR Service (ctc_greedy, bf16,
                both inference kernels on) at full speecht5_base_asr width
                with random weights, answering 3 s, 11 s and 21 s requests in
@@ -93,15 +99,49 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                (the twins' mels, plain attention): target_mel within 2e-3,
                loss within 1e-4 relative, every parameter gradient within
                1e-3 of that parameter's max |g| (k_proj biases as in 6).
+11. warm start -- the fine-tune recipe from a released checkpoint at
+               speecht5_base_asr: a fairseq ``.pt`` written here (fairseq's
+               key names, an ``args`` namespace, keys of the HuBERT head and
+               the quantizer, text and CTC heads at another vocabulary),
+               ``cli/convert.py --format fairseq``, every warm-started tensor
+               bit-equal to the file's (the mismatched heads keep their
+               fresh values), ``cli/train.py --finetune-from`` with the
+               recipe's flags for 3 updates (the train kernels' launches as
+               in 7), one greedy request served from the converted
+               checkpoint (24 attention launches, 6 conv), and a train
+               subprocess sent SIGTERM after its first update: it exits 0
+               with a checkpoint at the update it reports, and a resume
+               reaches --max-updates.
+12. serve tts -- /tts in process: Service(--task t2s) at speecht5_base,
+               bf16, every kernel on (the beam's overrides), the stop
+               logits' bias at -8 so that a random model runs to its length
+               bound, once with a HiFi-GAN vocoder at the released config
+               (seeded HF-named weights through
+               ``convert_hifigan_state_dict``) and once with
+               ``--griffin-lim``, for two texts; per request wall ms, decode
+               steps, seconds of audio and each kernel's launches, which
+               must be the encoder's 24 and 12 decode-step launches a step;
+               then one request under ``torch.profiler``: device launches
+               per step, device busy and idle share.
+13. tts parity -- f32, the same weights and prenet-dropout generator seed:
+               the kernel path against the plain path on a padded batch of
+               the two texts: lengths equal, mel and stop probabilities
+               within 2e-3, focus rate within 1e-4, the HiFi-GAN waveform
+               within 2e-3; once at the -8 stop bias (every row to its
+               bound) and once with min_len_ratio 2.5 and a stop bias under
+               which the longer text stops by threshold between its minimum
+               and the middle of its range: every row at the step the first
+               run's stop logits foretell.
 
 The launch counts are zeroed just before each driven path (serve, serve
-beam, train, train t2s) and read just after; a kernel of that path that was
-never launched fails.
+beam, train, train t2s, the warm-started train and request, serve tts) and
+read just after; a kernel of that path that was never launched fails.
 Output: an early line with the card's name and power limit as nvidia-smi
 gives them, one ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  A watchdog ends a hung run with a
 traceback after 1100 s.  The script opens no socket; the training loop's
-data prefetch thread ends with each run.
+data prefetch thread ends with each run, and the one train subprocess it
+starts (phase 11) is waited for, or killed on a failure.
 """
 
 from __future__ import annotations
@@ -123,6 +163,7 @@ from speecht5_tpu_torch import config as C
 from speecht5_tpu_torch.cli import train as cli_train
 from speecht5_tpu_torch.cli.serve import SR, Service, build_parser
 from speecht5_tpu_torch.data.audio import layer_norm_wav, write_wav
+from speecht5_tpu_torch.decode.tts import CHECK_EVERY
 from speecht5_tpu_torch.data.manifests import (TOKEN_BUCKETS, SpeechToTextDataset,
                                                bucket_length, collate_mel_targets)
 from speecht5_tpu_torch.models.attention import band_from_table
@@ -389,19 +430,24 @@ def path_band(table, T, M, device):
     return band_from_table(table.to(device), T, M, row_multiple=BAND_ROW_MULTIPLE)
 
 
-def attention_case(batch, dtype, device="cuda", seed=0):
+def attention_case(batch, dtype, device="cuda", seed=0, T=799, valid=None):
     """Base encoder shapes: batch x 12 heads, T=799 (16 s bucket), Dh=64,
     max distance 160, ragged lengths including a row of length 0; the band
-    row-padded, as the encoder builds it."""
+    row-padded, as the encoder builds it.  With ``valid`` every row holds
+    that many valid keys, as one request's heads do (the text encoder of
+    /tts: T = --tts-bucket-tokens, valid = the text's ids)."""
     g = torch.Generator().manual_seed(seed)
-    N, T, Dh, M = 12 * batch, 799, 64, 160
+    N, Dh, M = 12 * batch, 64, 160
     q = (torch.randn(N, T, Dh, generator=g) * Dh ** -0.5).to(dtype)
     k = torch.randn(N, T, Dh, generator=g).to(dtype)
     v = torch.randn(N, T, Dh, generator=g).to(dtype)
     table = (torch.randn(2 * M, Dh, generator=g) * 0.125).to(dtype)
     band = path_band(table, T, M, device)
-    lengths = torch.randint(1, T + 1, (N,), generator=g, dtype=torch.int32)
-    lengths[0], lengths[1], lengths[5] = 0, T, 613
+    if valid is None:
+        lengths = torch.randint(1, T + 1, (N,), generator=g, dtype=torch.int32)
+        lengths[0], lengths[1], lengths[5] = 0, T, 613
+    else:
+        lengths = torch.full((N,), valid, dtype=torch.int32)
     return [t.to(device) for t in (q, k, v)] + [band, lengths.to(device)]
 
 
@@ -416,8 +462,8 @@ def conv_case(batch, dtype, device="cuda", seed=1):
     return x.to(device), [w.to(device) for w in ws], specs
 
 
-def _attention_record(batch, dtype):
-    q, k, v, band, lengths = attention_case(batch, dtype)
+def _attention_record(batch, dtype, T=799, valid=None):
+    q, k, v, band, lengths = attention_case(batch, dtype, T=T, valid=valid)
     N, T, Dh = q.shape
     got = K.banded_flash_attention(q, k, v, band, lengths)
     ref = K.banded_flash_attention_plain(q, k, v, band, lengths)
@@ -698,10 +744,27 @@ def flash_bias_cache_case(case, dtype, device="cuda", seed=4):
     ``_cross_step``, the 5 beams' queries grouped as q [1, 5, 12, 64]
     against the head-major K/V of ``precompute_kv`` ([1, 12, 799, 64]
     storage viewed as [1, 799, 12, 64]) and the sample's mask [1, 799]
-    (549 valid), no row map.  -> q4, k4, v4, key_valid, rows."""
+    (549 valid), no row map.  The TTS decoder's steps at batch 1:
+    "tts_self", the cached self-attention at step 200 of a 513-position
+    cache (``--max-frames`` 1024 / r + 1; 201 valid), no row map;
+    "tts_cross", the cross-attention against the 128-token text bucket (the
+    longer served text's 58 valid), head-major K/V, asked for the
+    max-probability output as the decoder asks.  -> q4, k4, v4, key_valid,
+    rows."""
     g = torch.Generator().manual_seed(seed)
     H = 12
-    if case == "self_cache":
+    if case in ("tts_self", "tts_cross"):
+        Tk, valid = ((513, 201) if case == "tts_self"
+                     else (TTS_BUCKET_TOKENS, TTS_TEXT_IDS))
+        q4 = (torch.randn(1, 1, H, 64, generator=g) * 64 ** -0.5).to(dtype)
+        if case == "tts_self":
+            k4, v4 = (torch.randn(1, Tk, H, 64, generator=g).to(dtype) for _ in range(2))
+        else:
+            k4, v4 = (torch.randn(1, H, Tk, 64, generator=g).to(dtype).transpose(1, 2)
+                      for _ in range(2))
+        rows = None
+        key_valid = torch.arange(Tk)[None, :] < valid
+    elif case == "self_cache":
         B, Tc, pos = BEAM, BEAM_MAX_LEN + 1, 100
         q4 = (torch.randn(B, 1, H, 64, generator=g) * 64 ** -0.5).to(dtype)
         k4, v4 = (torch.randn(B, Tc, H, 64, generator=g).to(dtype) for _ in range(2))
@@ -724,14 +787,22 @@ def _flash_bias_record(case, dtype):
     back on the stream (``ms``) and as the card runs it (``graph_ms``), with
     SDPA (an f32 0/-1e9 mask, scale 1) on the same K/V as the yardstick,
     timed both ways.  "cross" and "self" call the contract entry on [N, T,
-    D] rows, "cross_cached" and "self_cache" the cached entry on the
-    decoder's layouts."""
-    if case in ("self_cache", "cross_cached"):
+    D] rows, "cross_cached", "self_cache", "tts_self" and "tts_cross" the
+    cached entry on the decoder's layouts; "tts_cross" with the
+    max-probability output, held against the twin's (f32 1e-4, bf16 3e-2
+    of max |ref|) and timed with and without it."""
+    maxp_call = None
+    if case in ("self_cache", "cross_cached", "tts_self", "tts_cross"):
         q4, k4, v4, key_valid, rows = flash_bias_cache_case(case, dtype)
         B, Tq, H, D = q4.shape
         N, Tk = B * H, k4.shape[1]
         call = lambda: K.flash_attention_bias_cached(q4, k4, v4, key_valid, rows)
         plain = lambda: K.flash_attention_bias_cached_plain(q4, k4, v4, key_valid, rows)
+        if case == "tts_cross":
+            maxp_call = lambda: K.flash_attention_bias_cached(
+                q4, k4, v4, key_valid, rows, return_max_prob=True)
+            maxp_plain = lambda: K.flash_attention_bias_cached_plain(
+                q4, k4, v4, key_valid, rows, return_max_prob=True)
         # SDPA on the gathered, head-major K/V (the gather not timed)
         pos = torch.arange(Tk, device=q4.device)
         kg, vg = (k4, v4) if rows is None else (k4[rows, pos], v4[rows, pos])
@@ -776,7 +847,20 @@ def _flash_bias_record(case, dtype):
     library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0)
     ms, graph = time_ms(call), graph_ms(call)
     library_ms, library_graph = time_ms(library), graph_ms(library)
-    return ok, {
+    extra = {}
+    if maxp_call is not None:
+        (o, m), (o_ref, m_ref) = maxp_call(), maxp_plain()
+        torch.cuda.synchronize()
+        m_err, m_tol, m_ok = _check(dtype, m, m_ref)
+        ok = ok and m_ok and torch.equal(o, got)    # the output's bits stay
+        # the path's call (this output on) is the timed one; the time
+        # without it stays beside it
+        extra = {"max_prob_err": m_err, "max_prob_tolerance": m_tol,
+                 "without_max_prob_ms": ms, "without_max_prob_graph_ms": graph}
+        ms, graph = time_ms(maxp_call), graph_ms(maxp_call)
+        nbytes += N * Tq * 4
+        bound_ms, bound_by = _bound(nbytes, flops, dtype)
+    return ok, {**extra,
         "max_abs_err": err, "tolerance": tol, "ms": ms, "graph_ms": graph,
         "plain_ms": time_ms(plain), "library_ms": library_ms,
         "library_graph_ms": library_graph, "library_call": library_call,
@@ -794,10 +878,12 @@ def phase_kernels():
     "<dtype>/b<batch>"); the train kernels at the train step's shapes in f32
     and bf16 with dropout 0 and 0.1 (keys "<dtype>/r<rate>"); the log-mel
     kernel at the t2s batch and a centred case (keys "float32/b<batch>");
+    the inference attention at the /tts text encoder's shape (keys
+    "<dtype>/tts_text");
     the decode-step kernel at the beam's cross and self shapes through the
     contract entry and through the cached entry in f32 and bf16 (keys
     "<dtype>/cross", "<dtype>/self", "<dtype>/cross_cached",
-    "<dtype>/self_cache")."""
+    "<dtype>/self_cache", "<dtype>/tts_self", "<dtype>/tts_cross")."""
     records = {name: {} for name in KERNELS}
     failures = []
     for batch in (1, 2):
@@ -811,6 +897,14 @@ def phase_kernels():
                     failures.append(f"{name} {key}: max|diff| {rec['max_abs_err']} "
                                     f"> {rec['tolerance']}")
                 torch.cuda.empty_cache()
+    for dtype in (torch.float32, torch.bfloat16):
+        # the /tts text encoder: one request at the token bucket
+        key = f"{str(dtype).split('.')[-1]}/tts_text"
+        ok, rec = _attention_record(1, dtype, T=TTS_BUCKET_TOKENS, valid=TTS_TEXT_IDS)
+        records["banded_flash_attention"][key] = rec
+        if not ok:
+            failures.append(f"banded_flash_attention {key}: max|diff| "
+                            f"{rec['max_abs_err']} > {rec['tolerance']}")
     for dtype in (torch.float32, torch.bfloat16):
         for rate in (0.0, 0.1):
             key = f"{str(dtype).split('.')[-1]}/r{rate}"
@@ -827,7 +921,7 @@ def phase_kernels():
         if not ok:
             failures.append(f"fused_log_mel b{batch}: max|diff| {rec['max_abs_err']} "
                             f"> {rec['tolerance']}")
-    for case in ("cross", "self", "cross_cached", "self_cache"):
+    for case in ("cross", "self", "cross_cached", "self_cache", "tts_self", "tts_cross"):
         for dtype in (torch.float32, torch.bfloat16):
             key = f"{str(dtype).split('.')[-1]}/{case}"
             ok, rec = _flash_bias_record(case, dtype)
@@ -1390,6 +1484,531 @@ def phase_t2s_parity(base_cfg, device="cuda", batch=16, seconds=(2.0, 10.0), see
     return result
 
 
+# ------------------------------------------------------------ warm start
+
+# port module name -> fairseq module name, where they differ (the inverse of
+# utils/convert.map_fairseq_key)
+FAIRSEQ_NAMES = [
+    (r"feature_extractor\.conv_(\d+)\.", r"feature_extractor.conv_layers.\1.0."),
+    (r"feature_extractor\.group_norm\.", "feature_extractor.conv_layers.0.2."),
+    (r"pos_conv\.", "pos_conv.0."),
+    (r"(layers\.\d+)\.ffn\.", r"\1."),
+    (r"text_encoder_prenet\.embed_tokens\.", "text_encoder_prenet.encoder_prenet.0."),
+    (r"text_encoder_prenet\.alpha", "text_encoder_prenet.encoder_prenet.1.alpha"),
+    (r"speech_decoder_prenet\.prenet\.layer_(\d+)\.",
+     r"speech_decoder_prenet.decoder_prenet.0.0.prenet.\1.0."),
+    (r"speech_decoder_prenet\.proj\.", "speech_decoder_prenet.decoder_prenet.0.1."),
+    (r"speech_decoder_prenet\.alpha", "speech_decoder_prenet.decoder_prenet.1.alpha"),
+    (r"speech_decoder_prenet\.spkembs_layer\.", "speech_decoder_prenet.spkembs_layer.0."),
+    (r"postnet\.conv_(\d+)\.", r"postnet.postnet.\1.0."),
+    (r"postnet\.bn_(\d+)\.", r"postnet.postnet.\1.1."),
+]
+# keys of modules the port lacks, as a released pretraining checkpoint has
+# them: the HuBERT head and the quantizer
+LACKED_KEYS = {"hubert_layer.final_proj.weight": (256, 768),
+               "hubert_layer.final_proj.bias": (256,),
+               "hubert_layer.label_embs_concat": (504, 256),
+               "quantizer.vars": (1, 640, 256), "quantizer.weight_proj.weight": (640, 768)}
+
+
+def write_fairseq_checkpoint(path: str, state: dict, seed: int = 0, lacked=LACKED_KEYS):
+    """A fairseq-format SpeechT5 ``.pt`` of ``state`` (a port state dict):
+    fairseq's key names (0-d ``alpha`` scales), an ``argparse.Namespace``
+    ``args`` entry, seeded keys of modules the port lacks (``lacked``: name
+    -> shape), a ``version`` buffer and an optimizer history, as the
+    released files have them."""
+    import argparse
+    import re
+
+    g = torch.Generator().manual_seed(seed)
+    model = {}
+    for key, value in state.items():
+        fkey = key
+        for pat, rep in FAIRSEQ_NAMES:
+            fkey = re.sub(pat, rep, fkey)
+        model[fkey] = value.reshape(()) if key.endswith(".alpha") else value.clone()
+    for key, shape in lacked.items():
+        model[key] = torch.randn(shape, generator=g)
+    model["encoder.version"] = torch.tensor([3.0])
+    args = argparse.Namespace(arch="t5_transformer_base_asr", task="speecht5",
+                              max_update=800000, encoder_layers=12)
+    torch.save({"args": args, "model": model,
+                "optimizer_history": [{"num_updates": 800000}]}, path)
+    return path
+
+
+def phase_warm_start(arch="speecht5_base_asr", device="cuda", n_utts=32, updates=3,
+                     seconds=(8.0, 16.0), flags=RECIPE_FLAGS, seed=0, src_vocab=100,
+                     request_s=11.0, buckets="16", preempt=True):
+    """The fine-tune recipe from a released checkpoint: a fairseq ``.pt``
+    written here (another seed, a text head and CTC head at ``src_vocab``),
+    ``cli/convert.py --format fairseq`` to a model-only checkpoint, the
+    loaded weights held bit for bit against the file's (the mismatched heads
+    keep their fresh initial values), ``cli/train.py --task s2t
+    --finetune-from`` with the recipe's flags for ``updates`` updates, one
+    greedy request served from the converted checkpoint, and a train
+    subprocess sent SIGTERM after its first update: it must exit 0 with a
+    checkpoint at the update it reports, and a resume must reach its
+    --max-updates.  Returns the launch counts of the train run and of the
+    request, and the timings."""
+    from speecht5_tpu_torch.cli import convert as cli_convert
+    from speecht5_tpu_torch.utils.checkpoint import checkpoints
+    from speecht5_tpu_torch.utils.convert import load_fairseq_checkpoint
+
+    result = {}
+    with tempfile.TemporaryDirectory() as d:
+        manifest, labels, dict_path = write_corpus(d, n_utts, seconds, seed)
+        src_cfg = getattr(C, arch)(vocab_size=src_vocab, blank_id=src_vocab - 1)
+        src = init_model(src_cfg, torch.Generator().manual_seed(seed + 50), "cpu")
+        pt = write_fairseq_checkpoint(os.path.join(d, "pretrained.pt"), src.state_dict())
+        del src
+        conv_dir = os.path.join(d, "pretrained")
+        t0 = time.perf_counter()
+        report = cli_convert.main(["--pt", pt, "--format", "fairseq", "--arch", arch,
+                                   "--dict", dict_path, "--out", conv_dir])
+        result["convert_s"] = time.perf_counter() - t0
+        heads = {"text_encoder_prenet.embed_tokens.weight",
+                 "text_decoder_prenet.embed_tokens.weight", "encoder.proj.weight",
+                 "encoder.proj.bias", "text_decoder_postnet.output_projection.weight"}
+        if (set(report["shape_mismatches"]) != heads or report["missing"]
+                or set(report["unknown_keys"]) != set(LACKED_KEYS)):
+            raise AssertionError(f"conversion report: {report}")
+        # what --finetune-from loads: the file's tensors, bit for bit, and
+        # where the shape differs the fresh initial value the converter
+        # wrote (a model seeded 0)
+        file_sd, _, _ = load_fairseq_checkpoint(pt)
+        cfg = getattr(C, arch)(dtype="bfloat16", **DICT_CFG)
+        fresh = init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+        init_sd = {k: v.clone() for k, v in fresh.state_dict().items()}
+        cli_train.warm_start(fresh, conv_dir)
+        loaded = kept = 0
+        for key, value in fresh.state_dict().items():
+            if key in heads:
+                kept += 1
+                same = torch.equal(value, init_sd[key])
+            else:
+                loaded += 1
+                same = torch.equal(value, file_sd[key])
+            if not same:
+                raise AssertionError(f"warm start: {key} differs")
+        result["loaded_tensors"], result["fresh_tensors"] = loaded, kept
+        del fresh, init_sd, file_sd
+
+        def train_args(save_dir):
+            args = ["--task", "s2t", "--arch", arch, "--manifest", manifest,
+                    "--labels", labels, "--dict", dict_path, "--save-dir", save_dir,
+                    *flags, "--keep-last", "1", "--log-interval", "1",
+                    "--seed", str(seed + 1), "--device", device,
+                    "--finetune-from", conv_dir]
+            for ov in TRAIN_OVERRIDES:
+                args += ["--override", ov]
+            return args
+
+        _sync(device)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        with _LayerRuns() as runs, _UpdateTimes(device) as update_ms:
+            first = cli_train.main(train_args(os.path.join(d, "ckpt"))
+                                   + ["--max-updates", str(updates)])
+        _sync(device)
+        result["train_wall_s"] = time.perf_counter() - t0
+        result["update_ms"] = update_ms
+        result["train_counts"] = K.launch_counts()
+        result["layer_runs"] = runs.n
+        result["history"] = first["history"]
+        if first["steps"] != updates or not first["finite"]:
+            raise AssertionError(f"warm-started train: {first}")
+
+        # one greedy request from the converted checkpoint, as cli/serve.py
+        # restores it
+        args = build_parser().parse_args([
+            "--ckpt", conv_dir, "--arch", arch, "--dict", dict_path,
+            "--decoder", "ctc_greedy", "--max-batch", "1", "--asr-buckets", buckets,
+            "--dtype", "bfloat16", "--device", device,
+            *[a for ov in KERNEL_OVERRIDES for a in ("--override", ov)]])
+        svc = Service(args, device=device)
+        wav = synth_audio(request_s, seed=300)
+        _sync(device)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        text = svc.transcribe(wav)
+        _sync(device)
+        result["request"] = {"request_s": request_s, "wall_ms": (time.perf_counter() - t0) * 1e3,
+                             "chars": len(text)}
+        result["serve_counts"] = K.launch_counts()
+        del svc
+
+        if preempt:
+            result["preempt"] = _preempt_and_resume(train_args, d, updates + 1)
+    log(json.dumps({"phase": "warm_start", **result}))
+    return result
+
+
+class _UpdateTimes:
+    """The wall ms of each ``Trainer.train_step`` (one update, every
+    micro-batch), ending in a synchronize on the card; a list."""
+
+    def __init__(self, device):
+        self.device, self.times = device, []
+
+    def __enter__(self):
+        self.real = Trainer.train_step
+        real, times, device = self.real, self.times, self.device
+
+        def timed(trainer, micro):
+            _sync(device)
+            t0 = time.perf_counter()
+            out = real(trainer, micro)
+            _sync(device)
+            times.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        Trainer.train_step = timed
+        return self.times
+
+    def __exit__(self, *exc):
+        Trainer.train_step = self.real
+
+
+def _preempt_and_resume(train_args, d, max_updates):
+    """A train subprocess sent SIGTERM once it logs its first update: exit
+    0, a checkpoint at the update it reports, then a resume to
+    ``max_updates``."""
+    import signal
+
+    from speecht5_tpu_torch.utils.checkpoint import checkpoints
+
+    save_dir = os.path.join(d, "ckpt_preempted")
+    cmd = [sys.executable, "-m", "speecht5_tpu_torch.cli.train",
+           *train_args(save_dir), "--max-updates", str(max_updates)]
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    with open(os.path.join(d, "preempt.err"), "w+") as err:
+        proc = subprocess.Popen(cmd, cwd=repo, env=env, stdout=subprocess.PIPE,
+                                stderr=err, text=True)
+        lines, signalled = [], None
+        try:
+            for line in proc.stdout:
+                lines.append(line.strip())
+                if signalled is None and line.startswith('{"step": 1,'):
+                    proc.send_signal(signal.SIGTERM)
+                    signalled = time.perf_counter()
+            rc = proc.wait(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        err.seek(0)
+        tail = err.read()[-3000:]
+    pre = [json.loads(l) for l in lines if l.startswith('{"preempted"')]
+    saved = [s for s, _ in checkpoints(save_dir)]
+    if rc != 0 or signalled is None or len(pre) != 1 or saved != [pre[0]["step"]] \
+            or not 1 <= pre[0]["step"] < max_updates:
+        raise AssertionError(f"preempted run: rc {rc}, stdout {lines[-5:]}, saved "
+                             f"{saved}, stderr {tail}")
+    resumed = cli_train.main(train_args(save_dir) + ["--max-updates", str(max_updates)])
+    if (resumed["steps"] != max_updates or resumed["preempted"]
+            or len(resumed["history"]) != max_updates - pre[0]["step"]):
+        raise AssertionError(f"resume after preemption: {resumed}")
+    return {"preempted_at": pre[0]["step"], "exit_after_signal_s":
+            time.perf_counter() - signalled, "resumed_to": resumed["steps"]}
+
+
+# -------------------------------------------------------------------- TTS
+
+TTS_TEXTS = ("hello world", "the quick brown fox jumps over the lazy dog near the bank")
+# cli/serve.py's --tts-bucket-tokens default, and the ids of the longer
+# text (its letters and EOS)
+TTS_BUCKET_TOKENS = 128
+TTS_TEXT_IDS = len(TTS_TEXTS[-1]) + 1
+# a random model's stop logits are ~N(0, 1): without this bias on
+# prob_out it would stop at its first steps; at -8 every request runs to
+# its max_len_ratio bound (10 frames a token)
+TTS_STOP_BIAS = -8.0
+# tts_parity's early-stop run: a quarter of the 10 frames a token bound
+TTS_MIN_LEN_RATIO = 2.5
+
+
+def hifigan_hf_state_dict(cfg, seed=0):
+    """Seeded weights of the released HiFi-GAN generator's geometry in the
+    HF naming (``upsampler.<i>``, parametrized weight norm with torch's
+    gains: per output channel for Conv1d, per input channel for
+    ConvTranspose1d; ``mean`` / ``scale``), for
+    ``utils/convert.convert_hifigan_state_dict``."""
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def conv(name, c_out, c_in, k, transposed=False):
+        v = torch.randn((c_in, c_out, k) if transposed else (c_out, c_in, k),
+                        generator=g) * 0.05
+        sd[f"{name}.parametrizations.weight.original0"] = \
+            v.pow(2).sum((1, 2), keepdim=True).sqrt() * (1 + 0.1 * torch.rand(
+                (v.shape[0], 1, 1), generator=g))
+        sd[f"{name}.parametrizations.weight.original1"] = v
+        sd[f"{name}.bias"] = torch.randn(c_out, generator=g) * 0.01
+
+    ch = cfg.upsample_initial_channel
+    conv("conv_pre", ch, cfg.in_dim, 7)
+    nk = len(cfg.resblock_kernel_sizes)
+    for i, (r, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
+        conv(f"upsampler.{i}", ch // 2, ch, k, transposed=True)
+        ch //= 2
+        for j, (rk, rd) in enumerate(zip(cfg.resblock_kernel_sizes, cfg.resblock_dilations)):
+            for n in range(len(rd)):
+                conv(f"resblocks.{i * nk + j}.convs1.{n}", ch, ch, rk)
+                conv(f"resblocks.{i * nk + j}.convs2.{n}", ch, ch, rk)
+    conv("conv_post", 1, ch, 7)
+    sd["mean"] = torch.randn(cfg.in_dim, generator=g) - 5.0
+    sd["scale"] = torch.rand(cfg.in_dim, generator=g) + 0.5
+    return sd
+
+
+def tts_model(base_cfg, dtype, kernels, device, seed=0):
+    """The served TTS model: ``base_cfg`` at the letter vocabulary, every
+    kernel on when ``kernels`` (the beam's overrides: the encoder's
+    inference attention and the decode-step kernel), seeded weights, the
+    stop logits' bias at ``TTS_STOP_BIAS``."""
+    cfg = serve_config(base_cfg, dtype, kernels=kernels, overrides=BEAM_OVERRIDES)
+    model = init_model(cfg, torch.Generator().manual_seed(seed), device)
+    with torch.no_grad():
+        model.speech_decoder_postnet.prob_out.bias.fill_(TTS_STOP_BIAS)
+    return cfg, model
+
+
+def tts_vocoder(n_mels, device, seed=0, cfg=None):
+    """The released HiFi-GAN config at ``n_mels`` (or ``cfg``), seeded
+    weights in the HF naming put through ``convert_hifigan_state_dict``."""
+    from speecht5_tpu_torch.models.hifigan import HiFiGANConfig, HiFiGANGenerator
+    from speecht5_tpu_torch.utils.convert import convert_hifigan_state_dict
+
+    cfg = cfg or HiFiGANConfig(in_dim=n_mels)
+    voc = HiFiGANGenerator(cfg)
+    voc.load_state_dict(convert_hifigan_state_dict(hifigan_hf_state_dict(cfg, seed)))
+    return voc.to(device).eval()
+
+
+def tts_launches_expected(cfg, steps: int) -> dict:
+    """The TTS path's launches for one request: the text encoder's inference
+    attention per layer (bf16: bias pass and main loop) once, and per decode
+    step one decode-step launch per decoder layer for the self- and one for
+    the cross-attention (the latter with the max-probability output);
+    nothing else."""
+    want = dict.fromkeys(KERNELS, 0)
+    want["banded_flash_attention"] = cfg.encoder.num_layers * K.fwd_launches(cfg.compute_dtype)
+    want["flash_attention_bias"] = 2 * cfg.decoder.num_layers * steps
+    return want
+
+
+def make_tts_service(cfg, model, dict_path, device, vocoder=None, griffin_lim=False,
+                     max_frames=1024, bucket_tokens=TTS_BUCKET_TOKENS):
+    argv = ["--task", "t2s", "--ckpt", "random-init", "--dict", dict_path,
+            "--max-batch", "1", "--dtype", cfg.dtype, "--max-frames", str(max_frames),
+            "--tts-bucket-tokens", str(bucket_tokens)]
+    args = build_parser().parse_args(argv + (["--griffin-lim"] if griffin_lim else []))
+    return Service(args, model=model, cfg=cfg, vocoder=vocoder, device=device)
+
+
+def phase_serve_tts(base_cfg, device="cuda", dtype="bfloat16", texts=TTS_TEXTS, seed=0,
+                    max_frames=1024, bucket_tokens=TTS_BUCKET_TOKENS, vocoder_cfg=None):
+    """``/tts`` in process: Service(--task t2s) at ``base_cfg`` with every
+    kernel on, once with a HiFi-GAN vocoder (the released config, seeded
+    weights through ``convert_hifigan_state_dict``) and once with
+    ``--griffin-lim``, each answering ``texts``.  Per request: wall ms,
+    decode steps, the waveform's seconds and each kernel's launches, which
+    must be ``tts_launches_expected`` on a card; then one more request
+    under ``torch.profiler``: every device launch per decode step."""
+    cfg, model = tts_model(base_cfg, dtype, True, device, seed)
+    on_card = torch.device(device).type == "cuda"
+    card = card_line() if on_card else "cpu"
+    results, counts = [], dict.fromkeys(KERNELS, 0)
+    with tempfile.TemporaryDirectory() as d:
+        dict_path = write_dictionary(d)
+        services = (("hifigan", make_tts_service(
+                        cfg, model, dict_path, device, max_frames=max_frames,
+                        bucket_tokens=bucket_tokens,
+                        vocoder=tts_vocoder(cfg.n_mels, device, seed, vocoder_cfg))),
+                    ("griffin_lim", make_tts_service(
+                        cfg, model, dict_path, device, griffin_lim=True,
+                        max_frames=max_frames, bucket_tokens=bucket_tokens)))
+    for name, svc in services:
+        hop = 256
+        for text in texts:
+            _sync(device)
+            before, steps0 = K.launch_counts(), svc.tts.steps_run
+            t0 = time.perf_counter()
+            wav = svc.synthesize(text)
+            _sync(device)
+            wall = (time.perf_counter() - t0) * 1e3
+            launches = {n: c - before[n] for n, c in K.launch_counts().items()}
+            for n, c in launches.items():
+                counts[n] += c
+            steps = svc.tts.steps_run - steps0
+            tokens = len(text) + 1
+            want = tts_launches_expected(cfg, steps) if on_card else dict.fromkeys(KERNELS, 0)
+            max_steps = min(int(tokens * svc.tts.max_len_ratio / cfg.reduction_factor),
+                            svc.tts.max_steps)
+            results.append({"vocoder": name, "text_chars": len(text), "tokens": tokens,
+                            "decode_steps": steps, "wall_ms": wall,
+                            "ms_per_step": wall / max(steps, 1), "wav_s": len(wav) / SR,
+                            "launches": launches, "card": card})
+            if (launches != want or not 0 < steps <= max_steps + CHECK_EVERY
+                    or len(wav) != max_steps * cfg.reduction_factor * hop
+                    or not np.isfinite(wav).all() or np.abs(wav).max() > 1.0):
+                raise AssertionError(f"TTS request {results[-1]}: want launches {want}, "
+                                     f"{max_steps} steps, {len(wav)} samples")
+        if svc.tts_requests != len(texts) or svc.tts_calls != len(texts):
+            raise AssertionError(f"Service counted {svc.tts_requests} TTS requests")
+    for r in results:
+        log(json.dumps({"served_tts": r}))
+    out = {"counts": counts, "requests": results}
+    if on_card:
+        out["device_launches"] = tts_device_launches(services[0][1], texts[-1])
+        log(json.dumps({"tts_device_launches": out["device_launches"]}))
+    return out
+
+
+def tts_device_launches(svc, text) -> dict:
+    """Every launch the card runs for one /tts request (kernels, copies and
+    fills, from ``torch.profiler``'s device events), per decode step too."""
+    from torch.profiler import ProfilerActivity, profile
+
+    steps0 = svc.tts.steps_run
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        svc.synthesize(text)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    steps = svc.tts.steps_run - steps0
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    busy = _union_ms([(e.time_range.start, e.time_range.end) for e in events])
+    by_name = {}     # summed under the name's first 60 characters
+    for e in events:
+        key = e.name[:60]
+        by_name[key] = by_name.get(key, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"device_launches": len(events), "decode_steps": steps,
+            "per_step": len(events) / steps if steps else None, "device_busy_ms": busy,
+            "wall_ms_profiled": wall, "idle_share": 1.0 - busy / wall,
+            "top_device_ms": {n: round(t, 3) for n, t in top}}
+
+
+def _union_ms(intervals) -> float:
+    """Total length in ms of the union of [start, end) intervals in us."""
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total / 1e3
+
+
+def phase_tts_parity(base_cfg, device="cuda", texts=TTS_TEXTS, seed=0, max_frames=1024,
+                     bucket_tokens=TTS_BUCKET_TOKENS, mel_atol=TOL_MEL, focus_atol=1e-4,
+                     wav_atol=2e-3, vocoder_cfg=None):
+    """f32, the same weights and the same prenet dropout generator seed: the
+    kernel path (the text encoder's inference attention, the decode-step
+    kernel with its max-probability output) against the plain path, the
+    texts as one padded batch, twice.  First at ``TTS_STOP_BIAS``, where
+    every row runs to its length bound.  Then at ``TTS_MIN_LEN_RATIO`` and a
+    stop bias chosen from the first run's stop logits, so that the longest
+    row's stop probability first reaches the threshold between its minimum
+    length and the middle of its allowed range.  The stop logits do not
+    feed back into the decode, so the frames stay the same and each row's
+    stop step follows from the first run: both paths must stop every row
+    there, the longest row early.  Each run: lengths equal, mel, mel_before
+    and stop_probs within ``mel_atol`` (absolute), focus rate within
+    ``focus_atol``, HiFi-GAN waveforms within ``wav_atol``."""
+    from speecht5_tpu_torch.data.dictionary import load_cli_dictionary
+    from speecht5_tpu_torch.decode.tts import TTSDecoder
+
+    with tempfile.TemporaryDirectory() as d:
+        dictionary, _ = load_cli_dictionary(write_dictionary(d), None)
+    toks = np.full((len(texts), bucket_tokens), base_cfg.pad_id, np.int64)
+    for b, text in enumerate(texts):
+        ids = dictionary.encode_line(" ".join(list(text.upper().replace(" ", "|"))))
+        toks[b, : len(ids)] = ids
+    voc = tts_vocoder(base_cfg.n_mels, device, seed, vocoder_cfg)
+    state, r = None, base_cfg.reduction_factor
+
+    def run_pair(stop_bias, min_ratio):
+        results = []
+        for kernels in (True, False):
+            nonlocal state
+            cfg, model = tts_model(base_cfg, "float32", kernels, device, seed)
+            if state is None:
+                state = model.state_dict()
+            model.load_state_dict(state)
+            with torch.no_grad():
+                model.speech_decoder_postnet.prob_out.bias.fill_(stop_bias)
+            dec = TTSDecoder(model, max_frames=max_frames, vocoder=voc, device=device,
+                             min_len_ratio=min_ratio)
+            gen = torch.Generator(device=device).manual_seed(seed + 5)
+            spk = torch.zeros(len(texts), cfg.spk_embed_dim, device=device)
+            K.reset_launch_counts()
+            results.append(dec.text_to_speech(toks, spk, generator=gen))
+            counts = K.launch_counts()
+            if torch.device(device).type == "cuda" and kernels != bool(
+                    counts["flash_attention_bias"]):
+                raise AssertionError(f"TTS parity: launches {counts} on the "
+                                     f"{'kernel' if kernels else 'plain'} path")
+            threshold = dec.threshold
+            del model, dec
+        k, p = results
+        diff = lambda a, b: (a.float() - b.float()).abs().max().item()
+        res = {"stop_bias": stop_bias, "threshold": threshold, "min_len_ratio": min_ratio,
+               "lengths_kernel": k.lengths.tolist(), "lengths_plain": p.lengths.tolist(),
+               "mel_max_abs_err": diff(k.mel, p.mel),
+               "mel_before_max_abs_err": diff(k.mel_before, p.mel_before),
+               "focus_rate_max_abs_err": diff(k.focus_rate, p.focus_rate),
+               "focus_rate": k.focus_rate.tolist(),
+               "wav_max_abs_err": diff(k.wav, p.wav),
+               "stop_probs_max_abs_err": diff(k.stop_probs, p.stop_probs)}
+        if (not torch.equal(k.lengths, p.lengths) or res["mel_max_abs_err"] > mel_atol
+                or res["mel_before_max_abs_err"] > mel_atol
+                or res["stop_probs_max_abs_err"] > mel_atol
+                or res["focus_rate_max_abs_err"] > focus_atol
+                or res["wav_max_abs_err"] > wav_atol
+                or not all(torch.isfinite(t).all() for t in (k.mel, k.wav, k.focus_rate))):
+            raise AssertionError(f"TTS paths differ: {res}")
+        return res, k
+
+    result, k = run_pair(TTS_STOP_BIAS, 0.0)
+    # each row's stop logits per step (the largest of its r frames) and its
+    # step bound, from the first run; TTSDecoder's minimum steps
+    bounds = (k.lengths // r).cpu()
+    steps = int(bounds.max())
+    probs = k.stop_probs[:, : steps * r].double().clamp(1e-300, 1 - 1e-16).cpu()
+    logits = (torch.logit(probs) - TTS_STOP_BIAS).view(len(texts), steps, r).amax(-1)
+    enc_len = torch.from_numpy(toks != base_cfg.pad_id).sum(-1).to(torch.float32)
+    mins = (enc_len * TTS_MIN_LEN_RATIO / r).to(torch.int32)
+    # a level 0.05 under the longest row's largest logit between its
+    # minimum and the middle of its range makes its first step at or over
+    # the level unambiguous on both paths
+    row = int(bounds.argmax())
+    lo = max(int(mins[row]), 1)
+    level = logits[row, lo - 1: (lo + int(bounds[row])) // 2].max().item() - 0.05
+    stop_bias = math.log(result["threshold"] / (1 - result["threshold"])) - level
+    want = []
+    for b in range(len(texts)):
+        first = max(int(mins[b]), 1)
+        hits = (logits[b, first - 1: int(bounds[b])] >= level).nonzero()
+        want.append(r * (first + int(hits[0]) if len(hits) else int(bounds[b])))
+    early, _ = run_pair(stop_bias, TTS_MIN_LEN_RATIO)
+    early["row"], early["expected_lengths"] = row, want
+    result["early_stop"] = early
+    log(json.dumps({"phase": "tts_parity", **result}))
+    if early["lengths_kernel"] != want or not want[row] < int(k.lengths[row]):
+        raise AssertionError(f"TTS parity: the stop rule should give {want} frames, "
+                             f"row {row} stopping early by threshold: {early}")
+    return result
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -1401,7 +2020,9 @@ def kernels_line(records, counts, by_path=None):
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "tolerance")
     rates = ("bound_share", "achieved_tflops",      # the redesigned kernels'
-             "parts_ms", "graph_ms", "library_graph_ms", "bound_share_graph")
+             "parts_ms", "graph_ms", "library_graph_ms", "bound_share_graph",
+             "max_prob_err", "max_prob_tolerance",   # the TTS cross step's output
+             "without_max_prob_ms", "without_max_prob_graph_ms")
     out = []
     for name, meta in KERNELS.items():
         main = records[name][MAIN_CASE[name]]
@@ -1508,10 +2129,30 @@ def main():
     phase_t2s_parity(C.speecht5_base())
     walls["t2s_parity"] = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
+    warm = phase_warm_start()
+    walls["warm_start"] = time.perf_counter() - t0
+    check_train_counts(warm["train_counts"], warm["layer_runs"], "warm-started encoder")
+    wsc = warm["serve_counts"]
+    if wsc["banded_flash_attention"] != base.encoder.num_layers * K.fwd_launches(
+            torch.bfloat16) or wsc["conv_stack"] != len(base.conv_features.layers) - 1:
+        raise AssertionError(f"greedy request from the converted checkpoint: {wsc}")
+
+    t0 = time.perf_counter()
+    tts = phase_serve_tts(C.speecht5_base())
+    walls["serve_tts"] = time.perf_counter() - t0
+    log(json.dumps({"phase": "serve_tts", "launches": tts["counts"]}))
+
+    t0 = time.perf_counter()
+    phase_tts_parity(C.speecht5_base())
+    walls["tts_parity"] = time.perf_counter() - t0
+
     walls["total"] = time.perf_counter() - t_start
     log(json.dumps({"phase_seconds": walls, "card": card_line()}))
     by_path = {"serve": served["counts"], "serve_beam": beam["counts"],
-               "train_s2t": tc, "train_t2s": t2s["counts"]}
+               "train_s2t": tc, "train_t2s": t2s["counts"],
+               "warm_start_train": warm["train_counts"],
+               "warm_start_serve": wsc, "serve_tts": tts["counts"]}
     counts = {n: sum(c[n] for c in by_path.values()) for n in KERNELS}
     log(json.dumps(kernels_line(records, counts, by_path)))
     torch.cuda.synchronize()

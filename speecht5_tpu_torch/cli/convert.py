@@ -1,0 +1,98 @@
+"""Convert a released SpeechT5 checkpoint into a model-only port checkpoint
+(``<out>/checkpoint_0.pt``) for ``cli/train.py --finetune-from`` and
+``cli/serve.py --ckpt`` (port of ``speecht5_tpu/cli/convert.py``).
+
+Two source formats:
+  fairseq -- the original ``.pt`` files (read without fairseq or omegaconf,
+             ``utils/convert.load_fairseq_checkpoint``); the model's
+             geometry is ``--arch`` at the dictionary's vocabulary;
+  hf      -- a transformers checkpoint directory (``config.json`` and
+             ``pytorch_model.bin``; the geometry comes from its config), or
+             a bare ``pytorch_model.bin`` state-dict file (``--arch``).
+
+Usage:
+    python -m speecht5_tpu_torch.cli.convert --pt speecht5_base.pt \\
+        --arch speecht5_base_asr --dict dict.ltr.txt --out ckpt/pretrained
+
+    python -m speecht5_tpu_torch.cli.convert --format hf --pt ./speecht5_asr/ \\
+        --out ckpt/converted
+
+Every key of the model is written: a key the source lacks, or whose shape
+differs from the model's (a text head at another vocabulary size), keeps
+the initial value of a model seeded 0, as ``--finetune-from`` would.
+Unknown keys, missing keys and shape mismatches are printed; ``--strict``
+makes any of them an error.  The component converters (WavLM, Whisper, LLaMA) arrive with the
+WavLLM family (ROADMAP A.9).  Runs on the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+
+def build_parser():
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--pt", required=True,
+                   help="fairseq .pt checkpoint, or HF model dir / state-dict file")
+    p.add_argument("--format", choices=("fairseq", "hf"), default="fairseq")
+    p.add_argument("--arch", default="speecht5_base_asr",
+                   help="config preset (fairseq, or a bare HF state-dict file)")
+    p.add_argument("--dict", dest="dict_path", default=None)
+    p.add_argument("--vocab-size", type=int, default=None)
+    p.add_argument("--out", required=True, help="port checkpoint dir")
+    p.add_argument("--strict", action="store_true",
+                   help="fail on any unknown or missing key or shape mismatch")
+    return p
+
+
+def main(argv=None):
+    """Returns the report {"unknown_keys", "missing", "shape_mismatches",
+    "checkpoint"}."""
+    import torch
+
+    from .. import config as C
+    from ..data.dictionary import load_cli_dictionary
+    from ..models.speecht5 import init_model
+    from ..utils.checkpoint import partial_load, save_model_only
+    from ..utils.convert import load_fairseq_checkpoint
+    from ..utils.convert_hf import convert_hf_state_dict, load_hf_checkpoint
+
+    args = build_parser().parse_args(argv)
+    _, cfg_kw = load_cli_dictionary(args.dict_path, args.vocab_size)
+    cfg = None
+    if args.format == "hf":
+        if os.path.isdir(args.pt):
+            cfg, converted, unknown = load_hf_checkpoint(args.pt)
+        else:
+            sd = torch.load(args.pt, map_location="cpu", weights_only=True)
+            converted, unknown = convert_hf_state_dict(sd)
+    else:
+        converted, _, unknown = load_fairseq_checkpoint(args.pt)
+    if cfg is None:
+        cfg = getattr(C, args.arch)(**cfg_kw)
+
+    model = init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    target = model.state_dict()
+    missing = sorted(set(target) - set(converted))
+    extra = sorted(set(converted) - set(target))
+    mism = sorted(k for k in set(target) & set(converted)
+                  if tuple(target[k].shape) != tuple(converted[k].shape))
+    report = {"unknown_keys": unknown + extra, "missing": missing,
+              "shape_mismatches": mism}
+    if args.strict and (report["unknown_keys"] or missing or mism):
+        raise SystemExit(json.dumps(report, indent=2))
+    path = save_model_only(args.out, partial_load(target, converted), step=0)
+    report["checkpoint"] = str(path)
+    print(json.dumps({"out": args.out, "n_converted": len(converted) - len(extra),
+                      "n_unknown": len(report["unknown_keys"]),
+                      "n_missing": len(missing), "n_mismatched": len(mism),
+                      **{k: v[:20] for k, v in report.items()
+                         if k != "checkpoint" and v}}), flush=True)
+    return report
+
+
+if __name__ == "__main__":
+    main()

@@ -1,8 +1,11 @@
-"""HTTP serving for ASR on the PyTorch port (the ASR half of
+"""HTTP serving of ASR and TTS on the PyTorch port (port of
 ``speecht5_tpu/cli/serve.py``):
 
     POST /asr   body: WAV bytes (16 kHz mono)      -> {"text": ...}
+    POST /tts   body: {"text": "..."}               -> WAV bytes (16 kHz mono)
     GET  /healthz                                   -> {"ok": true, ...}
+
+``--task s2t`` serves /asr, ``t2s`` /tts, ``both`` the two from one model.
 
 Design notes (one card):
 - requests are padded to a fixed bucket grid (4/8/16 s by default), each
@@ -18,15 +21,31 @@ Decoders: ``--decoder beam`` (the default), the joint CTC/attention beam
 search (``decode/asr.py:ASRDecoder`` with ``--beam``, ``--max-len`` and
 ``--ctc-weight``; the text is the best hypothesis), and ``ctc_greedy``, the
 encoder-only CTC viterbi.  ``ctc_rescore`` is not ported yet (ROADMAP
-A.4).  The model is restored from the newest ``checkpoint_<step>.pt`` that
-the port's ``cli/train.py`` wrote in ``--ckpt`` (its model state only); a
-caller may instead hand in a model it made (``Service(args, model=...,
-cfg=...)``), as the tests and ``chip_smoke.py`` do.  Runs on the card
-unless ``--device cpu``.
+A.4).
+
+TTS (``decode/tts.py:TTSDecoder``): the text's letters (the dictionary's
+symbols, '|' between words) padded to ``--tts-bucket-tokens``, decoded to
+at most ``--max-frames`` mel frames with a zero x-vector, then to a
+waveform by the HiFi-GAN of ``--vocoder-ckpt`` (a model-only port
+checkpoint of ``models/hifigan.HiFiGANGenerator``, e.g. a released vocoder
+put through ``utils/convert.convert_hifigan_state_dict``) or, with
+``--griffin-lim``, by Griffin-Lim on the card (``ops/mel.mel_to_audio``).
+Concurrent /tts requests are coalesced like /asr's under --max-batch; the
+TTS path is warmed at batch 1 and at --max-batch.
+
+The model is restored from the newest ``checkpoint_<step>.pt`` in
+``--ckpt``: one the port's ``cli/train.py`` wrote, or a model-only one from
+``cli/convert.py`` (a converted release); a caller may instead hand in a
+model it made (``Service(args, model=..., cfg=..., vocoder=...)``), as the
+tests and ``chip_smoke.py`` do.  Runs on the card unless ``--device cpu``.
 
 Usage:
-    python -m speecht5_tpu_torch.cli.serve --arch speecht5_base_asr \\
-        --ckpt ckpt/ --dict dict.ltr.txt --port 8080
+    python -m speecht5_tpu_torch.cli.serve --task s2t \\
+        --arch speecht5_base_asr --ckpt ckpt/ --dict dict.ltr.txt --port 8080
+
+    python -m speecht5_tpu_torch.cli.serve --task t2s --arch speecht5_base \\
+        --ckpt ckpt/ --dict dict.txt --vocoder-ckpt hifigan/ \\
+        --override decoder.use_pallas_attn=True
 """
 
 from __future__ import annotations
@@ -82,36 +101,59 @@ def _parse_wav(body: bytes) -> np.ndarray:
     return pcm.astype(np.float32) / 32768.0
 
 
+def _wav_bytes(wav: np.ndarray) -> bytes:
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(SR)
+        pcm = np.clip(wav, -1.0, 1.0)
+        w.writeframes((pcm * 32767.0).astype(np.int16).tobytes())
+    return buf.getvalue()
+
+
 def restore_model(args, device):
     """``getattr(config, args.arch)`` at the dictionary's vocabulary and
-    ``args.dtype``, with the model state of the newest checkpoint in
-    ``args.ckpt`` (JAX cli/serve.py:110-121).  Raises SystemExit when there
-    is none.  Returns (cfg, model in eval mode on ``device``)."""
-    import torch
-
+    ``args.dtype`` with ``args.override``, and the model state of the
+    newest checkpoint in ``args.ckpt``, a train or a model-only one (JAX
+    cli/serve.py:110-121).  Raises SystemExit when there is none.  Returns
+    (cfg, model in eval mode on ``device``)."""
     from .. import config as C
     from ..models.speecht5 import init_model
-    from ..utils.checkpoint import checkpoints
+    from ..utils.checkpoint import restore_model as restore_state
 
     _, cfg_kw = load_cli_dictionary(args.dict_path, None)
     cfg_kw["dtype"] = args.dtype
-    cfg = getattr(C, args.arch)(**cfg_kw)
-    found = checkpoints(args.ckpt)
-    if not found:
+    cfg = C.apply_overrides(getattr(C, args.arch)(**cfg_kw), args.override)
+    state, step = restore_state(args.ckpt)
+    if state is None:
         raise SystemExit(f"no checkpoint in {args.ckpt}")
-    step, path = found[-1]
-    state = torch.load(path, map_location="cpu", weights_only=True)
     model = init_model(cfg, device=device)
-    model.load_state_dict(state["model"])
+    model.load_state_dict(state)
     print(f"loaded checkpoint step {step}", flush=True)
     return cfg, model
+
+
+def restore_vocoder(path, n_mels: int, device):
+    """The HiFi-GAN generator (the released config at ``n_mels``) with the
+    model state of the newest checkpoint in ``path``."""
+    from ..models.hifigan import HiFiGANConfig, HiFiGANGenerator
+    from ..utils.checkpoint import restore_model as restore_state
+
+    state, _ = restore_state(path)
+    if state is None:
+        raise SystemExit(f"no vocoder checkpoint in {path}")
+    voc = HiFiGANGenerator(HiFiGANConfig(in_dim=n_mels))
+    voc.load_state_dict(state)
+    return voc.to(device).eval()
 
 
 class Service:
     """Owns the decoder; one device batch in flight at a time."""
 
-    def __init__(self, args, *, model=None, cfg=None, device="cuda"):
+    def __init__(self, args, *, model=None, cfg=None, vocoder=None, device="cuda"):
         from ..decode.asr import ASRDecoder, CTCDecoder
+        from ..decode.tts import TTSDecoder
 
         self.device = resolve_device(device)
         self.lock = threading.Lock()
@@ -139,24 +181,43 @@ class Service:
         self.batch_window_s = args.batch_window_ms / 1000.0
         self.asr_calls = 0      # device batches launched
         self.asr_requests = 0   # chunks decoded (>= calls under batching)
+        self.tts_calls = 0
+        self.tts_requests = 0
         self._queue = []
         self._queue_cv = threading.Condition()
-        if args.decoder == "beam":
-            self.asr = ASRDecoder(model, beam_size=args.beam, max_len=args.max_len,
-                                  ctc_weight=args.ctc_weight, device=self.device)
-        else:
-            self.asr = _CTCAdapter(CTCDecoder(model, blank_id=cfg.blank_id,
-                                              device=self.device))
-        for secs in self.buckets():
+        self._tts_queue = []
+        self._tts_cv = threading.Condition()
+        self.asr = self.tts = None
+        if args.task in ("s2t", "both"):
+            if args.decoder == "beam":
+                self.asr = ASRDecoder(model, beam_size=args.beam, max_len=args.max_len,
+                                      ctc_weight=args.ctc_weight, device=self.device)
+            else:
+                self.asr = _CTCAdapter(CTCDecoder(model, blank_id=cfg.blank_id,
+                                                  device=self.device))
+            for secs in self.buckets():
+                for bs in sorted({1, self.max_batch}):
+                    wav = np.zeros((bs, secs * SR), np.float32)
+                    steps = getattr(self.asr, "steps_run", None)   # the beam's
+                    self.asr(wav, np.full((bs,), secs * SR, np.int32))
+                    note = ("" if steps is None else
+                            f" ({self.asr.steps_run - steps} decode steps)")
+                    print(f"warmed ASR bucket {secs}s batch {bs}{note}", flush=True)
+            if self.max_batch > 1:
+                threading.Thread(target=self._batcher_loop, daemon=True).start()
+        if args.task in ("t2s", "both"):
+            if vocoder is None and args.vocoder_ckpt:
+                vocoder = restore_vocoder(args.vocoder_ckpt, cfg.n_mels, self.device)
+            self.tts = TTSDecoder(model, max_frames=args.max_frames, vocoder=vocoder,
+                                  device=self.device)
             for bs in sorted({1, self.max_batch}):
-                wav = np.zeros((bs, secs * SR), np.float32)
-                steps = getattr(self.asr, "steps_run", None)   # the beam's
-                self.asr(wav, np.full((bs,), secs * SR, np.int32))
-                note = ("" if steps is None else
-                        f" ({self.asr.steps_run - steps} decode steps)")
-                print(f"warmed ASR bucket {secs}s batch {bs}{note}", flush=True)
-        if self.max_batch > 1:
-            threading.Thread(target=self._batcher_loop, daemon=True).start()
+                toks = np.full((bs, args.tts_bucket_tokens), cfg.eos_id, np.int64)
+                steps = self.tts.steps_run
+                self.tts.text_to_speech(toks, self._spkembs(bs))
+                print(f"warmed TTS batch {bs} ({self.tts.steps_run - steps} decode "
+                      "steps)", flush=True)
+            if self.max_batch > 1:
+                threading.Thread(target=self._tts_batcher_loop, daemon=True).start()
 
     def buckets(self):
         return [int(s) for s in self.args.asr_buckets.split(",")]
@@ -292,6 +353,84 @@ class Service:
             texts = [self._wait(s) for s in slots]
         return self._join_transcripts(texts)
 
+    # ---------------------------------------------------------------- TTS
+    def _spkembs(self, rows: int):
+        """Zero x-vectors, as the JAX service sends (no speaker input)."""
+        dim = self.cfg.spk_embed_dim
+        return None if dim is None else np.zeros((rows, dim), np.float32)
+
+    def _synth_batch(self, toks: np.ndarray, n_real: int) -> list:
+        """One TTS decode over ``toks`` [R, L]; the first ``n_real``
+        waveforms (padding rows are decoded and never read)."""
+        if self.tts.vocoder is None and not self.args.griffin_lim:
+            raise RuntimeError(
+                "no vocoder loaded — start with --vocoder-ckpt "
+                "(a converted HiFi-GAN checkpoint) or --griffin-lim")
+        from ..ops.mel import mel_to_audio
+
+        with self.lock:
+            out = self.tts.text_to_speech(toks, self._spkembs(toks.shape[0]))
+            if out.wav is not None:
+                wavs = [out.wav[b, : int(out.wav_lengths[b])] for b in range(n_real)]
+            else:   # Griffin-Lim on the card
+                wavs = [mel_to_audio(out.mel[b, : int(out.lengths[b])],
+                                     n_mels=self.cfg.n_mels) for b in range(n_real)]
+            wavs = [w.float().cpu().numpy() for w in wavs]
+            self.tts_calls += 1
+            self.tts_requests += n_real
+        return wavs
+
+    def _tts_batcher_loop(self):
+        """Coalesce concurrent /tts requests into one batched decode."""
+        while True:
+            with self._tts_cv:
+                while not self._tts_queue:
+                    self._tts_cv.wait()
+            deadline = time.monotonic() + self.batch_window_s
+            while time.monotonic() < deadline:
+                with self._tts_cv:
+                    if len(self._tts_queue) >= self.max_batch:
+                        break
+                time.sleep(self.batch_window_s / 10)
+            with self._tts_cv:
+                group = self._tts_queue[: self.max_batch]
+                del self._tts_queue[: len(group)]
+            rows = 1 if len(group) == 1 else self.max_batch
+            toks = np.full((rows, self.args.tts_bucket_tokens), self.cfg.pad_id, np.int64)
+            for b, s in enumerate(group):
+                toks[b, : len(s["ids"])] = s["ids"]
+            try:
+                wavs = self._synth_batch(toks, n_real=len(group))
+                for b, s in enumerate(group):
+                    s["wav"] = wavs[b]
+            except Exception as e:  # noqa: BLE001 — deliver to the waiters
+                for s in group:
+                    s["error"] = e
+            finally:
+                for s in group:
+                    s["event"].set()
+
+    def synthesize(self, text: str) -> np.ndarray:
+        """Text -> 16 kHz waveform (JAX cli/serve.py:425-450): the letters of
+        the upper-cased text, '|' for a space, then EOS."""
+        ids = self.dictionary.encode_line(" ".join(list(text.upper().replace(" ", "|"))))
+        L = self.args.tts_bucket_tokens
+        if len(ids) > L:
+            raise RequestTooLarge(f"text tokenizes to {len(ids)} ids; "
+                                  f"--tts-bucket-tokens {L}")
+        if self.max_batch <= 1:
+            toks = np.full((1, L), self.cfg.pad_id, np.int64)
+            toks[0, : len(ids)] = ids
+            return self._synth_batch(toks, n_real=1)[0]
+        slot = {"event": threading.Event(), "ids": ids, "wav": None}
+        with self._tts_cv:
+            self._tts_queue.append(slot)
+            self._tts_cv.notify()
+        slot["event"].wait()
+        if "error" in slot:
+            raise slot["error"]
+        return slot["wav"]
+
 
 def make_handler(svc: Service):
     class Handler(BaseHTTPRequestHandler):
@@ -310,12 +449,15 @@ def make_handler(svc: Service):
             if self.path == "/healthz":
                 self._json(200, {
                     "ok": True,
-                    "asr": True,
+                    "asr": svc.asr is not None,
+                    "tts": svc.tts is not None,
                     "asr_buckets_s": svc.buckets(),
                     "decoder": svc.args.decoder,
                     "max_batch": svc.max_batch,
                     "asr_calls": svc.asr_calls,
                     "asr_requests": svc.asr_requests,
+                    "tts_calls": svc.tts_calls,
+                    "tts_requests": svc.tts_requests,
                 })
             else:
                 self._json(404, {"error": "not found"})
@@ -325,8 +467,20 @@ def make_handler(svc: Service):
             body = self.rfile.read(n)
             try:
                 if self.path == "/asr":
+                    if svc.asr is None:
+                        return self._json(400, {"error": "asr not enabled"})
                     wav = _parse_wav(body)
                     return self._json(200, {"text": svc.transcribe(wav)})
+                if self.path == "/tts":
+                    if svc.tts is None:
+                        return self._json(400, {"error": "tts not enabled"})
+                    data = _wav_bytes(svc.synthesize(json.loads(body.decode())["text"]))
+                    self.send_response(200)
+                    self.send_header("Content-Type", "audio/wav")
+                    self.send_header("Content-Length", str(len(data)))
+                    self.end_headers()
+                    self.wfile.write(data)
+                    return
                 self._json(404, {"error": "not found"})
             except RequestTooLarge as e:
                 self._json(413, {"error": str(e)})
@@ -337,10 +491,24 @@ def make_handler(svc: Service):
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description=__doc__)
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--task", default="s2t", choices=("s2t", "t2s", "both"))
     p.add_argument("--arch", default="speecht5_base_asr")
     p.add_argument("--ckpt", required=True)
     p.add_argument("--dict", dest="dict_path", required=True)
+    p.add_argument("--vocoder-ckpt", default=None,
+                   help="/tts: a port checkpoint dir of HiFi-GAN weights")
+    p.add_argument("--griffin-lim", action="store_true",
+                   help="/tts without a vocoder checkpoint: invert the mel "
+                        "with Griffin-Lim (ops/mel.mel_to_audio)")
+    p.add_argument("--max-frames", type=int, default=1024,
+                   help="/tts: most mel frames a request may decode")
+    p.add_argument("--tts-bucket-tokens", type=int, default=128,
+                   help="/tts: texts are padded to this many tokens")
+    p.add_argument("--override", action="append", default=[],
+                   help="config field override, dotted path = literal, repeatable "
+                        "(e.g. decoder.use_pallas_attn=True)")
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--decoder", default="beam", choices=DECODERS,

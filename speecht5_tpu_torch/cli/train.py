@@ -24,9 +24,24 @@ One update consumes ``--accum`` consecutive batches of ``--batch-size``
 ``--valid-interval`` updates (loss metrics, and for s2t greedy-CTC
 UER/WER) and, with
 ``--best-checkpoint-metric``, keeps the best checkpoint under
-``<save-dir>/best/``.  Runs on the card unless ``--device cpu``.  Other
-tasks, ``--finetune-from`` (JAX checkpoint conversion) and multi-process
-training are not ported yet and are refused.
+``<save-dir>/best/``.  Runs on the card unless ``--device cpu``.
+
+Warm start: ``--finetune-from`` takes a port checkpoint directory (the
+newest ``checkpoint_<step>.pt``, train or model-only: ``cli/convert.py``
+writes one from a released fairseq or HF checkpoint, the top-level
+``convert_jax_checkpoint.py`` from a JAX one) or a fairseq ``.pt`` file,
+and loads its model state into the fresh model before the optimizer is
+built, key by key: a key it lacks or whose shape differs (a text head at
+another vocabulary size) keeps its initial value.  A resumable checkpoint
+in ``--save-dir`` takes precedence (the run resumes).
+
+SIGTERM or SIGINT (a preempted job) lets the update in progress finish,
+every ``--accum`` micro-batch of it, then saves a resumable checkpoint at
+that update (the data position included), prints ``{"preempted": true,
+"step": N}`` and returns; a rerun resumes from it.  ``--profile-dir``
+writes a ``torch.profiler`` trace of updates 10-14 there
+(``utils/profiling.trace``).  The s2s, s2c and pretraining tasks and
+multi-process training are not ported yet and are refused.
 """
 
 from __future__ import annotations
@@ -35,6 +50,7 @@ import argparse
 import json
 import math
 import os
+import signal
 import time
 
 import numpy as np
@@ -103,7 +119,10 @@ def build_parser():
                         "best/ checkpoint")
     p.add_argument("--maximize-best-checkpoint-metric", action="store_true")
     p.add_argument("--finetune-from", default=None,
-                   help="not ported yet: needs JAX checkpoint conversion (refused)")
+                   help="warm start (non-strict): a port checkpoint dir "
+                        "(cli/convert.py's output) or a fairseq .pt file")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of updates 10-14 here")
     p.add_argument("--vocab-size", type=int, default=None,
                    help="override vocab (tasks without a dictionary)")
     p.add_argument("--override", action="append", default=[],
@@ -214,9 +233,6 @@ def main(argv=None):
     if args.task not in PORTED_TASKS:
         raise SystemExit(f"--task {args.task} is not ported to "
                          f"speecht5_tpu_torch yet; only {PORTED_TASKS} train")
-    if args.finetune_from:
-        raise SystemExit("--finetune-from needs JAX checkpoint conversion, "
-                         "which is not ported yet")
     if args.labels is None:
         raise SystemExit(f"--task {args.task} needs --labels")
 
@@ -227,6 +243,7 @@ def main(argv=None):
     from ..train.trainer import Trainer, TrainConfig
     from ..utils.checkpoint import restore_latest, save_checkpoint
     from ..utils.device import resolve_device
+    from ..utils.profiling import PhaseTimer, trace
 
     t_start = time.time()
     device = resolve_device(args.device)
@@ -242,6 +259,8 @@ def main(argv=None):
     ds = build_dataset(args, dictionary, cfg, args.manifest, args.labels)
     torch.manual_seed(args.seed)   # the device generator: activation dropout
     model = init_model(cfg, torch.Generator().manual_seed(args.seed), device)
+    if args.finetune_from:
+        warm_start(model, args.finetune_from)
     tcfg = TrainConfig(
         lr=args.lr, warmup_steps=args.warmup, clip_norm=args.clip_norm,
         schedule=args.schedule, hold_steps=args.hold_steps,
@@ -283,19 +302,52 @@ def main(argv=None):
                 yield epoch, bi, ds.collate(items, cfg.eos_id, cfg.pad_id)
             epoch, start = epoch + 1, 0
 
+    # preemption: SIGTERM / SIGINT set a flag, read between updates (JAX
+    # cli/train.py:445-462); handlers are set only from the main thread
+    stop = {"flag": False}
+    prev_handlers = {}
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            prev_handlers[sig] = signal.signal(
+                sig, lambda signum, frame: stop.update(flag=True))
+        except ValueError:      # not the main thread
+            pass
+
     history, micro = [], []
     log_sums, log_n = {}, 0
     last_path = None
+    preempted = False
+    profiler = None
+    timer = PhaseTimer("train", verbose=False)
+    timer.phase("data")
     stream = prefetch(batch_stream())
     try:
         for epoch, bi, batch in stream:
             if trainer.step >= args.max_updates:   # resumed at the end
                 break
+            if not micro:   # between updates
+                if stop["flag"]:
+                    last_path = save_checkpoint(
+                        args.save_dir, trainer,
+                        data_state={"epoch": epoch, "batch": bi},
+                        keep_last=args.keep_last)
+                    print(json.dumps({"preempted": True, "step": trainer.step}),
+                          flush=True)
+                    preempted = True
+                    break
+                if args.profile_dir and trainer.step == 10 and profiler is None:
+                    profiler = trace(args.profile_dir)
+                    profiler.__enter__()
             micro.append(_to_device(batch, device))
             if len(micro) < args.accum:
                 continue
+            timer.phase("step")
             metrics = trainer.train_step(micro)
             micro = []
+            timer.phase("log", fence=metrics["loss"])
+            if profiler is not None and trainer.step >= 15:
+                profiler.__exit__(None, None, None)
+                profiler = None
             row = {k: float(v) for k, v in metrics.items()}
             history.append(row)
             for k, v in row.items():
@@ -332,14 +384,39 @@ def main(argv=None):
                     keep_last=args.keep_last)
             if step >= args.max_updates:
                 break
+            timer.phase("data")
     finally:
         stream.close()
+        if profiler is not None:
+            profiler.__exit__(None, None, None)
+        for sig, handler in prev_handlers.items():
+            signal.signal(sig, handler)
     final = history[-1]["loss"] if history else None
+    print(f"phases: {timer.summary()}", flush=True)
     print(json.dumps({"done": True, "steps": trainer.step, "final_loss": final,
                       "wall": round(time.time() - t_start, 1)}), flush=True)
     return {"steps": trainer.step, "history": history, "final_loss": final,
             "checkpoint": None if last_path is None else str(last_path),
+            "preempted": preempted,
             "finite": all(math.isfinite(v) for r in history for v in r.values())}
+
+
+def warm_start(model, source):
+    """Load the model state of ``source`` into ``model`` key by key
+    (``utils/checkpoint.partial_load``; JAX cli/train.py:356-364): a port
+    checkpoint directory (its newest checkpoint, train or model-only) or a
+    fairseq ``.pt`` file.  Raises SystemExit when there is nothing to load."""
+    from ..utils.checkpoint import partial_load, restore_model
+    from ..utils.convert import load_fairseq_checkpoint
+
+    if os.path.isfile(source):
+        state, _, _ = load_fairseq_checkpoint(source)
+    else:
+        state, _ = restore_model(source)
+        if state is None:
+            raise SystemExit(f"--finetune-from {source}: no checkpoint_<step>.pt there")
+    model.load_state_dict(partial_load(model.state_dict(), state))
+    print(f"warm start from {source}", flush=True)
 
 
 if __name__ == "__main__":

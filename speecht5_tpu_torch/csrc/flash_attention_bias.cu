@@ -11,6 +11,7 @@
 //                                                           scaled)
 //   s[n,i,j] = -1e9                        where key_valid[n,j] is false
 //   out[n,i] = sum_j softmax_j(s[n,i,:]) * v[n,j]
+//   maxp[n,i] = max_j softmax_j(s[n,i,:])                   (optional, f32)
 //
 // Rows n = b * H + h of B samples by H heads.  q [B, Tq, H, D], out [B, Tq,
 // H, D] and k, v [Bk, Tk, H, D] are read and written through element strides
@@ -23,6 +24,10 @@
 // q, k, v and out share one dtype (f32 or bf16); every product and sum is
 // f32.  A row whose keys are all invalid sees -1e9 on every key and so
 // returns the mean of V over its Tk keys, as the dense formula does.
+// maxp, when asked for (the TTS decoder's focus rate reads it), is the
+// largest probability of each row and query: 1 / sum_j exp(s_j - max s),
+// which the combine holds anyway (the L below), so it costs one f32 store a
+// query and no other work; with maxp null the kernel is the same as without.
 //
 // What bounds it on an H100: the function does about 4 * Tq flops per valid
 // key and element against 4 bytes of K and V (bf16): Tq = 5 at the grouped
@@ -110,6 +115,7 @@ struct Params {
   const uint8_t* mask;
   const long long* rows;
   void* out;
+  float* maxp;                           // [N, Tq] or null
   long long qs[3], ks[3], vs[3], os[3];  // batch, token, head strides (elements)
   int H, Tq, Tk, mask_div, ntiles;
 };
@@ -474,6 +480,8 @@ flash_split_kernel(const Params p) {
       L += w * s_rl[r][tid];
     }
     s_L[tid] = fmaxf(L, 1e-30f);
+    if (p.maxp != nullptr && rank == 0)   // the largest probability, exp(M - M) / L
+      p.maxp[(size_t)n * p.Tq + q0 + tid] = 1.f / s_L[tid];
   }
   __syncthreads();
   T* og = static_cast<T*>(p.out) + b * p.os[0] + h * p.os[2];
@@ -556,14 +564,15 @@ int dispatch_queries(const Params& prm, int N, int vpr, cudaStream_t s) {
 }  // namespace
 
 // q, k, v, out: pointers with element strides ``strides`` (host array of 12:
-// q, k, v, out, each batch, token, head); rows: int64 [B, Tk] or NULL;
+// q, k, v, out, each batch, token, head); maxp: f32 [B * H, Tq] or NULL (the
+// largest probability of each row and query); rows: int64 [B, Tk] or NULL;
 // bias: f32 [B * H, Tq, Tk] or NULL; key_valid: uint8 [B * H / mask_div,
 // Tk] or NULL.  dtype: 0 = float32, 1 = bfloat16.  Returns a
 // cudaError_t (0 on success); a refused cluster launch is returned, not
 // worked around.
 extern "C" int flash_bias_launch(const void* q, const void* k, const void* v,
                                  const void* bias, const void* key_valid,
-                                 const void* rows, void* out,
+                                 const void* rows, void* out, void* maxp,
                                  const long long* strides, int B, int H, int Tq,
                                  int Tk, int D, int mask_div, int dtype,
                                  void* stream) {
@@ -579,6 +588,7 @@ extern "C" int flash_bias_launch(const void* q, const void* k, const void* v,
   prm.mask = static_cast<const uint8_t*>(key_valid);
   prm.rows = static_cast<const long long*>(rows);
   prm.out = out;
+  prm.maxp = static_cast<float*>(maxp);
   for (int a = 0; a < 3; ++a) {
     prm.qs[a] = strides[a];
     prm.ks[a] = strides[3 + a];

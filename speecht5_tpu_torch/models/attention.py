@@ -117,7 +117,7 @@ class MultiheadAttention(nn.Module):
     def forward(self, x, key_valid=None, pos_band=None, *, x_kv=None,
                 causal: bool = False, dropout_seed=None,
                 return_weights: bool = False, cache=None, cache_index=None,
-                cache_rows=None, cross_kv=None):
+                cache_rows=None, cross_kv=None, return_max_prob: bool = False):
         """x: [B, Tq, D]; key_valid: bool [B, Tk] (True = attend, a
         contiguous prefix); pos_band: [Dh, T, T] or None; x_kv: [B, Tk, D]
         for cross-attention (None = self-attention); causal: mask keys after
@@ -133,12 +133,16 @@ class MultiheadAttention(nn.Module):
         logical row b lives in physical row cache_rows[b, j]) -> (out,
         cache), the buffers written in place; ``cross_kv`` {"k", "v": [B /
         G, Tk, H, Dh]} from ``precompute_kv`` -> out (or (out, weights)),
-        ``key_valid`` then [B / G, Tk] or tiled [B, Tk]."""
+        ``key_valid`` then [B / G, Tk] or tiled [B, Tk]; with
+        ``return_max_prob`` (out, the largest f32 attention probability of
+        each row, head and query [B, H, Tq]), which the kernel gives from
+        the same launch (the TTS decoder's focus rate)."""
         B, Tq, _ = x.shape
         H, Dh = self.num_heads, self.head_dim
         q = self.q_proj(x).view(B, Tq, H, Dh) * (Dh ** -0.5)
         if cross_kv is not None:
-            return self._cross_step(q, cross_kv, key_valid, return_weights)
+            return self._cross_step(q, cross_kv, key_valid, return_weights,
+                                    return_max_prob)
         src = x if x_kv is None else x_kv
         k = self.k_proj(src).view(B, -1, H, Dh)
         v = self.v_proj(src).view(B, -1, H, Dh)
@@ -250,11 +254,13 @@ class MultiheadAttention(nn.Module):
             mask = cm[None, None] if mask is None else mask & cm[None, None]
         return self._dense(q, k.to(q.dtype), v, None, mask, False), new_cache
 
-    def _cross_step(self, q, cross_kv, key_valid, return_weights):
+    def _cross_step(self, q, cross_kv, key_valid, return_weights,
+                    return_max_prob=False):
         """Cross-attention against precomputed K/V (JAX attention.py:159-198).
         When the K/V have B / G rows, the queries of each group of G beams
         attend as one row of G * Tq queries (grouped), and the weights come
-        back per row."""
+        back per row; so does the largest probability with
+        ``return_max_prob`` ([B, H, Tq])."""
         B, Tq, H, Dh = q.shape
         k, v = cross_kv["k"], cross_kv["v"]
         Bkv, Tk = k.shape[:2]
@@ -266,8 +272,16 @@ class MultiheadAttention(nn.Module):
         if self._decode_kernel(return_weights):
             # the head-major K/V read in place, the output in [B, Tq, H, Dh]
             o = cuda_kernels.flash_attention_bias_cached(
-                q, k.to(q.dtype), v.to(q.dtype), mask)
-            return self.out_proj(o.reshape(B, Tq, self.d_model))
+                q, k.to(q.dtype), v.to(q.dtype), mask, return_max_prob=return_max_prob)
+            if not return_max_prob:
+                return self.out_proj(o.reshape(B, Tq, self.d_model))
+            o, maxp = o    # [Bkv * H, G * Tq] -> [B, H, Tq]
+            maxp = maxp.view(Bkv, H, G, Tq).transpose(1, 2).reshape(B, H, Tq)
+            return self.out_proj(o.reshape(B, Tq, self.d_model)), maxp
+        if return_max_prob:
+            out, w = self._cross_step(q.reshape(B, Tq, H, Dh), cross_kv, key_valid,
+                                      True)
+            return out, w.amax(-1)
         if G == 1:
             # untiled K/V: JAX's general path (its score dtype)
             return self._dense(q, k, v, None, None if mask is None else

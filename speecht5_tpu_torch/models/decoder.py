@@ -79,17 +79,28 @@ class TransformerDecoder(nn.Module):
         return {"index": torch.zeros((), dtype=torch.int64, device=dev),
                 "layers": layers, "cross": cross}
 
-    def decode_step(self, x, cache, *, enc_valid=None, cache_rows=None):
+    def decode_step(self, x, cache, *, enc_valid=None, cache_rows=None,
+                    need_cross_max: bool = False):
         """One AR step.  x: [B, Tq, D] prenet output at positions
         ``cache["index"]`` + i (the causal mask hides the unwritten cache
         positions); ``cache_rows`` int [B, max_len] ancestry map.  ->
-        (features [B, Tq, D], new cache)."""
+        (features [B, Tq, D], new cache), and with ``need_cross_max`` every
+        layer's largest cross-attention probability [L, B, H, Tq] f32: all
+        that JAX's ``need_cross_weights`` weights feed (the TTS focus rate,
+        JAX decode/tts.py:157-160), without the dense weights."""
         idx = cache["index"]
-        layers = []
+        layers, maxps = [], []
         for layer, c, kv in zip(self.layers, cache["layers"], cache["cross"]):
-            x, c = layer.step(x, c, kv, idx, enc_valid=enc_valid, cache_rows=cache_rows)
+            out = layer.step(x, c, kv, idx, enc_valid=enc_valid, cache_rows=cache_rows,
+                             need_cross_max=need_cross_max)
+            x, c = out[:2]
             layers.append(c)
-        return x, {"index": idx + x.shape[1], "layers": layers, "cross": cache["cross"]}
+            if need_cross_max:
+                maxps.append(out[2])
+        new = {"index": idx + x.shape[1], "layers": layers, "cross": cache["cross"]}
+        if need_cross_max:
+            return x, new, torch.stack(maxps)
+        return x, new
 
 
 def reorder_cache(cache, order):

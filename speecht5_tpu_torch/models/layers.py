@@ -126,18 +126,24 @@ class DecoderLayer(nn.Module):
         return (x, cross_w) if need_cross_weights else x
 
     def step(self, x, cache, cross_kv, cache_index, *, enc_valid=None,
-             cache_rows=None):
+             cache_rows=None, need_cross_max: bool = False):
         """One decode step: x [B, Tq, D] at positions ``cache_index`` + i;
         ``cache`` this layer's {"k", "v"} buffers (written in place);
         ``cross_kv`` from ``init_cross_kv`` or None (no cross-attention).
-        -> (x, cache)."""
+        -> (x, cache), or with ``need_cross_max`` (x, cache, the cross
+        attention's largest probability [B, H, Tq] f32)."""
         y, cache = self.self_attn(x, causal=True, cache=cache,
                                   cache_index=cache_index, cache_rows=cache_rows)
         x = self.self_attn_layer_norm(x + self._drop(y)).to(self.dtype)
+        maxp = None
         if cross_kv is not None:
-            y = self.encoder_attn(x, enc_valid, cross_kv=cross_kv)
+            y = self.encoder_attn(x, enc_valid, cross_kv=cross_kv,
+                                  return_max_prob=need_cross_max)
+            if need_cross_max:
+                y, maxp = y
             x = self.encoder_attn_layer_norm(x + self._drop(y)).to(self.dtype)
-        return self._ffn_block(x), cache
+        x = self._ffn_block(x)
+        return (x, cache, maxp) if need_cross_max else (x, cache)
 
     def init_cross_kv(self, enc):
         return self.encoder_attn.precompute_kv(enc)

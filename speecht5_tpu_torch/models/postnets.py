@@ -140,7 +140,22 @@ class SpeechDecoderPostnet(nn.Module):
         r = cfg.reduction_factor
         before = self.feat_out(z).reshape(B, Tr * r, cfg.n_mels)
         logits = self.prob_out(z).reshape(B, Tr * r)
-        after = before
-        if self.postnet is not None:
-            after = before + self.postnet(before).float()
-        return before, after, logits
+        return before, self.refine(before), logits
+
+    def project_frames(self, z):
+        """feat_out alone, for the AR decode loop: [B, 1, D] -> [B, r,
+        n_mels] f32 (JAX postnets.py:110)."""
+        return self.feat_out(z).reshape(z.shape[0], self.cfg.reduction_factor,
+                                        self.cfg.n_mels)
+
+    def stop_probs(self, z):
+        """sigmoid(prob_out): [B, 1, D] -> [B, r] f32 (JAX postnets.py:116)."""
+        return torch.sigmoid(self.prob_out(z).reshape(z.shape[0],
+                                                      self.cfg.reduction_factor))
+
+    def refine(self, mel):
+        """The conv postnet's residual over a whole mel [B, T, n_mels] -> f32
+        (JAX postnets.py:120)."""
+        if self.postnet is None:
+            return mel
+        return mel + self.postnet(mel).float()

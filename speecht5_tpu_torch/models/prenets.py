@@ -27,8 +27,8 @@ from torch import nn
 from ..config import ConvFeatureConfig, SpeechT5Config
 from ..ops import cuda_kernels
 from ..ops.masking import apply_feature_masks, sample_feature_masks
-from ..ops.positional import (espnet_sinusoidal, fairseq_sinusoidal,
-                              fairseq_sinusoidal_table)
+from ..ops.positional import (espnet_sinusoidal, espnet_sinusoidal_table,
+                              fairseq_sinusoidal, fairseq_sinusoidal_table)
 from ..utils.masks import length_mask
 from .common import Dense, LayerNorm32
 
@@ -298,17 +298,21 @@ class TacotronPrenet(nn.Module):
             self.add_module(f"layer_{i}", Dense(in_dim if i == 0 else units, units, dtype))
         self.layers = layers
 
-    def forward(self, x, keep_masks=None):
+    def forward(self, x, keep_masks=None, generator=None):
         """x: [B, T, in_dim] -> [B, T, units].  ``keep_masks``: one bool mask
         [B, T, units] per block to use instead of drawing (the tests hand in
-        the JAX package's draws); otherwise the device generator draws, as
-        ``F.dropout`` does."""
+        the JAX package's draws); else ``generator`` (a ``torch.Generator``
+        on x's device) draws them, keep with probability 1 - rate; else the
+        default device generator draws, as ``F.dropout`` does."""
         for i in range(self.layers):
             x = torch.relu(getattr(self, f"layer_{i}")(x))
-            if keep_masks is not None:
-                x = torch.where(keep_masks[i].to(x.device),
-                                x / (1.0 - self.dropout), torch.zeros((), dtype=x.dtype,
-                                                                      device=x.device))
+            keep = None if keep_masks is None else keep_masks[i].to(x.device)
+            if keep is None and generator is not None:
+                keep = torch.rand(x.shape, generator=generator,
+                                  device=x.device) >= self.dropout
+            if keep is not None:
+                x = torch.where(keep, x / (1.0 - self.dropout),
+                                torch.zeros((), dtype=x.dtype, device=x.device))
             else:
                 x = F.dropout(x, self.dropout, True)
         return x
@@ -333,18 +337,31 @@ class SpeechDecoderPrenet(nn.Module):
         if cfg.spk_embed_dim is not None and cfg.spk_embed_integration == "pre":
             self.spkembs_layer = Dense(cfg.d_model + cfg.spk_embed_dim,
                                        cfg.d_model, dtype)
+        # the decode step's position table, as JAX builds it (not a
+        # parameter): a device offset indexes it with no host sync
+        table = espnet_sinusoidal_table(cfg.max_speech_positions + 8, cfg.d_model)
+        self.register_buffer("step_positions", torch.from_numpy(table.copy()),
+                             persistent=False)
 
     def forward(self, prev_mel, tgt_lengths=None, spkembs=None, *,
-                position_offset: int = 0, keep_masks=None):
+                position_offset=0, keep_masks=None, generator=None):
         """prev_mel: [B, T, n_mels]; tgt_lengths: [B] or None; spkembs: [B,
         spk_embed_dim] or None -> (x [B, T, D], valid bool [B, T] or None).
-        ``keep_masks``: the Tacotron prenet's masks (see TacotronPrenet)."""
+        ``position_offset``: the first frame's position, an int or a 0-d
+        device tensor (a decode step's ``cache["index"]``; clamped so the T
+        rows fit the table, as JAX's dynamic slice is).  ``keep_masks`` /
+        ``generator``: the Tacotron prenet's dropout (see TacotronPrenet)."""
         cfg = self.cfg
-        x = self.prenet(prev_mel.to(self.dtype), keep_masks)
+        x = self.prenet(prev_mel.to(self.dtype), keep_masks, generator)
         x = self.proj(x)
         T = x.shape[1]
-        pe = espnet_sinusoidal(T, cfg.d_model, position_offset,
-                               device=x.device).to(self.dtype)
+        if torch.is_tensor(position_offset):
+            table = self.step_positions
+            start = position_offset.clamp(0, table.shape[0] - T)
+            pe = table[start + torch.arange(T, device=table.device)].to(self.dtype)
+        else:
+            pe = espnet_sinusoidal(T, cfg.d_model, position_offset,
+                                   device=x.device).to(self.dtype)
         x = x + self.alpha.to(self.dtype) * pe[None]
         x = F.dropout(x, cfg.decoder.dropout, self.training)
         if spkembs is not None and self.spkembs_layer is not None:

@@ -5,10 +5,11 @@ beam serving paths and the s2t and t2s train steps run: ``encode_speech``
 (:140-172), ``encode_text`` (:174), ``decode_text`` and ``_text_logits``
 (:180-200), ``init_text_cache`` and ``text_decode_step`` (:202-214),
 ``decode_speech`` (:216), ``integrate_spk_embed`` (:244),
-``ctc_logits`` (:301), ``forward_s2t`` (:327-334) and ``forward_t2s``
-(:336).  The other task heads arrive with their slices.  Submodule names
-follow the JAX tree, so ``utils/convert.from_jax_params`` maps one onto the
-other.
+``init_speech_cache``, ``speech_decode_step`` and ``postnet_refine``
+(:268-297, the TTS decoder's steps), ``ctc_logits`` (:301),
+``forward_s2t`` (:327-334) and ``forward_t2s`` (:336).  The other task
+heads arrive with their slices.  Submodule names follow the JAX tree, so
+``utils/convert.from_jax_params`` maps one onto the other.
 """
 
 from __future__ import annotations
@@ -123,6 +124,38 @@ class SpeechT5Model(nn.Module):
         feats, cross = out if need_attn else (out, None)
         before, after, stop_logits = self.speech_decoder_postnet(feats)
         return before, after, stop_logits, cross
+
+    def init_speech_cache(self, enc, batch_size: int, max_len: int, spkembs=None):
+        """The decoder's cache for the AR mel decode, cross K/V from the
+        encoder output after the model-level x-vector integration
+        (JAX :268)."""
+        enc = self.integrate_spk_embed(enc, spkembs)
+        return self.decoder.init_cache(enc["encoder_out"], batch_size, max_len)
+
+    def speech_decode_step(self, prev_frame, cache, *, spkembs=None, enc_valid=None,
+                           need_attn: bool = False, keep_masks=None, generator=None):
+        """One AR mel step (JAX :273).  prev_frame: [B, 1, n_mels], the last
+        output frame (zeros at the first step).  The prenet runs on the new
+        frame only, at position ``cache["index"]`` (a device tensor: no host
+        sync); its Tacotron dropout stays on (ROADMAP C.4), drawn from
+        ``generator`` (a device ``torch.Generator``) or taken from
+        ``keep_masks``.  -> (frames [B, r, n_mels] f32, stop probabilities
+        [B, r] f32, new cache, and with ``need_attn`` every decoder layer's
+        largest cross-attention probability over the source [L, B, H] f32,
+        what JAX's ``attn.max(-1)`` gives; else None)."""
+        x, _ = self.speech_decoder_prenet(prev_frame, None, spkembs,
+                                          position_offset=cache["index"],
+                                          keep_masks=keep_masks, generator=generator)
+        out = self.decoder.decode_step(x, cache, enc_valid=enc_valid,
+                                       need_cross_max=need_attn)
+        feats, new_cache = out[:2]
+        post = self.speech_decoder_postnet
+        attn = out[2][..., 0] if need_attn else None
+        return post.project_frames(feats), post.stop_probs(feats), new_cache, attn
+
+    def postnet_refine(self, mel):
+        """The conv postnet's residual over the whole mel buffer (JAX :296)."""
+        return self.speech_decoder_postnet.refine(mel)
 
     def ctc_logits(self, enc):
         return self.encoder.ctc_head(enc["encoder_out"])

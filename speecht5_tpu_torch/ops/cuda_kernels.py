@@ -45,6 +45,9 @@ loader that builds them.
   Two entries: ``flash_attention_bias`` on ``[N, T, D]`` rows (the JAX
   contract) and ``flash_attention_bias_cached``, which reads ``[B, T, H,
   D]`` K/V in place through strides and the beam's ancestry row map.
+  The cached entry also returns, on request, the largest softmax
+  probability of each row and query from the same launch (the TTS
+  decoder's focus rate).
   Forward only, as in JAX.
 
 The attention wrappers take the band contiguous or as the encoder builds it,
@@ -220,9 +223,10 @@ def _lib(name: str) -> ctypes.CDLL:
                 fn.restype = i
         elif name == "flash_attention_bias":
             # q, k, v, bias, key_valid, rows (each may be NULL but q, k, v),
-            # out, 12 element strides (int64, host), then B, H, Tq, Tk, D,
-            # rows per mask row, dtype, stream
-            lib.flash_bias_launch.argtypes = [vp] * 8 + [i] * 7 + [vp]
+            # out, the max-probability output (or NULL), 12 element strides
+            # (int64, host), then B, H, Tq, Tk, D, rows per mask row, dtype,
+            # stream
+            lib.flash_bias_launch.argtypes = [vp] * 9 + [i] * 7 + [vp]
             lib.flash_bias_launch.restype = i
         else:
             # wav, window, twiddles, filterbank weights [max len, n_mels],
@@ -1035,14 +1039,16 @@ fused_log_mel.launches = 0
 FLASH_BIAS_MAX_D = 128
 
 
-def flash_attention_bias_plain(q, k, v, bias=None, key_valid=None):
+def flash_attention_bias_plain(q, k, v, bias=None, key_valid=None, *,
+                               return_max_prob=False):
     """Plain PyTorch twin of the kernel, the dense formula of the spec
     (tests/test_pallas_kernels.py:105-112): q.k in f32, plus the f32 bias,
     -1e9 where a key is invalid, f32 softmax, the probabilities cast to V's
     dtype, times V.  q [N, Tq, D] (scaled by the caller), k/v [N, Tk, D],
     bias [N, Tq, Tk] or None (zero), key_valid bool [N / R, Tk] (row n
-    reads mask row n // R) or None -> [N, Tq, D] in q's dtype.  A row with
-    no valid key returns the mean of V over its Tk keys."""
+    reads mask row n // R) or None -> [N, Tq, D] in q's dtype; with
+    ``return_max_prob`` (out, the f32 softmax's largest probability [N,
+    Tq]).  A row with no valid key returns the mean of V over its Tk keys."""
     s = q.float() @ k.float().transpose(1, 2)
     if bias is not None:
         s = s + bias.float()
@@ -1050,23 +1056,29 @@ def flash_attention_bias_plain(q, k, v, bias=None, key_valid=None):
         key_valid = key_valid.repeat_interleave(q.shape[0] // key_valid.shape[0], 0)
         s = torch.where(key_valid[:, None, :], s,
                         torch.full((), NEG_INF, device=s.device))
-    p = torch.softmax(s, dim=-1).to(v.dtype)
-    return (p.float() @ v.float()).to(q.dtype)
+    w = torch.softmax(s, dim=-1)
+    out = (w.to(v.dtype).float() @ v.float()).to(q.dtype)
+    return (out, w.amax(-1)) if return_max_prob else out
 
 
-def flash_attention_bias_cached_plain(q4, k4, v4, key_valid=None, rows=None):
+def flash_attention_bias_cached_plain(q4, k4, v4, key_valid=None, rows=None, *,
+                                      return_max_prob=False):
     """Plain twin of the cached entry: gather the keys through ``rows``
     (key j of sample b from physical row rows[b, j]), lay the heads out as
     ``[B * H, T, D]`` rows and call ``flash_attention_bias_plain`` -> [B, Tq,
-    H, D]."""
+    H, D] (and the largest probability [B * H, Tq] with
+    ``return_max_prob``)."""
     B, Tq, H, D = q4.shape
     Tk = k4.shape[1]
     if rows is not None:
         idx = (rows, torch.arange(Tk, device=k4.device))
         k4, v4 = k4[idx], v4[idx]
     heads = lambda t: t.transpose(1, 2).reshape(B * H, t.shape[1], D)
-    o = flash_attention_bias_plain(heads(q4), heads(k4), heads(v4), None, key_valid)
-    return o.view(B, H, Tq, D).transpose(1, 2).contiguous()
+    o = flash_attention_bias_plain(heads(q4), heads(k4), heads(v4), None, key_valid,
+                                   return_max_prob=return_max_prob)
+    o, maxp = o if return_max_prob else (o, None)
+    o = o.view(B, H, Tq, D).transpose(1, 2).contiguous()
+    return (o, maxp) if return_max_prob else o
 
 
 def _check_mask(key_valid, N: int, Tk: int) -> int:
@@ -1091,16 +1103,18 @@ def _check_flash_d(q) -> int:
     return per_vec
 
 
-def _flash_launch(q, k, v, bias, key_valid, rows, out, strides, B, H, Tq, Tk, D,
-                  rows_per_mask):
+def _flash_launch(q, k, v, bias, key_valid, rows, out, maxp, strides, B, H, Tq, Tk,
+                  D, rows_per_mask):
     """One launch of the split-key kernel; ``strides`` the batch, token and
-    head element strides of q, k, v and out (12 ints)."""
+    head element strides of q, k, v and out (12 ints); ``maxp`` f32 [B * H,
+    Tq] or None."""
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _lib("flash_attention_bias").flash_bias_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if bias is None else bias.data_ptr(),
         None if key_valid is None else key_valid.data_ptr(),
         None if rows is None else rows.data_ptr(), out.data_ptr(),
+        None if maxp is None else maxp.data_ptr(),
         (ctypes.c_longlong * 12)(*strides), B, H, Tq, Tk, D, rows_per_mask,
         _dtype_code(q, k, v), stream)
     _check_rc(rc, "flash_attention_bias")
@@ -1145,12 +1159,13 @@ def flash_attention_bias(q, k, v, bias=None, key_valid=None):
     out = torch.empty_like(q)
     # [N, T, D] rows are samples of one head
     strides = [Tq * D, D, 0, Tk * D, D, 0, Tk * D, D, 0, Tq * D, D, 0]
-    _flash_launch(q, k, v, bias, key_valid, None, out, strides, N, 1, Tq, Tk, D,
-                  rows_per_mask)
+    _flash_launch(q, k, v, bias, key_valid, None, out, None, strides, N, 1, Tq, Tk,
+                  D, rows_per_mask)
     return out
 
 
-def flash_attention_bias_cached(q4, k4, v4, key_valid=None, rows=None):
+def flash_attention_bias_cached(q4, k4, v4, key_valid=None, rows=None, *,
+                                return_max_prob=False):
     """The same function on the decoder's layouts, K and V read where they
     lie: q4 [B, Tq, H, D] (scaled), k4/v4 [Bk, Tk, H, D] with any strides
     whose last is 1 and whose others are whole 16-byte vectors (the KV cache
@@ -1159,11 +1174,14 @@ def flash_attention_bias_cached(q4, k4, v4, key_valid=None, rows=None):
     j], j] (the beam's ancestry map; None: Bk == B and key j of b is k4[b,
     j]); key_valid bool [B * H / R, Tk] or None, row b * H + h reading mask
     row (b * H + h) // R ([B, Tk]: one row per sample; [1, Tk]: one for
-    all) -> [B, Tq, H, D] contiguous in q4's dtype.  One kernel launch on
-    CUDA tensors, counted in ``flash_attention_bias.launches``; the twin
+    all) -> [B, Tq, H, D] contiguous in q4's dtype; with
+    ``return_max_prob`` (out, the largest probability of row b * H + h and
+    each query, f32 [B * H, Tq], from the same launch).  One kernel launch
+    on CUDA tensors, counted in ``flash_attention_bias.launches``; the twin
     (gather, then the dense formula) on CPU ones.  Forward only."""
     if q4.device.type == "cpu":
-        return flash_attention_bias_cached_plain(q4, k4, v4, key_valid, rows)
+        return flash_attention_bias_cached_plain(q4, k4, v4, key_valid, rows,
+                                                 return_max_prob=return_max_prob)
     _forward_only(q4, k4, v4)
     if (q4.dim() != 4 or k4.dim() != 4 or k4.shape[2:] != q4.shape[2:]
             or v4.shape != k4.shape or k4.shape[1] == 0
@@ -1196,10 +1214,12 @@ def flash_attention_bias_cached(q4, k4, v4, key_valid=None, rows=None):
         raise ValueError(f"expected all tensors on one CUDA device, got "
                          f"{[str(t.device) for t in tensors]}")
     out = torch.empty(B, Tq, H, D, dtype=q4.dtype, device=q4.device)
+    maxp = (torch.empty(B * H, Tq, dtype=torch.float32, device=q4.device)
+            if return_max_prob else None)
     strides = [*q4.stride()[:3], *k4.stride()[:3], *v4.stride()[:3], *out.stride()[:3]]
-    _flash_launch(q4, k4, v4, None, key_valid, rows, out, strides, B, H, Tq, Tk, D,
-                  rows_per_mask)
-    return out
+    _flash_launch(q4, k4, v4, None, key_valid, rows, out, maxp, strides, B, H, Tq, Tk,
+                  D, rows_per_mask)
+    return (out, maxp) if return_max_prob else out
 
 
 flash_attention_bias.launches = 0

@@ -136,3 +136,48 @@ def log_mel_numpy(wav: np.ndarray, **kw) -> np.ndarray:
     mag = np.abs(np.fft.rfft(frames, axis=-1))
     mel = mag @ mel_filterbank(sr, n_fft, n_mels, fmin, fmax).T.astype(np.float64)
     return np.log10(np.maximum(eps, mel)).astype(np.float32)
+
+
+def mel_to_audio(log10_mel, *, sr: int = 16000, n_fft: int = 1024, hop: int = 256,
+                 n_mels: int = 80, fmin: float = 80.0, fmax: float = 7600.0,
+                 n_iter: int = 48, seed: int = 0) -> torch.Tensor:
+    """Invert a log10-mel spectrogram [T, n_mels] (a tensor on any device,
+    or a numpy array) to a waveform [T * hop] f32 on the same device, by
+    Griffin-Lim (JAX ops/mel.py:148, the same iterations and initial phase):
+    the least-squares linear magnitude pinv(filterbank) . 10**mel clipped
+    at 0, a random initial phase drawn by numpy's ``default_rng(seed)``,
+    then ``n_iter`` rounds of ``torch.istft`` / ``torch.stft`` (hann,
+    centred, reflect-padded as numpy pads), all in float64; the result is scaled to a
+    peak of at most 1.  The checkpoint-free vocoder of ``/tts
+    --griffin-lim``."""
+    mel = torch.as_tensor(log10_mel)
+    dev = mel.device
+    f64 = dict(dtype=torch.float64, device=dev)
+    mel = torch.pow(10.0, mel.to(torch.float64))
+    fb = torch.as_tensor(mel_filterbank(sr, n_fft, n_mels, fmin, fmax), **f64)
+    mag = torch.clamp_min(torch.linalg.pinv(fb) @ mel.T, 0.0)    # [bins, T]
+    win = torch.as_tensor(hann_window(n_fft), **f64)
+    n_frames = mag.shape[1]
+    length = n_frames * hop
+    rng = np.random.default_rng(seed)
+    angles = torch.exp(2j * np.pi * torch.as_tensor(rng.random(tuple(mag.shape)), **f64))
+
+    def istft(spec):
+        return torch.istft(spec, n_fft, hop, window=win, center=True, length=length)
+
+    # numpy's reflect padding, which also pads a signal shorter than n_fft / 2
+    # (a few frames), as the JAX function's np.pad does
+    pad_idx = torch.as_tensor(np.pad(np.arange(length), n_fft // 2, mode="reflect"),
+                              device=dev)
+
+    def stft(wav):
+        return torch.stft(wav[pad_idx], n_fft, hop, window=win, center=False,
+                          return_complex=True)[:, :n_frames]
+
+    for _ in range(n_iter):
+        spec = stft(istft(mag * angles))
+        angles = spec / torch.clamp_min(spec.abs(), 1e-8)
+    wav = istft(mag * angles)
+    peak = wav.abs().max()
+    wav = torch.where(peak > 1.0, wav / peak, wav)
+    return wav.to(torch.float32)

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain twins, on the card, the
 train kernels, the conv stack's gradient, the log-mel kernel and the
 decode-step attention kernel (alone, in its cached form on the decoder's
-layouts, and inside the decoder) included,
+layouts, inside the decoder, and its max-probability output at the beam's
+and the TTS decoder's shapes) included,
 the inference kernel's refusal to drop a gradient and the wrappers'
 refusals of inputs their kernels do not take; the bf16 attention forwards'
 row statistics, their bit-equal scores with the backward's, and a forward
@@ -61,6 +62,7 @@ def _lengths(N, T, card):
     (77, 16, 6, False), (199, 64, 6, False), (1024, 64, 6, False),
     (130, 32, 200, True),      # N not a multiple of 64, T % 64 != 0
     (799, 64, 12, True),       # the served chunk's shape, as the encoder gives it
+    (128, 64, 12, True),       # the /tts text encoder's token bucket
 ])
 def test_attention_kernel_matches_twin(card, dtype, T, Dh, N, padded):
     """The inference attention against its twin, ragged lengths with rows
@@ -643,3 +645,46 @@ def test_decode_step_kernel_route_matches_plain_route(card, dtype):
     assert n_k == 2 * 2 * steps and n_p == 0
     assert torch.isfinite(got).all()
     _close(got, ref, dtype)
+
+
+def _tts_case(case, dtype, card, seed=11):
+    """The TTS decoder's decode-step shapes at batch 1, 12 heads, Dh 64:
+    "tts_self", the cached self-attention at step 200 of a 513-position
+    cache (201 valid); "tts_cross", the cross-attention against a 128-token
+    text bucket with 37 valid tokens (head-major K/V, as precompute_kv
+    lays them out)."""
+    g = torch.Generator().manual_seed(seed)
+    if case == "tts_self":
+        Tk, valid = 513, torch.arange(513)[None, :] <= 200
+        k4, v4 = (torch.randn(1, Tk, 12, 64, generator=g) for _ in range(2))
+    else:
+        Tk, valid = 128, torch.arange(128)[None, :] < 37
+        k4, v4 = (torch.randn(1, 12, Tk, 64, generator=g).transpose(1, 2) for _ in range(2))
+    q4 = torch.randn(1, 1, 12, 64, generator=g) * 64 ** -0.5
+    return (*[t.to(dtype).to(card) for t in (q4, k4, v4)], valid.to(card))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["self", "cross", "tts_self", "tts_cross"])
+def test_flash_bias_max_prob_matches_twin(card, dtype, case):
+    """The optional max-probability output (the focus rate's input) comes
+    from the same launch, agrees with the twin's max of the f32 softmax
+    (f32 1e-4, bf16 3e-2 of max |ref|), and leaves the attention output's
+    bits as they are without it."""
+    if case.startswith("tts"):
+        q4, k4, v4, valid = _tts_case(case, dtype, card)
+        rows = None
+    else:
+        q4, k4, v4, valid, rows = _cached_case(case, dtype, card)
+    before = K.flash_attention_bias.launches
+    got, maxp = K.flash_attention_bias_cached(q4, k4, v4, valid, rows,
+                                              return_max_prob=True)
+    assert K.flash_attention_bias.launches == before + 1
+    ref, ref_maxp = K.flash_attention_bias_cached_plain(q4, k4, v4, valid, rows,
+                                                        return_max_prob=True)
+    torch.cuda.synchronize()
+    B, Tq, H, _ = q4.shape
+    assert maxp.shape == (B * H, Tq) and maxp.dtype == torch.float32
+    _close(maxp, ref_maxp, dtype)
+    _close(got, ref, dtype)
+    assert torch.equal(got, K.flash_attention_bias_cached(q4, k4, v4, valid, rows))

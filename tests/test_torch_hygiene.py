@@ -48,7 +48,10 @@ def test_port_and_smoke_import_with_jax_blocked():
     names = set(out.stdout.split())
     assert len(names) >= 15
     assert {"speecht5_tpu_torch.decode.beam_search", "speecht5_tpu_torch.decode.ctc_prefix",
-            "speecht5_tpu_torch.decode.asr", "speecht5_tpu_torch.cli.serve"} <= names
+            "speecht5_tpu_torch.decode.asr", "speecht5_tpu_torch.cli.serve",
+            "speecht5_tpu_torch.decode.tts", "speecht5_tpu_torch.models.hifigan",
+            "speecht5_tpu_torch.cli.convert", "speecht5_tpu_torch.utils.convert_hf",
+            "speecht5_tpu_torch.utils.profiling"} <= names
 
 
 def test_no_import_lines_reach_jax():
@@ -62,15 +65,29 @@ def test_no_import_lines_reach_jax():
     assert not hits
 
 
+def test_jax_checkpoint_converter_stays_outside_the_port():
+    """convert_jax_checkpoint.py imports JAX; neither the port nor the smoke
+    may import it."""
+    src = (REPO / "convert_jax_checkpoint.py").read_text()
+    assert "from speecht5_tpu.utils.checkpoint import CheckpointManager" in src
+    files = list((REPO / "speecht5_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert not [f for f in files if "convert_jax_checkpoint" in f.read_text()
+                and re.search(r"^\s*(import|from)\s+convert_jax_checkpoint",
+                              f.read_text(), re.M)]
+
+
 def test_entry_points_default_to_cuda_and_raise_without_a_card():
     import inspect
 
     from speecht5_tpu_torch.cli.serve import Service
     from speecht5_tpu_torch.decode.asr import CTCDecoder
+    from speecht5_tpu_torch.decode.tts import TTSDecoder
+    from speecht5_tpu_torch.models.hifigan import init_hifigan
     from speecht5_tpu_torch.models.speecht5 import init_model
     from speecht5_tpu_torch.utils.device import resolve_device
 
-    for fn in (init_model, CTCDecoder.__init__, Service.__init__, resolve_device):
+    for fn in (init_model, CTCDecoder.__init__, Service.__init__, resolve_device,
+               TTSDecoder.__init__, init_hifigan):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     if torch.cuda.is_available():
         pytest.skip("a card is present: asking for cuda does not raise here")
@@ -193,3 +210,40 @@ def test_chip_smoke_kernels_line_lists_every_kernel():
     conv = [k for k in line["kernels"] if k["name"] == "conv_stack"][0]
     assert conv["bound_share"] == 0.1 and conv["achieved_tflops"] == 1.0
     assert "bound_share" not in mel
+
+
+def test_chip_smoke_warm_start_and_tts_phases_run_on_cpu_with_twins():
+    """The warm-start phase (a fairseq .pt written on the spot, cli/convert,
+    the bit-for-bit warm-start check, cli/train --finetune-from, a greedy
+    request from the converted checkpoint, a SIGTERM'd train subprocess and
+    its resume), the /tts phase (HiFi-GAN at a narrower width, Griffin-Lim)
+    and the TTS parity phase at the tiny preset on the CPU: the twins run,
+    so no launches."""
+    from speecht5_tpu_torch.models.hifigan import HiFiGANConfig
+
+    flags = ["--batch-size", "2", "--accum", "2", "--ctc-weight", "0.5", "--normalize"]
+    warm = chip_smoke.phase_warm_start("speecht5_tiny", device="cpu", n_utts=4, updates=2,
+                                       seconds=(0.3, 0.8), flags=flags, src_vocab=40,
+                                       request_s=1.1, buckets="2")
+    assert warm["fresh_tensors"] == 5 and warm["loaded_tensors"] > 100
+    assert set(warm["train_counts"].values()) == set(warm["serve_counts"].values()) == {0}
+    assert warm["layer_runs"] == 2 * 2 * 2 and warm["preempt"]["resumed_to"] == 3
+    voc = HiFiGANConfig(in_dim=20, upsample_initial_channel=32)
+    texts = ("hi", "hello there")
+    tts = chip_smoke.phase_serve_tts(C.speecht5_tiny(), device="cpu", dtype="float32",
+                                     texts=texts, max_frames=48, bucket_tokens=16,
+                                     vocoder_cfg=voc)
+    steps = [r["decode_steps"] for r in tts["requests"]]
+    assert steps == [16, 24, 16, 24] and set(tts["counts"].values()) == {0}
+    parity = chip_smoke.phase_tts_parity(C.speecht5_tiny(), device="cpu", texts=texts,
+                                         max_frames=48, bucket_tokens=16, vocoder_cfg=voc)
+    assert parity["lengths_kernel"] == [30, 48] and parity["mel_max_abs_err"] < 1e-4
+    # the second run stops the longer text by threshold, before its bound
+    early = parity["early_stop"]
+    assert early["lengths_kernel"] == early["lengths_plain"] == early["expected_lengths"]
+    assert early["row"] == 1 and 2 * 15 <= early["lengths_kernel"][1] < 48
+    # the card's launch rule: 12 encoder layers x 2 bf16 launches a request,
+    # 6 decoder layers x (self + cross) a step
+    want = chip_smoke.tts_launches_expected(C.speecht5_base(dtype="bfloat16"), 10)
+    assert want["banded_flash_attention"] == 24 and want["flash_attention_bias"] == 120
+    assert sum(want.values()) == 144

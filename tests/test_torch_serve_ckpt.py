@@ -35,21 +35,7 @@ from speecht5_tpu_torch.cli import train as cli_train
 torch.backends.cuda.matmul.allow_tf32 = False
 
 # port module name -> fairseq module name, where they differ
-FAIRSEQ_NAMES = [
-    (r"feature_extractor\.conv_(\d+)\.", r"feature_extractor.conv_layers.\1.0."),
-    (r"feature_extractor\.group_norm\.", "feature_extractor.conv_layers.0.2."),
-    (r"pos_conv\.", "pos_conv.0."),
-    (r"(layers\.\d+)\.ffn\.", r"\1."),
-    (r"text_encoder_prenet\.embed_tokens\.", "text_encoder_prenet.encoder_prenet.0."),
-    (r"text_encoder_prenet\.alpha", "text_encoder_prenet.encoder_prenet.1.alpha"),
-    (r"speech_decoder_prenet\.prenet\.layer_(\d+)\.",
-     r"speech_decoder_prenet.decoder_prenet.0.0.prenet.\1.0."),
-    (r"speech_decoder_prenet\.proj\.", "speech_decoder_prenet.decoder_prenet.0.1."),
-    (r"speech_decoder_prenet\.alpha", "speech_decoder_prenet.decoder_prenet.1.alpha"),
-    (r"speech_decoder_prenet\.spkembs_layer\.", "speech_decoder_prenet.spkembs_layer.0."),
-    (r"postnet\.conv_(\d+)\.", r"postnet.postnet.\1.0."),
-    (r"postnet\.bn_(\d+)\.", r"postnet.postnet.\1.1."),
-]
+FAIRSEQ_NAMES = chip_smoke.FAIRSEQ_NAMES
 
 
 def to_fairseq(state):
