@@ -41,7 +41,14 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                bf16 3e-2 of max |ref|, and timed with and without it), f32
                and bf16, timed back to back on the stream and, with its
                SDPA yardstick, as the card runs it (calls captured in one
-               CUDA graph and replayed).
+               CUDA graph and replayed).  The shapes of the s2s / s2c
+               paths, bf16: the inference attention on a 3 s VC source (T
+               149) and an 8 s SID crop (T 399), the train kernels at N 96,
+               T 299 and 400, the decode-step kernel against the VC source
+               ("vc_cross": Tq 1, Tk 149, with the max-probability output),
+               the conv stack at batch 8 on 6 s and 8 s, and its backward
+               (the twin's vjp) at 8 s beside cuDNN's autograd.grad through
+               conv1d + GELU.
 3. serve    -- the serving path: the port's ASR Service (ctc_greedy, bf16,
                both inference kernels on) at full speecht5_base_asr width
                with random weights, answering 3 s, 11 s and 21 s requests in
@@ -132,10 +139,56 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                which the longer text stops by threshold between its minimum
                and the middle of its range: every row at the step the first
                run's stop logits foretell.
+14. train s2s -- the VC fine-tune path: ``cli/train.main --task s2s`` with
+               the recipe's flags (recipes/vc_finetune.sh: guided
+               attention, lr 1e-4, warmup 6000, batch 8, bf16, mel targets
+               on the card, the train-attention and conv kernels on) on
+               speecht5_base at full width with random weights, over 32
+               seeded pairs of 2-6 s source and target audio with a 512-d
+               x-vector each: 3 updates, then a resume that takes one more.
+               Every metric must be finite; per micro-batch the log-mel
+               kernel must launch once and the conv kernel 6 times (its
+               backward, the twin's vjp, under feature_grad_mult 0.1), the
+               train kernels once per encoder layer run, the inference and
+               decode-step kernels never.
+15. s2s parity -- one f32 micro-batch with every dropout, the prenet's and
+               layerdrop at 0: the kernel route against the plain route,
+               mels within 2e-3, loss within 1e-4 relative, every gradient
+               within 1e-3 of its max |g| (or, where the plain route's own
+               gradient moves by more than half that when its waveform is
+               scaled by 1 + 2^-22, within twice that move), the conv_1..6
+               weights' through the kernel's backward included; once as VC
+               and once as SE
+               (r 1, se_predict masking, SpeechToSpeechDataset(se_mode,
+               device_mel): 2 log-mel launches, src_mel within 2e-3).
+16. VC decode -- ``TTSDecoder.speech_to_speech`` at speecht5_base, bf16,
+               batch 1, every kernel on, a 3 s source and a 512-d x-vector,
+               HiFi-GAN at the released config, the stop bias at -8: per
+               request wall ms, decode steps, audio seconds and launches
+               (24 inference attention and 6 conv a request, 12 decode-step
+               a step); then the f32 kernel path against the plain path:
+               lengths equal, mel and stop probabilities within 2e-3, focus
+               rate within 1e-4, waveform within 2e-3.
+17. train s2c -- the SID fine-tune path: ``cli/train.main --task s2c`` at
+               speecht5_base_sid with the recipe's flags
+               (recipes/sid_finetune.sh: lr 2e-4, warmup 2000, accum 2,
+               batch 8, --max-sample-size 128000, bf16) over 32 seeded 4-10
+               s utterances of 8 speakers: class_map.txt written, 3 updates
+               and a resume, metrics finite, the conv and train kernels'
+               launches as in 14 (conv under feature_grad_mult 1.0), no
+               log-mel.
+18. s2c parity -- f32, dropout and layerdrop at 0: loss within 1e-4
+               relative, gradients as in 15 (the conv weights' included);
+               in eval the logits within 1e-4 of max |logit| and
+               SIDClassifier's class ids equal (a difference only where the
+               top-2 logit gap is < 1e-4); then one 8 s SID inference at
+               bf16, twice: wall ms, 24 inference-attention and 6 conv
+               launches.
 
 The launch counts are zeroed just before each driven path (serve, serve
-beam, train, train t2s, the warm-started train and request, serve tts) and
-read just after; a kernel of that path that was never launched fails.
+beam, train, train t2s, the warm-started train and request, serve tts,
+train s2s, the VC requests, train s2c, the SID inference) and read just
+after; a kernel of that path that was never launched fails.
 Output: an early line with the card's name and power limit as nvidia-smi
 gives them, one ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  A watchdog ends a hung run with a
@@ -252,6 +305,19 @@ T2S_OVERRIDES = ["encoder.use_pallas_attn_train=True"]
 # every stochastic part of the t2s step at 0, for its parity phase
 T2S_DETERMINISTIC = DETERMINISTIC + ["speech_prenet.dropout=0.0",
                                      "speech_postnet.postnet_dropout=0.0"]
+# recipes/vc_finetune.sh and recipes/sid_finetune.sh (the flags of the s2s
+# and s2c steps; their data, updates and --finetune-from are the run's)
+S2S_FLAGS = ["--guided-attn", "--lr", "1e-4", "--warmup", "6000", "--batch-size", "8",
+             "--dtype", "bfloat16"]
+S2C_FLAGS = ["--lr", "2e-4", "--warmup", "2000", "--accum", "2", "--batch-size", "8",
+             "--max-sample-size", "128000", "--dtype", "bfloat16"]
+SID_SPEAKERS = 8
+# encoder frames at Base: a 3 s VC source, the 6 s s2s audio bucket, the
+# 8 s s2c crop (--max-sample-size 128000)
+VC_SOURCE_S = 3.0
+VC_SOURCE_FRAMES = C.ConvFeatureConfig().out_length(int(VC_SOURCE_S * 16000))
+S2S_SOURCE_FRAMES = C.ConvFeatureConfig().out_length(6 * 16000)
+SID_FRAMES = C.ConvFeatureConfig().out_length(128000)
 
 
 def log(msg):
@@ -451,12 +517,12 @@ def attention_case(batch, dtype, device="cuda", seed=0, T=799, valid=None):
     return [t.to(device) for t in (q, k, v)] + [band, lengths.to(device)]
 
 
-def conv_case(batch, dtype, device="cuda", seed=1):
-    """Base feature-extractor layers 1-6 on the 16 s bucket after conv 0:
-    x [batch, 51199, 512], (k, s) = (3, 2) x 4, (2, 2) x 2."""
+def conv_case(batch, dtype, device="cuda", seed=1, T=51199):
+    """Base feature-extractor layers 1-6 after conv 0, by default on the 16
+    s bucket: x [batch, T, 512], (k, s) = (3, 2) x 4, (2, 2) x 2."""
     g = torch.Generator().manual_seed(seed)
     specs = ((3, 2),) * 4 + ((2, 2),) * 2
-    x = torch.randn(batch, 51199, 512, generator=g).to(dtype)
+    x = torch.randn(batch, T, 512, generator=g).to(dtype)
     ws = [(torch.randn(k, 512, 512, generator=g) / (k * 512) ** 0.5).to(dtype)
           for k, _ in specs]
     return x.to(device), [w.to(device) for w in ws], specs
@@ -502,38 +568,95 @@ def _fwd_parts_ms(q, k, v, band, lengths, count, train=False, rate=0.0, seed=0) 
                                                     rate, seed), reps=10)}
 
 
-def _conv_record(batch, dtype):
-    x, ws, specs = conv_case(batch, dtype)
-    got = K.conv_stack(x, ws, specs)
-    ref = K.conv_stack_plain(x, ws, specs)
-    torch.cuda.synchronize()
-    err, tol, ok = _check(dtype, got, ref)
+def _conv_flops(x, ws, specs) -> float:
+    """The forward's flops: per layer 2 x B x T_out x k x Cin x Cout."""
     B, t, _ = x.shape
     flops = 0.0
     for (k, s), w in zip(specs, ws):
         t = (t - k) // s + 1
         flops += 2.0 * B * t * k * w.shape[1] * w.shape[2]
-    # bytes: x, the weights and the final output once (not the intermediates)
-    nbytes = (x.numel() + sum(w.numel() for w in ws) + got.numel()) * x.element_size()
-    bound_ms, bound_by = _bound(nbytes, flops, dtype)
+    return flops
+
+
+def _conv_library(x, ws, specs):
+    """cuDNN's route for the same function: channels-first ``F.conv1d`` +
+    exact GELU per layer, on [B, C, T] copies of x and [Cout, Cin, k]
+    copies of the weights -> (x copy, weight copies, fn(x, ws) -> y)."""
     xt = x.transpose(1, 2).contiguous()
     wt = [w.permute(2, 1, 0).contiguous() for w in ws]
 
-    def library():
-        y = xt
-        for (_, s), w in zip(specs, wt):
+    def library(y, weights):
+        for (_, s), w in zip(specs, weights):
             y = F.gelu(F.conv1d(y, w, stride=s))
         return y
 
+    return xt, wt, library
+
+
+def _conv_record(batch, dtype, T=51199):
+    x, ws, specs = conv_case(batch, dtype, T=T)
+    got = K.conv_stack(x, ws, specs)
+    ref = K.conv_stack_plain(x, ws, specs)
+    torch.cuda.synchronize()
+    err, tol, ok = _check(dtype, got, ref)
+    B = x.shape[0]
+    flops = _conv_flops(x, ws, specs)
+    # bytes: x, the weights and the final output once (not the intermediates)
+    nbytes = (x.numel() + sum(w.numel() for w in ws) + got.numel()) * x.element_size()
+    bound_ms, bound_by = _bound(nbytes, flops, dtype)
+    xt, wt, library = _conv_library(x, ws, specs)
     ms = time_ms(lambda: K.conv_stack(x, ws, specs))
     return ok, {
         "max_abs_err": err, "tolerance": tol, "ms": ms,
         "plain_ms": time_ms(lambda: K.conv_stack_plain(x, ws, specs)),
-        "library_ms": time_ms(library),
+        "library_ms": time_ms(lambda: library(xt, wt)),
         "library_call": "F.conv1d + F.gelu per layer",
         "bound_ms": bound_ms, "bound_by": bound_by,
         **_achieved(flops, bound_ms, ms),
         "shape": {"B": B, "T_in": x.shape[1], "C": x.shape[2], "T_out": got.shape[1]},
+    }
+
+
+def _conv_bwd_record(batch, dtype, T):
+    """The conv stack under a gradient, as the s2s / s2c train steps run it:
+    the backward of ``K.conv_stack`` (the twin's vjp, recomputing the
+    twin's forward) for a random output gradient, held against autograd
+    through ``K.conv_stack_plain`` (dx and every dw); timed beside
+    ``torch.autograd.grad`` through cuDNN's conv1d + GELU.  Its work: the
+    data and weight gradients, twice the forward's products; its bytes: x,
+    the weights, the output gradient, dx and the dw once."""
+    x, ws, specs = conv_case(batch, dtype, T=T)
+    leaves = [t.detach().requires_grad_() for t in (x, *ws)]
+    y = K.conv_stack(leaves[0], leaves[1:], specs)
+    g = torch.randn(y.shape, generator=torch.Generator().manual_seed(5)).to(y)
+    y_ref = K.conv_stack_plain(leaves[0], leaves[1:], specs)
+    got = torch.autograd.grad(y, leaves, g, retain_graph=True)
+    ref = torch.autograd.grad(y_ref, leaves, g, retain_graph=True)
+    torch.cuda.synchronize()
+    ok, errs = True, {}
+    for name, a, b in zip(["dx"] + [f"dw{i + 1}" for i in range(len(ws))], got, ref):
+        errs[name], _, good = _check(dtype, a, b)
+        ok = ok and good
+    flops = 2 * _conv_flops(x, ws, specs)
+    nbytes = (2 * x.numel() + 2 * sum(w.numel() for w in ws) + g.numel()) * x.element_size()
+    bound_ms, bound_by = _bound(nbytes, flops, dtype)
+    xt, wt, library = _conv_library(x, ws, specs)
+    lib_leaves = [t.requires_grad_() for t in (xt, *wt)]
+    y_lib = library(lib_leaves[0], lib_leaves[1:])
+    g_lib = g.transpose(1, 2).contiguous()
+    ms = time_ms(lambda: torch.autograd.grad(y, leaves, g, retain_graph=True), reps=5)
+    return ok, {
+        "max_abs_err": max(errs.values()), "errors": errs,
+        "tolerance": (f"atol {TOL_F32}" if dtype == torch.float32
+                      else f"{TOL_BF16_REL} x max|ref| of each gradient"),
+        "ms": ms,
+        "plain_ms": time_ms(lambda: torch.autograd.grad(y_ref, leaves, g, retain_graph=True),
+                            reps=5),
+        "library_ms": time_ms(lambda: torch.autograd.grad(y_lib, lib_leaves, g_lib,
+                                                          retain_graph=True), reps=5),
+        "library_call": "torch.autograd.grad through F.conv1d + F.gelu per layer",
+        "bound_ms": bound_ms, "bound_by": bound_by, **_achieved(flops, bound_ms, ms),
+        "shape": {"B": x.shape[0], "T_in": T, "C": x.shape[2], "T_out": y.shape[1]},
     }
 
 
@@ -567,10 +690,10 @@ def _train_bwd_parts_ms(args) -> dict:
             "dkv_main": time_ms(lambda: K.train_bwd_dkv_main(*main), reps=10)}
 
 
-def _train_records(dtype, rate, seed=1234):
+def _train_records(dtype, rate, seed=1234, batch=16, T=799):
     """The three train kernels against their twins on one case, with the
     twin's forward outputs feeding both backward versions."""
-    q, k, v, band, lengths, do = train_attention_case(dtype)
+    q, k, v, band, lengths, do = train_attention_case(dtype, batch=batch, T=T)
     N, T, Dh = q.shape
     o, stats = K.banded_attention_train_fwd(q, k, v, band, lengths, rate, seed)
     o_ref, stats_ref = K.banded_attention_train_fwd_plain(q, k, v, band, lengths,
@@ -749,13 +872,14 @@ def flash_bias_cache_case(case, dtype, device="cuda", seed=4):
     cache (``--max-frames`` 1024 / r + 1; 201 valid), no row map;
     "tts_cross", the cross-attention against the 128-token text bucket (the
     longer served text's 58 valid), head-major K/V, asked for the
-    max-probability output as the decoder asks.  -> q4, k4, v4, key_valid,
-    rows."""
+    max-probability output as the decoder asks; "vc_cross", the same
+    against a 3 s VC source's 149 encoder frames, all valid.  -> q4, k4,
+    v4, key_valid, rows."""
     g = torch.Generator().manual_seed(seed)
     H = 12
-    if case in ("tts_self", "tts_cross"):
-        Tk, valid = ((513, 201) if case == "tts_self"
-                     else (TTS_BUCKET_TOKENS, TTS_TEXT_IDS))
+    if case in ("tts_self", "tts_cross", "vc_cross"):
+        Tk, valid = {"tts_self": (513, 201), "tts_cross": (TTS_BUCKET_TOKENS, TTS_TEXT_IDS),
+                     "vc_cross": (VC_SOURCE_FRAMES, VC_SOURCE_FRAMES)}[case]
         q4 = (torch.randn(1, 1, H, 64, generator=g) * 64 ** -0.5).to(dtype)
         if case == "tts_self":
             k4, v4 = (torch.randn(1, Tk, H, 64, generator=g).to(dtype) for _ in range(2))
@@ -787,18 +911,18 @@ def _flash_bias_record(case, dtype):
     back on the stream (``ms``) and as the card runs it (``graph_ms``), with
     SDPA (an f32 0/-1e9 mask, scale 1) on the same K/V as the yardstick,
     timed both ways.  "cross" and "self" call the contract entry on [N, T,
-    D] rows, "cross_cached", "self_cache", "tts_self" and "tts_cross" the
-    cached entry on the decoder's layouts; "tts_cross" with the
-    max-probability output, held against the twin's (f32 1e-4, bf16 3e-2
-    of max |ref|) and timed with and without it."""
+    D] rows, "cross_cached", "self_cache", "tts_self", "tts_cross" and
+    "vc_cross" the cached entry on the decoder's layouts; the last two with
+    the max-probability output, held against the twin's (f32 1e-4, bf16
+    3e-2 of max |ref|) and timed with and without it."""
     maxp_call = None
-    if case in ("self_cache", "cross_cached", "tts_self", "tts_cross"):
+    if case in ("self_cache", "cross_cached", "tts_self", "tts_cross", "vc_cross"):
         q4, k4, v4, key_valid, rows = flash_bias_cache_case(case, dtype)
         B, Tq, H, D = q4.shape
         N, Tk = B * H, k4.shape[1]
         call = lambda: K.flash_attention_bias_cached(q4, k4, v4, key_valid, rows)
         plain = lambda: K.flash_attention_bias_cached_plain(q4, k4, v4, key_valid, rows)
-        if case == "tts_cross":
+        if case in ("tts_cross", "vc_cross"):
             maxp_call = lambda: K.flash_attention_bias_cached(
                 q4, k4, v4, key_valid, rows, return_max_prob=True)
             maxp_plain = lambda: K.flash_attention_bias_cached_plain(
@@ -883,7 +1007,14 @@ def phase_kernels():
     the decode-step kernel at the beam's cross and self shapes through the
     contract entry and through the cached entry in f32 and bf16 (keys
     "<dtype>/cross", "<dtype>/self", "<dtype>/cross_cached",
-    "<dtype>/self_cache", "<dtype>/tts_self", "<dtype>/tts_cross")."""
+    "<dtype>/self_cache", "<dtype>/tts_self", "<dtype>/tts_cross",
+    "<dtype>/vc_cross").  The shapes of the s2s / s2c / VC / SID paths, bf16:
+    the inference attention on one VC source ("bfloat16/vc_src", T 149) and
+    one SID utterance ("bfloat16/sid", T 399); the train kernels at batch 8
+    ("bfloat16/r0.1/T299", the s2s source; "bfloat16/r0.1/T400", the s2c
+    crop with a [CLS] slot); the conv stack forward at batch 8 on 6 s and
+    8 s ("bfloat16/b8_T19199", "bfloat16/b8_T25599") and its backward at
+    8 s ("bfloat16/bwd_b8_T25599")."""
     records = {name: {} for name in KERNELS}
     failures = []
     for batch in (1, 2):
@@ -915,13 +1046,40 @@ def phase_kernels():
                 failures.append(f"train kernels {key}: "
                                 + json.dumps({n: r["errors"] for n, r in recs.items()}))
             torch.cuda.empty_cache()
+    for key, T in (("vc_src", VC_SOURCE_FRAMES), ("sid", SID_FRAMES)):
+        ok, rec = _attention_record(1, torch.bfloat16, T=T, valid=T)
+        records["banded_flash_attention"][f"bfloat16/{key}"] = rec
+        if not ok:
+            failures.append(f"banded_flash_attention {key}: max|diff| "
+                            f"{rec['max_abs_err']} > {rec['tolerance']}")
+    for T in (S2S_SOURCE_FRAMES, SID_FRAMES + 1):
+        key = f"bfloat16/r0.1/T{T}"
+        ok, recs = _train_records(torch.bfloat16, 0.1, batch=8, T=T)
+        for name, rec in recs.items():
+            records[name][key] = rec
+        if not ok:
+            failures.append(f"train kernels {key}: "
+                            + json.dumps({n: r["errors"] for n, r in recs.items()}))
+        torch.cuda.empty_cache()
+    for T in (19199, 25599):
+        ok, rec = _conv_record(8, torch.bfloat16, T=T)
+        records["conv_stack"][f"bfloat16/b8_T{T}"] = rec
+        if not ok:
+            failures.append(f"conv_stack b8 T{T}: max|diff| {rec['max_abs_err']} "
+                            f"> {rec['tolerance']}")
+    ok, rec = _conv_bwd_record(8, torch.bfloat16, T=25599)
+    records["conv_stack"]["bfloat16/bwd_b8_T25599"] = rec
+    if not ok:
+        failures.append(f"conv_stack backward: {rec['errors']} > {rec['tolerance']}")
+    torch.cuda.empty_cache()
     for batch, samples, center in ((16, 767 * 256 + 1024, False), (2, 48000, True)):
         ok, rec = _mel_record(batch, samples, center)
         records["fused_log_mel"][f"float32/b{batch}"] = rec
         if not ok:
             failures.append(f"fused_log_mel b{batch}: max|diff| {rec['max_abs_err']} "
                             f"> {rec['tolerance']}")
-    for case in ("cross", "self", "cross_cached", "self_cache", "tts_self", "tts_cross"):
+    for case in ("cross", "self", "cross_cached", "self_cache", "tts_self", "tts_cross",
+                 "vc_cross"):
         for dtype in (torch.float32, torch.bfloat16):
             key = f"{str(dtype).split('.')[-1]}/{case}"
             ok, rec = _flash_bias_record(case, dtype)
@@ -1236,29 +1394,42 @@ def phase_train(arch="speecht5_base_asr", device="cuda", n_utts=32, updates=3,
                 "--log-interval", "1", "--seed", str(seed + 1), "--device", device]
         for ov in TRAIN_OVERRIDES:
             args += ["--override", ov]
-        _sync(device)
-        K.reset_launch_counts()
-        t0 = time.perf_counter()
-        with _LayerRuns() as runs:
-            first = cli_train.main(args + ["--max-updates", str(updates)])
-        _sync(device)
-        wall = time.perf_counter() - t0
-        counts = K.launch_counts()
-        resumed = cli_train.main(args + ["--max-updates", str(updates + 1)])
-        saved = sorted(os.listdir(os.path.join(d, "ckpt")))
-    if not (first["steps"] == updates and len(first["history"]) == updates
-            and resumed["steps"] == updates + 1 and len(resumed["history"]) == 1):
-        raise AssertionError(f"train/resume steps wrong: {first['steps']}, "
-                             f"{resumed['steps']}, {len(resumed['history'])}")
-    if not (first["finite"] and resumed["finite"]):
-        raise AssertionError(f"non-finite train metrics: {first['history']} "
-                             f"{resumed['history']}")
-    if saved != [f"checkpoint_{updates + 1}.pt"]:
-        raise AssertionError(f"checkpoints saved: {saved}")
-    result = {"counts": counts, "layer_runs": runs.n, "wall_s": wall,
-              "history": first["history"] + resumed["history"]}
+        result = train_and_resume(args, os.path.join(d, "ckpt"), updates, device, "s2t")
     log(json.dumps({"phase": "train", **result}))
     return result
+
+
+def train_and_resume(args, save_dir, updates, device, what, accum=1):
+    """``cli/train.main(args)`` for ``updates`` updates, the launch counts
+    zeroed just before and read just after and each update timed, then a
+    resume that takes one more, keeping only the newest checkpoint.  Fails
+    unless both runs reach their steps with finite metrics.  -> {"counts",
+    "layer_runs" (training forwards of encoder layers), "micro_batches",
+    "wall_s", "update_ms", "history" (both runs), "metrics" (the first
+    update's names)}."""
+    _sync(device)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _LayerRuns() as runs, _UpdateTimes(device) as update_ms:
+        first = cli_train.main(args + ["--max-updates", str(updates)])
+    _sync(device)
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    resumed = cli_train.main(args + ["--max-updates", str(updates + 1)])
+    saved = sorted(f for f in os.listdir(save_dir) if f.startswith("checkpoint_"))
+    if not (first["steps"] == updates and len(first["history"]) == updates
+            and resumed["steps"] == updates + 1 and len(resumed["history"]) == 1):
+        raise AssertionError(f"{what} train/resume steps wrong: {first['steps']}, "
+                             f"{resumed['steps']}, {len(resumed['history'])}")
+    if not (first["finite"] and resumed["finite"]):
+        raise AssertionError(f"non-finite {what} metrics: {first['history']} "
+                             f"{resumed['history']}")
+    if saved != [f"checkpoint_{updates + 1}.pt"]:
+        raise AssertionError(f"{what} checkpoints saved: {saved}")
+    return {"counts": counts, "layer_runs": runs.n, "micro_batches": updates * accum,
+            "wall_s": wall, "update_ms": update_ms,
+            "history": first["history"] + resumed["history"],
+            "metrics": sorted(first["history"][0])}
 
 
 def synthetic_batch(cfg, batch, seconds=(8.0, 16.0), seed=0, device="cuda"):
@@ -1280,6 +1451,86 @@ def synthetic_batch(cfg, batch, seconds=(8.0, 16.0), seed=0, device="cuda"):
                for k in ("wav", "prev_tokens", "targets")}}
 
 
+def route_grads(task, routes, tcfg, seed, device, after=None):
+    """One training micro-batch's loss and every parameter gradient on each
+    route, ``routes`` = ((cfg, batch), ...), every model with the weights
+    of the first (seeded ``seed + 7``).  ``after(model)``, called once the
+    gradients are taken, adds what it returns to the route's result.  ->
+    [(loss, {name: grad}, after's result or None), ...]."""
+    results, state = [], None
+    for cfg, mb in routes:
+        model = init_model(cfg, torch.Generator().manual_seed(seed + 7), device)
+        if state is None:
+            state = model.state_dict()
+        model.load_state_dict(state)
+        trainer = Trainer(model, task, tcfg)
+        model.train()
+        loss, _ = trainer.loss(mb)
+        loss.backward()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        results.append((loss.item(), grads, None if after is None else after(model)))
+        del model, trainer
+    return results
+
+
+def grad_rel_diffs(g_k, g_p) -> dict:
+    """Each parameter's max |g_kernel - g_plain| / max |g_plain|.  A
+    gradient present on one route only fails; the k_proj biases, whose
+    gradient is analytically 0, must be within 1e-6 of the largest gradient
+    on both routes (rounding noise) and are left out."""
+    gmax = max(g.abs().max().item() for g in g_p.values() if g is not None)
+    out = {}
+    for name, gp in g_p.items():
+        gk = g_k[name]
+        if gp is None or gk is None:
+            if (gp is None) != (gk is None):
+                raise AssertionError(f"gradient of {name} present on one route only")
+            continue
+        if name.endswith("k_proj.bias"):
+            if max(gk.abs().max().item(), gp.abs().max().item()) > 1e-6 * gmax:
+                raise AssertionError(f"{name}: gradient not ~0")
+            continue
+        out[name] = (gk - gp).abs().max().item() / max(gp.abs().max().item(), 1e-30)
+    return out
+
+
+def grad_diff(g_k, g_p):
+    """The largest of ``grad_rel_diffs`` and its name."""
+    diffs = grad_rel_diffs(g_k, g_p)
+    name = max(diffs, key=diffs.get)
+    return diffs[name], name
+
+
+# a relative scaling of the plain route's input waveform: 2^-22 is one or
+# two ulps of f32, the size of the differences the kernel route makes
+ULP_SCALE = 1 + 2.0 ** -22
+
+
+def grad_gate(g_k, g_p, g_p_ulp, grad_rtol):
+    """The kernel route's gradients against the plain route's, each within
+    ``grad_rtol`` of its max |g|, or, where the plain route's own gradient
+    moves by more than half that when its input waveform is scaled by
+    ``ULP_SCALE`` (``g_p_ulp``: a near-zero gradient summed with
+    cancellation, which f32 cannot resolve to ``grad_rtol``), within twice
+    that move.  -> (worst difference, its name, the parameters held to
+    their own move and those over the gate, each {name: [difference, move,
+    max |g| over the largest of all]})."""
+    diffs = grad_rel_diffs(g_k, g_p)
+    moves = grad_rel_diffs(g_p_ulp, g_p)
+    gmax = max(g.abs().max().item() for g in g_p.values() if g is not None)
+    floored, over = {}, {}
+    for name, rel in diffs.items():
+        tol = grad_rtol
+        record = [rel, moves[name], g_p[name].abs().max().item() / gmax]
+        if moves[name] > grad_rtol / 2:
+            tol = 2 * moves[name]
+            floored[name] = record
+        if rel > tol:
+            over[name] = record
+    name = max(diffs, key=diffs.get)
+    return diffs[name], name, floored, over
+
+
 def phase_train_parity(base_cfg, device="cuda", batch=16, seconds=(8.0, 16.0),
                        seed=0, loss_rtol=1e-4, grad_rtol=1e-3):
     """One micro-batch in f32, every stochastic part at 0, the same weights:
@@ -1289,37 +1540,10 @@ def phase_train_parity(base_cfg, device="cuda", batch=16, seconds=(8.0, 16.0),
     cfg_p = C.apply_overrides(C.replace(base_cfg, dtype="float32", **DICT_CFG),
                               DETERMINISTIC)
     b = synthetic_batch(base_cfg, batch, seconds, seed, device)
-    tcfg = TrainConfig(ctc_weight=0.5)
-    results = []
-    state = None
-    for cfg in (cfg_k, cfg_p):
-        model = init_model(cfg, torch.Generator().manual_seed(seed + 7), device)
-        if state is None:
-            state = model.state_dict()
-        model.load_state_dict(state)
-        trainer = Trainer(model, "s2t", tcfg)
-        model.train()
-        loss, _ = trainer.loss(b)
-        loss.backward()
-        results.append((loss.item(), {n: p.grad for n, p in model.named_parameters()}))
-        del model, trainer
-    (loss_k, g_k), (loss_p, g_p) = results
-    gmax = max(g.abs().max().item() for g in g_p.values() if g is not None)
-    worst, worst_name = 0.0, None
-    for name, gp in g_p.items():
-        gk = g_k[name]
-        if gp is None or gk is None:
-            if (gp is None) != (gk is None):
-                raise AssertionError(f"gradient of {name} present on one route only")
-            continue
-        err = (gk - gp).abs().max().item()
-        if name.endswith("k_proj.bias"):   # analytically 0: rounding noise
-            if max(gk.abs().max().item(), gp.abs().max().item()) > 1e-6 * gmax:
-                raise AssertionError(f"{name}: gradient not ~0")
-            continue
-        rel = err / max(gp.abs().max().item(), 1e-30)
-        if rel > worst:
-            worst, worst_name = rel, name
+    results = route_grads("s2t", ((cfg_k, b), (cfg_p, b)), TrainConfig(ctc_weight=0.5),
+                          seed, device)
+    (loss_k, g_k, _), (loss_p, g_p, _) = results
+    worst, worst_name = grad_diff(g_k, g_p)
     result = {"loss_kernel": loss_k, "loss_plain": loss_p,
               "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
               "worst_grad_rel_diff": worst, "worst_grad_param": worst_name}
@@ -1379,36 +1603,25 @@ def phase_train_t2s(arch="speecht5_base", device="cuda", n_utts=32, updates=3,
                 "--log-interval", "1", "--seed", str(seed + 1), "--device", device]
         for ov in T2S_OVERRIDES:
             args += ["--override", ov]
-        accum = int(flags[flags.index("--accum") + 1]) if "--accum" in flags else 1
-        _sync(device)
-        K.reset_launch_counts()
-        t0 = time.perf_counter()
-        with _LayerRuns() as runs:
-            first = cli_train.main(args + ["--max-updates", str(updates)])
-        _sync(device)
-        wall = time.perf_counter() - t0
-        counts = K.launch_counts()
-        resumed = cli_train.main(args + ["--max-updates", str(updates + 1)])
-        saved = sorted(os.listdir(os.path.join(d, "ckpt")))
-    if not (first["steps"] == updates and len(first["history"]) == updates
-            and resumed["steps"] == updates + 1 and len(resumed["history"]) == 1):
-        raise AssertionError(f"t2s train/resume steps wrong: {first['steps']}, "
-                             f"{resumed['steps']}, {len(resumed['history'])}")
-    if not (first["finite"] and resumed["finite"]):
-        raise AssertionError(f"non-finite t2s metrics: {first['history']} "
-                             f"{resumed['history']}")
-    if saved != [f"checkpoint_{updates + 1}.pt"]:
-        raise AssertionError(f"checkpoints saved: {saved}")
+        result = train_and_resume(args, os.path.join(d, "ckpt"), updates, device, "t2s",
+                                  accum=_accum(flags))
+    check_tts_metrics(result, flags, "t2s")
+    log(json.dumps({"phase": "train_t2s", **result}))
+    return result
+
+
+def _accum(flags) -> int:
+    return int(flags[flags.index("--accum") + 1]) if "--accum" in flags else 1
+
+
+def check_tts_metrics(result, flags, what):
+    """The t2s / s2s updates' metrics: tts_loss's, with the guided
+    attention loss under --guided-attn, and the grad norm."""
     want = {"l1_loss", "l2_loss", "bce_loss", "loss", "grad_norm"}
     if "--guided-attn" in flags:
         want.add("enc_dec_attn_loss")
-    if set(first["history"][0]) != want:
-        raise AssertionError(f"t2s metrics {sorted(first['history'][0])}")
-    result = {"counts": counts, "layer_runs": runs.n,
-              "micro_batches": updates * accum, "wall_s": wall,
-              "history": first["history"] + resumed["history"]}
-    log(json.dumps({"phase": "train_t2s", **result}))
-    return result
+    if set(result["metrics"]) != want:
+        raise AssertionError(f"{what} metrics {result['metrics']}")
 
 
 def synthetic_t2s_batch(cfg, batch, seconds=(2.0, 10.0), seed=0, device="cuda"):
@@ -1446,35 +1659,10 @@ def phase_t2s_parity(base_cfg, device="cuda", batch=16, seconds=(2.0, 10.0), see
     mel_err = max((mel_k[k].cpu() - mel_p[k]).abs().max().item()
                   for k in ("target_mel", "prev_mel"))
     b_plain = {k: v.to(device) for k, v in mel_p.items()}
-    tcfg = TrainConfig(use_guided_attn=True)
-    results, state = [], None
-    for cfg, mb in ((cfg_k, b), (cfg_p, b_plain)):
-        model = init_model(cfg, torch.Generator().manual_seed(seed + 7), device)
-        if state is None:
-            state = model.state_dict()
-        model.load_state_dict(state)
-        trainer = Trainer(model, "t2s", tcfg)
-        model.train()
-        loss, _ = trainer.loss(mb)
-        loss.backward()
-        results.append((loss.item(), {n: p.grad for n, p in model.named_parameters()}))
-        del model, trainer
-    (loss_k, g_k), (loss_p, g_p) = results
-    gmax = max(g.abs().max().item() for g in g_p.values() if g is not None)
-    worst, worst_name = 0.0, None
-    for name, gp in g_p.items():
-        gk = g_k[name]
-        if gp is None or gk is None:
-            if (gp is None) != (gk is None):
-                raise AssertionError(f"gradient of {name} present on one route only")
-            continue
-        if name.endswith("k_proj.bias"):   # analytically 0: rounding noise
-            if max(gk.abs().max().item(), gp.abs().max().item()) > 1e-6 * gmax:
-                raise AssertionError(f"{name}: gradient not ~0")
-            continue
-        rel = (gk - gp).abs().max().item() / max(gp.abs().max().item(), 1e-30)
-        if rel > worst:
-            worst, worst_name = rel, name
+    results = route_grads("t2s", ((cfg_k, b), (cfg_p, b_plain)),
+                          TrainConfig(use_guided_attn=True), seed, device)
+    (loss_k, g_k, _), (loss_p, g_p, _) = results
+    worst, worst_name = grad_diff(g_k, g_p)
     result = {"mel_max_abs_err": mel_err, "loss_kernel": loss_k, "loss_plain": loss_p,
               "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
               "worst_grad_rel_diff": worst, "worst_grad_param": worst_name}
@@ -1908,6 +2096,29 @@ def _union_ms(intervals) -> float:
     return total / 1e3
 
 
+def decode_diff(k, p, mel_atol, focus_atol, wav_atol, what):
+    """Two ``TTSResult``s, the kernel path's and the plain path's: lengths
+    equal, mel, mel_before and stop probabilities within ``mel_atol``, the
+    focus rate within ``focus_atol``, waveforms within ``wav_atol``, the
+    kernel path's finite; else raises.  -> the differences."""
+    diff = lambda a, b: (a.float() - b.float()).abs().max().item()
+    res = {"lengths_kernel": k.lengths.tolist(), "lengths_plain": p.lengths.tolist(),
+           "mel_max_abs_err": diff(k.mel, p.mel),
+           "mel_before_max_abs_err": diff(k.mel_before, p.mel_before),
+           "focus_rate_max_abs_err": diff(k.focus_rate, p.focus_rate),
+           "focus_rate": k.focus_rate.tolist(),
+           "wav_max_abs_err": diff(k.wav, p.wav),
+           "stop_probs_max_abs_err": diff(k.stop_probs, p.stop_probs)}
+    if (not torch.equal(k.lengths, p.lengths) or res["mel_max_abs_err"] > mel_atol
+            or res["mel_before_max_abs_err"] > mel_atol
+            or res["stop_probs_max_abs_err"] > mel_atol
+            or res["focus_rate_max_abs_err"] > focus_atol
+            or res["wav_max_abs_err"] > wav_atol
+            or not all(torch.isfinite(t).all() for t in (k.mel, k.wav, k.focus_rate))):
+        raise AssertionError(f"{what} paths differ: {res}")
+    return res
+
+
 def phase_tts_parity(base_cfg, device="cuda", texts=TTS_TEXTS, seed=0, max_frames=1024,
                      bucket_tokens=TTS_BUCKET_TOKENS, mel_atol=TOL_MEL, focus_atol=1e-4,
                      wav_atol=2e-3, vocoder_cfg=None):
@@ -1960,22 +2171,8 @@ def phase_tts_parity(base_cfg, device="cuda", texts=TTS_TEXTS, seed=0, max_frame
             threshold = dec.threshold
             del model, dec
         k, p = results
-        diff = lambda a, b: (a.float() - b.float()).abs().max().item()
         res = {"stop_bias": stop_bias, "threshold": threshold, "min_len_ratio": min_ratio,
-               "lengths_kernel": k.lengths.tolist(), "lengths_plain": p.lengths.tolist(),
-               "mel_max_abs_err": diff(k.mel, p.mel),
-               "mel_before_max_abs_err": diff(k.mel_before, p.mel_before),
-               "focus_rate_max_abs_err": diff(k.focus_rate, p.focus_rate),
-               "focus_rate": k.focus_rate.tolist(),
-               "wav_max_abs_err": diff(k.wav, p.wav),
-               "stop_probs_max_abs_err": diff(k.stop_probs, p.stop_probs)}
-        if (not torch.equal(k.lengths, p.lengths) or res["mel_max_abs_err"] > mel_atol
-                or res["mel_before_max_abs_err"] > mel_atol
-                or res["stop_probs_max_abs_err"] > mel_atol
-                or res["focus_rate_max_abs_err"] > focus_atol
-                or res["wav_max_abs_err"] > wav_atol
-                or not all(torch.isfinite(t).all() for t in (k.mel, k.wav, k.focus_rate))):
-            raise AssertionError(f"TTS paths differ: {res}")
+               **decode_diff(k, p, mel_atol, focus_atol, wav_atol, "TTS")}
         return res, k
 
     result, k = run_pair(TTS_STOP_BIAS, 0.0)
@@ -2007,6 +2204,370 @@ def phase_tts_parity(base_cfg, device="cuda", texts=TTS_TEXTS, seed=0, max_frame
         raise AssertionError(f"TTS parity: the stop rule should give {want} frames, "
                              f"row {row} stopping early by threshold: {early}")
     return result
+
+
+# ------------------------------------------------------------ VC / SE (s2s)
+
+
+def write_vc_corpus(directory: str, n: int, seconds=(2.0, 6.0), spk_dim: int = 512,
+                    seed: int = 0) -> str:
+    """``n`` seeded source / target pairs of ``seconds`` (min, max) each, as
+    WAVs, and a seeded ``spk_dim`` x-vector of the target speaker per pair,
+    in ``directory``, with the s2s manifest ("src\\tn\\ttgt\\tn\\tspk.npy"
+    rows under the directory).  Returns the manifest's path."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n):
+        src = synth_audio(float(rng.uniform(*seconds)), seed=seed + 5000 + i)
+        tgt = synth_audio(float(rng.uniform(*seconds)), seed=seed + 6000 + i)
+        write_wav(os.path.join(directory, f"src{i}.wav"), src)
+        write_wav(os.path.join(directory, f"tgt{i}.wav"), tgt)
+        np.save(os.path.join(directory, f"spk{i}.npy"),
+                rng.standard_normal(spk_dim).astype(np.float32))
+        rows.append(f"src{i}.wav\t{len(src)}\ttgt{i}.wav\t{len(tgt)}\tspk{i}.npy")
+    manifest = os.path.join(directory, "vc.tsv")
+    with open(manifest, "w", encoding="utf-8") as f:
+        f.write(directory + "\n" + "\n".join(rows) + "\n")
+    return manifest
+
+
+def synthetic_s2s_batch(cfg, batch, seconds=(2.0, 6.0), seed=0, se_mode=False):
+    """One collated s2s micro-batch in device-mel mode, as ``cli/train.py``
+    hands it to the trainer: ``batch`` pairs of ``write_vc_corpus`` read and
+    collated by ``SpeechToSpeechDataset`` (with ``se_mode`` the source on the
+    target's mel grid too); numpy arrays."""
+    from speecht5_tpu_torch.data.manifests import SpeechToSpeechDataset
+
+    with tempfile.TemporaryDirectory() as d:
+        ds = SpeechToSpeechDataset(write_vc_corpus(d, batch, seconds, cfg.spk_embed_dim, seed),
+                                   reduction_factor=cfg.reduction_factor, n_mels=cfg.n_mels,
+                                   se_mode=se_mode, device_mel=True)
+        b = ds.collate([ds[i] for i in range(batch)])
+    b.pop("ids")
+    return b
+
+
+def _on(batch, device):
+    """A collated batch on ``device``, wav_lengths on the host (as
+    ``cli/train.py`` hands it over)."""
+    return {k: torch.from_numpy(v) if k == "wav_lengths" else torch.from_numpy(v).to(device)
+            for k, v in batch.items()}
+
+
+def phase_train_s2s(arch="speecht5_base", device="cuda", n_utts=32, updates=3,
+                    seconds=(2.0, 6.0), flags=S2S_FLAGS, seed=0):
+    """The VC fine-tune path through ``cli/train.main --task s2s`` (no labels,
+    no dictionary): ``updates`` updates, then a resume that takes one more,
+    over ``write_vc_corpus``'s pairs in a temporary directory removed at the
+    end.  The mels come from the log-mel kernel, the source through the
+    conv kernel under a gradient (``feature_grad_mult``) and the train
+    attention kernel."""
+    with tempfile.TemporaryDirectory() as d:
+        manifest = write_vc_corpus(d, n_utts, seconds, getattr(C, arch)().spk_embed_dim, seed)
+        args = ["--task", "s2s", "--arch", arch, "--manifest", manifest,
+                "--save-dir", os.path.join(d, "ckpt"), *flags, "--keep-last", "1",
+                "--log-interval", "1", "--seed", str(seed + 1), "--device", device]
+        for ov in TRAIN_OVERRIDES:
+            args += ["--override", ov]
+        result = train_and_resume(args, os.path.join(d, "ckpt"), updates, device, "s2s",
+                                  accum=_accum(flags))
+    check_tts_metrics(result, flags, "s2s")
+    log(json.dumps({"phase": "train_s2s", **result}))
+    return result
+
+
+def check_speech_train_counts(result, cfg, mels_per_micro_batch, what):
+    """A speech-input train path's launches: the log-mel kernel
+    ``mels_per_micro_batch`` times a micro-batch, the conv kernel once per
+    strided feature-extractor layer (1..n) a micro-batch, the train kernels
+    once per encoder layer run (``check_train_counts``), the inference
+    attention and the decode-step kernel never."""
+    c, n = result["counts"], result["micro_batches"]
+    if (c["fused_log_mel"] != mels_per_micro_batch * n
+            or c["conv_stack"] != (len(cfg.conv_features.layers) - 1) * n
+            or c["banded_flash_attention"] or c["flash_attention_bias"]):
+        raise AssertionError(f"{what} path launches wrong: {c}, {n} micro-batches")
+    check_train_counts(c, result["layer_runs"], f"{what} encoder")
+
+
+def phase_s2s_parity(base_cfg, device="cuda", batch=8, seconds=(2.0, 6.0), seed=0,
+                     mel_atol=TOL_MEL, loss_rtol=1e-4, grad_rtol=1e-3):
+    """One f32 s2s micro-batch, every dropout (the Tacotron prenet's too)
+    and layerdrop at 0, the same weights: the kernel route (mels by the
+    log-mel kernel, the conv kernel with its backward, the train attention)
+    against the plain route (the twin's mels computed on the CPU, cuDNN's
+    conv, plain attention): mels within ``mel_atol``, loss within
+    ``loss_rtol`` relative, every parameter gradient within ``grad_rtol`` of
+    its max |g| (``grad_gate``: or within twice its own move under a one-ulp
+    input scaling, where that move is over half the gate), the conv
+    weights' included.  Once as VC (r
+    of the preset, ``prev_mel``), once as SE (r 1, ``se_predict``
+    "masking", the source's mels the decoder input: 2 log-mel launches)."""
+    out = {}
+    for mode in ("vc", "se"):
+        base = C.replace(base_cfg, dtype="float32")
+        if mode == "se":
+            base = C.replace(base, reduction_factor=1, se_predict="masking")
+        cfg_k = C.apply_overrides(base, T2S_DETERMINISTIC + TRAIN_OVERRIDES)
+        cfg_p = C.apply_overrides(base, T2S_DETERMINISTIC)
+        b = synthetic_s2s_batch(base, batch, seconds, seed, se_mode=mode == "se")
+        r = base.reduction_factor
+        K.reset_launch_counts()
+        mel_k = device_mel_batch(_on(b, device), base.n_mels, r)
+        mel_launches = K.launch_counts()["fused_log_mel"]
+        mel_p = device_mel_batch({k: torch.from_numpy(v) for k, v in b.items()},
+                                 base.n_mels, r)
+        mel_keys = ("target_mel", "prev_mel") + (("src_mel",) if mode == "se" else ())
+        mel_err = {k: (mel_k[k].cpu() - mel_p[k]).abs().max().item() for k in mel_keys}
+        b_plain = {k: v if k == "wav_lengths" else v.to(device) for k, v in mel_p.items()}
+        b_ulp = {**b_plain, "wav": b_plain["wav"] * ULP_SCALE}
+        (loss_k, g_k, _), (loss_p, g_p, _), (_, g_ulp, _) = route_grads(
+            "s2s", ((cfg_k, mel_k), (cfg_p, b_plain), (cfg_p, b_ulp)),
+            TrainConfig(use_guided_attn=True), seed, device)
+        worst, worst_name, floored, over = grad_gate(g_k, g_p, g_ulp, grad_rtol)
+        conv_worst, conv_live = conv_grads(g_k, g_p)
+        res = {"mel_max_abs_err": mel_err, "mel_launches": mel_launches,
+               "loss_kernel": loss_k, "loss_plain": loss_p,
+               "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
+               "worst_grad_rel_diff": worst, "worst_grad_param": worst_name,
+               "grads_held_to_their_ulp_move": floored, "grads_over": over,
+               "conv_grad_rel_diff": conv_worst}
+        out[mode] = res
+        want_mels = len(mel_keys) - 1 if torch.device(device).type == "cuda" else 0
+        if (max(mel_err.values()) > mel_atol or res["loss_rel_diff"] > loss_rtol
+                or over or mel_launches != want_mels or not conv_live):
+            raise AssertionError(f"s2s routes differ ({mode}): {res}")
+    log(json.dumps({"phase": "s2s_parity", **out}))
+    return out
+
+
+def conv_grads(g_k, g_p):
+    """The conv kernel's weights (feature-extractor layers 1..n, whose
+    gradient comes through the kernel's backward): the largest relative
+    difference of their gradients between the routes, and whether every
+    one is nonzero on the kernel route."""
+    names = [n for n in g_k if ".feature_extractor.conv_" in n
+             and not n.endswith("conv_0.weight")]
+    worst = max((g_k[n] - g_p[n]).abs().max().item()
+                / max(g_p[n].abs().max().item(), 1e-30) for n in names)
+    return worst, all(g_k[n].abs().max() > 0 for n in names)
+
+
+def vc_launches_expected(cfg, steps: int) -> dict:
+    """The VC decode's launches for one request: the speech encoder's conv
+    kernel per strided layer and its inference attention per layer (bf16:
+    bias pass and main loop) once, and per decode step one decode-step
+    launch per decoder layer for the self- and one for the
+    cross-attention."""
+    want = tts_launches_expected(cfg, steps)
+    want["conv_stack"] = len(cfg.conv_features.layers) - 1
+    return want
+
+
+def phase_vc_decode(base_cfg, device="cuda", dtype="bfloat16", source_s=VC_SOURCE_S,
+                    seed=0, max_frames=1024, vocoder_cfg=None, requests=2,
+                    mel_atol=TOL_MEL, focus_atol=1e-4, wav_atol=2e-3):
+    """VC decoding: ``TTSDecoder.speech_to_speech`` at ``base_cfg`` with
+    every kernel on (the beam's overrides), batch 1, a seeded source of
+    ``source_s`` and x-vector, HiFi-GAN at the released config, the stop
+    bias at ``TTS_STOP_BIAS`` (every request runs to its length bound, 10
+    frames an encoder frame).  Per request: wall ms, decode steps, audio
+    seconds and launches, which must be ``vc_launches_expected`` on a card.
+    Then the f32 kernel path against the plain path (``decode_diff``)."""
+    from speecht5_tpu_torch.decode.tts import TTSDecoder
+
+    wav = synth_audio(source_s, seed=400)[None]
+    lengths = np.array([wav.shape[1]])
+    spk = np.random.default_rng(seed + 9).standard_normal((1, base_cfg.spk_embed_dim))
+    voc = tts_vocoder(base_cfg.n_mels, device, seed, vocoder_cfg)
+    on_card = torch.device(device).type == "cuda"
+    card = card_line() if on_card else "cpu"
+    cfg, model = tts_model(base_cfg, dtype, True, device, seed)
+    dec = TTSDecoder(model, max_frames=max_frames, vocoder=voc, device=device)
+    frames = cfg.conv_features.out_length(wav.shape[1])
+    max_steps = min(int(frames * dec.max_len_ratio / cfg.reduction_factor), dec.max_steps)
+    results, counts = [], dict.fromkeys(KERNELS, 0)
+    for _ in range(requests):
+        _sync(device)
+        before, steps0 = K.launch_counts(), dec.steps_run
+        t0 = time.perf_counter()
+        out = dec.speech_to_speech(wav, lengths, spk)
+        _sync(device)
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = {n: c - before[n] for n, c in K.launch_counts().items()}
+        for n, c in launches.items():
+            counts[n] += c
+        steps = dec.steps_run - steps0
+        audio_s = int(out.wav_lengths[0]) / SR
+        results.append({"source_s": source_s, "encoder_frames": frames,
+                        "decode_steps": steps, "wall_ms": wall,
+                        "ms_per_step": wall / max(steps, 1), "wav_s": audio_s,
+                        "launches": launches, "card": card})
+        want = vc_launches_expected(cfg, steps) if on_card else dict.fromkeys(KERNELS, 0)
+        if (launches != want or not 0 < steps <= max_steps + CHECK_EVERY
+                or int(out.lengths[0]) != max_steps * cfg.reduction_factor
+                or not torch.isfinite(out.wav).all()):
+            raise AssertionError(f"VC request {results[-1]}: want launches {want}, "
+                                 f"{max_steps} steps")
+    del model, dec
+    for r in results:
+        log(json.dumps({"vc_decoded": r}))
+    decoded, state = [], None
+    for kernels in (True, False):
+        cfg, model = tts_model(base_cfg, "float32", kernels, device, seed)
+        if state is None:
+            state = model.state_dict()
+        model.load_state_dict(state)
+        dec = TTSDecoder(model, max_frames=max_frames, vocoder=voc, device=device)
+        gen = torch.Generator(device=device).manual_seed(seed + 5)
+        decoded.append(dec.speech_to_speech(wav, lengths, spk, generator=gen))
+        del model, dec
+    parity = decode_diff(*decoded, mel_atol, focus_atol, wav_atol, "VC")
+    log(json.dumps({"phase": "vc_parity", **parity}))
+    return {"counts": counts, "requests": results, "parity": parity}
+
+
+# -------------------------------------------------------------- SID (s2c)
+
+
+def write_sid_corpus(directory: str, n: int, seconds=(4.0, 10.0),
+                     speakers: int = SID_SPEAKERS, seed: int = 0) -> str:
+    """``n`` seeded utterances of ``seconds`` (min, max) over ``speakers``
+    labels (utterance i is speaker i mod ``speakers``), with the s2c
+    manifest ("file\\tn\\tspeaker" rows).  Returns the manifest's path."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n):
+        wav = synth_audio(float(rng.uniform(*seconds)), seed=seed + 7000 + i)
+        write_wav(os.path.join(directory, f"sid{i}.wav"), wav)
+        rows.append(f"sid{i}.wav\t{len(wav)}\tspk{i % speakers:02d}")
+    manifest = os.path.join(directory, "sid.tsv")
+    with open(manifest, "w", encoding="utf-8") as f:
+        f.write(directory + "\n" + "\n".join(rows) + "\n")
+    return manifest
+
+
+def synthetic_s2c_batch(batch, seconds=(4.0, 10.0), seed=0, max_sample_size=128000):
+    """One collated s2c micro-batch as ``cli/train.py`` hands it to the
+    trainer: ``batch`` utterances of ``write_sid_corpus`` read, cropped to
+    ``max_sample_size`` and collated by ``SpeechToClassDataset``; numpy."""
+    from speecht5_tpu_torch.data.manifests import SpeechToClassDataset
+
+    with tempfile.TemporaryDirectory() as d:
+        ds = SpeechToClassDataset(write_sid_corpus(d, batch, seconds, seed=seed),
+                                  max_sample_size=max_sample_size, seed=seed)
+        b = ds.collate([ds[i] for i in range(batch)])
+    b.pop("ids")
+    return b
+
+
+def phase_train_s2c(arch="speecht5_base_sid", device="cuda", n_utts=32, updates=3,
+                    seconds=(4.0, 10.0), flags=S2C_FLAGS, seed=0):
+    """The SID fine-tune path through ``cli/train.main --task s2c``: the
+    number of classes from the corpus' ``SID_SPEAKERS`` labels,
+    ``class_map.txt`` written to the save dir, ``updates`` updates and a
+    resume that takes one more.  The conv kernel runs under a gradient
+    (``feature_grad_mult`` 1.0), the train attention on the crop."""
+    with tempfile.TemporaryDirectory() as d:
+        manifest = write_sid_corpus(d, n_utts, seconds, seed=seed)
+        save_dir = os.path.join(d, "ckpt")
+        args = ["--task", "s2c", "--arch", arch, "--manifest", manifest,
+                "--save-dir", save_dir, *flags, "--keep-last", "1",
+                "--log-interval", "1", "--seed", str(seed + 1), "--device", device]
+        for ov in TRAIN_OVERRIDES:
+            args += ["--override", ov]
+        result = train_and_resume(args, save_dir, updates, device, "s2c",
+                                  accum=_accum(flags))
+        with open(os.path.join(save_dir, "class_map.txt"), encoding="utf-8") as f:
+            class_map = [line.split("\t") for line in f.read().splitlines()]
+    want = [[f"spk{i:02d}", str(i)] for i in range(min(SID_SPEAKERS, n_utts))]
+    if class_map != want:
+        raise AssertionError(f"class_map.txt: {class_map}")
+    if result["metrics"] != ["accuracy", "grad_norm", "loss", "nll_loss"]:
+        raise AssertionError(f"s2c metrics {result['metrics']}")
+    result["classes"] = len(class_map)
+    log(json.dumps({"phase": "train_s2c", **result}))
+    return result
+
+
+def phase_s2c_parity(base_cfg, device="cuda", batch=8, seconds=(4.0, 10.0), seed=0,
+                     logit_rtol=1e-4, loss_rtol=1e-4, grad_rtol=1e-3, gap_tol=1e-4,
+                     requests=2, max_sample_size=128000):
+    """One f32 s2c micro-batch, dropout and layerdrop at 0, the same
+    weights: the kernel route (the conv kernel with its backward, the train
+    attention; in eval the inference attention) against the plain route:
+    loss within ``loss_rtol`` relative, every gradient within ``grad_rtol``
+    of its max |g| as ``grad_gate`` holds it (the conv weights' included;
+    at random weights the decoder's cross-attention q / k gradients of the
+    pooling query are ~1e-6 of the largest and move by ~1.5e-3 under a
+    one-ulp input scaling), then in eval mode the
+    logits within ``logit_rtol`` of max |logit| and ``SIDClassifier``'s
+    class ids equal, a difference tolerated only where the plain route's
+    top-2 logit gap is under ``gap_tol``.  Then one SID inference of a full
+    ``max_sample_size`` crop at bf16 with the kernels, ``requests`` times:
+    wall ms and launches (the inference attention per layer, bf16 two, and
+    the conv per strided layer)."""
+    from speecht5_tpu_torch.decode.sid import SIDClassifier
+
+    base = C.replace(base_cfg, dtype="float32")
+    cfg_k = C.apply_overrides(base, DETERMINISTIC + TRAIN_OVERRIDES + KERNEL_OVERRIDES)
+    cfg_p = C.apply_overrides(base, DETERMINISTIC)
+    b = _on(synthetic_s2c_batch(batch, seconds, seed, max_sample_size), device)
+
+    def classify(model):
+        with torch.no_grad():
+            model.eval()
+            logits, _ = model.forward_s2c(b["wav"], b["wav_lengths"])
+            ids = SIDClassifier(model, device)(b["wav"], b["wav_lengths"])
+        return logits, ids
+
+    b_ulp = {**b, "wav": b["wav"] * ULP_SCALE}
+    (loss_k, g_k, (lk, ids_k)), (loss_p, g_p, (lp, ids_p)), (_, g_ulp, _) = route_grads(
+        "s2c", ((cfg_k, b), (cfg_p, b), (cfg_p, b_ulp)), TrainConfig(), seed, device,
+        after=classify)
+    worst, worst_name, floored, over = grad_gate(g_k, g_p, g_ulp, grad_rtol)
+    conv_worst, conv_live = conv_grads(g_k, g_p)
+    top2 = torch.topk(lp, 2, dim=-1).values
+    gaps = (top2[:, 0] - top2[:, 1])[ids_k != ids_p]
+    res = {"loss_kernel": loss_k, "loss_plain": loss_p,
+           "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
+           "worst_grad_rel_diff": worst, "worst_grad_param": worst_name,
+           "grads_held_to_their_ulp_move": floored, "grads_over": over,
+           "conv_grad_rel_diff": conv_worst,
+           "logits_rel_diff": (lk - lp).abs().max().item() / lp.abs().max().item(),
+           "class_ids_kernel": ids_k.tolist(), "class_ids_plain": ids_p.tolist(),
+           "differing_ids_top2_gaps": gaps.tolist()}
+    if (res["loss_rel_diff"] > loss_rtol or over
+            or res["logits_rel_diff"] > logit_rtol or (gaps >= gap_tol).any()
+            or not conv_live):
+        raise AssertionError(f"s2c routes differ: {res}")
+    log(json.dumps({"phase": "s2c_parity", **res}))
+
+    cfg = C.apply_overrides(C.replace(base_cfg, dtype="bfloat16"), KERNEL_OVERRIDES)
+    clf = SIDClassifier(init_model(cfg, torch.Generator().manual_seed(seed), device), device)
+    wav = synth_audio(max_sample_size / SR, seed=500)[None]     # one full crop
+    on_card = torch.device(device).type == "cuda"
+    want = dict.fromkeys(KERNELS, 0)
+    if on_card:
+        want["banded_flash_attention"] = cfg.encoder.num_layers * K.fwd_launches(torch.bfloat16)
+        want["conv_stack"] = len(cfg.conv_features.layers) - 1
+    inference = []
+    for _ in range(requests):
+        _sync(device)
+        before = K.launch_counts()
+        t0 = time.perf_counter()
+        ids = clf(wav, [wav.shape[1]])
+        _sync(device)
+        launches = {n: c - before[n] for n, c in K.launch_counts().items()}
+        inference.append({"audio_s": wav.shape[1] / SR, "wall_ms": (time.perf_counter() - t0) * 1e3,
+                          "class_id": int(ids[0]), "launches": launches,
+                          "card": card_line() if on_card else "cpu"})
+        if launches != want or not 0 <= int(ids[0]) < cfg.sid.num_classes:
+            raise AssertionError(f"SID inference {inference[-1]}: want launches {want}")
+    log(json.dumps({"sid_inference": inference}))
+    res["inference"] = inference
+    res["counts"] = {n: sum(r["launches"][n] for r in inference) for n in KERNELS}
+    return res
 
 
 # ------------------------------------------------------------------- main
@@ -2147,12 +2708,36 @@ def main():
     phase_tts_parity(C.speecht5_base())
     walls["tts_parity"] = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
+    s2s = phase_train_s2s()
+    walls["train_s2s"] = time.perf_counter() - t0
+    check_speech_train_counts(s2s, C.speecht5_base(), 1, "s2s")
+
+    t0 = time.perf_counter()
+    phase_s2s_parity(C.speecht5_base())
+    walls["s2s_parity"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    vc = phase_vc_decode(C.speecht5_base())
+    walls["vc_decode"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    s2c = phase_train_s2c()
+    walls["train_s2c"] = time.perf_counter() - t0
+    check_speech_train_counts(s2c, C.speecht5_base_sid(), 0, "s2c")
+
+    t0 = time.perf_counter()
+    sid = phase_s2c_parity(C.speecht5_base_sid(num_classes=SID_SPEAKERS))
+    walls["s2c_parity"] = time.perf_counter() - t0
+
     walls["total"] = time.perf_counter() - t_start
     log(json.dumps({"phase_seconds": walls, "card": card_line()}))
     by_path = {"serve": served["counts"], "serve_beam": beam["counts"],
                "train_s2t": tc, "train_t2s": t2s["counts"],
                "warm_start_train": warm["train_counts"],
-               "warm_start_serve": wsc, "serve_tts": tts["counts"]}
+               "warm_start_serve": wsc, "serve_tts": tts["counts"],
+               "train_s2s": s2s["counts"], "vc_decode": vc["counts"],
+               "train_s2c": s2c["counts"], "sid_inference": sid["counts"]}
     counts = {n: sum(c[n] for c in by_path.values()) for n in KERNELS}
     log(json.dumps(kernels_line(records, counts, by_path)))
     torch.cuda.synchronize()

@@ -1,7 +1,6 @@
 """Training entry point of the port: preset -> dataset -> Trainer ->
-checkpoints, for the speech-to-text and text-to-speech tasks (the s2t and
-t2s paths of ``speecht5_tpu/cli/train.py``, with the same flag names and
-defaults).
+checkpoints, for the four fine-tune tasks (the s2t, t2s, s2s and s2c paths
+of ``speecht5_tpu/cli/train.py``, with the same flag names and defaults).
 
 Usage (the TTS fine-tune recipe, recipes/tts_finetune.sh; the mel targets
 are computed on the card from the waveform unless --host-mel):
@@ -18,6 +17,26 @@ Usage (the ASR fine-tune recipe, recipes/asr_finetune.sh):
         --label-smoothing 0.1 --accum 2 --batch-size 16 --normalize \\
         --dtype bfloat16 --override encoder.use_pallas_attn_train=True \\
         --override conv_features.impl=pallas
+
+Usage (the VC fine-tune recipe, recipes/vc_finetune.sh; manifest rows
+"src.wav<TAB>n<TAB>tgt.wav<TAB>n<TAB>tgt_xvector.npy"; no --labels or
+--dict):
+    python -m speecht5_tpu_torch.cli.train --task s2s --arch speecht5_base \\
+        --manifest bdl_to_slt.tsv --guided-attn --lr 1e-4 --warmup 6000 \\
+        --batch-size 8 --dtype bfloat16 --save-dir ckpt/vc
+
+Usage (the SID fine-tune recipe, recipes/sid_finetune.sh; manifest rows
+"file.wav<TAB>n<TAB>speaker"; the class map, sorted labels, is written to
+``<save-dir>/class_map.txt`` and validation scores against it):
+    python -m speecht5_tpu_torch.cli.train --task s2c \\
+        --arch speecht5_base_sid --manifest train.tsv --lr 2e-4 --warmup 2000 \\
+        --accum 2 --batch-size 8 --max-sample-size 128000 --dtype bfloat16 \\
+        --save-dir ckpt/sid
+
+Speech enhancement (``se_predict``) needs the source fbank as the decoder
+input, which only ``SpeechToSpeechDataset(se_mode=True)`` gives; this CLI,
+like JAX's, has no flag for it, so ``--task s2s --override se_predict=...``
+is refused with a ValueError.
 
 One update consumes ``--accum`` consecutive batches of ``--batch-size``
 (fairseq --update-freq).  ``--valid-manifest`` runs validation every
@@ -40,8 +59,8 @@ every ``--accum`` micro-batch of it, then saves a resumable checkpoint at
 that update (the data position included), prints ``{"preempted": true,
 "step": N}`` and returns; a rerun resumes from it.  ``--profile-dir``
 writes a ``torch.profiler`` trace of updates 10-14 there
-(``utils/profiling.trace``).  The s2s, s2c and pretraining tasks and
-multi-process training are not ported yet and are refused.
+(``utils/profiling.trace``).  The pretraining tasks and multi-process
+training are not ported yet and are refused.
 """
 
 from __future__ import annotations
@@ -69,7 +88,8 @@ def build_parser():
     p.add_argument("--labels", default=None)
     p.add_argument("--dict", dest="dict_path", default=None)
     p.add_argument("--spkemb-dir", default=None,
-                   help="t2s: x-vector .npy files named by utterance basename")
+                   help="t2s: x-vector .npy files named by utterance basename "
+                        "(s2s rows name their own)")
     p.add_argument("--save-dir", required=True)
     p.add_argument("--max-updates", type=int, default=1000)
     p.add_argument("--batch-size", type=int, default=8)
@@ -98,12 +118,12 @@ def build_parser():
     p.add_argument("--normalize", action="store_true")
     p.add_argument("--device-mel", dest="device_mel", action="store_true",
                    default=True,
-                   help="t2s: compute the log-mel targets on the device from "
-                        "the waveform (the CUDA log-mel kernel on the card); "
-                        "the default")
+                   help="t2s/s2s: compute the log-mel targets on the device "
+                        "from the waveform (the CUDA log-mel kernel on the "
+                        "card); the default")
     p.add_argument("--host-mel", dest="device_mel", action="store_false",
-                   help="t2s: compute the log-mel targets per utterance on "
-                        "the host (numpy)")
+                   help="t2s/s2s: compute the log-mel targets per utterance "
+                        "on the host (numpy)")
     p.add_argument("--mask-prob", type=float, default=None,
                    help="override HuBERT masking prob (e.g. 0 to disable)")
     p.add_argument("--dtype", default="float32")
@@ -159,8 +179,7 @@ def run_validation(trainer, ds, args, cfg, dictionary, device):
     B = args.batch_size
     for s in range(0, len(ds) - len(ds) % B, B):
         items = [ds[i] for i in range(s, s + B)]
-        batch = ds.collate(items, cfg.eos_id, cfg.pad_id)
-        out = trainer.eval_step(_to_device(batch, device))
+        out = trainer.eval_step(_to_device(collate(args, ds, items, cfg), device))
         ids = out.pop("_ctc_ids", None)
         lens = out.pop("_enc_lengths", None)
         for k, v in out.items():
@@ -212,8 +231,18 @@ def _to_device(batch, device):
 
 
 def build_dataset(args, dictionary, cfg, manifest, labels):
-    from ..data.manifests import SpeechToTextDataset, TextToSpeechDataset
+    from ..data.manifests import (SpeechToClassDataset, SpeechToSpeechDataset,
+                                  SpeechToTextDataset, TextToSpeechDataset)
 
+    if args.task == "s2s":
+        return SpeechToSpeechDataset(
+            manifest=manifest, normalize=args.normalize,
+            reduction_factor=cfg.reduction_factor, n_mels=cfg.n_mels,
+            device_mel=args.device_mel)
+    if args.task == "s2c":
+        return SpeechToClassDataset(manifest=manifest, normalize=args.normalize,
+                                    max_sample_size=args.max_sample_size,
+                                    seed=args.seed)
     if args.task == "t2s":
         return TextToSpeechDataset(
             manifest=manifest, labels=labels, dictionary=dictionary,
@@ -222,6 +251,13 @@ def build_dataset(args, dictionary, cfg, manifest, labels):
     return SpeechToTextDataset(manifest=manifest, labels=labels,
                                dictionary=dictionary, normalize=args.normalize,
                                max_sample_size=args.max_sample_size)
+
+
+def collate(args, ds, items, cfg):
+    """A batch of ``items`` (the s2s / s2c collators take no token ids)."""
+    if args.task in ("s2s", "s2c"):
+        return ds.collate(items)
+    return ds.collate(items, cfg.eos_id, cfg.pad_id)
 
 
 def main(argv=None):
@@ -233,7 +269,7 @@ def main(argv=None):
     if args.task not in PORTED_TASKS:
         raise SystemExit(f"--task {args.task} is not ported to "
                          f"speecht5_tpu_torch yet; only {PORTED_TASKS} train")
-    if args.labels is None:
+    if args.labels is None and args.task in ("s2t", "t2s"):
         raise SystemExit(f"--task {args.task} needs --labels")
 
     from .. import config as C
@@ -256,7 +292,19 @@ def main(argv=None):
             cfg.masking, mask_prob=args.mask_prob,
             mask_channel_prob=min(cfg.masking.mask_channel_prob, args.mask_prob)))
 
+    if args.task == "s2s" and cfg.se_predict is not None:
+        raise ValueError(
+            f"se_predict={cfg.se_predict!r} needs the source fbank as the decoder "
+            "input (SpeechToSpeechDataset(se_mode=True)), which this CLI, like "
+            "JAX's, never sets up")
+
     ds = build_dataset(args, dictionary, cfg, args.manifest, args.labels)
+    if args.task == "s2c":
+        if cfg.sid.num_classes != ds.num_classes:
+            cfg = C.replace(cfg, sid=C.replace(cfg.sid, num_classes=ds.num_classes))
+        # the label -> id map, so that eval manifests reuse the training one
+        os.makedirs(args.save_dir, exist_ok=True)
+        ds.save_class_map(os.path.join(args.save_dir, "class_map.txt"))
     torch.manual_seed(args.seed)   # the device generator: activation dropout
     model = init_model(cfg, torch.Generator().manual_seed(args.seed), device)
     if args.finetune_from:
@@ -280,6 +328,9 @@ def main(argv=None):
     if args.valid_manifest:
         valid_ds = build_dataset(args, dictionary, cfg, args.valid_manifest,
                                  args.valid_labels or args.labels)
+        if args.task == "s2c":      # scored against the training map
+            valid_ds.class_map = dict(ds.class_map)
+            valid_ds.check_labels()
     best = _best_state(args.save_dir)
     if best is not None and best.get("metric") != args.best_checkpoint_metric:
         best = None
@@ -299,7 +350,7 @@ def main(argv=None):
                 if bi < start:
                     continue
                 items = [ds[int(i)] for i in idxs]
-                yield epoch, bi, ds.collate(items, cfg.eos_id, cfg.pad_id)
+                yield epoch, bi, collate(args, ds, items, cfg)
             epoch, start = epoch + 1, 0
 
     # preemption: SIGTERM / SIGINT set a flag, read between updates (JAX

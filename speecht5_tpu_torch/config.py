@@ -9,8 +9,9 @@ In the port, ``encoder.use_pallas_attn=True`` and
 
 Presets mirror the registered fairseq architectures (`t5_transformer_base`,
 `t5_transformer_base_asr`, reference speecht5.py:1385-1447).  This slice of
-the port carries ``speecht5_base``, ``speecht5_base_asr`` and
-``speecht5_tiny``; the other presets arrive with the slices that use them.
+the port carries ``speecht5_base``, ``speecht5_base_asr``,
+``speecht5_base_sid`` and ``speecht5_tiny``; the other presets arrive with
+the slices that use them.
 """
 
 from __future__ import annotations
@@ -358,6 +359,24 @@ def speecht5_base_asr(**kw) -> SpeechT5Config:
         ),
         max_text_positions=600,
         feature_grad_mult=0.0,
+    )
+    return replace(cfg, **kw)
+
+
+def speecht5_base_sid(num_classes: int = 1251, **kw) -> SpeechT5Config:
+    """SID fine-tune preset (JAX config.py:394-408, reference
+    SpeechT5/README.md:606-652): base arch, no masking, decoder pooling,
+    plain softmax head without BN/embedding."""
+    cfg = speecht5_base_asr()
+    cfg = replace(
+        cfg,
+        masking=MaskingConfig(mask_prob=0.0, mask_channel_prob=0.0),
+        max_speech_positions=8000,
+        share_input_output_embed=True,
+        feature_grad_mult=1.0,
+        sid=SIDConfig(
+            num_classes=num_classes, no_pooling_bn=True, no_embed_postnet=True
+        ),
     )
     return replace(cfg, **kw)
 

@@ -1,15 +1,17 @@
-"""Manifest-TSV speech-to-text and text-to-speech datasets and batching
-(the port's copy of the s2t and t2s parts of
-``speecht5_tpu/data/manifests.py`` :33-273, which imports JAX through
+"""Manifest-TSV datasets and batching of the four fine-tune tasks (the
+port's copy of the s2t, t2s, s2c and s2s parts of
+``speecht5_tpu/data/manifests.py`` :33-465, which imports JAX through
 ``ops.mel`` and so cannot be imported here).
 
 - audio manifests: first line = root dir, then "relpath\\tnframes" rows
   (reference data/speech_to_text_dataset.py:74-140); label files are
   parallel text files, one utterance a line; t2s x-vectors are
-  ``<spkemb_dir>/<utterance basename>.npy``;
-- TTS mel targets either per utterance on the host (``log_mel_numpy``) or,
-  in device mode, as the reflect-padded waveform that the train step turns
-  into mels on the card (``train/trainer.device_mel_batch``);
+  ``<spkemb_dir>/<utterance basename>.npy``; s2c rows add a speaker label,
+  s2s rows are "src\\tn\\ttgt\\tn\\tspkemb.npy";
+- TTS / VC mel targets either per utterance on the host
+  (``log_mel_numpy``) or, in device mode, as the reflect-padded waveform
+  that the train step turns into mels on the card
+  (``train/trainer.device_mel_batch``), the SE source too;
 - batching by token count with length-sorted ordering (fairseq
   batch_by_size semantics);
 - batches are padded to bucketed lengths, as in the JAX package, so the
@@ -252,4 +254,193 @@ class TextToSpeechDataset:
                                          bucketed, self.device_mel))
         if spk is not None:
             batch["spkembs"] = spk
+        return batch
+
+
+@dataclass
+class SpeechToClassDataset:
+    """SID: waveform source, one class id per utterance (reference
+    data/speech_to_class_dataset.py:24-200; manifest rows are
+    "wav_path\\tnframes\\tclass_label").  The class map is built sorted
+    from the manifest's labels unless one is given.  A waveform longer than
+    ``max_sample_size`` is cropped to a window drawn from a
+    ``np.random.Generator`` seeded with ``seed`` (JAX draws it from numpy's
+    global RNG, :345)."""
+
+    manifest: str
+    class_map: Optional[Dict[str, int]] = None  # label -> id; built if None
+    normalize: bool = False
+    max_sample_size: Optional[int] = None
+    seed: int = 0
+
+    def __post_init__(self):
+        self.names, self.sizes, self.labels = [], [], []
+        with open(self.manifest, encoding="utf-8") as f:
+            self.root = f.readline().strip()
+            for line in f:
+                parts = line.rstrip("\n").split("\t")
+                if len(parts) < 3:
+                    continue
+                self.names.append(parts[0])
+                self.sizes.append(int(parts[1]))
+                self.labels.append(parts[2])
+        self.sizes = np.asarray(self.sizes, np.int64)
+        self.rng = np.random.default_rng(self.seed)
+        if self.class_map is None:
+            self.class_map = {c: i for i, c in enumerate(sorted(set(self.labels)))}
+        else:
+            self.check_labels()
+
+    def check_labels(self):
+        """Fail loudly (with the offending labels) when the manifest holds
+        speakers absent from an externally supplied class map."""
+        unknown = sorted({l for l in self.labels if l not in self.class_map})
+        if unknown:
+            raise ValueError(
+                f"{self.manifest}: {len(unknown)} labels not in the supplied "
+                f"class map (e.g. {unknown[:5]}); the map must come from the "
+                f"TRAINING manifest and cover every eval speaker")
+
+    @property
+    def num_classes(self) -> int:
+        return len(self.class_map)
+
+    def save_class_map(self, path: str):
+        """Write the label -> id map ("label\\tid" lines, by id), so that
+        eval manifests with another speaker subset reuse the training map."""
+        with open(path, "w", encoding="utf-8") as f:
+            for label, idx in sorted(self.class_map.items(), key=lambda kv: kv[1]):
+                f.write(f"{label}\t{idx}\n")
+
+    @staticmethod
+    def load_class_map(path: str) -> Dict[str, int]:
+        out = {}
+        with open(path, encoding="utf-8") as f:
+            for line in f:
+                label, idx = line.rstrip("\n").split("\t")
+                out[label] = int(idx)
+        return out
+
+    def __len__(self):
+        return len(self.names)
+
+    def __getitem__(self, i: int) -> Dict:
+        wav, _ = read_audio(os.path.join(self.root, self.names[i]))
+        if self.normalize:
+            wav = layer_norm_wav(wav)
+        if self.max_sample_size and len(wav) > self.max_sample_size:
+            start = int(self.rng.integers(0, len(wav) - self.max_sample_size + 1))
+            wav = wav[start : start + self.max_sample_size]
+        return {"id": i, "wav": wav.astype(np.float32),
+                "label": self.class_map[self.labels[i]]}
+
+    def collate(self, items: List[Dict], bucketed: bool = True) -> Dict[str, np.ndarray]:
+        B = len(items)
+        wav_len = max(len(it["wav"]) for it in items)
+        if bucketed:
+            wav_len = bucket_length(wav_len, AUDIO_BUCKETS)
+        wav = np.zeros((B, wav_len), np.float32)
+        wav_lengths = np.zeros((B,), np.int32)
+        targets = np.zeros((B,), np.int64)
+        for b, it in enumerate(items):
+            w = it["wav"][:wav_len]
+            wav[b, : len(w)] = w
+            wav_lengths[b] = len(w)
+            targets[b] = it["label"]
+        return {"wav": wav, "wav_lengths": wav_lengths, "targets": targets,
+                "ids": np.asarray([it["id"] for it in items])}
+
+
+@dataclass
+class SpeechToSpeechDataset:
+    """VC / SE: source waveform -> target log-mel + target-speaker x-vector
+    (reference data/speech_to_speech_dataset.py:118-228; manifest rows are
+    "src_wav\\tsrc_nframes\\ttgt_wav\\ttgt_nframes\\ttgt_spkemb", paths
+    under the root).  ``se_mode``: also the r-thinned source fbank as the
+    decoder input (reference se_decoder_input='source'): ``src_mel`` from
+    the host, or in device mode the source reflect-padded onto the target's
+    mel grid (``src_wav``, ``src_frames``) for ``device_mel_batch``."""
+
+    manifest: str
+    normalize: bool = False
+    reduction_factor: int = 2
+    n_mels: int = 80
+    se_mode: bool = False
+    device_mel: bool = False  # see TextToSpeechDataset.device_mel
+
+    def __post_init__(self):
+        self.src_names, self.sizes = [], []
+        self.tgt_names, self.spkembs = [], []
+        with open(self.manifest, encoding="utf-8") as f:
+            self.root = f.readline().strip()
+            for line in f:
+                parts = line.rstrip("\n").split("\t")
+                if len(parts) < 5:
+                    continue
+                self.src_names.append(parts[0])
+                self.sizes.append(int(parts[1]))
+                self.tgt_names.append(parts[2])
+                self.spkembs.append(parts[4])
+        self.sizes = np.asarray(self.sizes, np.int64)
+
+    def __len__(self):
+        return len(self.src_names)
+
+    def __getitem__(self, i: int) -> Dict:
+        wav, _ = read_audio(os.path.join(self.root, self.src_names[i]))
+        if self.normalize:
+            wav = layer_norm_wav(wav)
+        tgt_wav, _ = read_audio(os.path.join(self.root, self.tgt_names[i]))
+        spkemb = np.load(os.path.join(self.root, self.spkembs[i])).astype(np.float32)
+        item = {"id": i, "wav": wav.astype(np.float32), "spkemb": spkemb}
+        if self.device_mel:
+            item["tgt_wav_raw"] = tgt_wav.astype(np.float32)
+        else:
+            item["mel"] = log_mel_numpy(tgt_wav, n_mels=self.n_mels)
+        if self.se_mode and not self.device_mel:
+            item["src_mel"] = log_mel_numpy(wav, n_mels=self.n_mels)
+        return item
+
+    def collate(self, items: List[Dict], bucketed: bool = True) -> Dict[str, np.ndarray]:
+        B = len(items)
+        r = self.reduction_factor
+        wav_len = max(len(it["wav"]) for it in items)
+        if bucketed:
+            wav_len = bucket_length(wav_len, AUDIO_BUCKETS)
+        wav = np.zeros((B, wav_len), np.float32)
+        wav_lengths = np.zeros((B,), np.int32)
+        spk = np.zeros((B, len(items[0]["spkemb"])), np.float32)
+        for b, it in enumerate(items):
+            w = it["wav"][:wav_len]
+            wav[b, : len(w)] = w
+            wav_lengths[b] = len(w)
+            spk[b] = it["spkemb"]
+        batch = {"wav": wav, "wav_lengths": wav_lengths, "spkembs": spk,
+                 "ids": np.asarray([it["id"] for it in items])}
+        mel_batch = collate_mel_targets(items, r, self.n_mels, bucketed, self.device_mel)
+        batch.update(mel_batch)
+        if self.se_mode and self.device_mel:
+            # the source reflect-padded on the host, sized to the target's
+            # mel grid; the train step frames and thins it on the card and
+            # zeroes the rows past the source's own frame count
+            need = mel_batch["tgt_wav"].shape[1]
+            mel_len = (need - MEL_N_FFT) // MEL_HOP + 1
+            src_wav = np.zeros((B, need), np.float32)
+            src_frames = np.zeros((B,), np.int32)
+            for b, it in enumerate(items):
+                x = np.pad(it["wav"].astype(np.float32),
+                           (MEL_N_FFT // 2, MEL_N_FFT // 2), mode="reflect")
+                L = min(len(x), need)
+                src_wav[b, :L] = x[:L]
+                src_frames[b] = min(1 + len(it["wav"]) // MEL_HOP, mel_len)
+            batch["src_wav"] = src_wav
+            batch["src_frames"] = src_frames
+        elif self.se_mode:
+            mel_len = mel_batch["target_mel"].shape[1]
+            src_mel = np.zeros((B, mel_len // r, self.n_mels), np.float32)
+            for b, it in enumerate(items):
+                sthin = it["src_mel"][:mel_len][r - 1 :: r]
+                L = min(len(sthin), mel_len // r)
+                src_mel[b, :L] = sthin[:L]
+            batch["src_mel"] = src_mel
         return batch

@@ -1,14 +1,16 @@
-"""TTS inference: autoregressive mel decoding with the decoder's KV cache
-(port of ``speecht5_tpu/decode/tts.py``).
+"""TTS / VC inference: autoregressive mel decoding with the decoder's KV
+cache (port of ``speecht5_tpu/decode/tts.py``).
 
 Behaviour of the reference (models/speecht5.py:1188-1249, generate_speech):
-encode the text, integrate the speaker x-vector, then per step the decoder
+encode the text (TTS) or the source speech (VC), integrate the speaker
+x-vector, then per step the decoder
 gives r mel frames (``feat_out``) and r stop probabilities
 (``sigmoid(prob_out)``); a row stops at the first step where a probability
 reaches ``threshold`` (once ``min_len_ratio`` allows it) or at its
 ``max_len_ratio`` bound; the conv postnet refines the whole mel once at
-the end.  The Tacotron prenet's dropout stays on (ROADMAP C.4), drawn from
-a device generator seeded per call.
+the end; the length ratios act on the encoder's frames (text ids, or the
+speech encoder's conv frames).  The Tacotron prenet's dropout stays on
+(ROADMAP C.4), drawn from a device generator seeded per call.
 
 JAX runs the loop on the device (``lax.while_loop``); here the host runs
 it, one cached decode step at a time (``SpeechT5Model.speech_decode_step``:
@@ -85,10 +87,21 @@ class TTSDecoder:
         enc = self.model.encode_text(tokens)
         return self._run(enc, spkembs, generator)
 
-    def speech_to_speech(self, wav, wav_lengths, spkembs=None, generator=None):
-        raise NotImplementedError(
-            "speech-to-speech decoding (VC/SE) is not ported yet: it comes with "
-            "the s2s half of ROADMAP A.2")
+    @torch.no_grad()
+    def speech_to_speech(self, wav, wav_lengths, spkembs=None,
+                         generator=None) -> TTSResult:
+        """VC (JAX :74-78): wav [B, T] f32 16 kHz, wav_lengths [B];
+        spkembs: the target speaker's x-vectors [B, spk_embed_dim] or None;
+        ``generator`` as in ``text_to_speech``."""
+        dev = self.device
+        wav = torch.as_tensor(wav).to(dev, torch.float32)
+        wav_lengths = torch.as_tensor(wav_lengths).to(torch.int64)
+        if spkembs is not None:
+            spkembs = torch.as_tensor(spkembs).to(dev, torch.float32)
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(self.seed)
+        enc = self.model.encode_speech(wav, wav_lengths)
+        return self._run(enc, spkembs, generator)
 
     def _run(self, enc, spkembs, generator) -> TTSResult:
         cfg, model = self.cfg, self.model

@@ -1,4 +1,5 @@
-"""Decoder postnets (port of ``speecht5_tpu/models/postnets.py`` :28-147).
+"""Decoder postnets (port of ``speecht5_tpu/models/postnets.py`` :28-147,
+:192-270).
 
 - ``TextDecoderPostnet`` (reference text_decoder_postnet.py:19-93):
   decoder features -> f32 vocabulary logits, through its own bias-free
@@ -6,11 +7,13 @@
   matrix;
 - ``SpeechDecoderPostnet`` (reference speech_decoder_postnet.py:17-76):
   ``feat_out`` (d -> n_mels * r) and ``prob_out`` (d -> r) in f32, and the
-  Tacotron2 conv postnet whose residual refines the frames.
+  Tacotron2 conv postnet whose residual refines the frames;
+- ``SpeakerDecoderPostnet`` (reference speaker_decoder_postnet.py:129-200):
+  the SID head on the pooled features.
 
-The postnet's BatchNorm follows flax's ``nn.BatchNorm(momentum=0.9,
-epsilon=1e-5, dtype=float32)``: statistics in f32 over every B x T
-position, padding included; the running statistics move by
+The postnets' BatchNorm follows flax's ``nn.BatchNorm(momentum=0.9,
+epsilon=1e-5, dtype=float32)``: statistics in f32 over every position
+but the channel (B x T, padding included); the running statistics move by
 ``momentum * old + (1 - momentum) * batch`` with the *biased* batch
 variance (``nn.BatchNorm1d`` would use torch's momentum convention and the
 unbiased variance), on training passes only, as JAX's mutable
@@ -19,6 +22,8 @@ with TTS decoding.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -47,7 +52,7 @@ class TextDecoderPostnet(nn.Module):
 
 
 class BatchNorm32(nn.Module):
-    """flax ``nn.BatchNorm`` over the last axis of [B, T, C], computed in f32
+    """flax ``nn.BatchNorm`` over the last axis of [..., C], computed in f32
     (see the module docstring).  Parameters ``weight`` / ``bias``; buffers
     ``running_mean`` / ``running_var`` (JAX ``batch_stats`` mean / var)."""
 
@@ -61,11 +66,12 @@ class BatchNorm32(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x):
-        """x: [B, T, C] -> f32 [B, T, C]."""
+        """x: [..., C] -> f32 [..., C]."""
         xf = x.float()
         if self.training:
-            mean = xf.mean(dim=(0, 1))
-            var = ((xf * xf).mean(dim=(0, 1)) - mean * mean).clamp_min(0.0)
+            axes = tuple(range(xf.dim() - 1))
+            mean = xf.mean(dim=axes)
+            var = ((xf * xf).mean(dim=axes) - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
@@ -159,3 +165,61 @@ class SpeechDecoderPostnet(nn.Module):
         if self.postnet is None:
             return mel
         return mel + self.postnet(mel).float()
+
+
+class SpeakerDecoderPostnet(nn.Module):
+    """x-vector style SID head with an optional AM / AAM margin softmax (JAX
+    postnets.py:192-270): optional BatchNorm on the pooled features
+    (``bn_pooling``, off with ``no_pooling_bn``), an optional bias-free
+    ``output_embedding`` and its BatchNorm (``bn_embedding``, off with
+    ``no_embed_postnet``), the class matrix ``output_projection.weight``
+    [C, E], and a cosine classifier under a margin softmax or
+    ``normalize_postnet``.  The margin and its scale apply only on a
+    training pass with a target (reference speaker_decoder_postnet.py
+    :16-127).  Names follow fairseq's
+    ``speaker_decoder_postnet.{output_embedding,output_projection,
+    bn_pooling,bn_embedding}``."""
+
+    def __init__(self, d_model: int, cfg):
+        super().__init__()
+        self.cfg = cfg
+        self.bn_pooling = None if cfg.no_pooling_bn else BatchNorm32(d_model)
+        self.output_embedding = self.bn_embedding = None
+        if not cfg.no_embed_postnet:
+            self.output_embedding = nn.Linear(d_model, cfg.embed_dim, bias=False)
+            self.bn_embedding = BatchNorm32(cfg.embed_dim)
+        e = d_model if cfg.no_embed_postnet else cfg.embed_dim
+        self.output_projection = nn.Module()
+        self.output_projection.weight = nn.Parameter(torch.empty(cfg.num_classes, e))
+
+    def forward(self, x, target_onehot=None):
+        """x: [B, D] pooled features -> (f32 logits [B, C], embed [B, E])."""
+        cfg = self.cfg
+        x = x.float()
+        if self.bn_pooling is not None:
+            x = self.bn_pooling(x)
+        embed = x
+        if self.output_embedding is not None:
+            embed = self.bn_embedding(self.output_embedding(x))
+        w = self.output_projection.weight.float()
+        use_margin = cfg.softmax_type in ("amsoftmax", "aamsoftmax")
+        if not (use_margin or cfg.normalize_postnet):
+            return embed @ w.t(), embed
+        xn = embed / torch.clamp_min(
+            torch.linalg.vector_norm(embed, dim=-1, keepdim=True), 1e-12)
+        wn = w / torch.clamp_min(torch.linalg.vector_norm(w, dim=-1, keepdim=True), 1e-12)
+        cosine = xn @ wn.t()
+        if not (use_margin and target_onehot is not None and self.training):
+            return cosine, embed
+        t = target_onehot.float()
+        if cfg.softmax_type == "amsoftmax":
+            return cfg.scale * (cosine - cfg.margin * t), embed
+        m = cfg.margin
+        th, mm = math.cos(math.pi - m), math.sin(math.pi - m) * m
+        sine = torch.sqrt(torch.clamp(1.0 - cosine * cosine, 0.0, 1.0))
+        phi = cosine * math.cos(m) - sine * math.sin(m)
+        if cfg.easy_margin:
+            phi = torch.where(cosine > 0, phi, cosine)
+        else:
+            phi = torch.where(cosine > th, phi, cosine - mm)
+        return cfg.scale * (t * phi + (1.0 - t) * cosine), embed

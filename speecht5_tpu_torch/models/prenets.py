@@ -243,13 +243,15 @@ class TextDecoderPrenet(nn.Module):
         self.register_buffer("step_positions", torch.from_numpy(table),
                              persistent=False)
 
-    def forward(self, tokens):
-        """tokens: [B, T] -> (x [B, T, D], valid bool [B, T])."""
+    def forward(self, tokens, *, dropout: bool = True):
+        """tokens: [B, T] -> (x [B, T, D], valid bool [B, T]).  ``dropout``
+        False: none even on a training pass (the SID [CLS] vector, which JAX
+        always embeds deterministically)."""
         cfg = self.cfg
         valid = tokens != cfg.pad_id
         x = self.embed_tokens(tokens).to(self.dtype)
         x = x + fairseq_sinusoidal(valid, cfg.d_model, cfg.pad_id).to(self.dtype)
-        return F.dropout(x, cfg.decoder.dropout, self.training), valid
+        return F.dropout(x, cfg.decoder.dropout, self.training and dropout), valid
 
     def step(self, tokens_t, position):
         """tokens_t: [B, 1]; position: the 0-based step (int or 0-d tensor)

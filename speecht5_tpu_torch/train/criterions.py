@@ -3,12 +3,15 @@ JAX package's denominators:
 
 - s2t (:30-84): label-smoothed cross-entropy on the decoder plus weighted
   CTC on the encoder (reference criterions/speech_to_text_loss.py:113-337);
-- t2s (:133-217): Tacotron2 L1 (and L2) on the frames before and after the
-  postnet, BCE with pos_weight 5 on the stop logits, and the guided
-  attention loss on the cross weights (reference
-  criterions/text_to_speech_loss.py:72-427).
+- t2s and s2s (:133-217): Tacotron2 L1 (and L2) on the frames before and
+  after the postnet, BCE with pos_weight 5 on the stop logits, and the
+  guided attention loss on the cross weights (reference
+  criterions/text_to_speech_loss.py:72-427);
+- s2c (:86-100): label-smoothed cross-entropy over the speaker classes and
+  the accuracy (reference speech_to_text_loss.py:186-209; the margin is the
+  model's).
 
-The other tasks' losses arrive with their slices.
+The pretraining losses arrive with their slice.
 """
 
 from __future__ import annotations
@@ -65,6 +68,15 @@ def s2t_loss(dec_logits, ctc_logits, enc_valid, targets, pad_id: int,
         metrics["ctc_loss"] = ctc
     metrics["loss"] = loss
     return loss, metrics
+
+
+def sid_loss(logits, targets, label_smoothing: float = 0.0):
+    """logits [B, C]; targets [B] class ids -> (loss, metrics loss,
+    nll_loss, accuracy)."""
+    valid = torch.ones(targets.shape, dtype=torch.bool, device=targets.device)
+    ce, nll = label_smoothed_ce(logits.float(), targets, valid, label_smoothing)
+    acc = (logits.argmax(-1) == targets).float().mean()
+    return ce, {"loss": ce, "nll_loss": nll, "accuracy": acc}
 
 
 def guided_attention_loss(attn, enc_lengths, dec_lengths, sigma: float = 0.4,

@@ -1,12 +1,15 @@
-"""The s2t and t2s train steps (port of the speech-to-text and
-text-to-speech parts of ``speecht5_tpu/train/trainer.py`` :31-434).
+"""The train steps of the four SpeechT5 fine-tune tasks (port of
+``speecht5_tpu/train/trainer.py`` :31-434): s2t (ASR), t2s (TTS), s2s
+(VC / SE) and s2c (SID).
 
 One update = ``accum_steps`` micro-batches (fairseq --update-freq), each a
-forward and backward of ``forward_s2t`` + ``s2t_loss`` or, for t2s,
-``device_mel_batch`` (the mel targets from the waveform, through the log-mel
-kernel on the card) + ``forward_t2s`` + ``tts_loss``; the gradients are
-averaged, then (as the JAX optax chain) clipped by their global norm and
-applied by AdamW:
+forward and backward of the task's loss: s2t ``forward_s2t`` +
+``s2t_loss``; t2s ``device_mel_batch`` (the mel targets from the waveform,
+through the log-mel kernel on the card) + ``forward_t2s`` + ``tts_loss``;
+s2s ``device_mel_batch`` (the target's mels and, for SE, the source's) +
+``forward_s2s`` + ``tts_loss``; s2c ``forward_s2c`` + ``sid_loss``.  The
+gradients are averaged, then (as the JAX optax chain) clipped by their
+global norm and applied by AdamW:
 
 - clipping as ``optax.clip_by_global_norm``: g unchanged when norm < c,
   else g * c / norm (no epsilon);
@@ -20,13 +23,14 @@ applied by AdamW:
   :373-391) emulates.  A parameter that the loss does not reach gets a zero
   gradient, as in JAX, so weight decay still applies to it;
 - ``grad_norm`` is the norm before clipping, the JAX metric;
-- the speech postnet's BatchNorm statistics move on every training
-  micro-batch, in order, as JAX threads its mutable ``batch_stats`` through
-  the micro-batches.
+- the BatchNorm statistics (the speech postnet's, the speaker head's) move
+  on every training micro-batch, in order, as JAX threads its mutable
+  ``batch_stats`` through the micro-batches.
 
 The host-side random draws (HuBERT masks, layerdrop, the train kernel's
-dropout seeds) come from one CPU ``torch.Generator``; dropout of
-activations draws from the device's generator.
+dropout seeds, the SID frame shuffle) come from one CPU
+``torch.Generator``; dropout of activations draws from the device's
+generator.
 """
 
 from __future__ import annotations
@@ -39,19 +43,22 @@ from ..ops.cuda_kernels import fused_log_mel
 from . import criterions
 from .schedules import inverse_sqrt, polynomial_decay, tri_stage
 
-TASKS = ("s2t", "t2s")
+TASKS = ("s2t", "t2s", "s2s", "s2c")
 
 
 def device_mel_batch(batch, n_mels: int, r: int):
-    """The t2s mel targets from the collator's reflect-padded target
-    waveform (JAX trainer.py:31-62, t2s part): ``fused_log_mel`` with
-    center=False (each utterance was reflect-padded on the host, so valid
-    frames equal the per-utterance transform), frames past ``dec_lengths``
-    set to exact zeros, then the r-thinned frames shifted by a zero BOS
-    frame and masked by ``dec_lengths_r``.  Returns a new dict with
-    ``target_mel`` [B, F, n_mels] and ``prev_mel`` [B, F // r, n_mels] in
-    place of ``tgt_wav``; a batch without ``tgt_wav`` (host mels) is
-    returned as it is."""
+    """The t2s / s2s mel targets from the collator's reflect-padded target
+    waveform (JAX trainer.py:31-72): ``fused_log_mel`` with center=False
+    (each utterance was reflect-padded on the host, so valid frames equal
+    the per-utterance transform), frames past ``dec_lengths`` set to exact
+    zeros, then the r-thinned frames shifted by a zero BOS frame and masked
+    by ``dec_lengths_r``.  Returns a new dict with ``target_mel`` [B, F,
+    n_mels] and ``prev_mel`` [B, F // r, n_mels] in place of ``tgt_wav``.
+    With ``src_wav`` (SE: the source reflect-padded onto the target's grid)
+    also ``src_mel`` [B, F // r, n_mels]: the source's mels, r-thinned
+    (unshifted), rows past ``src_frames // r`` zeroed, in place of
+    ``src_wav`` and ``src_frames``.  A batch without ``tgt_wav`` (host
+    mels) is returned as it is."""
     if "tgt_wav" not in batch:
         return batch
     batch = dict(batch)
@@ -67,6 +74,12 @@ def device_mel_batch(batch, n_mels: int, r: int):
                < batch["dec_lengths_r"].to(dev)[:, None])
     batch["target_mel"] = mel
     batch["prev_mel"] = torch.where(valid_r[:, :, None], prev, zero)
+    if "src_wav" in batch:
+        src = fused_log_mel(batch.pop("src_wav"), n_mels=n_mels, center=False)
+        sthin = src[:, r - 1::r]
+        n_thin = batch.pop("src_frames").to(dev) // r
+        valid_s = torch.arange(sthin.shape[1], device=dev)[None, :] < n_thin[:, None]
+        batch["src_mel"] = torch.where(valid_s[:, :, None], sthin, zero)
     return batch
 
 
@@ -132,7 +145,8 @@ def freeze_horizon(name: str, cfg: TrainConfig) -> int:
 
 
 class Trainer:
-    """s2t / t2s trainer: the model, its AdamW and the update count."""
+    """s2t / t2s / s2s / s2c trainer: the model, its AdamW and the update
+    count."""
 
     def __init__(self, model, task: str, cfg: TrainConfig, *, generator=None):
         if task not in TASKS:
@@ -156,9 +170,14 @@ class Trainer:
         prev_tokens and targets [B, L].  t2s: tokens [B, L], dec_lengths and
         dec_lengths_r [B], spkembs [B, spk_dim] or absent, and either
         tgt_wav [B, (F - 1) * hop + n_fft] (device mels) or target_mel /
-        prev_mel (host mels)."""
-        if self.task == "t2s":
+        prev_mel (host mels).  s2s: wav and wav_lengths as s2t, the t2s
+        targets and spkembs, and for SE src_wav / src_frames (device mels)
+        or src_mel (host mels).  s2c: wav, wav_lengths and targets [B]
+        class ids."""
+        if self.task in ("t2s", "s2s"):
             return self._tts_loss(batch)
+        if self.task == "s2c":
+            return self._sid_loss(batch)
         mcfg = self.model.cfg
         cfg = self.cfg
         logits, ctc_logits, enc_valid = self.model.forward_s2t(
@@ -171,30 +190,48 @@ class Trainer:
             zero_infinity=cfg.zero_infinity)
 
     def _tts_loss(self, batch):
-        """The t2s loss (JAX trainer.py:182-202)."""
+        """The t2s and s2s losses (JAX trainer.py:182-202, :227-248); the
+        s2s encoder lengths are counted in conv frames."""
         mcfg = self.model.cfg
         batch = device_mel_batch(batch, mcfg.n_mels, mcfg.reduction_factor)
-        before, after, stop_logits, attn = self.model.forward_t2s(
-            batch["tokens"], batch["prev_mel"], batch["dec_lengths_r"],
-            batch.get("spkembs"), generator=self.generator)
-        enc_lengths = (batch["tokens"] != mcfg.pad_id).sum(-1)
+        if self.task == "s2s":
+            before, after, stop_logits, attn, enc_valid = self.model.forward_s2s(
+                batch["wav"], batch["wav_lengths"], batch["prev_mel"],
+                batch["dec_lengths_r"], batch.get("spkembs"), batch.get("src_mel"),
+                generator=self.generator)
+            enc_lengths = enc_valid.sum(-1)
+        else:
+            before, after, stop_logits, attn = self.model.forward_t2s(
+                batch["tokens"], batch["prev_mel"], batch["dec_lengths_r"],
+                batch.get("spkembs"), generator=self.generator)
+            enc_lengths = (batch["tokens"] != mcfg.pad_id).sum(-1)
         return criterions.tts_loss(
             before, after, stop_logits, batch["target_mel"], batch["dec_lengths"],
             reduction_factor=mcfg.reduction_factor, attn=attn,
             enc_lengths=enc_lengths, use_guided_attn=self.cfg.use_guided_attn)
 
+    def _sid_loss(self, batch):
+        """The s2c loss (JAX trainer.py:250-263): no masking, the margin
+        softmax on training passes, the speaker head's BatchNorm statistics
+        updated on them."""
+        logits, _ = self.model.forward_s2c(batch["wav"], batch["wav_lengths"],
+                                           batch["targets"], mask=False,
+                                           generator=self.generator)
+        return criterions.sid_loss(logits, batch["targets"],
+                                   label_smoothing=self.cfg.label_smoothing)
+
     @torch.no_grad()
     def eval_step(self, batch):
-        """Validation forward (no masking, dropout or layerdrop; the
-        BatchNorm reads its running statistics; the Tacotron prenet's
-        dropout stays on, as in JAX).  t2s: the ``tts_loss`` metrics.  s2t:
-        the s2t metrics with CTC always on, and the greedy CTC frame ids and
-        frame lengths for the caller's error rates (JAX trainer.py
-        :505-575)."""
+        """Validation forward (no masking, dropout, layerdrop or frame
+        shuffle; the BatchNorm reads its running statistics; the Tacotron
+        prenet's dropout stays on, as in JAX).  t2s / s2s: the ``tts_loss``
+        metrics; s2c: the ``sid_loss`` metrics (no margin).  s2t: the s2t
+        metrics with CTC always on, and the greedy CTC frame ids and frame
+        lengths for the caller's error rates (JAX trainer.py :505-575)."""
         mcfg, cfg = self.model.cfg, self.cfg
         self.model.eval()
-        if self.task == "t2s":
-            return self._tts_loss(batch)[1]
+        if self.task != "s2t":
+            return self.loss(batch)[1]
         logits, ctc_logits, enc_valid = self.model.forward_s2t(
             batch["wav"], batch["wav_lengths"], batch["prev_tokens"], mask=False)
         _, metrics = criterions.s2t_loss(

@@ -12,11 +12,13 @@ returns a ``state_dict`` for the port's ``SpeechT5Model``.  Layouts:
 - Embed ``embedding`` (``pe_k``)        -> ``weight``
 - ``alpha`` (positional scales) [1]     -> ``alpha``
 - ``layers_<i>``                        -> ``layers.<i>``
+- the speaker head's ``projection_weight`` [C, E] -> ``output_projection.weight``
 
 Only the subtrees the port has (``PORTED_SUBTREES``) are carried; the
 others are left out of the result.  ``from_jax_batch_stats`` carries the
-JAX ``batch_stats`` collection (the speech postnet's BatchNorm ``mean`` /
-``var``) into the ``running_mean`` / ``running_var`` buffers.
+JAX ``batch_stats`` collection (the BatchNorm ``mean`` / ``var`` of the
+speech and speaker postnets) into the ``running_mean`` / ``running_var``
+buffers.
 
 ``load_fairseq_checkpoint`` reads a released fairseq ``.pt`` (no fairseq
 or omegaconf needed) and maps its keys onto the port's (``map_fairseq_key``,
@@ -36,7 +38,7 @@ import torch
 PORTED_SUBTREES = ("speech_encoder_prenet", "text_encoder_prenet", "encoder",
                    "decoder", "text_decoder_prenet", "text_decoder_postnet",
                    "speech_decoder_prenet", "speech_decoder_postnet",
-                   "spkembs_projection")
+                   "spkembs_projection", "speaker_decoder_postnet")
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -55,6 +57,8 @@ def _leaf(name: str, value: np.ndarray):
         return "weight", value
     if name in ("bias", "mask_emb", "alpha"):
         return name, value
+    if name == "projection_weight":
+        return "output_projection.weight", value
     raise KeyError(f"unknown parameter leaf {name!r}")
 
 
@@ -138,6 +142,10 @@ _FAIRSEQ_RULES = [(re.compile(a), b) for a, b in (
      r"speech_decoder_postnet.postnet.conv_\1.weight"),
     (r"speech_decoder_postnet\.postnet\.postnet\.(\d+)\.1\.(weight|bias|running_mean"
      r"|running_var)$", r"speech_decoder_postnet.postnet.bn_\1.\2"),
+    (r"speaker_decoder_postnet\.(output_embedding|output_projection)\.weight$",
+     r"speaker_decoder_postnet.\1.weight"),
+    (r"speaker_decoder_postnet\.(bn_pooling|bn_embedding)\.(weight|bias|running_mean"
+     r"|running_var)$", r"speaker_decoder_postnet.\1.\2"),
 )]
 _FAIRSEQ_SKIP = re.compile(r"(\._float_tensor|\.version|num_updates|num_batches_tracked)$")
 
@@ -145,9 +153,8 @@ _FAIRSEQ_SKIP = re.compile(r"(\._float_tensor|\.version|num_updates|num_batches_
 def map_fairseq_key(key: str):
     """A fairseq SpeechT5 key -> the port's key; "" for a buffer to skip
     (as JAX skips it); None for a key the port does not take: unknown to
-    the reference, or of a module the port lacks (the HuBERT head, the
-    quantizer, the speaker postnet: JAX maps them, the port has no such
-    module yet)."""
+    the reference, or of a module the port lacks (the HuBERT head and the
+    quantizer: JAX maps them, the port has no such module yet)."""
     if _FAIRSEQ_SKIP.search(key):
         return ""
     for pat, repl in _FAIRSEQ_RULES:

@@ -10,8 +10,8 @@ card machine has none, so this file skips there):
   positional conv;
 - ``hf_config_to_ours`` on the ``config.json`` dict equals JAX's on the
   config object, field for field;
-- the converted port model's logits / mels equal HF's within 1e-4
-  (absolute, f32, TF32 off), and so does the HiFi-GAN waveform;
+- the converted port model's logits / mels (TTS and VC) equal HF's within
+  1e-4 (absolute, f32, TF32 off), and so does the HiFi-GAN waveform;
 - ``load_hf_checkpoint`` reads a ``config.json`` + ``pytorch_model.bin``
   directory and refuses a ``model.safetensors`` one.
 """
@@ -148,6 +148,40 @@ def test_tts_mels_equal_hf(monkeypatch):
         ref = hf.speech_decoder_postnet(h)
         enc = model.encode_text(torch.from_numpy(tokens))
         got = model.decode_speech(enc, torch.from_numpy(prev), None, torch.from_numpy(spk))
+    for g, r in zip(got[:3], ref):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), atol=ATOL)
+
+
+def test_vc_mels_equal_hf(monkeypatch):
+    """The random-init SpeechT5ForSpeechToSpeech through load_hf_checkpoint:
+    the port's forward_s2s (speech encoder, x-vector, speech decoder,
+    postnet) against HF's own on padded source audio; HF's always-on prenet
+    dropout patched to identity (rate 0 here too)."""
+    from transformers.models.speecht5 import modeling_speecht5 as hf_mod
+
+    monkeypatch.setattr(hf_mod.SpeechT5SpeechDecoderPrenet, "_consistent_dropout",
+                        lambda self, x, p: x)
+    hf = _hf("SpeechT5ForSpeechToSpeech", 2)
+    cfg, _, model = _port_model(hf)
+    rng = np.random.default_rng(4)
+    B, T = 2, 3200
+    lengths = np.array([T, 2300])
+    wav = rng.standard_normal((B, T)).astype(np.float32) * 0.1
+    wav[1, lengths[1]:] = 0.0
+    attn = (np.arange(T)[None, :] < lengths[:, None]).astype(np.int64)
+    mel = rng.standard_normal((B, 12, cfg.n_mels)).astype(np.float32)
+    spk = rng.standard_normal((B, cfg.spk_embed_dim)).astype(np.float32)
+    thinned = mel[:, cfg.reduction_factor - 1::cfg.reduction_factor]
+    prev = np.zeros_like(thinned)
+    prev[:, 1:] = thinned[:, :-1]
+    with torch.no_grad():
+        h = hf.speecht5(input_values=torch.from_numpy(wav),
+                        attention_mask=torch.from_numpy(attn),
+                        decoder_input_values=torch.from_numpy(prev),
+                        speaker_embeddings=torch.from_numpy(spk)).last_hidden_state
+        ref = hf.speech_decoder_postnet(h)
+        got = model.forward_s2s(torch.from_numpy(wav), torch.from_numpy(lengths),
+                                torch.from_numpy(prev), None, torch.from_numpy(spk))
     for g, r in zip(got[:3], ref):
         np.testing.assert_allclose(g.numpy(), r.numpy(), atol=ATOL)
 

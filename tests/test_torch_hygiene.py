@@ -51,7 +51,7 @@ def test_port_and_smoke_import_with_jax_blocked():
             "speecht5_tpu_torch.decode.asr", "speecht5_tpu_torch.cli.serve",
             "speecht5_tpu_torch.decode.tts", "speecht5_tpu_torch.models.hifigan",
             "speecht5_tpu_torch.cli.convert", "speecht5_tpu_torch.utils.convert_hf",
-            "speecht5_tpu_torch.utils.profiling"} <= names
+            "speecht5_tpu_torch.utils.profiling", "speecht5_tpu_torch.decode.sid"} <= names
 
 
 def test_no_import_lines_reach_jax():
@@ -81,13 +81,14 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
 
     from speecht5_tpu_torch.cli.serve import Service
     from speecht5_tpu_torch.decode.asr import CTCDecoder
+    from speecht5_tpu_torch.decode.sid import SIDClassifier
     from speecht5_tpu_torch.decode.tts import TTSDecoder
     from speecht5_tpu_torch.models.hifigan import init_hifigan
     from speecht5_tpu_torch.models.speecht5 import init_model
     from speecht5_tpu_torch.utils.device import resolve_device
 
     for fn in (init_model, CTCDecoder.__init__, Service.__init__, resolve_device,
-               TTSDecoder.__init__, init_hifigan):
+               TTSDecoder.__init__, init_hifigan, SIDClassifier.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     if torch.cuda.is_available():
         pytest.skip("a card is present: asking for cuda does not raise here")

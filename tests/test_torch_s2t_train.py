@@ -401,5 +401,5 @@ def test_cli_train_runs_resumes_and_validates_on_cpu(tmp_path, capsys):
         "best", "checkpoint_2.pt", "checkpoint_3.pt"]
     assert sorted(os.listdir(f"{d}/ckpt/best")) == ["best.json", "checkpoint_3.pt"]
     with pytest.raises(SystemExit, match="not ported"):
-        cli_train.main(["--task", "s2s", "--manifest", "m", "--save-dir", d,
+        cli_train.main(["--task", "pretrain_speech", "--manifest", "m", "--save-dir", d,
                         "--device", "cpu"])

@@ -183,7 +183,7 @@ def test_text_to_speech_matches_jax(kernels, threshold, min_ratio, max_ratio):
 
 def test_text_to_speech_draws_the_prenet_dropout_from_its_generator():
     """With the dropout on, the same seed gives the same mel, another seed
-    another one; speech_to_speech waits for the s2s slice."""
+    another one; speech_to_speech (VC) draws from its generator alike."""
     _, _, _, pcfg, model = setup_models()
     tokens, spk = _text(pcfg)
     dec = TTSDecoder(model, max_frames=16, threshold=1.1, device="cpu")
@@ -193,8 +193,11 @@ def test_text_to_speech_draws_the_prenet_dropout_from_its_generator():
     c = dec.text_to_speech(torch.from_numpy(tokens), torch.from_numpy(spk),
                            generator=torch.Generator().manual_seed(9)).mel
     assert not torch.equal(a, c)
-    with pytest.raises(NotImplementedError, match="A.2"):
-        dec.speech_to_speech(None, None)
+    wav = np.random.default_rng(2).standard_normal((1, 3200)).astype(np.float32) * 0.1
+    a, b = (dec.speech_to_speech(wav, [3200], spk[:1]).mel for _ in range(2))
+    c = dec.speech_to_speech(wav, [3200], spk[:1],
+                             generator=torch.Generator().manual_seed(9)).mel
+    assert torch.equal(a, b) and not torch.equal(a, c)
 
 
 # ------------------------------------------------- the max-probability twin

@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
 """Where a train update's time goes on the card, for the PyTorch port.
 
-    python3 torch_train_profile.py [--task s2t|t2s|all]
+    python3 torch_train_profile.py [--task s2t|t2s|s2s|s2c|all]
 
 s2t (the default) builds the train step of ``chip_smoke.py``'s train phase
 (SpeechT5-Base ASR at full width, random weights from a seed, bf16, the
 recipe's loss weights, accum 2 x batch 16 of 8-16 s utterances); t2s that of
 its t2s phase (SpeechT5-Base at full width, bf16, guided attention, batch 16
-of 2-10 s utterances with x-vectors, 768 mel frames and 192 token slots).
-Each is built once with the kernels on (s2t: train attention and conv
-stack; t2s: the log-mel kernel making the targets from the waveform inside
-the update, and train attention) and once with the flags off (the plain
-PyTorch path; for t2s the log-mel twin makes the targets on the card
-inside the update, in the kernel's place, with TF32 off),
+of 2-10 s utterances with x-vectors, 768 mel frames and 192 token slots);
+s2s that of its s2s phase (SpeechT5-Base, bf16, guided attention, batch 8
+of 2-6 s source / target pairs with x-vectors); s2c that of its s2c phase
+(speecht5_base_sid, 8 classes, bf16, accum 2 x batch 8 of 4-10 s
+utterances cropped to 8 s).  Each is built once with the kernels on (s2t,
+s2s, s2c: train attention and conv stack, the conv's backward the twin's
+vjp; t2s and s2s: the log-mel kernel making the targets from the waveform
+inside the update) and once with the flags off (the plain PyTorch path;
+for t2s and s2s the log-mel twin makes the targets on the card inside the
+update, in the kernel's place, with TF32 off),
 times one update (median of 3, after one warm-up update), then profiles one
 more with ``torch.profiler``.  Prints one JSON line per path: update wall time
 (host clock, ending in a synchronize), the card's busy time (the union of
@@ -109,6 +113,18 @@ def _step_inputs(task: str, kernels: bool, seed: int):
             cfg = C.apply_overrides(cfg, S.TRAIN_OVERRIDES)
         mbs = [S.synthetic_batch(cfg, 16, seed=seed + 100 * m) for m in range(2)]
         return cfg, TrainConfig(ctc_weight=0.5, accum_steps=2), mbs
+    if task == "s2s":
+        cfg = C.replace(C.speecht5_base(), dtype="bfloat16")
+        if kernels:
+            cfg = C.apply_overrides(cfg, S.TRAIN_OVERRIDES)
+        b = S._on(S.synthetic_s2s_batch(cfg, 8, seed=seed), "cuda")
+        return cfg, TrainConfig(use_guided_attn=True, warmup_steps=6000), [b]
+    if task == "s2c":
+        cfg = C.speecht5_base_sid(num_classes=S.SID_SPEAKERS, dtype="bfloat16")
+        if kernels:
+            cfg = C.apply_overrides(cfg, S.TRAIN_OVERRIDES)
+        mbs = [S._on(S.synthetic_s2c_batch(8, seed=seed + 100 * m), "cuda") for m in range(2)]
+        return cfg, TrainConfig(lr=2e-4, warmup_steps=2000, accum_steps=2), mbs
     cfg = C.replace(C.speecht5_base(), dtype="bfloat16", **S.DICT_CFG)
     if kernels:
         cfg = C.apply_overrides(cfg, S.T2S_OVERRIDES)
@@ -117,9 +133,9 @@ def _step_inputs(task: str, kernels: bool, seed: int):
 
 
 def profile_path(task: str, kernels: bool, seed: int = 0):
-    """One path's record; the plain t2s path runs with the log-mel twin in
-    the kernel's place inside the update."""
-    with (contextlib.nullcontext() if kernels or task != "t2s" else
+    """One path's record; the plain t2s and s2s paths run with the log-mel
+    twin in the kernel's place inside the update."""
+    with (contextlib.nullcontext() if kernels or task not in ("t2s", "s2s") else
           mock.patch.object(T, "fused_log_mel", K.fused_log_mel_plain)):
         return _profile_path(task, kernels, seed)
 
@@ -154,7 +170,7 @@ def _profile_path(task: str, kernels: bool, seed: int):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]
     return {
         "task": task, "path": "kernels" if kernels else "plain",
-        "accum": tcfg.accum_steps, "batch": 16,
+        "accum": tcfg.accum_steps, "batch": next(iter(mbs[0].values())).shape[0],
         "update_wall_ms_median": float(np.median(walls)), "update_wall_ms_reps": walls,
         "profiled_wall_ms": wall_ms, "device_busy_ms": busy,
         "device_idle_share": (1.0 - busy / wall_ms) if busy else None,
@@ -170,14 +186,14 @@ def _profile_path(task: str, kernels: bool, seed: int):
 def main():
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--task", default="s2t", choices=("s2t", "t2s", "all"))
+    p.add_argument("--task", default="s2t", choices=("s2t", "t2s", "s2s", "s2c", "all"))
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_train_profile: needs an NVIDIA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(S.card_line(), flush=True)
-    for task in (("s2t", "t2s") if args.task == "all" else (args.task,)):
+    for task in (("s2t", "t2s", "s2s", "s2c") if args.task == "all" else (args.task,)):
         for kernels in (True, False):
             torch.cuda.reset_peak_memory_stats()
             print(json.dumps(profile_path(task, kernels)), flush=True)
