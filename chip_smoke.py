@@ -48,7 +48,17 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                ("vc_cross": Tq 1, Tk 149, with the max-probability output),
                the conv stack at batch 8 on 6 s and 8 s, and its backward
                (the twin's vjp) at 8 s beside cuDNN's autograd.grad through
-               conv1d + GELU.
+               conv1d + GELU.  The fusion LM's step, f32 and bf16: the
+               decode-step kernel at D 80 ("lm_self": N 80 = 5 x 16, Tq 1,
+               Tk 201, 101 valid; "lm_self_cache": the cache [5, 201, 16,
+               80] through an int64 ancestry map).  The evaluate path's
+               batch (phase 19: 8 clips, up to 5 s), bf16: the inference
+               attention at N 96, T 249 with ragged lengths, the conv stack
+               at batch 8 on 5 s, and the cached decode steps of its beam
+               (8 x 5 rows, a 61-position cache) in f32 and bf16: the
+               decoder's self step (N 480, D 64) and grouped cross step
+               (N 96, Tq 5, Tk 249, each sample's own valid frames), and
+               the tiny fusion LM's self step (N 160, D 16).
 3. serve    -- the serving path: the port's ASR Service (ctc_greedy, bf16,
                both inference kernels on) at full speecht5_base_asr width
                with random weights, answering 3 s, 11 s and 21 s requests in
@@ -185,10 +195,48 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                bf16, twice: wall ms, 24 inference-attention and 6 conv
                launches.
 
+19. evaluate -- in the train phase's directory, right after it: one more
+               update of its run keeps two checkpoints; then
+               ``cli/evaluate.py --task s2t`` (bf16, every kernel on, at the
+               shapes phase 2 holds) on 8 seeded 2-5 s utterances: the beam
+               (max_len 60) with ``--ensemble-last 2`` and a fusion LM from
+               ``--lm-ckpt`` (a seeded lm_tiny, model-only), CTC greedy with
+               ``--avg-last 2``, ``ctc_lexicon`` and ``ctc_rescore``, each
+               printing its JSON line (a finite WER over 8 utterances); the
+               three inference kernels must launch.
+20. serve rescore -- Service(--decoder ctc_rescore) at speecht5_base_asr,
+               bf16, batch 1, buckets 4/8/16 s, both inference kernels on,
+               the 3 s, 11 s and 21 s requests served open-vocabulary, then
+               with a lexicon of 2000 seeded words and a 3-gram ARPA over
+               them (--lm-weight 0.5 --word-score 1): per request wall ms,
+               pass 1's encoder and host (N-best) ms, pass 2 ms, and
+               launches: 24 inference attention and 6 conv a chunk, no
+               decode-step launch (pass 2 is teacher-forced); lexicon
+               transcripts hold lexicon words only.
+21. rescore parity -- f32, kernel route against plain route: pass 1 once (on
+               the kernel route's posteriors, no length cap), pass 2 on
+               each route's encoder output: scores within 1e-4 relative,
+               the chosen hypotheses equal (unless a near tie of the plain
+               route's top two totals, < 1e-4).
+22. beam lm -- ``ASRDecoder`` with a fusion LM (the reference's geometry:
+               d 1280, 20 pre-LN layers, 16 heads of Dh 80, ~0.45 B
+               parameters, random seeded, bf16) at beam 5, max_len 200, CTC
+               weight 0.3, LM weight 0.3, every kernel on, a 3 s and an 11 s
+               request: wall ms, decode steps, and 12 + 20 decode-step
+               launches a step (the decoder's self and cross, the LM's self
+               at D 80), 24 inference attention and 6 conv a request; then
+               one 20-step request under ``torch.profiler``: device
+               launches a step, busy time and idle share.
+23. beam lm parity -- f32, one 3 s request, max_len 60: the LM-fused beam
+               with every kernel on against the plain route: the best score
+               within 1e-4 relative, the best hypothesis equal (unless a
+               near tie, as in 6).
+
 The launch counts are zeroed just before each driven path (serve, serve
 beam, train, train t2s, the warm-started train and request, serve tts,
-train s2s, the VC requests, train s2c, the SID inference) and read just
-after; a kernel of that path that was never launched fails.
+train s2s, the VC requests, train s2c, the SID inference, evaluate, the
+two rescore runs, the LM-fused beam) and read just after; a kernel of that
+path that was never launched fails.
 Output: an early line with the card's name and power limit as nvidia-smi
 gives them, one ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  A watchdog ends a hung run with a
@@ -281,6 +329,16 @@ KERNEL_OVERRIDES = ["encoder.use_pallas_attn=True", "conv_features.impl='pallas'
 BEAM_OVERRIDES = KERNEL_OVERRIDES + ["decoder.use_pallas_attn=True"]
 # cli/serve.py's beam defaults (JAX cli/serve.py:549-551)
 BEAM, BEAM_MAX_LEN = 5, 200
+# the fusion LM (models/lm.TransformerLMConfig(): d 1280, 16 heads, 20
+# pre-LN layers): its head size is the decode-step kernel's D 80
+LM_HEADS, LM_DH = 16, 80
+# the evaluate phase's s2t batch: 8 clips of 2-5 s in one batch (encoder
+# frames up to those of 5 s), the beam's 8 x 5 rows at max_len 60 (a
+# 61-position cache) and the tiny fusion LM's 4 heads of Dh 16
+EVAL_BATCH, EVAL_MAX_S, EVAL_MAX_LEN = 8, 5.0, 60
+EVAL_FRAMES = C.ConvFeatureConfig().out_length(int(EVAL_MAX_S * 16000))
+EVAL_CONV_T = (int(EVAL_MAX_S * 16000) - 10) // 5 + 1    # after conv 0 (k 10, s 5)
+EVAL_LM_HEADS, EVAL_LM_DH = 4, 16
 TRAIN_OVERRIDES = ["encoder.use_pallas_attn_train=True", "conv_features.impl='pallas'"]
 # recipes/asr_finetune.sh (the flags of the s2t path; its lr/warmup/updates
 # and --finetune-from are the run's, not the step's)
@@ -360,6 +418,46 @@ def write_dictionary(directory: str) -> str:
     return path
 
 
+def write_lexicon_lm(directory: str, n_words: int = 2000, seed: int = 0,
+                     gz: bool = False):
+    """A seeded lexicon of ``n_words`` distinct words of 2-8 of the
+    dictionary's letters ("WORD<TAB>W O R D" lines) and a 3-gram ARPA
+    (natural backoff structure: every bigram's words and every trigram's
+    leading bigram are listed, so backoff weights are read) over them:
+    2 bigrams and 1 trigram a word, log10 probabilities and backoffs drawn
+    from ``seed``; ``gz`` writes ``lm.arpa.gz``.  Returns (lexicon path,
+    ARPA path)."""
+    import gzip
+
+    rng = np.random.default_rng(seed)
+    letters = np.array([chr(ord("A") + i) for i in range(26)])
+    words = set()
+    while len(words) < n_words:
+        words.add("".join(rng.choice(letters, int(rng.integers(2, 9)))))
+    words = sorted(words)
+    lexicon = os.path.join(directory, "lexicon.txt")
+    with open(lexicon, "w", encoding="utf-8") as f:
+        f.writelines(f"{w}\t{' '.join(w)}\n" for w in words)
+    uni = [f"{rng.uniform(-5.0, -1.5):.4f}\t{w}\t{rng.uniform(-0.8, 0.0):.4f}"
+           for w in ["<s>", "</s>", *words]]
+    pairs = sorted({(words[i], words[j]) for i, j in
+                    rng.integers(0, n_words, (2 * n_words, 2))})
+    bi = [f"{rng.uniform(-3.0, -0.2):.4f}\t{a} {b}\t{rng.uniform(-0.6, 0.0):.4f}"
+          for a, b in pairs]
+    tri = sorted({(*pairs[i], words[j]) for i, j in
+                  zip(rng.integers(0, len(pairs), n_words),
+                      rng.integers(0, n_words, n_words))})
+    tri = [f"{rng.uniform(-2.0, -0.1):.4f}\t{' '.join(t)}" for t in tri]
+    text = ("\\data\\\n" + f"ngram 1={len(uni)}\nngram 2={len(bi)}\nngram 3={len(tri)}\n"
+            + "\n\\1-grams:\n" + "\n".join(uni) + "\n\n\\2-grams:\n" + "\n".join(bi)
+            + "\n\n\\3-grams:\n" + "\n".join(tri) + "\n\n\\end\\\n")
+    arpa = os.path.join(directory, "lm.arpa.gz" if gz else "lm.arpa")
+    with (gzip.open(arpa, "wt", encoding="utf-8") if gz
+          else open(arpa, "w", encoding="utf-8")) as f:
+        f.write(text)
+    return lexicon, arpa
+
+
 def serve_config(base: C.SpeechT5Config, dtype: str, kernels: bool,
                  overrides=KERNEL_OVERRIDES):
     cfg = C.replace(base, dtype=dtype, **DICT_CFG)
@@ -367,11 +465,11 @@ def serve_config(base: C.SpeechT5Config, dtype: str, kernels: bool,
 
 
 def make_service(cfg, model, dict_path, device, buckets, decoder="ctc_greedy",
-                 max_len=BEAM_MAX_LEN):
+                 max_len=BEAM_MAX_LEN, extra=()):
     args = build_parser().parse_args([
         "--ckpt", "random-init", "--dict", dict_path,
         "--decoder", decoder, "--max-batch", "1", "--max-len", str(max_len),
-        "--asr-buckets", buckets, "--dtype", cfg.dtype,
+        "--asr-buckets", buckets, "--dtype", cfg.dtype, *extra,
     ])
     return Service(args, model=model, cfg=cfg, device=device)
 
@@ -511,7 +609,7 @@ def attention_case(batch, dtype, device="cuda", seed=0, T=799, valid=None):
     band = path_band(table, T, M, device)
     if valid is None:
         lengths = torch.randint(1, T + 1, (N,), generator=g, dtype=torch.int32)
-        lengths[0], lengths[1], lengths[5] = 0, T, 613
+        lengths[0], lengths[1], lengths[5] = 0, T, min(613, T)
     else:
         lengths = torch.full((N,), valid, dtype=torch.int32)
     return [t.to(device) for t in (q, k, v)] + [band, lengths.to(device)]
@@ -846,14 +944,16 @@ def flash_bias_case(case, dtype, device="cuda", seed=4):
     queries, Tk = 799 frames, the 11 s request's 549 valid); "self", the
     cached self-attention at step 100 of max_len 200 (N = 5 x 12 rows, one
     query, Tk = 201 cache positions, the causal 101 valid), as [N, T, D]
-    rows.  The key mask comes as the path gives it: one row per sample
-    (cross, [1, Tk]) or per beam row (self, [5, Tk]), each serving its 12
-    heads.  -> q, k, v, key_valid."""
+    rows; "lm_self", the fusion LM's cached self-attention at the same
+    step (N = 5 x 16 rows, Dh 80).  The key mask comes as the path gives
+    it: one row per sample (cross, [1, Tk]) or per beam row (self, [5,
+    Tk]), each serving its heads.  -> q, k, v, key_valid."""
     g = torch.Generator().manual_seed(seed)
-    N, Tq, Tk, valid, mask_rows = {"cross": (12, 5, 799, 549, 1),
-                                   "self": (60, 1, 201, 101, 5)}[case]
-    q = (torch.randn(N, Tq, 64, generator=g) * 64 ** -0.5).to(dtype)
-    k, v = (torch.randn(N, Tk, 64, generator=g).to(dtype) for _ in range(2))
+    N, Tq, Tk, valid, mask_rows, D = {"cross": (12, 5, 799, 549, 1, 64),
+                                      "self": (60, 1, 201, 101, 5, 64),
+                                      "lm_self": (5 * LM_HEADS, 1, 201, 101, 5, LM_DH)}[case]
+    q = (torch.randn(N, Tq, D, generator=g) * D ** -0.5).to(dtype)
+    k, v = (torch.randn(N, Tk, D, generator=g).to(dtype) for _ in range(2))
     key_valid = (torch.arange(Tk) < valid)[None, :].expand(mask_rows, Tk).contiguous()
     return [t.to(device) for t in (q, k, v, key_valid)]
 
@@ -873,10 +973,18 @@ def flash_bias_cache_case(case, dtype, device="cuda", seed=4):
     "tts_cross", the cross-attention against the 128-token text bucket (the
     longer served text's 58 valid), head-major K/V, asked for the
     max-probability output as the decoder asks; "vc_cross", the same
-    against a 3 s VC source's 149 encoder frames, all valid.  -> q4, k4,
-    v4, key_valid, rows."""
+    against a 3 s VC source's 149 encoder frames, all valid;
+    "lm_self_cache", the fusion LM's step as "self_cache" at its 16 heads
+    of Dh 80 (the cache [5, 201, 16, 80]).  The evaluate phase's beam at
+    batch 8 x beam 5, step 30 of max_len 60: "eval_self_cache" (q [40, 1,
+    12, 64], the cache [40, 61, 12, 64], each row's ancestors within its
+    sample's 5 rows), "eval_lm_self_cache" (the tiny LM's 4 heads of Dh 16)
+    and "eval_cross_cached" (q [8, 5, 12, 64] against 5 s of encoder
+    frames, each sample's own 2-5 s of them valid).  -> q4, k4, v4,
+    key_valid, rows."""
     g = torch.Generator().manual_seed(seed)
-    H = 12
+    H, D = {"lm_self_cache": (LM_HEADS, LM_DH),
+            "eval_lm_self_cache": (EVAL_LM_HEADS, EVAL_LM_DH)}.get(case, (12, 64))
     if case in ("tts_self", "tts_cross", "vc_cross"):
         Tk, valid = {"tts_self": (513, 201), "tts_cross": (TTS_BUCKET_TOKENS, TTS_TEXT_IDS),
                      "vc_cross": (VC_SOURCE_FRAMES, VC_SOURCE_FRAMES)}[case]
@@ -888,20 +996,27 @@ def flash_bias_cache_case(case, dtype, device="cuda", seed=4):
                       for _ in range(2))
         rows = None
         key_valid = torch.arange(Tk)[None, :] < valid
-    elif case == "self_cache":
-        B, Tc, pos = BEAM, BEAM_MAX_LEN + 1, 100
-        q4 = (torch.randn(B, 1, H, 64, generator=g) * 64 ** -0.5).to(dtype)
-        k4, v4 = (torch.randn(B, Tc, H, 64, generator=g).to(dtype) for _ in range(2))
-        rows = torch.randint(0, B, (B, Tc), generator=g)
+    elif case in ("self_cache", "lm_self_cache", "eval_self_cache", "eval_lm_self_cache"):
+        B, Tc, pos = ((EVAL_BATCH * BEAM, EVAL_MAX_LEN + 1, 30) if case.startswith("eval")
+                      else (BEAM, BEAM_MAX_LEN + 1, 100))
+        q4 = (torch.randn(B, 1, H, D, generator=g) * D ** -0.5).to(dtype)
+        k4, v4 = (torch.randn(B, Tc, H, D, generator=g).to(dtype) for _ in range(2))
+        rows = (torch.arange(B) // BEAM * BEAM)[:, None] + torch.randint(
+            0, BEAM, (B, Tc), generator=g)
         rows[:, pos + 1:] = torch.arange(B)[:, None]     # the rows' own next writes
         key_valid = torch.arange(Tc)[None, :] <= pos
     else:
-        Tk = 799
-        q4 = (torch.randn(1, BEAM, H, 64, generator=g) * 64 ** -0.5).to(dtype)
-        k4, v4 = (torch.randn(1, H, Tk, 64, generator=g).to(dtype).transpose(1, 2)
+        Bs, Tk = (EVAL_BATCH, EVAL_FRAMES) if case == "eval_cross_cached" else (1, 799)
+        q4 = (torch.randn(Bs, BEAM, H, 64, generator=g) * 64 ** -0.5).to(dtype)
+        k4, v4 = (torch.randn(Bs, H, Tk, 64, generator=g).to(dtype).transpose(1, 2)
                   for _ in range(2))
         rows = None
-        key_valid = torch.arange(Tk)[None, :] < 549
+        if case == "eval_cross_cached":
+            valid = torch.randint(2 * Tk // 5, Tk + 1, (Bs,), generator=g)
+            valid[0] = Tk                                  # the batch's longest clip
+        else:
+            valid = torch.tensor([549])
+        key_valid = torch.arange(Tk)[None, :] < valid[:, None]
     out = [t.to(device) for t in (q4, k4, v4, key_valid)]
     return (*out, None if rows is None else rows.to(device))
 
@@ -910,13 +1025,16 @@ def _flash_bias_record(case, dtype):
     """The decode-step kernel at one shape against its twin, timed back to
     back on the stream (``ms``) and as the card runs it (``graph_ms``), with
     SDPA (an f32 0/-1e9 mask, scale 1) on the same K/V as the yardstick,
-    timed both ways.  "cross" and "self" call the contract entry on [N, T,
-    D] rows, "cross_cached", "self_cache", "tts_self", "tts_cross" and
-    "vc_cross" the cached entry on the decoder's layouts; the last two with
+    timed both ways.  "cross", "self" and "lm_self" call the contract entry
+    on [N, T, D] rows, "cross_cached", "self_cache", "lm_self_cache",
+    the three "eval_" cases, "tts_self", "tts_cross" and "vc_cross" the
+    cached entry on the decoder's layouts; the last two with
     the max-probability output, held against the twin's (f32 1e-4, bf16
     3e-2 of max |ref|) and timed with and without it."""
     maxp_call = None
-    if case in ("self_cache", "cross_cached", "tts_self", "tts_cross", "vc_cross"):
+    if case in ("self_cache", "cross_cached", "tts_self", "tts_cross", "vc_cross",
+                "lm_self_cache", "eval_self_cache", "eval_lm_self_cache",
+                "eval_cross_cached"):
         q4, k4, v4, key_valid, rows = flash_bias_cache_case(case, dtype)
         B, Tq, H, D = q4.shape
         N, Tk = B * H, k4.shape[1]
@@ -1008,13 +1126,18 @@ def phase_kernels():
     contract entry and through the cached entry in f32 and bf16 (keys
     "<dtype>/cross", "<dtype>/self", "<dtype>/cross_cached",
     "<dtype>/self_cache", "<dtype>/tts_self", "<dtype>/tts_cross",
-    "<dtype>/vc_cross").  The shapes of the s2s / s2c / VC / SID paths, bf16:
+    "<dtype>/vc_cross", and the fusion LM's step at Dh 80, "<dtype>/lm_self",
+    "<dtype>/lm_self_cache").  The shapes of the s2s / s2c / VC / SID paths, bf16:
     the inference attention on one VC source ("bfloat16/vc_src", T 149) and
     one SID utterance ("bfloat16/sid", T 399); the train kernels at batch 8
     ("bfloat16/r0.1/T299", the s2s source; "bfloat16/r0.1/T400", the s2c
     crop with a [CLS] slot); the conv stack forward at batch 8 on 6 s and
     8 s ("bfloat16/b8_T19199", "bfloat16/b8_T25599") and its backward at
-    8 s ("bfloat16/bwd_b8_T25599")."""
+    8 s ("bfloat16/bwd_b8_T25599").  The evaluate phase's batch of 8 at its
+    5 s bound: the inference attention with ragged lengths
+    ("bfloat16/eval_b8", T 249), the conv stack ("bfloat16/b8_T15999") and
+    the decode steps of its beam and tiny LM ("<dtype>/eval_cross_cached",
+    "<dtype>/eval_self_cache", "<dtype>/eval_lm_self_cache", D 16)."""
     records = {name: {} for name in KERNELS}
     failures = []
     for batch in (1, 2):
@@ -1061,7 +1184,12 @@ def phase_kernels():
             failures.append(f"train kernels {key}: "
                             + json.dumps({n: r["errors"] for n, r in recs.items()}))
         torch.cuda.empty_cache()
-    for T in (19199, 25599):
+    ok, rec = _attention_record(EVAL_BATCH, torch.bfloat16, T=EVAL_FRAMES)
+    records["banded_flash_attention"]["bfloat16/eval_b8"] = rec
+    if not ok:
+        failures.append(f"banded_flash_attention eval_b8: max|diff| "
+                        f"{rec['max_abs_err']} > {rec['tolerance']}")
+    for T in (EVAL_CONV_T, 19199, 25599):
         ok, rec = _conv_record(8, torch.bfloat16, T=T)
         records["conv_stack"][f"bfloat16/b8_T{T}"] = rec
         if not ok:
@@ -1079,7 +1207,8 @@ def phase_kernels():
             failures.append(f"fused_log_mel b{batch}: max|diff| {rec['max_abs_err']} "
                             f"> {rec['tolerance']}")
     for case in ("cross", "self", "cross_cached", "self_cache", "tts_self", "tts_cross",
-                 "vc_cross"):
+                 "vc_cross", "lm_self", "lm_self_cache", "eval_cross_cached",
+                 "eval_self_cache", "eval_lm_self_cache"):
         for dtype in (torch.float32, torch.bfloat16):
             key = f"{str(dtype).split('.')[-1]}/{case}"
             ok, rec = _flash_bias_record(case, dtype)
@@ -1379,24 +1508,24 @@ class _LayerRuns:
         self.handle.remove()
 
 
-def phase_train(arch="speecht5_base_asr", device="cuda", n_utts=32, updates=3,
+def phase_train(work_dir, arch="speecht5_base_asr", device="cuda", n_utts=32, updates=3,
                 seconds=(8.0, 16.0), flags=RECIPE_FLAGS, seed=0):
-    """The training path through ``cli/train.main``: ``updates`` updates,
-    then a resume that takes one more; only the newest checkpoint (1.8 GB
-    at Base with the Adam moments) is kept, in a temporary directory
-    removed at the end.  Returns the launch counts of the first
-    run, the encoder layer runs, the per-update metrics and wall times."""
-    with tempfile.TemporaryDirectory() as d:
-        manifest, labels, dict_path = write_corpus(d, n_utts, seconds, seed)
-        args = ["--task", "s2t", "--arch", arch, "--manifest", manifest,
-                "--labels", labels, "--dict", dict_path,
-                "--save-dir", os.path.join(d, "ckpt"), *flags, "--keep-last", "1",
-                "--log-interval", "1", "--seed", str(seed + 1), "--device", device]
-        for ov in TRAIN_OVERRIDES:
-            args += ["--override", ov]
-        result = train_and_resume(args, os.path.join(d, "ckpt"), updates, device, "s2t")
+    """The training path through ``cli/train.main`` in ``work_dir``:
+    ``updates`` updates, then a resume that takes one more; only the newest
+    checkpoint (1.8 GB at Base with the Adam moments) is kept, in
+    ``work_dir``/ckpt.  Returns the launch counts of the first run, the
+    encoder layer runs, the per-update metrics and wall times, and the
+    run's arguments ("args")."""
+    manifest, labels, dict_path = write_corpus(work_dir, n_utts, seconds, seed)
+    args = ["--task", "s2t", "--arch", arch, "--manifest", manifest,
+            "--labels", labels, "--dict", dict_path,
+            "--save-dir", os.path.join(work_dir, "ckpt"), *flags, "--keep-last", "1",
+            "--log-interval", "1", "--seed", str(seed + 1), "--device", device]
+    for ov in TRAIN_OVERRIDES:
+        args += ["--override", ov]
+    result = train_and_resume(args, os.path.join(work_dir, "ckpt"), updates, device, "s2t")
     log(json.dumps({"phase": "train", **result}))
-    return result
+    return {**result, "args": args}
 
 
 def train_and_resume(args, save_dir, updates, device, what, accum=1):
@@ -2058,16 +2187,25 @@ def phase_serve_tts(base_cfg, device="cuda", dtype="bfloat16", texts=TTS_TEXTS, 
 def tts_device_launches(svc, text) -> dict:
     """Every launch the card runs for one /tts request (kernels, copies and
     fills, from ``torch.profiler``'s device events), per decode step too."""
+    return device_profile(lambda: svc.synthesize(text), lambda: svc.tts.steps_run)
+
+
+def device_profile(run, steps_run) -> dict:
+    """Every launch the card runs for ``run()`` (kernels, copies and fills,
+    from ``torch.profiler``'s device events), per decode step too
+    (``steps_run()``, a decoder's step count, read before and after), the
+    device's busy time (the union of the launches' intervals), the idle
+    share of the profiled wall and the largest device times by name."""
     from torch.profiler import ProfilerActivity, profile
 
-    steps0 = svc.tts.steps_run
+    steps0 = steps_run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        svc.synthesize(text)
+        run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    steps = svc.tts.steps_run - steps0
+    steps = steps_run() - steps0
     events = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and not getattr(e, "is_user_annotation", False)]
@@ -2573,6 +2711,358 @@ def phase_s2c_parity(base_cfg, device="cuda", batch=8, seconds=(4.0, 10.0), seed
 # ------------------------------------------------------------------- main
 
 
+# ------------------------------------------------------- rescore, LM beam
+
+RESCORE_LEX_FLAGS = ["--lm-weight", "0.5", "--word-score", "1"]
+LEXICON_WORDS = 2000
+LM_WEIGHT = 0.3
+
+
+def rescore_launches_expected(cfg, chunks: int) -> dict:
+    """ctc_rescore's launches: per chunk the encoder's (as the greedy arm's)
+    and the conv stack's; pass 2 is one teacher-forced decoder forward, so
+    no decode-step launch."""
+    want = dict.fromkeys(KERNELS, 0)
+    want["banded_flash_attention"] = (chunks * cfg.encoder.num_layers
+                                      * K.fwd_launches(cfg.compute_dtype))
+    want["conv_stack"] = chunks * (len(cfg.conv_features.layers) - 1)
+    return want
+
+
+class _PassTimes:
+    """Stands in for the Service adapter's RescoreDecoder and keeps each
+    call's pass times (``RescoreDecoder.last_ms``)."""
+
+    def __init__(self, dec):
+        self.dec, self.calls = dec, []
+
+    def __call__(self, wav, lengths):
+        rows = self.dec(wav, lengths)
+        self.calls.append(dict(self.dec.last_ms))
+        return rows
+
+
+def phase_serve_rescore(base_cfg, device="cuda", dtype="bfloat16",
+                        requests_s=(3, 11, 21), buckets="4,8,16", seed=0,
+                        n_words=LEXICON_WORDS):
+    """Service(--decoder ctc_rescore) with both inference kernels on, its
+    buckets warmed, the requests served twice: open-vocabulary, then with a
+    lexicon of ``n_words`` seeded words and a 3-gram ARPA over them
+    (``write_lexicon_lm``; --lm-weight 0.5 --word-score 1).  Per request:
+    wall ms, pass 1's device part ("encode") and host part ("pass1_host_ms",
+    the N-best), pass 2 ("pass2_ms"), and each kernel's launches, which must
+    be ``rescore_launches_expected`` on a card; a lexicon transcript holds
+    lexicon words only.  Returns {run: {"counts", "requests"}}."""
+    cfg = serve_config(base_cfg, dtype, kernels=True)
+    model = init_model(cfg, torch.Generator().manual_seed(seed), device)
+    wavs = [synth_audio(s, seed=100 + i) for i, s in enumerate(requests_s)]
+    card = card_line() if torch.device(device).type == "cuda" else "cpu"
+    on_card = torch.device(device).type == "cuda"
+    runs = {}
+    with tempfile.TemporaryDirectory() as d:
+        dict_path = write_dictionary(d)
+        lexicon, arpa = write_lexicon_lm(d, n_words, seed)
+        words = {line.split("\t")[0] for line in open(lexicon, encoding="utf-8")}
+        for name, extra in (("open", []), ("lexicon", ["--lexicon", lexicon, "--lm-path",
+                                                       arpa, *RESCORE_LEX_FLAGS])):
+            svc = make_service(cfg, model, dict_path, device, buckets,
+                               decoder="ctc_rescore", extra=extra)
+            svc.asr.dec = times = _PassTimes(svc.asr.dec)
+            _sync(device)
+            K.reset_launch_counts()
+            results = []
+            for secs, wav in zip(requests_s, wavs):
+                before, n0 = K.launch_counts(), len(times.calls)
+                t0 = time.perf_counter()
+                text = svc.transcribe(wav)
+                _sync(device)
+                wall = (time.perf_counter() - t0) * 1e3
+                launches = {n: c - before[n] for n, c in K.launch_counts().items()}
+                chunks, calls = len(svc._chunk(wav)), times.calls[n0:]
+                results.append({
+                    "run": name, "request_s": secs, "chunks": chunks, "wall_ms": wall,
+                    **{f"{k}_ms": sum(c[part] for c in calls) for k, part in
+                       (("encode", "encode"), ("pass1_host", "nbest"),
+                        ("pass2", "rescore"))},
+                    "launches": launches, "words": len(text.split()), "card": card})
+                want = (rescore_launches_expected(cfg, chunks) if on_card
+                        else dict.fromkeys(KERNELS, 0))
+                if launches != want or len(calls) != chunks:
+                    raise AssertionError(f"rescore request of {secs} s ({name}): "
+                                         f"launches {launches}, want {want}")
+                if name == "lexicon" and not set(text.split()) <= words:
+                    raise AssertionError(f"lexicon transcript holds non-words: {text!r}")
+            counts = K.launch_counts()
+            for r in results:
+                log(json.dumps({"served_rescore": r}))
+            runs[name] = {"counts": counts, "requests": results}
+    return runs
+
+
+def phase_rescore_parity(base_cfg, device="cuda", requests_s=(3, 11), buckets="4,8,16",
+                         seed=0, nbest=8, score_rtol=1e-4, gap_tol=1e-4):
+    """f32 weights, the kernel route (both inference kernels) against the
+    plain route: pass 1 (host code) runs once, on the kernel route's
+    posteriors, open-vocabulary and with no length cap, so the N
+    hypotheses differ; pass 2 scores them on each route's encoder output:
+    the scores within ``score_rtol`` relative, the chosen hypotheses equal
+    unless the plain route's top two totals are within ``gap_tol``.  Also
+    recorded: the routes' largest posterior difference and whether pass 1
+    on the plain route's posteriors gives the same N-best lists."""
+    from speecht5_tpu_torch.decode.asr import RescoreDecoder
+
+    cfgs = [serve_config(base_cfg, "float32", kernels=k) for k in (True, False)]
+    model_k = init_model(cfgs[0], torch.Generator().manual_seed(seed), device)
+    model_t = init_model(cfgs[1], torch.Generator().manual_seed(seed + 1), device)
+    model_t.load_state_dict(model_k.state_dict())
+    cfg = cfgs[0]
+    kw = dict(blank_id=cfg.blank_id, eos_id=cfg.eos_id, pad_id=cfg.pad_id, nbest=nbest,
+              beam=50, ctc_weight=0.3, max_len=None, device=device)
+    dec_k, dec_t = RescoreDecoder(model_k, **kw), RescoreDecoder(model_t, **kw)
+    grid = [int(b) * SR for b in buckets.split(",")]
+    worst_rel, lp_diff, equal, near_ties, nbest_equal = 0.0, 0.0, 0, [], 0
+    for i, secs in enumerate(requests_s):
+        wav = synth_audio(secs, seed=200 + i)
+        T = next(b for b in grid if b >= len(wav))
+        padded = np.zeros((1, T), np.float32)
+        padded[0, : len(wav)] = wav
+        enc_k, lp_k, fl_k = dec_k.encode(padded, [len(wav)])
+        enc_t, lp_t, fl_t = dec_t.encode(padded, [len(wav)])
+        if not np.array_equal(fl_k, fl_t):
+            raise AssertionError(f"frame lengths differ: {fl_k} {fl_t}")
+        lp_diff = max(lp_diff, float(np.abs(lp_k - lp_t)[0, : fl_k[0]].max()))
+        lists = dec_k.nbest_lists(lp_k, fl_k)
+        nbest_equal += int(lists == dec_t.nbest_lists(lp_t, fl_t))
+        hyps, ctc = dec_k.candidates(lists)
+        tf = [torch.from_numpy(a).to(device) for a in dec_k.teacher_forcing(hyps)]
+        att_k = dec_k.score(enc_k, *tf).cpu().numpy()
+        att_t = dec_t.score(enc_t, *tf).cpu().numpy()
+        worst_rel = max(worst_rel, float((np.abs(att_k - att_t) / np.abs(att_t)).max()))
+        tot_k, tot_t = (0.7 * a + 0.3 * np.asarray(ctc) for a in (att_k, att_t))
+        bk, bt = int(tot_k[0].argmax()), int(tot_t[0].argmax())
+        if hyps[0][bk] == hyps[0][bt]:
+            equal += 1
+            continue
+        gap = np.sort(tot_t[0])[-1] - np.sort(tot_t[0])[-2]
+        log(json.dumps({"rescore_parity_difference": {
+            "request_s": secs, "kernel_pick": bk, "plain_pick": bt, "plain_top2_gap": gap}}))
+        if gap >= gap_tol:
+            raise AssertionError(f"rescore picks differ at {secs} s with no near tie")
+        near_ties.append(secs)
+    result = {"requests": len(requests_s), "equal_picks": equal, "near_ties": near_ties,
+              "worst_pass2_rel_diff": worst_rel, "posterior_max_abs_diff": lp_diff,
+              "nbest_lists_equal": nbest_equal,
+              "hypothesis_tokens": [len(h) for h in hyps[0][:2]]}
+    log(json.dumps({"phase": "rescore_parity", **result}))
+    if worst_rel > score_rtol:
+        raise AssertionError(f"pass 2 scores of the kernel route differ: {result}")
+    return result
+
+
+def lm_config(cfg, kernels: bool, tiny: bool = False):
+    """The fusion LM at the model's vocabulary and pad id: the reference's
+    geometry (``TransformerLMConfig()``: d 1280, 20 pre-LN layers, 16 heads
+    of Dh 80) or ``lm_tiny``; its decode steps take the decode-step kernel
+    when ``kernels``."""
+    import dataclasses
+
+    from speecht5_tpu_torch.models.lm import TransformerLMConfig, lm_tiny
+
+    lmcfg = lm_tiny() if tiny else TransformerLMConfig()
+    return dataclasses.replace(lmcfg, vocab_size=cfg.vocab_size, pad_id=cfg.pad_id,
+                               trunk=dataclasses.replace(lmcfg.trunk,
+                                                         use_pallas_attn=kernels))
+
+
+def beam_lm_launches_expected(cfg, lm_layers: int, steps: int) -> dict:
+    """An LM-fused beam request (one chunk): the encoder's and the conv
+    stack's launches as the beam arm's, and per decode step one decode-step
+    launch per decoder layer for self- and one for cross-attention, plus
+    one per LM layer (its cached self-attention)."""
+    want = beam_launches_expected(cfg, 1, steps)
+    want["flash_attention_bias"] += lm_layers * steps
+    return want
+
+
+def _best(res):
+    return res.tokens[0, 0, : int(res.lengths[0, 0])].tolist(), res.scores[0].tolist()
+
+
+def phase_beam_lm(base_cfg, device="cuda", dtype="bfloat16", requests_s=(3, 11), seed=0,
+                  max_len=BEAM_MAX_LEN, lm_weight=LM_WEIGHT, lm_tiny=False):
+    """The LM-fused beam (``cli/evaluate.py --lm-ckpt``'s decoder):
+    ``ASRDecoder`` at beam 5, CTC weight 0.3, ``lm_weight``, with every
+    kernel on, over the model and a random seeded ``TransformerLMConfig()``
+    LM (0.45 B parameters) in ``dtype``; one short warm-up decode, then the
+    requests one at a time at their own length.  Per request: wall ms,
+    decode steps and launches, which must be ``beam_lm_launches_expected``
+    on a card (12 decoder and 20 LM decode-step launches a step at Base).
+    On a card, then one 20-step request under ``torch.profiler``: device
+    launches a step, busy time and idle share (``device_profile``).
+    Returns the launches of the request window and the records."""
+    from speecht5_tpu_torch.decode.asr import ASRDecoder
+    from speecht5_tpu_torch.models.lm import init_lm
+
+    cfg = serve_config(base_cfg, dtype, kernels=True, overrides=BEAM_OVERRIDES)
+    model = init_model(cfg, torch.Generator().manual_seed(seed), device)
+    lmcfg = lm_config(cfg, kernels=True, tiny=lm_tiny)
+    lm = init_lm(lmcfg, torch.Generator().manual_seed(seed + 2), device, cfg.compute_dtype)
+    kw = dict(beam_size=BEAM, ctc_weight=0.3, lm=lm, lm_weight=lm_weight, device=device)
+    ASRDecoder(model, max_len=4, **kw)(synth_audio(1.0, seed=99)[None], [SR])
+    dec = ASRDecoder(model, max_len=max_len, **kw)
+    card = card_line() if torch.device(device).type == "cuda" else "cpu"
+    on_card = torch.device(device).type == "cuda"
+    wavs = [synth_audio(s, seed=100 + i) for i, s in enumerate(requests_s)]
+    _sync(device)
+    K.reset_launch_counts()
+    results = []
+    for secs, wav in zip(requests_s, wavs):
+        before, steps0 = K.launch_counts(), dec.steps_run
+        t0 = time.perf_counter()
+        res = dec(wav[None], [len(wav)])
+        _sync(device)
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = {n: c - before[n] for n, c in K.launch_counts().items()}
+        steps = dec.steps_run - steps0
+        best, scores = _best(res)
+        results.append({"request_s": secs, "decode_steps": steps, "wall_ms": wall,
+                        "ms_per_step": wall / max(steps, 1), "launches": launches,
+                        "decode_step_launches_per_step":
+                            launches["flash_attention_bias"] / max(steps, 1),
+                        "hyp_tokens": len(best), "card": card})
+        want = (beam_lm_launches_expected(cfg, lmcfg.trunk.num_layers, steps) if on_card
+                else dict.fromkeys(KERNELS, 0))
+        if launches != want or not 0 < steps <= max_len:
+            raise AssertionError(f"LM beam request of {secs} s: launches {launches}, "
+                                 f"want {want}, steps {steps}")
+        if (not all(math.isfinite(x) for x in scores) or scores != sorted(scores)[::-1]
+                or best[0] != cfg.eos_id or best[-1] != cfg.eos_id):
+            raise AssertionError(f"LM beam result malformed: {scores} {best}")
+    counts = K.launch_counts()
+    for r in results:
+        log(json.dumps({"beam_lm": r}))
+    out = {"counts": counts, "requests": results,
+           "lm_params": sum(p.numel() for p in lm.parameters())}
+    if on_card:   # one more request, 20 steps, under torch.profiler
+        short = ASRDecoder(model, max_len=20, **kw)
+        out["device"] = device_profile(lambda: short(wavs[0][None], [len(wavs[0])]),
+                                       lambda: short.steps_run)
+        log(json.dumps({"beam_lm_device": out["device"]}))
+    return out
+
+
+def phase_beam_lm_parity(base_cfg, device="cuda", request_s=3, seed=0, max_len=60,
+                         lm_weight=LM_WEIGHT, lm_tiny=False, score_rtol=1e-4,
+                         gap_tol=1e-4):
+    """f32, one request: the LM-fused beam with every kernel on (the LM's
+    steps at Dh 80 through the decode-step kernel) against the plain route
+    on the same model and LM weights: the best scores within ``score_rtol``
+    relative and the best hypotheses equal, unless the plain route's top two
+    were a near tie (as ``phase_beam_parity``)."""
+    from speecht5_tpu_torch.decode.asr import ASRDecoder
+    from speecht5_tpu_torch.models.lm import init_lm
+
+    cfg_k = serve_config(base_cfg, "float32", kernels=True, overrides=BEAM_OVERRIDES)
+    cfg_t = serve_config(base_cfg, "float32", kernels=False)
+    model_k = init_model(cfg_k, torch.Generator().manual_seed(seed), device)
+    model_t = init_model(cfg_t, torch.Generator().manual_seed(seed + 1), device)
+    model_t.load_state_dict(model_k.state_dict())
+    lm_k = init_lm(lm_config(cfg_k, True, lm_tiny), torch.Generator().manual_seed(seed + 2),
+                   device)
+    lm_t = init_lm(lm_config(cfg_t, False, lm_tiny), torch.Generator().manual_seed(seed + 3),
+                   device)
+    lm_t.load_state_dict(lm_k.state_dict())
+    wav = synth_audio(request_s, seed=300)
+    out = []
+    for model, lm in ((model_k, lm_k), (model_t, lm_t)):
+        dec = ASRDecoder(model, beam_size=BEAM, max_len=max_len, ctc_weight=0.3, lm=lm,
+                         lm_weight=lm_weight, device=device)
+        res = dec(wav[None], [len(wav)])
+        out.append((res, dec.steps_run))
+    (res_k, steps_k), (res_t, steps_t) = out
+    (best_k, scores_k), (best_t, scores_t) = _best(res_k), _best(res_t)
+    rel = abs(scores_k[0] - scores_t[0]) / abs(scores_t[0])
+    hyps_t = [res_t.tokens[0, j, : int(res_t.lengths[0, j])].tolist() for j in range(BEAM)]
+    result = {"equal_best": best_k == best_t, "score_rel_diff": rel,
+              "decode_steps": {"kernel": steps_k, "plain": steps_t},
+              "best_tokens": len(best_k)}
+    if best_k != best_t:
+        gap = scores_t[0] - scores_t[1] if best_k == hyps_t[1] else float("inf")
+        result["plain_top2_gap"] = gap
+        if gap >= gap_tol:
+            raise AssertionError(f"LM beam tokens of the kernel path differ: {result}")
+    log(json.dumps({"phase": "beam_lm_parity", **result}))
+    if rel > score_rtol:
+        raise AssertionError(f"LM beam scores of the kernel path differ: {result}")
+    return result
+
+
+def phase_evaluate(work_dir, train_args, updates, device="cuda",
+                   arch="speecht5_base_asr", n_utts=EVAL_BATCH, seconds=(2.0, EVAL_MAX_S),
+                   seed=0, max_len=EVAL_MAX_LEN, n_words=LEXICON_WORDS):
+    """``cli/evaluate.py --task s2t`` on a checkpoint that the train phase
+    saved in ``work_dir``/ckpt after ``updates`` + 1 updates: one more
+    update of that run (``train_args``, ``--keep-last 2``) keeps two
+    checkpoints; then on ``n_utts`` seeded utterances (``write_corpus``),
+    one batch, bf16 with every kernel on: the beam with
+    ``--ensemble-last 2`` and a fusion LM from ``--lm-ckpt`` (a seeded
+    ``lm_tiny`` saved model-only here: 64 positions, so ``max_len`` 60),
+    CTC greedy with ``--avg-last 2``, ``ctc_lexicon`` (a ``n_words``
+    lexicon and 3-gram ARPA) and ``ctc_rescore``; each prints its JSON
+    line, a WER over the corpus.  The kernels phase holds the kernels at
+    this batch's shapes (EVAL_*).  Returns {"counts" (every run's
+    launches), "results"}."""
+    from speecht5_tpu_torch.cli import evaluate
+    from speecht5_tpu_torch.models.lm import init_lm
+    from speecht5_tpu_torch.utils.checkpoint import checkpoints, save_model_only
+
+    ckpt_dir = os.path.join(work_dir, "ckpt")
+    cli_train.main(train_args + ["--max-updates", str(updates + 2), "--keep-last", "2"])
+    steps = [s for s, _ in checkpoints(ckpt_dir)]
+    if steps != [updates + 1, updates + 2]:
+        raise AssertionError(f"expected checkpoints {[updates + 1, updates + 2]}: {steps}")
+    d = os.path.join(work_dir, "evaluate")
+    os.makedirs(d)
+    manifest, labels, dict_path = write_corpus(d, n_utts, seconds, seed + 7)
+    lexicon, arpa = write_lexicon_lm(d, n_words, seed)
+    cfg = C.apply_overrides(getattr(C, arch)(**DICT_CFG), BEAM_OVERRIDES)
+    lmcfg = lm_config(cfg, True, tiny=True)
+    if lmcfg.trunk.d_model // lmcfg.trunk.num_heads != EVAL_LM_DH:
+        raise AssertionError("the kernels phase holds the evaluate LM's steps at "
+                             f"D {EVAL_LM_DH}: {lmcfg.trunk}")
+    lm = init_lm(lmcfg, torch.Generator().manual_seed(5), "cpu")
+    save_model_only(os.path.join(d, "lm"), lm.state_dict(), 1)
+    common = ["--task", "s2t", "--arch", arch, "--manifest", manifest, "--labels", labels,
+              "--dict", dict_path, "--ckpt", ckpt_dir, "--batch-size", str(n_utts),
+              "--dtype", "bfloat16", "--normalize", "--device", device,
+              *[a for ov in BEAM_OVERRIDES for a in ("--override", ov)]]
+    runs = {
+        "beam": ["--beam", str(BEAM), "--max-len", str(max_len), "--ctc-weight", "0.3",
+                 "--ensemble-last", "2", "--lm-ckpt", os.path.join(d, "lm"),
+                 "--lm-arch", "tiny",
+                 "--lm-weight", str(LM_WEIGHT)],
+        "ctc_greedy": ["--decoder", "ctc_greedy", "--avg-last", "2"],
+        "ctc_lexicon": ["--decoder", "ctc_lexicon", "--lexicon", lexicon, "--lm-path", arpa,
+                        *RESCORE_LEX_FLAGS],
+        "ctc_rescore": ["--decoder", "ctc_rescore", "--ctc-weight", "0.3", "--max-len",
+                        str(max_len)],
+    }
+    _sync(device)
+    K.reset_launch_counts()
+    results = {}
+    for name, flags in runs.items():
+        res = evaluate.main(common + flags)
+        if (res["metric"] != "wer" or res["n_utts"] != n_utts
+                or not math.isfinite(res["value"])):
+            raise AssertionError(f"evaluate {name}: {res}")
+        results[name] = res
+    _sync(device)
+    counts = K.launch_counts()
+    result = {"counts": counts, "results": results}
+    log(json.dumps({"phase": "evaluate", **result}))
+    return result
+
+
 def kernels_line(records, counts, by_path=None):
     """The contract line: each kernel's path case (MAIN_CASE) in the named
     keys, the other cases under "other"; ``launches`` from the runs of the
@@ -2667,9 +3157,17 @@ def main():
     phase_beam_parity(base)
     walls["beam_parity"] = time.perf_counter() - t0
 
-    t0 = time.perf_counter()
-    trained = phase_train()
-    walls["train"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        trained = phase_train(d)
+        walls["train"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ev = phase_evaluate(d, trained["args"], updates=3)["counts"]
+        walls["evaluate"] = time.perf_counter() - t0
+    missing = [n for n in ("banded_flash_attention", "conv_stack", "flash_attention_bias")
+               if ev[n] == 0]
+    if missing:
+        raise AssertionError(f"evaluate never launched {missing}: {ev}")
     tc = trained["counts"]
     if tc["banded_flash_attention"] != 0 or tc["conv_stack"] == 0:
         raise AssertionError(f"train path launches wrong: {tc}")
@@ -2730,6 +3228,22 @@ def main():
     sid = phase_s2c_parity(C.speecht5_base_sid(num_classes=SID_SPEAKERS))
     walls["s2c_parity"] = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
+    rescore = phase_serve_rescore(base)
+    walls["serve_rescore"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    phase_rescore_parity(base)
+    walls["rescore_parity"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    beam_lm = phase_beam_lm(base)
+    walls["beam_lm"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    phase_beam_lm_parity(base)
+    walls["beam_lm_parity"] = time.perf_counter() - t0
+
     walls["total"] = time.perf_counter() - t_start
     log(json.dumps({"phase_seconds": walls, "card": card_line()}))
     by_path = {"serve": served["counts"], "serve_beam": beam["counts"],
@@ -2737,7 +3251,10 @@ def main():
                "warm_start_train": warm["train_counts"],
                "warm_start_serve": wsc, "serve_tts": tts["counts"],
                "train_s2s": s2s["counts"], "vc_decode": vc["counts"],
-               "train_s2c": s2c["counts"], "sid_inference": sid["counts"]}
+               "train_s2c": s2c["counts"], "sid_inference": sid["counts"],
+               "evaluate": ev, "serve_rescore": rescore["open"]["counts"],
+               "serve_rescore_lexicon": rescore["lexicon"]["counts"],
+               "beam_lm": beam_lm["counts"]}
     counts = {n: sum(c[n] for c in by_path.values()) for n in KERNELS}
     log(json.dumps(kernels_line(records, counts, by_path)))
     torch.cuda.synchronize()

@@ -19,9 +19,15 @@ Design notes (one card):
 
 Decoders: ``--decoder beam`` (the default), the joint CTC/attention beam
 search (``decode/asr.py:ASRDecoder`` with ``--beam``, ``--max-len`` and
-``--ctc-weight``; the text is the best hypothesis), and ``ctc_greedy``, the
-encoder-only CTC viterbi.  ``ctc_rescore`` is not ported yet (ROADMAP
-A.4).
+``--ctc-weight``; the text is the best hypothesis); ``ctc_greedy``, the
+encoder-only CTC viterbi; and ``ctc_rescore`` (``decode/asr.py:
+RescoreDecoder``), the throughput arm: one encoder + CTC forward, the
+N-best on the host (the native open-vocabulary prefix beam of
+``--ctc-beam-size`` with ``--ctc-topk``, or with ``--lexicon`` the native
+lexicon decoder, word LM ``--lm-path`` at ``--lm-weight`` and
+``--word-score``), then one teacher-forced decoder pass over the
+``--rescore-nbest`` hypotheses, picked by (1 - w) * attention + w * CTC at
+``--ctc-weight``; hypotheses over ``--max-len`` tokens are dropped.
 
 TTS (``decode/tts.py:TTSDecoder``): the text's letters (the dictionary's
 symbols, '|' between words) padded to ``--tts-bucket-tokens``, decoded to
@@ -68,6 +74,9 @@ from ..utils.device import resolve_device
 ASR_BUCKETS_S = (4, 8, 16)
 SR = 16000
 DECODERS = ("beam", "ctc_greedy", "ctc_rescore")
+LM_PATH_NEEDS_LEXICON = ("--lm-path requires --lexicon (the word n-gram LM scores "
+                         "lexicon words; without a lexicon it would be silently "
+                         "ignored)")
 
 
 class RequestTooLarge(Exception):
@@ -75,9 +84,9 @@ class RequestTooLarge(Exception):
 
 
 class _CTCAdapter:
-    """Make CTCDecoder (list of token rows) quack like the beam decoder's
-    result (tokens [B, beam, L] with BOS/EOS framing) so the serving paths
-    stay decoder-agnostic."""
+    """Make a decoder that returns token rows (CTCDecoder, RescoreDecoder)
+    quack like the beam decoder's result (tokens [B, beam, L] with BOS/EOS
+    framing) so the serving paths stay decoder-agnostic."""
 
     def __init__(self, dec):
         self.dec = dec
@@ -152,16 +161,14 @@ class Service:
     """Owns the decoder; one device batch in flight at a time."""
 
     def __init__(self, args, *, model=None, cfg=None, vocoder=None, device="cuda"):
-        from ..decode.asr import ASRDecoder, CTCDecoder
+        from ..decode.asr import ASRDecoder, CTCDecoder, RescoreDecoder
         from ..decode.tts import TTSDecoder
 
         self.device = resolve_device(device)
         self.lock = threading.Lock()
         self.args = args
-        if args.decoder == "ctc_rescore":
-            raise NotImplementedError(
-                "--decoder ctc_rescore is not ported yet (ROADMAP A.4: "
-                "RescoreDecoder, decode/nbest.py and the native N-best beam)")
+        if args.decoder == "ctc_rescore" and args.lm_path and not args.lexicon:
+            raise ValueError(LM_PATH_NEEDS_LEXICON)
         if model is None:
             cfg, model = restore_model(args, self.device)
         elif cfg is None:
@@ -192,6 +199,12 @@ class Service:
             if args.decoder == "beam":
                 self.asr = ASRDecoder(model, beam_size=args.beam, max_len=args.max_len,
                                       ctc_weight=args.ctc_weight, device=self.device)
+            elif args.decoder == "ctc_rescore":
+                self.asr = _CTCAdapter(RescoreDecoder(
+                    model, blank_id=cfg.blank_id, eos_id=cfg.eos_id, pad_id=cfg.pad_id,
+                    nbest=args.rescore_nbest, beam=args.ctc_beam_size,
+                    topk=args.ctc_topk, ctc_weight=args.ctc_weight,
+                    max_len=args.max_len, lexicon=self._lexicon(), device=self.device))
             else:
                 self.asr = _CTCAdapter(CTCDecoder(model, blank_id=cfg.blank_id,
                                                   device=self.device))
@@ -221,6 +234,18 @@ class Service:
 
     def buckets(self):
         return [int(s) for s in self.args.asr_buckets.split(",")]
+
+    def _lexicon(self):
+        """ctc_rescore's pass-1 lexicon decoder (``--lexicon``, word LM
+        ``--lm-path``), or None for the open-vocabulary N-best."""
+        if not self.args.lexicon:
+            return None
+        from ..decode.lexicon import letter_lexicon_decoder
+
+        a = self.args
+        return letter_lexicon_decoder(a.lexicon, self.dictionary, blank=self.cfg.blank_id,
+                                      arpa_path=a.lm_path, lm_weight=a.lm_weight,
+                                      word_score=a.word_score, beam=a.ctc_beam_size)
 
     # ------------------------------------------------------------------ ops
     def _chunk(self, wav: np.ndarray):
@@ -514,12 +539,29 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--decoder", default="beam", choices=DECODERS,
                    help="/asr algorithm: joint CTC/attention beam search, "
                         "encoder-only CTC viterbi, or two-pass CTC N-best + "
-                        "attention rescore (not ported yet)")
+                        "attention rescore")
+    p.add_argument("--lexicon", default=None,
+                   help="ctc_rescore: constrain pass-1 hypotheses to this "
+                        "lexicon ('word<TAB>tok1 tok2 ...' lines)")
+    p.add_argument("--lm-path", default=None,
+                   help="ctc_rescore + --lexicon: word n-gram LM (ARPA, "
+                        ".arpa.gz or a binary from decode.lexicon.build_binary_lm)")
+    p.add_argument("--lm-weight", type=float, default=0.0)
+    p.add_argument("--word-score", type=float, default=0.0)
+    p.add_argument("--rescore-nbest", type=int, default=8,
+                   help="ctc_rescore: hypotheses per utterance kept for the "
+                        "attention rescoring pass")
+    p.add_argument("--ctc-topk", type=int, default=0,
+                   help="ctc_rescore: per-frame candidate pruning of the "
+                        "N-best prefix beam (0 = all)")
+    p.add_argument("--ctc-beam-size", type=int, default=50,
+                   help="ctc_rescore pass-1 beam width (open-vocabulary or "
+                        "lexicon-constrained)")
     p.add_argument("--beam", type=int, default=5)
     p.add_argument("--max-len", type=int, default=200,
-                   help="beam: most tokens a hypothesis may have")
+                   help="beam, ctc_rescore: most tokens a hypothesis may have")
     p.add_argument("--ctc-weight", type=float, default=0.3,
-                   help="beam: weight of the CTC prefix score")
+                   help="beam, ctc_rescore: weight of the CTC score")
     p.add_argument("--asr-buckets", default=",".join(
         str(s) for s in ASR_BUCKETS_S))
     p.add_argument("--max-batch", type=int, default=1,
@@ -541,7 +583,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    args = build_parser().parse_args(argv)
+    p = build_parser()
+    args = p.parse_args(argv)
+    if args.lm_path and not args.lexicon:
+        p.error(LM_PATH_NEEDS_LEXICON)
     svc = Service(args, device=args.device)
     server = ThreadingHTTPServer((args.host, args.port), make_handler(svc))
     print(json.dumps({"serving": True, "host": args.host,

@@ -83,9 +83,20 @@
 // once, the TPU kernel exp(s - m_running).  bf16 agrees within 3e-2 x
 // max|ref|, f32 within 1e-4.
 //
-// Limits: D a power of two with 16 <= D * sizeof(T) and D <= 128 (f32 at D
-// 128 keeps 64-key tiles: 128 would overflow shared memory); k, v 16-byte
-// aligned with strides of whole 16-byte vectors; N <= 65535.
+// Head sizes.  A key row is VPR = D * sizeof(T) / 16 vectors.  The lane
+// layout of the score and P.V passes wants a power of two (the lanes of a key,
+// the lanes that share a column of V), so it is laid out for VPRP, VPR rounded
+// up to a power of two, and the lanes of the vectors past VPR load nothing and
+// add nothing: D 80 in bf16 (the fusion LM's head size, 10 vectors) runs on
+// the layout of D 128 with 10 of its 16 columns live.  The loops and shuffle
+// chains stay the same in every lane; only the loads and the products test
+// the column.  The K/V ring, q and the partial sums keep D elements a row, so
+// no padding is read or written.
+//
+// Limits: D a multiple of 16, or a power of two, with 16 <= D * sizeof(T) and
+// D <= 128 (f32 past D 64 keeps 64-key tiles: 128 would overflow shared
+// memory); k, v 16-byte aligned with strides of whole 16-byte vectors; N <=
+// 65535.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -206,6 +217,12 @@ constexpr size_t smem_bytes() {
          + (size_t)BQ * BK + (size_t)WARPS * BQ * VPR * Vec<T>::N);
 }
 
+__host__ __device__ constexpr int pow2_ceil(int x) {
+  int p = 1;
+  while (p < x) p *= 2;
+  return p;
+}
+
 // VPR: 16-byte vectors per key row (D = VPR * Vec<T>::N); BK: keys a tile;
 // BQ: queries a block
 template <typename T, int VPR, int BK, int BQ>
@@ -213,10 +230,12 @@ __global__ void __launch_bounds__(THREADS)
 flash_split_kernel(const Params p) {
   constexpr int EPV = Vec<T>::N;
   constexpr int D = VPR * EPV;
-  constexpr int LPK = VPR < 8 ? VPR : 8;       // lanes a key in the score pass
-  constexpr int VPL = VPR / LPK;                // vectors a lane
+  constexpr int VPRP = pow2_ceil(VPR);          // the lane layout's columns
+  constexpr bool FULL = VPRP == VPR;            // every column live
+  constexpr int LPK = VPRP < 8 ? VPRP : 8;      // lanes a key in the score pass
+  constexpr int VPL = VPRP / LPK;               // vectors a lane
   constexpr int KPW = 32 / LPK;                 // keys a warp per pass
-  constexpr int NPH = THREADS / VPR;            // key phases of the P.V pass
+  constexpr int NPH = THREADS / VPRP;           // key phases of the P.V pass
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* s_kv = reinterpret_cast<T*>(smem_raw);     // [2][2][BK][D]: stage, K/V
@@ -281,7 +300,8 @@ flash_split_kernel(const Params p) {
 #pragma unroll
     for (int e = 0; e < EPV; ++e) acc[i][e] = 0.f;
 
-  const int col = tid % VPR, ph = tid / VPR;    // the P.V pass's column and key phase
+  // the P.V pass's column and key phase; columns >= VPR are idle lanes
+  const int col = tid % VPRP, ph = tid / VPRP;
   const int nt = p.ntiles;
   int stage = 0;
   bool cur_valid = issue(rank, 0);             // rank < CS <= nt
@@ -311,10 +331,12 @@ flash_split_kernel(const Params p) {
 #pragma unroll
   for (int i = 0; i < BQ; ++i)
 #pragma unroll
-    for (int u = 0; u < VPL; ++u)
+    for (int u = 0; u < VPL; ++u) {
+      const int vc = (lane % LPK) + u * LPK;
 #pragma unroll
       for (int e = 0; e < EPV; ++e)
-        qr[i][u * EPV + e] = s_q[i * D + ((lane % LPK) + u * LPK) * EPV + e];
+        qr[i][u * EPV + e] = FULL || vc < VPR ? s_q[i * D + vc * EPV + e] : 0.f;
+    }
   for (int t = rank; t < nt; t += CS) {
     const bool next_valid = t + CS < nt ? issue(t + CS, stage ^ 1) : false;
     cp_async_commit();
@@ -342,12 +364,14 @@ flash_split_kernel(const Params p) {
 #pragma unroll
       for (int u = 0; u < VPL; ++u) {
         const int vc = (lane % LPK) + u * LPK;
-        float kf[EPV];
-        Vec<T>::load(sk + jj * D + vc * EPV, kf);
+        if (FULL || vc < VPR) {        // no shuffle inside: the chain below stays whole
+          float kf[EPV];
+          Vec<T>::load(sk + jj * D + vc * EPV, kf);
 #pragma unroll
-        for (int i = 0; i < BQ; ++i)   // rows past nq hold q = 0
+          for (int i = 0; i < BQ; ++i)   // rows past nq hold q = 0
 #pragma unroll
-          for (int e = 0; e < EPV; ++e) dot[i] += qr[i][u * EPV + e] * kf[e];
+            for (int e = 0; e < EPV; ++e) dot[i] += qr[i][u * EPV + e] * kf[e];
+        }
       }
       // the key's LPK lanes: one unconditional chain of shuffles that leaves
       // each lane the whole sums of its own queries
@@ -418,7 +442,7 @@ flash_split_kernel(const Params p) {
 #pragma unroll
     for (int u = 0; u < (BK + NPH - 1) / NPH; ++u) {
       const int jj = ph + u * NPH;
-      if (jj < BK) {
+      if (jj < BK && (FULL || col < VPR)) {
         float vf[EPV];
         Vec<T>::load(sv + jj * D + col * EPV, vf);
 #pragma unroll
@@ -438,7 +462,7 @@ flash_split_kernel(const Params p) {
   // ---- the block's acc: the key phases of a warp by shuffles, then the
   // warps in order (a fixed order: two calls give the same bits)
 #pragma unroll
-  for (int o = VPR; o < 32; o <<= 1)
+  for (int o = VPRP; o < 32; o <<= 1)
 #pragma unroll
     for (int i = 0; i < BQ; ++i)
 #pragma unroll
@@ -534,19 +558,37 @@ int launch(const Params& prm, int N, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// vpr: vectors a key row, D / Vec<T>::N; the cases are the head sizes the
+// host check lets through (D a power of two, or a multiple of 16, <= 128)
 template <typename T, int BK, int BQ>
 int dispatch(const Params& prm, int N, int vpr, cudaStream_t s) {
+  constexpr bool F32 = sizeof(T) == 4;
   switch (vpr) {
     case 1: return launch<T, 1, BK, BQ>(prm, N, s);
     case 2: return launch<T, 2, BK, BQ>(prm, N, s);
     case 4: return launch<T, 4, BK, BQ>(prm, N, s);
     case 8: return launch<T, 8, BK, BQ>(prm, N, s);
+    case 12: return launch<T, 12, BK, BQ>(prm, N, s);   // bf16 D 96, f32 D 48
     case 16: return launch<T, 16, BK, BQ>(prm, N, s);
-    case 32:  // f32 at D 128 only; 128-key tiles would overflow shared memory
-      if constexpr (sizeof(T) == 4) return launch<T, 32, 64, BQ>(prm, N, s);
-      return (int)cudaErrorInvalidValue;
-    default: return (int)cudaErrorInvalidValue;
+    default: break;
   }
+  if constexpr (!F32) {   // bf16 D 48, 80, 112
+    switch (vpr) {
+      case 6: return launch<T, 6, BK, BQ>(prm, N, s);
+      case 10: return launch<T, 10, BK, BQ>(prm, N, s);
+      case 14: return launch<T, 14, BK, BQ>(prm, N, s);
+      default: break;
+    }
+  } else {   // f32 D 80-128; 128-key tiles would overflow shared memory
+    switch (vpr) {
+      case 20: return launch<T, 20, 64, BQ>(prm, N, s);
+      case 24: return launch<T, 24, 64, BQ>(prm, N, s);
+      case 28: return launch<T, 28, 64, BQ>(prm, N, s);
+      case 32: return launch<T, 32, 64, BQ>(prm, N, s);
+      default: break;
+    }
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T, int BQ>
@@ -578,7 +620,8 @@ extern "C" int flash_bias_launch(const void* q, const void* k, const void* v,
                                  void* stream) {
   const int epv = dtype == 0 ? 4 : 8;
   const long long N = (long long)B * H;
-  if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || D < epv || D > MAX_D || (D & (D - 1)) != 0
+  if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || D < epv || D > MAX_D || D % epv != 0
+      || ((D & (D - 1)) != 0 && D % 16 != 0)
       || N > 65535 || (Tq + MAX_BQ - 1) / MAX_BQ > 65535 || mask_div <= 0 || N % mask_div != 0
       || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;

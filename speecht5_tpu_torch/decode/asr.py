@@ -1,4 +1,6 @@
-"""ASR decoding: the joint CTC/attention beam search and greedy CTC.
+"""ASR decoding: the joint CTC/attention beam search (with neural-LM
+fusion), CTC greedy and lexicon decoding, and the two-pass CTC N-best +
+attention rescore.
 
 Port of ``speecht5_tpu/decode/asr.py``:
 
@@ -7,19 +9,29 @@ Port of ``speecht5_tpu/decode/asr.py``:
   speecht5.py:1151-1164) and the per-step score combination of reference
   sequence_generator.py:370-432: the top ``beam * 1.5`` candidates by
   attention score get (1 - w) * attention + w * CTC-prefix delta, the
-  others keep their attention score; pad and blank suppressed, unk
-  penalized.  Beam, CTC prefix state and caches stay on the device for the
-  whole batch; the host runs the loop (``decode/beam_search.py``).
-  Shallow LM fusion (``lm=``, used by the JAX ``cli/evaluate.py``, not by
-  serving) is not ported yet.
-- ``CTCDecoder`` (JAX :295-380): one encoder + CTC-head forward, the argmax
-  on the device, and only the ``[B, T]`` int32 frame ids and the frame
-  lengths copied to the host for the greedy collapse (JAX asr.py:332-337).
-
-The lexicon arm and ``RescoreDecoder`` arrive with their slice.
+  others keep their attention score; then, with a fusion LM
+  (``models/lm.TransformerLM``), + lm_weight * its log-softmax (JAX
+  :178-187); pad and blank suppressed, unk penalized.  Beam, CTC prefix
+  state and caches stay on the device for the whole batch; the host runs
+  the loop (``decode/beam_search.py``).
+- ``CTCDecoder`` (JAX :295-380): one encoder + CTC-head forward; greedy:
+  the argmax on the device and only the ``[B, T]`` int32 frame ids and the
+  frame lengths copied to the host for the collapse (JAX asr.py:332-337);
+  with a ``decode/lexicon.LexiconDecoder``: the log-softmax on the device,
+  the ``[B, T, V]`` f32 posteriors to the host, the native lexicon + word
+  LM beam per utterance.
+- ``RescoreDecoder`` (JAX :382-518): pass 1, one encoder + CTC forward on
+  the device and the N-best on the host (the native open-vocabulary prefix
+  beam, ``decode/nbest.py``, or the lexicon decoder's N-best); pass 2, one
+  teacher-forced ``decode_text`` over all B * N hypotheses, padded to a
+  multiple of ``len_step`` tokens; the pick maximises (1 - w) * attention
+  + w * CTC.
 """
 
 from __future__ import annotations
+
+import math
+import time
 
 import numpy as np
 import torch
@@ -61,15 +73,27 @@ class ASRDecoder:
         the caches each step (fairseq's reorder_incremental_state).
 
         ``steps_per_iter``: decode steps per host read of the loop
-        condition; the tokens do not depend on it."""
-        if lm is not None:
-            raise NotImplementedError(
-                "LM fusion is not ported yet (ROADMAP A.9: models/lm.py and "
-                "the lm_weight term of the step)")
+        condition; the tokens do not depend on it.
+
+        ``lm``: a ``models/lm.TransformerLM`` over the model's vocabulary,
+        fused with ``lm_weight`` (ignored at weight 0, as in JAX); its
+        cache follows the ancestry map like the decoder's, or is gathered
+        with the beam under "gather"."""
         self.device = resolve_device(device)
         models = model if isinstance(model, (list, tuple)) else [model]
         self.models = [m.to(self.device).eval() for m in models]
         self.cfg = self.models[0].cfg
+        self.lm = None
+        self.lm_weight = lm_weight
+        if lm is not None and lm_weight != 0.0:
+            if lm.cfg.vocab_size != self.cfg.vocab_size:
+                raise ValueError(f"the fusion LM's vocabulary ({lm.cfg.vocab_size}) is "
+                                 f"not the model's ({self.cfg.vocab_size})")
+            if lm.cfg.max_positions < max_len:
+                # JAX reads the positions past the table clamped to its last row
+                raise ValueError(f"the fusion LM has {lm.cfg.max_positions} positions, "
+                                 f"fewer than max_len {max_len}")
+            self.lm = lm.to(self.device).eval()
         self.beam_size = beam_size
         self.max_len = max_len
         self.ctc_weight = ctc_weight
@@ -140,6 +164,12 @@ class ASRDecoder:
             # eos: the CTC score of ending the prefix here
             eos_delta = ctc_prefix.eos_score(cs, consts["enc_lengths"]) - cs.psi
             lprobs[:, cfg.eos_id] = (1.0 - w) * att[:, cfg.eos_id] + w * eos_delta
+
+        if self.lm is not None:   # shallow fusion, before the suppression
+            lm_logits, lm_cache = self.lm.decode_step(toks_t, state["lm_cache"],
+                                                      cache_rows=rows)
+            lprobs = lprobs + self.lm_weight * torch.log_softmax(lm_logits.float(), dim=-1)
+            state = dict(state, lm_cache=lm_cache)
         return self._suppress(lprobs), state
 
     def _select(self, consts, state, tok):
@@ -196,6 +226,8 @@ class ASRDecoder:
                 _tile_rows(ctc_lp, K), consts["enc_lengths"], cfg.blank_id,
                 cfg.eos_id)
             state["ctc_empty"] = torch.ones(N, dtype=torch.bool, device=self.device)
+        if self.lm is not None:
+            state["lm_cache"] = self.lm.init_cache(N, self.max_len + 1)
 
         ancestry = self.cache_reorder == "ancestry"
         res, runs = beam_search(
@@ -205,7 +237,7 @@ class ASRDecoder:
             length_penalty=self.length_penalty, min_len=self.min_len,
             select_fn=lambda st, tok: self._select(consts, st, tok),
             no_repeat_ngram_size=self.no_repeat_ngram_size,
-            gather_exempt_keys=("cache",) if ancestry else (),
+            gather_exempt_keys=("cache", "lm_cache") if ancestry else (),
             ancestry_key="anc" if ancestry else None,
             steps_per_iter=self.steps_per_iter, device=self.device)
         self.steps_run += runs
@@ -213,12 +245,16 @@ class ASRDecoder:
 
 
 class CTCDecoder:
-    """Greedy (viterbi) CTC decode over a port ``SpeechT5Model``."""
+    """CTC decoding over a port ``SpeechT5Model``: greedy (viterbi)
+    collapse, or with ``lexicon`` (a ``decode/lexicon.LexiconDecoder``) the
+    native lexicon + word-LM beam over the posteriors (the reference
+    SpeechLM's flashlight / KenLM decode, SpeechLM/speechlm/infer.py)."""
 
-    def __init__(self, model, *, blank_id: int, device="cuda"):
+    def __init__(self, model, *, blank_id: int, lexicon=None, device="cuda"):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.blank_id = blank_id
+        self.lexicon = lexicon
 
     def _inputs(self, wav, lengths):
         wav = torch.as_tensor(wav, dtype=torch.float32, device=self.device)
@@ -239,10 +275,22 @@ class CTCDecoder:
         ids = torch.argmax(logits, dim=-1).to(torch.int32)
         return ids.cpu().numpy(), frame_lengths.cpu().numpy()
 
+    @torch.inference_mode()
+    def posteriors(self, wav, lengths):
+        """Natural-log CTC posteriors [B, T, V] f32 and frame lengths [B],
+        as numpy: the log-softmax runs on the device."""
+        logits, frame_lengths = self.logits(wav, lengths)
+        lp = torch.log_softmax(logits.float(), dim=-1)
+        return lp.cpu().numpy(), frame_lengths.cpu().numpy()
+
     def __call__(self, wav, lengths) -> list:
         """Returns a list of B token-id lists (letters + word-sep tokens)."""
-        ids, frame_lengths = self.frame_ids(wav, lengths)
-        return greedy_collapse(ids, frame_lengths, self.blank_id)
+        if self.lexicon is None:
+            ids, frame_lengths = self.frame_ids(wav, lengths)
+            return greedy_collapse(ids, frame_lengths, self.blank_id)
+        lp, frame_lengths = self.posteriors(wav, lengths)
+        return [self.lexicon.decode(lp[b, : int(frame_lengths[b])])[0]
+                for b in range(lp.shape[0])]
 
 
 def greedy_collapse(ids: np.ndarray, lengths: np.ndarray,
@@ -266,3 +314,129 @@ def greedy_ctc(ctc_logits, lengths, blank_id: int) -> list:
     ids = torch.argmax(torch.as_tensor(ctc_logits), dim=-1)
     return greedy_collapse(ids.cpu().numpy(), np.asarray(torch.as_tensor(lengths).cpu()),
                            blank_id)
+
+
+class RescoreDecoder:
+    """Two-pass decode: the CTC N-best prefix beam, then one teacher-forced
+    decoder forward that scores every hypothesis (the joint beam's two
+    scores in two batched passes, no AR loop; JAX :382-518).
+
+    ``lexicon``: an optional ``decode/lexicon.LexiconDecoder``; pass 1 then
+    gives lexicon + word-LM constrained N-best lists.  ``max_len`` caps the
+    scored hypothesis length in tokens; ``blank_skip``: frames whose blank
+    probability exceeds it take only the stay transitions in pass 1 (1.0 or
+    0 disables).  ``last_ms`` holds the host-clock times of the last call:
+    "encode" (the encoder and CTC forward, ending with the posteriors on
+    the host), "nbest" (pass 1, host) and "rescore" (pass 2, ending with
+    its scores on the host)."""
+
+    def __init__(self, model, *, blank_id: int, eos_id: int, pad_id: int,
+                 nbest: int = 8, beam: int = 16, topk: int = 0,
+                 ctc_weight: float = 0.3, max_len=None, blank_skip: float = 0.95,
+                 lexicon=None, len_step: int = 32, device="cuda"):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.blank_id = blank_id
+        self.eos_id = eos_id
+        self.pad_id = pad_id
+        self.nbest = nbest
+        self.beam = max(beam, nbest)
+        self.topk = topk
+        self.ctc_weight = ctc_weight
+        self.max_len = max_len
+        self.blank_thresh = math.log(blank_skip) if blank_skip > 0 else 0.0
+        self.lexicon = lexicon
+        self.len_step = len_step
+        self.last_ms = {}
+
+    @torch.inference_mode()
+    def encode(self, wav, lengths):
+        """Pass 1's device part: the encoder and CTC forward -> (the encoder
+        output dict on the device, natural-log posteriors [B, T, V] f32 and
+        frame lengths [B] as numpy)."""
+        wav = torch.as_tensor(wav, dtype=torch.float32, device=self.device)
+        lengths = torch.as_tensor(lengths, dtype=torch.int32, device=self.device)
+        enc = self.model.encode_speech(wav, lengths, with_ctc=True)
+        lp = torch.log_softmax(enc["ctc_logits"].float(), dim=-1)
+        return enc, lp.cpu().numpy(), mask_lengths(enc["valid_mask"]).cpu().numpy()
+
+    @torch.inference_mode()
+    def score(self, enc, prev, tgt, tmask):
+        """Pass 2: sum_i log P(tgt_i | prev_<=i, enc) over the positions of
+        ``tmask``, for [B, N, L] hypotheses against ``enc`` of B rows ->
+        f32 [B, N] (device)."""
+        B, N, L = prev.shape
+        rep = {"encoder_out": enc["encoder_out"].repeat_interleave(N, 0),
+               "valid_mask": enc["valid_mask"].repeat_interleave(N, 0)}
+        logits = self.model.decode_text(rep, prev.reshape(B * N, L))
+        lsm = torch.log_softmax(logits.float(), dim=-1)
+        tok_lp = torch.gather(lsm, -1, tgt.reshape(B * N, L, 1))[..., 0]
+        return (tok_lp * tmask.reshape(B * N, L)).sum(-1).reshape(B, N)
+
+    def nbest_lists(self, lp, lengths) -> list:
+        """Pass 1 on the host: per utterance up to ``nbest`` (tokens, CTC
+        log prob) pairs, best first."""
+        from .nbest import ctc_nbest_batch
+
+        if self.lexicon is not None:
+            return [self.lexicon.decode_nbest(lp[b, : int(lengths[b])], nbest=self.nbest)
+                    for b in range(lp.shape[0])]
+        return ctc_nbest_batch(lp, lengths, blank=self.blank_id, beam=self.beam,
+                               nbest=self.nbest, topk=self.topk,
+                               blank_thresh=self.blank_thresh)
+
+    def candidates(self, batch_cands) -> tuple:
+        """The N-best lists -> (hypotheses [B][nbest], CTC scores [B][nbest])
+        under JAX's rules: an empty list scores the empty hypothesis at 0;
+        over-length hypotheses are dropped, not truncated, unless every one
+        is, when the 1-best is truncated (its scores then disagree, but it
+        is the only candidate); a short list is padded with copies of its
+        best, which tie and lose the argmax to it."""
+        hyp_rows, ctc_rows = [], []
+        for cands in batch_cands:
+            cands = list(cands) or [([], 0.0)]
+            if self.max_len is not None:
+                kept = [(t, s) for t, s in cands if len(t) <= self.max_len]
+                cands = kept or [(cands[0][0][: self.max_len], cands[0][1])]
+            while len(cands) < self.nbest:
+                cands.append(cands[0])
+            hyp_rows.append([c[0] for c in cands])
+            ctc_rows.append([c[1] for c in cands])
+        return hyp_rows, ctc_rows
+
+    def teacher_forcing(self, hyp_rows) -> tuple:
+        """[B][N] hypotheses -> (prev, tgt, tmask) [B, N, L] numpy: EOS then
+        the tokens, the tokens then EOS, 1 over the tokens and EOS; L the
+        longest + 1 rounded up to ``len_step``."""
+        B = len(hyp_rows)
+        maxtgt = max(len(h) for row in hyp_rows for h in row) + 1
+        L = -(-maxtgt // self.len_step) * self.len_step
+        prev = np.full((B, self.nbest, L), self.pad_id, np.int64)
+        tgt = np.full((B, self.nbest, L), self.pad_id, np.int64)
+        tmask = np.zeros((B, self.nbest, L), np.float32)
+        prev[:, :, 0] = self.eos_id
+        for b, row in enumerate(hyp_rows):
+            for n, toks in enumerate(row):
+                k = len(toks)
+                prev[b, n, 1 : k + 1] = toks
+                tgt[b, n, :k] = toks
+                tgt[b, n, k] = self.eos_id
+                tmask[b, n, : k + 1] = 1.0
+        return prev, tgt, tmask
+
+    def __call__(self, wav, lengths) -> list:
+        """Returns a list of B token-id lists."""
+        t0 = time.perf_counter()
+        enc, lp, frame_lengths = self.encode(wav, lengths)
+        t1 = time.perf_counter()
+        hyp_rows, ctc_rows = self.candidates(self.nbest_lists(lp, frame_lengths))
+        t2 = time.perf_counter()
+        prev, tgt, tmask = (torch.from_numpy(a).to(self.device)
+                            for a in self.teacher_forcing(hyp_rows))
+        att = self.score(enc, prev, tgt, tmask).cpu().numpy()
+        t3 = time.perf_counter()
+        self.last_ms = {"encode": (t1 - t0) * 1e3, "nbest": (t2 - t1) * 1e3,
+                        "rescore": (t3 - t2) * 1e3}
+        total = (1.0 - self.ctc_weight) * att + self.ctc_weight * np.asarray(ctc_rows)
+        best = total.argmax(axis=1)
+        return [hyp_rows[b][int(best[b])] for b in range(len(hyp_rows))]

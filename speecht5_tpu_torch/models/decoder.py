@@ -2,7 +2,10 @@
 
 Port of ``speecht5_tpu/models/decoder.py`` :30-100 (reference
 modules/decoder.py:33-324): causal self-attention + cross-attention layers,
-post-LN, so no final LayerNorm (decoder.py:76-81).  The reference builds a
+post-LN with no final LayerNorm, or pre-LN (``layer_norm_first``) with a
+final ``layer_norm`` after the last layer (decoder.py:76-81, JAX
+decoder.py:46-48, :91-92, :152-153); ``cross_attention=False`` builds a
+decoder-only stack (the fusion LM's trunk).  The reference builds a
 rel-pos table for the decoder but never adds its bias
 (``use_rel_pos_bias=False``), so the JAX tree holds no parameters for it
 and neither does the port.  The cross-attention weights of every layer are
@@ -27,18 +30,23 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..config import TransformerConfig
+from .common import LayerNorm32
 from .layers import DecoderLayer
 
 
 class TransformerDecoder(nn.Module):
-    def __init__(self, cfg: TransformerConfig, dtype=torch.float32):
+    def __init__(self, cfg: TransformerConfig, dtype=torch.float32,
+                 cross_attention: bool = True):
         super().__init__()
-        if cfg.layer_norm_first:
-            raise NotImplementedError("pre-LN decoder stacks arrive with the Large slice")
         self.cfg = cfg
         self.dtype = dtype
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, dtype) for _ in range(cfg.num_layers))
+            DecoderLayer(cfg, dtype, cross_attention) for _ in range(cfg.num_layers))
+        if cfg.layer_norm_first:
+            self.layer_norm = LayerNorm32(cfg.d_model, eps=cfg.layer_norm_eps)
+
+    def _final_norm(self, x):
+        return self.layer_norm(x).to(self.dtype) if self.cfg.layer_norm_first else x
 
     def forward(self, x, enc=None, *, enc_valid=None, self_valid=None,
                 causal: bool = True, need_cross_weights: bool = False):
@@ -59,6 +67,7 @@ class TransformerDecoder(nn.Module):
             if need_cross_weights:
                 x, w = x
                 all_w.append(w)
+        x = self._final_norm(x)
         if not need_cross_weights:
             return x
         return x, torch.stack(all_w)
@@ -97,6 +106,7 @@ class TransformerDecoder(nn.Module):
             layers.append(c)
             if need_cross_max:
                 maxps.append(out[2])
+        x = self._final_norm(x)
         new = {"index": idx + x.shape[1], "layers": layers, "cross": cache["cross"]}
         if need_cross_max:
             return x, new, torch.stack(maxps)

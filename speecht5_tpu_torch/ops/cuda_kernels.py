@@ -1094,12 +1094,13 @@ def _check_mask(key_valid, N: int, Tk: int) -> int:
 
 
 def _check_flash_d(q) -> int:
-    """D a power of two from one 16-byte vector up to 128 -> elements a
-    vector."""
+    """D a multiple of 16 or a power of two, from one 16-byte vector up to
+    128 (the fusion LM's 80 included) -> elements a vector."""
     D, per_vec = q.shape[-1], 16 // q.element_size()
-    if D > FLASH_BIAS_MAX_D or D < per_vec or D & (D - 1):
-        raise ValueError(f"kernel limit: D a power of two in [{per_vec}, "
-                         f"{FLASH_BIAS_MAX_D}] for {q.dtype}; got D={D}")
+    if (D > FLASH_BIAS_MAX_D or D < per_vec or D % per_vec
+            or (D & (D - 1) and D % 16)):
+        raise ValueError(f"kernel limit: D a multiple of 16 or a power of two in "
+                         f"[{per_vec}, {FLASH_BIAS_MAX_D}] for {q.dtype}; got D={D}")
     return per_vec
 
 
@@ -1134,8 +1135,9 @@ def flash_attention_bias(q, k, v, bias=None, key_valid=None):
     contiguous; bias f32 [N, Tq, Tk] or None for a zero bias (nothing is
     allocated); key_valid bool [N / R, Tk] or None, row n reading mask row
     n // R (one row per sample serves its R heads) -> [N, Tq, D] in q's
-    dtype.  One kernel launch on CUDA tensors (D a power of two up to 128,
-    any Tq and Tk: the kernel streams the keys); the twin on CPU ones.
+    dtype.  One kernel launch on CUDA tensors (D a multiple of 16 or a
+    power of two, up to 128; any Tq and Tk: the kernel streams the keys);
+    the twin on CPU ones.
     Forward only."""
     if q.device.type == "cpu":
         return flash_attention_bias_plain(q, k, v, bias, key_valid)

@@ -14,6 +14,9 @@ returns a ``state_dict`` for the port's ``SpeechT5Model``.  Layouts:
 - ``layers_<i>``                        -> ``layers.<i>``
 - the speaker head's ``projection_weight`` [C, E] -> ``output_projection.weight``
 
+``lm_from_jax_params`` carries the fusion LM (JAX ``models/lm.py``) the
+same way.
+
 Only the subtrees the port has (``PORTED_SUBTREES``) are carried; the
 others are left out of the result.  ``from_jax_batch_stats`` carries the
 JAX ``batch_stats`` collection (the BatchNorm ``mean`` / ``var`` of the
@@ -62,13 +65,13 @@ def _leaf(name: str, value: np.ndarray):
     raise KeyError(f"unknown parameter leaf {name!r}")
 
 
-def _convert(flat: dict, collection: str, leaf_fn) -> dict:
+def _convert(flat: dict, collection: str, leaf_fn, subtrees=PORTED_SUBTREES) -> dict:
     out = {}
     for key, value in flat.items():
         parts = key.split("/")
         if parts[0] == collection:
             parts = parts[1:]
-        if parts[0] not in PORTED_SUBTREES:
+        if parts[0] not in subtrees:
             continue
         path = [re.sub(r"^layers_(\d+)$", r"layers.\1", p) for p in parts[:-1]]
         leaf, arr = leaf_fn(parts[-1], np.asarray(value, np.float32))
@@ -80,6 +83,15 @@ def from_jax_params(flat: dict) -> dict:
     """``{"encoder/layers_0/self_attn/q_proj/kernel": ndarray, ...}`` ->
     port ``state_dict`` of float32 tensors."""
     return _convert(flat, "params", _leaf)
+
+
+def lm_from_jax_params(flat: dict) -> dict:
+    """The JAX ``TransformerLM``'s ``params`` flattened to ``{"a/b/c":
+    ndarray}`` -> a state dict of the port's ``models/lm.TransformerLM``
+    (``embed_tokens``, the pre-LN ``decoder`` with its final
+    ``layer_norm``, an untied ``output_projection``)."""
+    return _convert(flat, "params", _leaf,
+                    ("embed_tokens", "decoder", "output_projection"))
 
 
 def _stat_leaf(name: str, value: np.ndarray):

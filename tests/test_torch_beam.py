@@ -144,9 +144,13 @@ def test_ensemble_matches_jax(tiny):
 
 
 def test_asr_decoder_refuses_lm_fusion(tiny):
+    """LM fusion is ported (tests/test_torch_lm.py); what is refused is a
+    fusion LM over another vocabulary than the model's."""
+    from speecht5_tpu_torch.models.lm import TransformerLM, lm_tiny
+
     _, model = _port(tiny[1])
-    with pytest.raises(NotImplementedError, match="A.9"):
-        ASRDecoder(model, lm=object(), lm_weight=0.5, device="cpu")
+    with pytest.raises(ValueError, match="vocabulary"):
+        ASRDecoder(model, lm=TransformerLM(lm_tiny()), lm_weight=0.5, device="cpu")
 
 
 # ---------------------------------------------------------------------- serve
@@ -247,8 +251,10 @@ def test_serve_main_defaults_to_beam_and_answers(tiny, tmp_path, capsys, monkeyp
 
 
 def test_service_refuses_ctc_rescore(tiny, tmp_path):
+    """ctc_rescore is ported (tests/test_torch_rescore.py); what is refused
+    is a word LM without a lexicon, which would be silently ignored."""
     pcfg, model = _port(tiny[1])
     args = _beam_args("unused", chip_smoke.write_dictionary(str(tmp_path)),
-                      "--decoder", "ctc_rescore")
-    with pytest.raises(NotImplementedError, match="A.4"):
+                      "--decoder", "ctc_rescore", "--lm-path", "lm.arpa")
+    with pytest.raises(ValueError, match="--lm-path requires --lexicon"):
         serve.Service(args, model=model, cfg=pcfg, device="cpu")

@@ -583,6 +583,73 @@ def test_flash_bias_cached_kernel_matches_twin(card, dtype, case):
     assert torch.equal(got, K.flash_attention_bias_cached(q4, k_nan, v_nan, valid, rows))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [48, 80, 112])
+@pytest.mark.parametrize("N,Tq,Tk,lengths", [
+    (4, 5, 799, [799, 613, 0, 1]),                 # grouped queries, long keys
+    (80, 1, 201, [101] * 40 + [1] * 39 + [0]),     # the fusion LM's step: 5 x 16 heads
+])
+def test_flash_bias_kernel_takes_head_sizes_multiple_of_16(card, dtype, D, N, Tq, Tk,
+                                                           lengths):
+    """D a multiple of 16 that is no power of two (80: the fusion LM's head
+    size; a key row of 6, 10 or 14 bf16 vectors, 12, 20 or 28 f32 ones):
+    one launch against the dense twin, rows with no valid key (the mean of
+    V) kept, the same bits on a second call; D 40 is refused."""
+    q, k, v, b, valid = _flash_case(N, Tq, Tk, D, seed=D + N, bias=True, lengths=lengths)
+    q, k, v = (t.to(dtype).to(card) for t in (q, k, v))
+    b, valid = b.to(card), valid.to(card)
+    before = K.flash_attention_bias.launches
+    got = K.flash_attention_bias(q, k, v, b, valid)
+    assert K.flash_attention_bias.launches == before + 1
+    ref = K.flash_attention_bias_plain(q, k, v, b, valid)
+    torch.cuda.synchronize()
+    assert got.shape == (N, Tq, D) and torch.isfinite(got.float()).all()
+    _close(got, ref, dtype)
+    assert torch.equal(got, K.flash_attention_bias(q, k, v, b, valid))
+    n = lengths.index(0)
+    _close(got[n], v[n].float().mean(0).expand(Tq, D), dtype)
+    with pytest.raises(ValueError):
+        K.flash_attention_bias(q[..., :40], k[..., :40].contiguous(),
+                               v[..., :40].contiguous())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [48, 80, 112])
+def test_flash_bias_cached_kernel_takes_head_sizes_multiple_of_16(card, dtype, D):
+    """The cached entry as the fusion LM's decode step calls it: q [5, 1,
+    16, D] against the cache [5, 201, 16, D] through an int64 ancestry map
+    (rows repeated and permuted), a per-row mask [80, 201] of the causal
+    limit at position 100 with one row of no valid key: against the twin,
+    the same bits twice, unread cache rows free to hold NaN."""
+    g = torch.Generator().manual_seed(D)
+    B, H, Tk = 5, 16, 201
+    k4, v4 = (torch.randn(B, Tk, H, D, generator=g) for _ in range(2))
+    q4 = torch.randn(B, 1, H, D, generator=g) * D ** -0.5
+    rows = torch.randint(0, B, (B, Tk), generator=g)
+    rows[:, 0] = torch.randperm(B, generator=g)
+    valid = (torch.arange(Tk)[None, :] <= 100).expand(B * H, Tk).clone()
+    valid[7] = False
+    q4, k4, v4 = (t.to(dtype).to(card) for t in (q4, k4, v4))
+    valid, rows = valid.to(card), rows.to(card)
+    before = K.flash_attention_bias.launches
+    got = K.flash_attention_bias_cached(q4, k4, v4, valid, rows)
+    assert K.flash_attention_bias.launches == before + 1
+    ref = K.flash_attention_bias_cached_plain(q4, k4, v4, valid, rows)
+    torch.cuda.synchronize()
+    assert got.shape == q4.shape and got.is_contiguous()
+    _close(got, ref, dtype)
+    assert torch.equal(got, K.flash_attention_bias_cached(q4, k4, v4, valid, rows))
+    # with every row holding a valid key, only valid keys are read
+    valid[7] = valid[6]
+    got = K.flash_attention_bias_cached(q4, k4, v4, valid, rows)
+    k_nan, v_nan = k4.clone(), v4.clone()
+    k_nan[:, 101:], v_nan[:, 101:] = float("nan"), float("nan")
+    unread = torch.ones(B, dtype=torch.bool, device=card)
+    unread[rows[:, :101].flatten()] = False
+    k_nan[unread], v_nan[unread] = float("nan"), float("nan")
+    assert torch.equal(got, K.flash_attention_bias_cached(q4, k_nan, v_nan, valid, rows))
+
+
 def test_flash_bias_cached_wrapper_refuses_what_the_kernel_does_not_take(card):
     q4, k4, v4, valid, rows = _cached_case("self", torch.bfloat16, card)
     before = K.flash_attention_bias.launches

@@ -51,7 +51,10 @@ def test_port_and_smoke_import_with_jax_blocked():
             "speecht5_tpu_torch.decode.asr", "speecht5_tpu_torch.cli.serve",
             "speecht5_tpu_torch.decode.tts", "speecht5_tpu_torch.models.hifigan",
             "speecht5_tpu_torch.cli.convert", "speecht5_tpu_torch.utils.convert_hf",
-            "speecht5_tpu_torch.utils.profiling", "speecht5_tpu_torch.decode.sid"} <= names
+            "speecht5_tpu_torch.utils.profiling", "speecht5_tpu_torch.decode.sid",
+            "speecht5_tpu_torch.data.native", "speecht5_tpu_torch.decode.lexicon",
+            "speecht5_tpu_torch.decode.nbest", "speecht5_tpu_torch.models.lm",
+            "speecht5_tpu_torch.cli.evaluate"} <= names
 
 
 def test_no_import_lines_reach_jax():
@@ -98,6 +101,43 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         resolve_device()
 
 
+def test_decoders_and_evaluate_default_to_cuda():
+    import inspect
+
+    from speecht5_tpu_torch.cli import evaluate
+    from speecht5_tpu_torch.decode.asr import ASRDecoder, RescoreDecoder
+    from speecht5_tpu_torch.models.lm import init_lm
+
+    for fn in (ASRDecoder.__init__, RescoreDecoder.__init__, init_lm):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    assert evaluate.build_parser().get_default("device") == "cuda"
+
+
+def test_native_loader_builds_outside_csrc(tmp_path, monkeypatch):
+    """The port's loader compiles csrc/'s sources with csrc/Makefile's flags
+    into build/native/<hash>/ and writes nothing under csrc/: on a copy of
+    csrc/ the listing and every mtime are the same after a build.  A failed
+    build raises with the compiler's stderr."""
+    from speecht5_tpu_torch.data import native
+
+    cmd = native.build_command(native.build_dir() / native.LIB_NAME)
+    assert cmd[0] == "g++" and "-shared" in cmd and "-O3" in cmd and "-fPIC" in cmd
+    assert native.build_dir().parent == REPO / "build" / "native"
+    assert not any(c.startswith(str(native.CSRC_DIR)) and c.endswith(".so") for c in cmd)
+    csrc = tmp_path / "csrc"
+    shutil.copytree(native.CSRC_DIR, csrc, ignore=shutil.ignore_patterns("*.so"))
+    before = {p.name: p.stat().st_mtime_ns for p in csrc.iterdir()}
+    monkeypatch.setattr(native, "CSRC_DIR", csrc)
+    monkeypatch.setattr(native, "BUILD_ROOT", tmp_path / "build" / "native")
+    lib = native.build()
+    assert lib.is_file() and lib.parent.parent == tmp_path / "build" / "native"
+    assert {p.name: p.stat().st_mtime_ns for p in csrc.iterdir()} == before
+    assert native.build() == lib                     # built once, then found
+    (csrc / "ctc_beam.cpp").write_text("this is not C++\n")
+    with pytest.raises(RuntimeError, match="error"):
+        native.build()
+
+
 def test_nvcc_command_targets_sm90a_under_build():
     assert "banded_attention_train.cu" in K.SOURCES.values()
     for src in K.SOURCES.values():
@@ -140,14 +180,15 @@ def test_chip_smoke_phases_run_on_cpu_with_twins():
     assert parity["frames"] > 0 and parity["differing_frames"] == 0
 
 
-def test_chip_smoke_train_phases_run_on_cpu_with_twins():
+def test_chip_smoke_train_phases_run_on_cpu_with_twins(tmp_path):
     """The train phase (cli/train.main, resume) and the train parity phase
     at the tiny preset on the CPU: the kernels' twins run, so no launches;
     every encoder layer runs (the tiny preset has no layerdrop)."""
     flags = ["--batch-size", "2", "--accum", "2", "--ctc-weight", "0.5",
              "--normalize"]
-    trained = chip_smoke.phase_train("speecht5_tiny", device="cpu", n_utts=4,
-                                     updates=2, seconds=(0.3, 0.8), flags=flags)
+    trained = chip_smoke.phase_train(str(tmp_path), "speecht5_tiny", device="cpu",
+                                     n_utts=4, updates=2, seconds=(0.3, 0.8),
+                                     flags=flags)
     assert set(trained["counts"].values()) == {0}
     assert trained["layer_runs"] == 2 * 2 * 2 and len(trained["history"]) == 3
     parity = chip_smoke.phase_train_parity(C.speecht5_tiny(), device="cpu",
