@@ -47,8 +47,8 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                T 299 and 400, the decode-step kernel against the VC source
                ("vc_cross": Tq 1, Tk 149, with the max-probability output),
                the conv stack at batch 8 on 6 s and 8 s, and its backward
-               (the twin's vjp) at 8 s beside cuDNN's autograd.grad through
-               conv1d + GELU.  The fusion LM's step, f32 and bf16: the
+               (the library conv's vjp, recomputing through cuDNN) at 8 s
+               beside cuDNN's autograd.grad through conv1d + GELU.  The fusion LM's step, f32 and bf16: the
                decode-step kernel at D 80 ("lm_self": N 80 = 5 x 16, Tq 1,
                Tk 201, 101 valid; "lm_self_cache": the cache [5, 201, 16,
                80] through an int64 ancestry map).  The evaluate path's
@@ -58,7 +58,13 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                (8 x 5 rows, a 61-position cache) in f32 and bf16: the
                decoder's self step (N 480, D 64) and grouped cross step
                (N 96, Tq 5, Tk 249, each sample's own valid frames), and
-               the tiny fusion LM's self step (N 160, D 16).
+               the tiny fusion LM's self step (N 160, D 16).  SpeechT5-
+               Large's shapes: the inference attention at 16 heads (N 16,
+               T 799, f32 and bf16), the train kernels at the pretraining
+               micro-batch (N 64 = 4 x 16, T 781: the 250000-sample crop,
+               bf16, dropout 0) and the beam's decode steps at 16 heads
+               ("large_cross_cached": N 16, Tq 5, Tk 799;
+               "large_self_cache": N 80, Tk 201; f32 and bf16).
 3. serve    -- the serving path: the port's ASR Service (ctc_greedy, bf16,
                both inference kernels on) at full speecht5_base_asr width
                with random weights, answering 3 s, 11 s and 21 s requests in
@@ -231,16 +237,47 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                with every kernel on against the plain route: the best score
                within 1e-4 relative, the best hypothesis equal (unless a
                near tie, as in 6).
+24. train pretrain large -- joint pretraining at speecht5_large (24 + 6
+               pre-LN layers, d 1024, the layer_norm conv extractor, the
+               quantizer on): ``cli/train.main --task pretrain`` with
+               recipes/joint_pretrain.sh's flags at batch 4 (text ratio 1,
+               512 tokens a block, bf16, --normalize, mels on the card, the
+               train-attention kernel on) over 16 seeded 8-15.6 s
+               utterances with 500-class km labels and a seeded text
+               corpus, the run seed the first whose first 3 updates hold
+               both tasks: 3 updates and a resume, every metric finite; the
+               log-mel kernel once per speech update, the train kernels
+               once per encoder layer run (24 an update), the conv,
+               inference and decode-step kernels never.  Then one bf16
+               pretrain_speech and one s2t update (batch 4, 8-15.6 s) on
+               each attention route under ``torch.profiler``: wall, device
+               busy, idle share, peak memory, top device times.
+25. pretrain parity -- f32 speecht5_large, one speech and one text batch
+               of 2 with the HuBERT masks, Gumbel noise and codebook
+               permutation handed to both routes: the kernel route against
+               the plain route, losses within 1e-4 relative, gradients
+               through ``grad_gate`` (norm_k's, the table's, the HuBERT
+               head's and the quantizer's included).
+26. serve large -- Service at speecht5_large, bf16, buckets 4/8/16 s, the
+               3 s and 11 s requests: greedy (24 x 2 inference attention
+               launches a request, no conv launch: the layer_norm mode has
+               no kernel) and the beam (beam 5, max_len 200, CTC weight
+               0.3; 12 decode-step launches a step), then one profiled
+               beam request.
+27. large parity -- f32, kernel route against plain route, buckets 4/16:
+               greedy CTC ids (as 4) and the beam (as 6).
 
 The launch counts are zeroed just before each driven path (serve, serve
 beam, train, train t2s, the warm-started train and request, serve tts,
 train s2s, the VC requests, train s2c, the SID inference, evaluate, the
-two rescore runs, the LM-fused beam) and read just after; a kernel of that
+two rescore runs, the LM-fused beam, Large's pretraining, greedy and beam
+requests) and read just after; a kernel of that
 path that was never launched fails.
 Output: an early line with the card's name and power limit as nvidia-smi
 gives them, one ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  A watchdog ends a hung run with a
-traceback after 1100 s.  The script opens no socket; the training loop's
+traceback after 1100 s.  Phases 24-27 take ``arch`` / ``overrides`` (or a
+config) so that they rehearse on the CPU at a Large-shaped tiny preset.  The script opens no socket; the training loop's
 data prefetch thread ends with each run, and the one train subprocess it
 starts (phase 11) is waited for, or killed on a failure.
 """
@@ -594,14 +631,14 @@ def path_band(table, T, M, device):
     return band_from_table(table.to(device), T, M, row_multiple=BAND_ROW_MULTIPLE)
 
 
-def attention_case(batch, dtype, device="cuda", seed=0, T=799, valid=None):
-    """Base encoder shapes: batch x 12 heads, T=799 (16 s bucket), Dh=64,
+def attention_case(batch, dtype, device="cuda", seed=0, T=799, valid=None, heads=12):
+    """Base encoder shapes: batch x 12 heads (Large: 16), T=799 (16 s bucket), Dh=64,
     max distance 160, ragged lengths including a row of length 0; the band
     row-padded, as the encoder builds it.  With ``valid`` every row holds
     that many valid keys, as one request's heads do (the text encoder of
     /tts: T = --tts-bucket-tokens, valid = the text's ids)."""
     g = torch.Generator().manual_seed(seed)
-    N, Dh, M = 12 * batch, 64, 160
+    N, Dh, M = heads * batch, 64, 160
     q = (torch.randn(N, T, Dh, generator=g) * Dh ** -0.5).to(dtype)
     k = torch.randn(N, T, Dh, generator=g).to(dtype)
     v = torch.randn(N, T, Dh, generator=g).to(dtype)
@@ -626,8 +663,8 @@ def conv_case(batch, dtype, device="cuda", seed=1, T=51199):
     return x.to(device), [w.to(device) for w in ws], specs
 
 
-def _attention_record(batch, dtype, T=799, valid=None):
-    q, k, v, band, lengths = attention_case(batch, dtype, T=T, valid=valid)
+def _attention_record(batch, dtype, T=799, valid=None, heads=12):
+    q, k, v, band, lengths = attention_case(batch, dtype, T=T, valid=valid, heads=heads)
     N, T, Dh = q.shape
     got = K.banded_flash_attention(q, k, v, band, lengths)
     ref = K.banded_flash_attention_plain(q, k, v, band, lengths)
@@ -717,10 +754,11 @@ def _conv_record(batch, dtype, T=51199):
 
 def _conv_bwd_record(batch, dtype, T):
     """The conv stack under a gradient, as the s2s / s2c train steps run it:
-    the backward of ``K.conv_stack`` (the twin's vjp, recomputing the
-    twin's forward) for a random output gradient, held against autograd
-    through ``K.conv_stack_plain`` (dx and every dw); timed beside
-    ``torch.autograd.grad`` through cuDNN's conv1d + GELU.  Its work: the
+    the backward of ``K.conv_stack`` (the vjp of ``K.conv_stack_library``,
+    recomputing the forward through cuDNN's conv1d) for a random output
+    gradient, held against autograd through ``K.conv_stack_plain`` (dx and
+    every dw); timed beside ``torch.autograd.grad`` through cuDNN's conv1d
+    + GELU (which keeps the forward's activations: no recompute).  Its work: the
     data and weight gradients, twice the forward's products; its bytes: x,
     the weights, the output gradient, dx and the dw once."""
     x, ws, specs = conv_case(batch, dtype, T=T)
@@ -758,12 +796,12 @@ def _conv_bwd_record(batch, dtype, T):
     }
 
 
-def train_attention_case(dtype, device="cuda", batch=16, T=799, seed=2):
-    """The train step's attention shapes: batch x 12 heads, T = 799 (16 s),
+def train_attention_case(dtype, device="cuda", batch=16, T=799, seed=2, heads=12):
+    """The train step's attention shapes: batch x 12 heads (Large: 16), T = 799 (16 s),
     Dh = 64, max distance 160; ragged lengths with a row of length 0 and a
     full one; a random output gradient."""
     g = torch.Generator().manual_seed(seed)
-    N, Dh, M = 12 * batch, 64, 160
+    N, Dh, M = heads * batch, 64, 160
     q = (torch.randn(N, T, Dh, generator=g) * Dh ** -0.5).to(dtype)
     k, v, do = (torch.randn(N, T, Dh, generator=g).to(dtype) for _ in range(3))
     table = (torch.randn(2 * M, Dh, generator=g) * 0.125).to(dtype)
@@ -788,10 +826,10 @@ def _train_bwd_parts_ms(args) -> dict:
             "dkv_main": time_ms(lambda: K.train_bwd_dkv_main(*main), reps=10)}
 
 
-def _train_records(dtype, rate, seed=1234, batch=16, T=799):
+def _train_records(dtype, rate, seed=1234, batch=16, T=799, heads=12):
     """The three train kernels against their twins on one case, with the
     twin's forward outputs feeding both backward versions."""
-    q, k, v, band, lengths, do = train_attention_case(dtype, batch=batch, T=T)
+    q, k, v, band, lengths, do = train_attention_case(dtype, batch=batch, T=T, heads=heads)
     N, T, Dh = q.shape
     o, stats = K.banded_attention_train_fwd(q, k, v, band, lengths, rate, seed)
     o_ref, stats_ref = K.banded_attention_train_fwd_plain(q, k, v, band, lengths,
@@ -985,6 +1023,8 @@ def flash_bias_cache_case(case, dtype, device="cuda", seed=4):
     g = torch.Generator().manual_seed(seed)
     H, D = {"lm_self_cache": (LM_HEADS, LM_DH),
             "eval_lm_self_cache": (EVAL_LM_HEADS, EVAL_LM_DH)}.get(case, (12, 64))
+    if case.startswith("large_"):       # SpeechT5-Large's decoder: 16 heads
+        H, case = LARGE_HEADS, case[len("large_"):]
     if case in ("tts_self", "tts_cross", "vc_cross"):
         Tk, valid = {"tts_self": (513, 201), "tts_cross": (TTS_BUCKET_TOKENS, TTS_TEXT_IDS),
                      "vc_cross": (VC_SOURCE_FRAMES, VC_SOURCE_FRAMES)}[case]
@@ -1034,7 +1074,7 @@ def _flash_bias_record(case, dtype):
     maxp_call = None
     if case in ("self_cache", "cross_cached", "tts_self", "tts_cross", "vc_cross",
                 "lm_self_cache", "eval_self_cache", "eval_lm_self_cache",
-                "eval_cross_cached"):
+                "eval_cross_cached", "large_cross_cached", "large_self_cache"):
         q4, k4, v4, key_valid, rows = flash_bias_cache_case(case, dtype)
         B, Tq, H, D = q4.shape
         N, Tk = B * H, k4.shape[1]
@@ -1200,6 +1240,23 @@ def phase_kernels():
     if not ok:
         failures.append(f"conv_stack backward: {rec['errors']} > {rec['tolerance']}")
     torch.cuda.empty_cache()
+    # SpeechT5-Large: a served 16 s chunk's 16 heads, and the pretraining
+    # micro-batch of 4 at the 250000-sample crop, Large's dropout 0
+    for dtype in (torch.float32, torch.bfloat16):
+        key = f"{str(dtype).split('.')[-1]}/large_b1"
+        ok, rec = _attention_record(1, dtype, heads=LARGE_HEADS)
+        records["banded_flash_attention"][key] = rec
+        if not ok:
+            failures.append(f"banded_flash_attention {key}: max|diff| "
+                            f"{rec['max_abs_err']} > {rec['tolerance']}")
+    ok, recs = _train_records(torch.bfloat16, 0.0, batch=4, T=LARGE_TRAIN_T,
+                              heads=LARGE_HEADS)
+    for name, rec in recs.items():
+        records[name][f"bfloat16/r0.0/large_T{LARGE_TRAIN_T}"] = rec
+    if not ok:
+        failures.append("train kernels large: "
+                        + json.dumps({n: r["errors"] for n, r in recs.items()}))
+    torch.cuda.empty_cache()
     for batch, samples, center in ((16, 767 * 256 + 1024, False), (2, 48000, True)):
         ok, rec = _mel_record(batch, samples, center)
         records["fused_log_mel"][f"float32/b{batch}"] = rec
@@ -1208,7 +1265,8 @@ def phase_kernels():
                             f"> {rec['tolerance']}")
     for case in ("cross", "self", "cross_cached", "self_cache", "tts_self", "tts_cross",
                  "vc_cross", "lm_self", "lm_self_cache", "eval_cross_cached",
-                 "eval_self_cache", "eval_lm_self_cache"):
+                 "eval_self_cache", "eval_lm_self_cache", "large_cross_cached",
+                 "large_self_cache"):
         for dtype in (torch.float32, torch.bfloat16):
             key = f"{str(dtype).split('.')[-1]}/{case}"
             ok, rec = _flash_bias_record(case, dtype)
@@ -1227,9 +1285,10 @@ def phase_kernels():
 
 
 def phase_serve(base_cfg, device="cuda", dtype="bfloat16",
-                requests_s=(3, 11, 21), buckets="4,8,16", seed=0):
-    """The main path: Service(ctc_greedy) with both kernels on.  Returns the
-    launch counts of the request window and the per-request times."""
+                requests_s=(3, 11, 21), buckets="4,8,16", seed=0, chunked=True):
+    """The main path: Service(ctc_greedy) with both kernels on (one request
+    chunked when ``chunked``).  Returns the launch counts of the request
+    window and the per-request times."""
     cfg = serve_config(base_cfg, dtype, kernels=True)
     model = init_model(cfg, torch.Generator().manual_seed(seed), device)
     with tempfile.TemporaryDirectory() as d:
@@ -1250,7 +1309,7 @@ def phase_serve(base_cfg, device="cuda", dtype="bfloat16",
     for r in results:
         log(json.dumps({"served": r}))
     n_chunks = sum(r["chunks"] for r in results)
-    if svc.asr_requests != n_chunks or max(r["chunks"] for r in results) < 2:
+    if svc.asr_requests != n_chunks or (chunked and max(r["chunks"] for r in results) < 2):
         raise AssertionError(f"expected {n_chunks} chunks incl. one chunked "
                              f"request, Service counted {svc.asr_requests}")
     # the served output is well formed: finite CTC logits of the right shape
@@ -1323,9 +1382,16 @@ def beam_launches_expected(cfg, chunks: int, steps: int) -> dict:
     want = dict.fromkeys(KERNELS, 0)
     want["banded_flash_attention"] = (chunks * cfg.encoder.num_layers
                                       * K.fwd_launches(cfg.compute_dtype))
-    want["conv_stack"] = chunks * (len(cfg.conv_features.layers) - 1)
+    want["conv_stack"] = conv_launches(cfg, chunks)
     want["flash_attention_bias"] = 2 * cfg.decoder.num_layers * steps
     return want
+
+
+def conv_launches(cfg, chunks: int) -> int:
+    """The conv kernel's launches for ``chunks`` encodes: one per strided
+    layer (1..n) in the "default" mode; none in Large's "layer_norm" mode,
+    whose layers run as conv1d (as JAX's do)."""
+    return chunks * (len(cfg.conv_features.layers) - 1) if cfg.conv_features.mode == "default" else 0
 
 
 def phase_serve_beam(base_cfg, device="cuda", dtype="bfloat16",
@@ -1604,9 +1670,10 @@ def route_grads(task, routes, tcfg, seed, device, after=None):
 
 def grad_rel_diffs(g_k, g_p) -> dict:
     """Each parameter's max |g_kernel - g_plain| / max |g_plain|.  A
-    gradient present on one route only fails; the k_proj biases, whose
-    gradient is analytically 0, must be within 1e-6 of the largest gradient
-    on both routes (rounding noise) and are left out."""
+    gradient present on one route only fails; the k_proj biases and the
+    pre-LN layers' norm_k biases, whose gradient is analytically 0 (each
+    adds one constant to a row of logits), must be within 1e-6 of the
+    largest gradient on both routes (rounding noise) and are left out."""
     gmax = max(g.abs().max().item() for g in g_p.values() if g is not None)
     out = {}
     for name, gp in g_p.items():
@@ -1615,7 +1682,7 @@ def grad_rel_diffs(g_k, g_p) -> dict:
             if (gp is None) != (gk is None):
                 raise AssertionError(f"gradient of {name} present on one route only")
             continue
-        if name.endswith("k_proj.bias"):
+        if name.endswith(("k_proj.bias", "norm_k.bias")):
             if max(gk.abs().max().item(), gp.abs().max().item()) > 1e-6 * gmax:
                 raise AssertionError(f"{name}: gradient not ~0")
             continue
@@ -1808,6 +1875,8 @@ def phase_t2s_parity(base_cfg, device="cuda", batch=16, seconds=(2.0, 10.0), see
 FAIRSEQ_NAMES = [
     (r"feature_extractor\.conv_(\d+)\.", r"feature_extractor.conv_layers.\1.0."),
     (r"feature_extractor\.group_norm\.", "feature_extractor.conv_layers.0.2."),
+    (r"feature_extractor\.ln_(\d+)\.", r"feature_extractor.conv_layers.\1.2.1."),
+    (r"^speech_encoder_postnet\.", "hubert_layer."),
     (r"pos_conv\.", "pos_conv.0."),
     (r"(layers\.\d+)\.ffn\.", r"\1."),
     (r"text_encoder_prenet\.embed_tokens\.", "text_encoder_prenet.encoder_prenet.0."),
@@ -1820,19 +1889,17 @@ FAIRSEQ_NAMES = [
     (r"postnet\.conv_(\d+)\.", r"postnet.postnet.\1.0."),
     (r"postnet\.bn_(\d+)\.", r"postnet.postnet.\1.1."),
 ]
-# keys of modules the port lacks, as a released pretraining checkpoint has
-# them: the HuBERT head and the quantizer
-LACKED_KEYS = {"hubert_layer.final_proj.weight": (256, 768),
-               "hubert_layer.final_proj.bias": (256,),
-               "hubert_layer.label_embs_concat": (504, 256),
-               "quantizer.vars": (1, 640, 256), "quantizer.weight_proj.weight": (640, 768)}
+# keys of a module that the fine-tune presets leave out, as a released
+# pretraining checkpoint has them: the quantizer (converted, taken by no
+# fine-tune model)
+LACKED_KEYS = {"quantizer.vars": (1, 640, 256), "quantizer.weight_proj.weight": (640, 768)}
 
 
 def write_fairseq_checkpoint(path: str, state: dict, seed: int = 0, lacked=LACKED_KEYS):
     """A fairseq-format SpeechT5 ``.pt`` of ``state`` (a port state dict):
     fairseq's key names (0-d ``alpha`` scales), an ``argparse.Namespace``
-    ``args`` entry, seeded keys of modules the port lacks (``lacked``: name
-    -> shape), a ``version`` buffer and an optimizer history, as the
+    ``args`` entry, seeded keys of modules the model lacks (``lacked``:
+    name -> shape), a ``version`` buffer and an optimizer history, as the
     released files have them."""
     import argparse
     import re
@@ -1972,10 +2039,10 @@ class _UpdateTimes:
         self.real = Trainer.train_step
         real, times, device = self.real, self.times, self.device
 
-        def timed(trainer, micro):
+        def timed(trainer, micro, *task):
             _sync(device)
             t0 = time.perf_counter()
-            out = real(trainer, micro)
+            out = real(trainer, micro, *task)
             _sync(device)
             times.append((time.perf_counter() - t0) * 1e3)
             return out
@@ -3063,6 +3130,276 @@ def phase_evaluate(work_dir, train_args, updates, device="cuda",
     return result
 
 
+# ------------------------------------------------------------------ Large
+
+# recipes/joint_pretrain.sh's flags at the smoke's batch (4 utterances of up
+# to 15.6 s a card, accum 1); its lr, warmup and updates are the run's
+PRETRAIN_FLAGS = ["--text-ratio", "1.0", "--tokens-per-sample", "512", "--lr", "2e-4",
+                  "--warmup", "25000", "--accum", "1", "--batch-size", "4", "--normalize",
+                  "--dtype", "bfloat16"]
+# Large trains with the codebook mixing on and the train-attention kernel
+LARGE_TRAIN_OVERRIDES = ["encoder.use_pallas_attn_train=True", "quantizer.enabled=True"]
+# pretraining with every draw but the HuBERT masks, the Gumbel noise and the
+# codebook permutation (handed in) at 0: Large has no dropout of its own
+LARGE_STILL = ["encoder.layerdrop=0.0", "decoder.layerdrop=0.0",
+               "speech_prenet.dropout=0.0", "speech_postnet.postnet_dropout=0.0"]
+LARGE_SPEECH_S = (8.0, 15.6)
+KM_CLASSES = 500
+LARGE_HEADS = 16
+LARGE_TRAIN_T = C.ConvFeatureConfig().out_length(250000)    # 781: the pretraining crop
+# the Large serve phases' requests; the parity phases warm two buckets only
+LARGE_REQUESTS_S = (3, 11)
+LARGE_PARITY_BUCKETS = "4,16"
+
+
+def large_config(dtype, overrides=(), arch="speecht5_large"):
+    """The preset ``arch`` (Large; a smaller one with Large's overrides to
+    rehearse on the CPU) at the letter vocabulary."""
+    return C.apply_overrides(getattr(C, arch)(dtype=dtype, **DICT_CFG), list(overrides))
+
+
+def write_pretrain_corpus(directory: str, n: int, seconds=LARGE_SPEECH_S,
+                          text_lines: int = 400, seed: int = 0):
+    """``write_corpus``'s ``n`` utterances with 50 Hz km labels of
+    ``KM_CLASSES`` classes (one line an utterance) and a text corpus of
+    ``text_lines`` lines of random letter words (fairseq .ltr tokens).
+    -> (manifest, km labels, text file, dictionary)."""
+    manifest, _, dict_path = write_corpus(directory, n, seconds, seed)
+    rng = np.random.default_rng(seed + 1)
+    with open(manifest, encoding="utf-8") as f:
+        sizes = [int(l.split("\t")[1]) for l in f.read().splitlines()[1:] if l]
+    km = os.path.join(directory, "train.km")
+    with open(km, "w", encoding="utf-8") as f:
+        for n_s in sizes:
+            f.write(" ".join(map(str, rng.integers(0, KM_CLASSES, n_s * 50 // SR))) + "\n")
+    letters = [chr(ord("A") + i) for i in range(26)]
+    text = os.path.join(directory, "text.txt")
+    with open(text, "w", encoding="utf-8") as f:
+        for _ in range(text_lines):
+            words = ["".join(rng.choice(letters, int(rng.integers(2, 8))))
+                     for _ in range(int(rng.integers(3, 9)))]
+            f.write(" ".join(" ".join(w) + " |" for w in words) + "\n")
+    return manifest, km, text, dict_path
+
+
+def pretrain_datasets(cfg, manifest, km, text, dict_path, seed=0):
+    """The joint task's two datasets as ``cli/train.py`` builds them
+    (device mels, --normalize, --tokens-per-sample 512)."""
+    from speecht5_tpu_torch.data.dictionary import load_cli_dictionary
+    from speecht5_tpu_torch.data.manifests import SpeechPretrainDataset, TextPretrainDataset
+
+    dictionary, _ = load_cli_dictionary(dict_path)
+    speech = SpeechPretrainDataset(manifest, km, n_mels=cfg.n_mels,
+                                   reduction_factor=cfg.reduction_factor, normalize=True,
+                                   device_mel=True, seed=seed)
+    text = TextPretrainDataset(text, dictionary, 512, bos_id=cfg.bos_id, eos_id=cfg.eos_id,
+                               pad_id=cfg.pad_id, mask_id=dictionary.index("<mask>"),
+                               seed=seed)
+    return speech, text
+
+
+def mixed_seed(speech, text, updates, batch=4):
+    """The first run seed whose epoch-0 order of modality-pure updates
+    (``cli/train.epoch_units`` at text ratio 1) holds both tasks within its
+    first ``updates``: the smoke's run must drive both."""
+    import types
+
+    ds = {"pretrain_speech": speech, "pretrain_text": text}
+    for seed in range(1, 100):
+        args = types.SimpleNamespace(max_tokens=0, batch_size=batch, accum=1,
+                                     text_ratio=1.0, seed=seed, task="pretrain")
+        if len({t for t, _ in cli_train.epoch_units(ds, args, 0)[:updates]}) == 2:
+            return seed
+    raise AssertionError("no seed mixes the tasks")
+
+
+def phase_train_pretrain_large(device="cuda", n_utts=16, updates=3, seed=0,
+                               seconds=LARGE_SPEECH_S, arch="speecht5_large", overrides=()):
+    """Joint pretraining at speecht5_large through ``cli/train.main --task
+    pretrain`` (recipes/joint_pretrain.sh's flags, batch 4, bf16, the
+    quantizer on, the train-attention kernel on, mels on the card) over 16
+    seeded 8-15.6 s utterances with 500-class km labels and a seeded text
+    corpus: ``updates`` updates of both tasks, then a resume.  Checks: every
+    metric finite; the log-mel kernel once per speech update, the train
+    kernels once per encoder layer run (24 an update, speech or text), the
+    conv, inference and decode-step kernels never.  Then
+    ``large_update_profile``."""
+    ovs = LARGE_TRAIN_OVERRIDES + list(overrides)
+    cfg = large_config("bfloat16", ovs, arch)
+    with tempfile.TemporaryDirectory() as d:
+        manifest, km, text, dict_path = write_pretrain_corpus(d, n_utts, seconds, seed=seed)
+        run_seed = mixed_seed(*pretrain_datasets(cfg, manifest, km, text, dict_path), updates)
+        args = ["--task", "pretrain", "--arch", arch, "--manifest", manifest,
+                "--labels", km, "--text-file", text, "--dict", dict_path,
+                "--save-dir", os.path.join(d, "ckpt"), *PRETRAIN_FLAGS, "--keep-last", "1",
+                "--log-interval", "1", "--seed", str(run_seed), "--device", device]
+        for ov in ovs:
+            args += ["--override", ov]
+        result = train_and_resume(args, os.path.join(d, "ckpt"), updates, device, "pretrain")
+    tasks = [next(iter(row)).split("/")[0] for row in result["history"]]
+    speech = tasks[:updates].count("pretrain_speech")
+    result.update(tasks=tasks, speech_updates=speech, run_seed=run_seed)
+    c = result["counts"]
+    if not 0 < speech < updates or result["layer_runs"] != cfg.encoder.num_layers * updates:
+        raise AssertionError(f"pretrain updates {tasks}, {result['layer_runs']} layer runs")
+    if torch.device(device).type == "cuda" and (
+            c["fused_log_mel"] != speech or c["conv_stack"] or c["banded_flash_attention"]
+            or c["flash_attention_bias"]):
+        raise AssertionError(f"pretrain path launches wrong: {c}, tasks {tasks}, "
+                             f"{result['layer_runs']} layer runs")
+    if torch.device(device).type == "cuda":
+        check_train_counts(c, result["layer_runs"], "Large encoder")
+    log(json.dumps({"phase": "train_pretrain_large", **result}))
+    if torch.device(device).type == "cuda":
+        result["profile"] = large_update_profile(device, seed=seed)
+    return result
+
+
+def _attention_route(model, kernels: bool):
+    """Every self-attention's train-kernel flag: the config flag, set on a
+    built model (one model serves both routes)."""
+    from speecht5_tpu_torch.models.attention import MultiheadAttention
+
+    for m in model.modules():
+        if isinstance(m, MultiheadAttention):
+            m.use_pallas_train = kernels
+
+
+def large_batches(cfg, batch, seconds, seed, device):
+    """One pretrain_speech micro-batch (device mels), one s2t micro-batch of
+    the same audio length and one pretrain_text micro-batch, as
+    ``cli/train.py`` hands them to the trainer."""
+    with tempfile.TemporaryDirectory() as d:
+        speech, text = pretrain_datasets(
+            cfg, *write_pretrain_corpus(d, batch, seconds, text_lines=150, seed=seed))
+        sb = speech.collate([speech[i] for i in range(batch)], cfg.conv_features.out_length)
+        tb = text.collate([text[i] for i in range(batch)])
+    sb.pop("ids"), tb.pop("ids")
+    return (_on(sb, device), synthetic_batch(cfg, batch, seconds, seed, device),
+            _on(tb, device))
+
+
+def large_update_profile(device="cuda", batch=4, seconds=LARGE_SPEECH_S, seed=0):
+    """One bf16 speecht5_large update of pretrain_speech (the pretrain
+    phase's batch) and of s2t (CTC weight 0.5) on each attention route (the
+    train kernels, or plain attention with each layer's rel-pos bias by
+    ``relative_bias``), after one warm-up update each: wall ms, device
+    busy ms, idle share, the largest device times by kernel name and the
+    peak device memory (``torch.cuda.max_memory_allocated``)."""
+    cfg = large_config("bfloat16", LARGE_TRAIN_OVERRIDES)
+    model = init_model(cfg, torch.Generator().manual_seed(seed), device)
+    trainer = Trainer(model, ["pretrain_speech", "s2t"], TrainConfig(ctc_weight=0.5))
+    speech, s2t, _ = large_batches(cfg, batch, seconds, seed, device)
+    out = {"card": card_line(), "batch": batch,
+           "frames": {"pretrain_speech": int(speech["km_labels"].shape[1]),
+                      "s2t": int(cfg.conv_features.out_length(s2t["wav"].shape[1]))}}
+    for route in ("kernel", "plain"):
+        _attention_route(model, route == "kernel")
+        for task, b in (("pretrain_speech", speech), ("s2t", s2t)):
+            trainer.train_step([b], task)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            rec = device_profile(lambda: trainer.train_step([b], task), lambda: 0)
+            rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            for k in ("decode_steps", "per_step"):
+                rec.pop(k)
+            out[f"{task}/{route}"] = rec
+    log(json.dumps({"phase": "large_update_profile", **out}))
+    del model, trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_pretrain_parity(device="cuda", batch=2, seconds=LARGE_SPEECH_S, seed=0,
+                          loss_rtol=1e-4, grad_rtol=1e-3, arch="speecht5_large",
+                          overrides=()):
+    """f32 speecht5_large (the quantizer on, layerdrop and the speech
+    decoder's dropout at 0), one speech micro-batch of 2 and one text
+    micro-batch of 2 with the HuBERT masks, the Gumbel noise and the
+    codebook permutations drawn once and handed to both routes: the kernel
+    route (the train kernels reading each layer's band) against the plain
+    route, each task's loss within ``loss_rtol`` relative and every
+    gradient through ``grad_gate`` (the plain route once more on the
+    waveform, or for text the token embeddings, scaled by ``ULP_SCALE``):
+    norm_k's, the table's, the HuBERT head's and the quantizer's
+    included."""
+    from speecht5_tpu_torch.models.quantizer import gumbel_noise
+    from speecht5_tpu_torch.models.speecht5 import codebook_perm
+    from speecht5_tpu_torch.ops.masking import sample_feature_masks
+    from speecht5_tpu_torch.train import criterions
+
+    cfg = large_config("float32", ["quantizer.enabled=True"] + LARGE_STILL + list(overrides),
+                       arch)
+    model = init_model(cfg, torch.Generator().manual_seed(seed), device).train()
+    speech, _, text = large_batches(cfg, batch, seconds, seed, device)
+    speech = device_mel_batch(speech, cfg.n_mels, cfg.reduction_factor)
+    g = torch.Generator().manual_seed(seed + 3)
+    G, V = cfg.quantizer.latent_groups, cfg.quantizer.latent_vars
+    frames = speech["km_labels"].shape[1]
+    masks = sample_feature_masks(cfg.conv_features.out_length(speech["wav_lengths"]),
+                                 frames, cfg.d_model, cfg.masking, g)
+    draws = {"speech": (gumbel_noise((batch * frames * G, V), g, device),
+                        codebook_perm(frames, g)),
+             "text": (gumbel_noise((batch * text["tokens"].shape[1] * G, V), g, device),
+                      codebook_perm(text["tokens"].shape[1], g))}
+    emb = model.text_encoder_prenet.embed_tokens.weight
+
+    def run(task, kernels, ulp=False):
+        _attention_route(model, kernels)
+        model.zero_grad(set_to_none=True)
+        gumbel, perm = draws[task]
+        if task == "speech":
+            b = dict(speech, wav=speech["wav"] * ULP_SCALE) if ulp else speech
+            out = model.forward_pretrain_speech(
+                b["wav"], b["wav_lengths"], b["prev_mel"], b["dec_lengths_r"],
+                masks=masks, gumbel=gumbel, perm=perm)
+            loss, _ = criterions.speech_pretrain_loss(
+                out, [b["km_labels"]], b["target_mel"], b["dec_lengths"],
+                out["valid_mask"].sum(-1), reduction_factor=cfg.reduction_factor)
+        else:
+            if ulp:
+                with torch.no_grad():
+                    emb.mul_(ULP_SCALE)
+            out = model.forward_pretrain_text(text["tokens"], text["prev_tokens"],
+                                              gumbel=gumbel, perm=perm)
+            loss, _ = criterions.text_pretrain_loss(out, text["targets"], cfg.pad_id)
+        loss.backward()
+        if ulp and task == "text":
+            with torch.no_grad():
+                emb.div_(ULP_SCALE)
+        return loss.item(), {n: None if p.grad is None else p.grad.clone()
+                             for n, p in model.named_parameters()}
+
+    result = {"card": card_line() if torch.device(device).type == "cuda" else "cpu"}
+    for task in ("speech", "text"):
+        K.reset_launch_counts()
+        loss_k, g_k = run(task, True)
+        launches = K.launch_counts()["banded_attention_train_fwd"]
+        loss_p, g_p = run(task, False)
+        _, g_ulp = run(task, False, ulp=True)
+        worst, worst_name, floored, over = grad_gate(g_k, g_p, g_ulp, grad_rtol)
+        res = {"loss_kernel": loss_k, "loss_plain": loss_p,
+               "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
+               "train_fwd_launches": launches,
+               "worst_grad_rel_diff": worst, "worst_grad_param": worst_name,
+               "grads_held_to_their_ulp_move": floored, "grads_over": over,
+               "checked": {k: k in g_k and g_k[k] is not None for k in (
+                   "encoder.layers.0.norm_k.weight", "encoder.pos_emb.pe_k.weight",
+                   "speech_encoder_postnet.final_proj.weight",
+                   "quantizer.weight_proj.weight")}}
+        result[task] = res
+        del g_k, g_p, g_ulp
+        on_card = torch.device(device).type == "cuda"
+        if (res["loss_rel_diff"] > loss_rtol or over or (on_card and not launches)
+                or not all(res["checked"][k] for k in res["checked"]
+                           if task == "speech" or "final_proj" not in k)):
+            raise AssertionError(f"pretrain routes differ ({task}): {res}")
+    log(json.dumps({"phase": "pretrain_parity", **result}))
+    del model
+    torch.cuda.empty_cache()
+    return result
+
+
 def kernels_line(records, counts, by_path=None):
     """The contract line: each kernel's path case (MAIN_CASE) in the named
     keys, the other cases under "other"; ``launches`` from the runs of the
@@ -3244,6 +3581,31 @@ def main():
     phase_beam_lm_parity(base)
     walls["beam_lm_parity"] = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
+    pre = phase_train_pretrain_large()
+    walls["train_pretrain_large"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    phase_pretrain_parity()
+    walls["pretrain_parity"] = time.perf_counter() - t0
+
+    large = C.speecht5_large()
+    t0 = time.perf_counter()
+    served_large = phase_serve(large, requests_s=LARGE_REQUESTS_S, chunked=False)
+    log(json.dumps({"phase": "serve_large", "launches": served_large["counts"]}))
+    want = {**dict.fromkeys(KERNELS, 0), "banded_flash_attention": len(LARGE_REQUESTS_S)
+            * large.encoder.num_layers * K.fwd_launches(torch.bfloat16)}
+    if served_large["counts"] != want:
+        raise AssertionError(f"Large greedy launches {served_large['counts']}, want {want}")
+    beam_large = phase_serve_beam(large, requests_s=LARGE_REQUESTS_S)
+    log(json.dumps({"phase": "serve_beam_large", "launches": beam_large["counts"]}))
+    walls["serve_large"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    phase_parity(large, requests_s=LARGE_REQUESTS_S, buckets=LARGE_PARITY_BUCKETS)
+    phase_beam_parity(large, requests_s=LARGE_REQUESTS_S, buckets=LARGE_PARITY_BUCKETS)
+    walls["large_parity"] = time.perf_counter() - t0
+
     walls["total"] = time.perf_counter() - t_start
     log(json.dumps({"phase_seconds": walls, "card": card_line()}))
     by_path = {"serve": served["counts"], "serve_beam": beam["counts"],
@@ -3254,7 +3616,9 @@ def main():
                "train_s2c": s2c["counts"], "sid_inference": sid["counts"],
                "evaluate": ev, "serve_rescore": rescore["open"]["counts"],
                "serve_rescore_lexicon": rescore["lexicon"]["counts"],
-               "beam_lm": beam_lm["counts"]}
+               "beam_lm": beam_lm["counts"], "train_pretrain_large": pre["counts"],
+               "serve_large": served_large["counts"],
+               "serve_beam_large": beam_large["counts"]}
     counts = {n: sum(c[n] for c in by_path.values()) for n in KERNELS}
     log(json.dumps(kernels_line(records, counts, by_path)))
     torch.cuda.synchronize()

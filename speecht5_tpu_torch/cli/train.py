@@ -1,6 +1,7 @@
 """Training entry point of the port: preset -> dataset -> Trainer ->
-checkpoints, for the four fine-tune tasks (the s2t, t2s, s2s and s2c paths
-of ``speecht5_tpu/cli/train.py``, with the same flag names and defaults).
+checkpoints, for the four fine-tune tasks and pretraining (the s2t, t2s,
+s2s, s2c, pretrain_speech and pretrain paths of
+``speecht5_tpu/cli/train.py``, with the same flag names and defaults).
 
 Usage (the TTS fine-tune recipe, recipes/tts_finetune.sh; the mel targets
 are computed on the card from the waveform unless --host-mel):
@@ -33,6 +34,23 @@ Usage (the SID fine-tune recipe, recipes/sid_finetune.sh; manifest rows
         --accum 2 --batch-size 8 --max-sample-size 128000 --dtype bfloat16 \\
         --save-dir ckpt/sid
 
+Usage (joint speech + text pretraining, recipes/joint_pretrain.sh;
+``--labels`` holds one line of 50 Hz km labels per utterance, ``--text-file``
+a raw text corpus; at Large add ``--arch speecht5_large``):
+    python -m speecht5_tpu_torch.cli.train --task pretrain --arch speecht5_base \
+        --manifest speech_train.tsv --labels speech_train.km \
+        --text-file text_train.txt --dict dict.txt --tokens-per-sample 512 \
+        --text-ratio 1.0 --lr 2e-4 --warmup 25000 --accum 2 --batch-size 16 \
+        --normalize --dtype bfloat16 --save-dir ckpt/pretrained
+
+``--task pretrain_speech`` trains the speech half alone.  Joint
+pretraining interleaves modality-pure updates, ``--text-ratio`` text
+updates per speech update, in an order drawn from the seed and the epoch
+(JAX cli/train.py:404-420); with ``--accum`` N an update is N batches of
+one task.  Its metrics carry the task as a prefix
+(``pretrain_speech/loss``); ``--valid-manifest`` is refused with it, as
+JAX refuses it.
+
 Speech enhancement (``se_predict``) needs the source fbank as the decoder
 input, which only ``SpeechToSpeechDataset(se_mode=True)`` gives; this CLI,
 like JAX's, has no flag for it, so ``--task s2s --override se_predict=...``
@@ -59,8 +77,7 @@ every ``--accum`` micro-batch of it, then saves a resumable checkpoint at
 that update (the data position included), prints ``{"preempted": true,
 "step": N}`` and returns; a rerun resumes from it.  ``--profile-dir``
 writes a ``torch.profiler`` trace of updates 10-14 there
-(``utils/profiling.trace``).  The pretraining tasks and multi-process
-training are not ported yet and are refused.
+(``utils/profiling.trace``).  Multi-process training is not ported yet.
 """
 
 from __future__ import annotations
@@ -85,7 +102,13 @@ def build_parser():
     p.add_argument("--arch", default="speecht5_base",
                    help="config preset name in speecht5_tpu_torch.config")
     p.add_argument("--manifest", required=True)
-    p.add_argument("--labels", default=None)
+    p.add_argument("--labels", default=None,
+                   help="transcripts (s2t, t2s) or km labels (pretraining)")
+    p.add_argument("--text-file", default=None,
+                   help="raw text corpus for --task pretrain")
+    p.add_argument("--tokens-per-sample", type=int, default=512)
+    p.add_argument("--text-ratio", type=float, default=1.0,
+                   help="text updates per speech update in joint pretraining")
     p.add_argument("--dict", dest="dict_path", default=None)
     p.add_argument("--spkemb-dir", default=None,
                    help="t2s: x-vector .npy files named by utterance basename "
@@ -118,7 +141,8 @@ def build_parser():
     p.add_argument("--normalize", action="store_true")
     p.add_argument("--device-mel", dest="device_mel", action="store_true",
                    default=True,
-                   help="t2s/s2s: compute the log-mel targets on the device "
+                   help="t2s/s2s/pretraining: compute the log-mel targets on "
+                        "the device "
                         "from the waveform (the CUDA log-mel kernel on the "
                         "card); the default")
     p.add_argument("--host-mel", dest="device_mel", action="store_false",
@@ -219,8 +243,8 @@ def _best_state(save_dir):
 
 
 def _to_device(batch, device):
-    """Model inputs on the card; an s2t batch's wav_lengths stays on the
-    host so that the masks are drawn there without a device sync."""
+    """Model inputs on the card; a batch's wav_lengths stays on the host so
+    that the masks are drawn there without a device sync."""
     out = {}
     for k, v in batch.items():
         if k == "ids":
@@ -231,9 +255,25 @@ def _to_device(batch, device):
 
 
 def build_dataset(args, dictionary, cfg, manifest, labels):
-    from ..data.manifests import (SpeechToClassDataset, SpeechToSpeechDataset,
-                                  SpeechToTextDataset, TextToSpeechDataset)
+    """The task's dataset; for --task pretrain {"pretrain_speech": speech,
+    "pretrain_text": text} (JAX cli/train.py:55-74)."""
+    from ..data.manifests import (SpeechPretrainDataset, SpeechToClassDataset,
+                                  SpeechToSpeechDataset, SpeechToTextDataset,
+                                  TextPretrainDataset, TextToSpeechDataset)
 
+    if args.task in ("pretrain_speech", "pretrain"):
+        speech = SpeechPretrainDataset(
+            manifest=manifest, km_labels=labels, n_mels=cfg.n_mels,
+            reduction_factor=cfg.reduction_factor, normalize=args.normalize,
+            device_mel=args.device_mel, seed=args.seed)
+        if args.task == "pretrain_speech":
+            return speech
+        text = TextPretrainDataset(
+            text_file=args.text_file, dictionary=dictionary,
+            tokens_per_sample=args.tokens_per_sample, bos_id=cfg.bos_id,
+            eos_id=cfg.eos_id, pad_id=cfg.pad_id, mask_id=dictionary.index("<mask>"),
+            seed=args.seed)
+        return {"pretrain_speech": speech, "pretrain_text": text}
     if args.task == "s2s":
         return SpeechToSpeechDataset(
             manifest=manifest, normalize=args.normalize,
@@ -253,24 +293,51 @@ def build_dataset(args, dictionary, cfg, manifest, labels):
                                max_sample_size=args.max_sample_size)
 
 
-def collate(args, ds, items, cfg):
-    """A batch of ``items`` (the s2s / s2c collators take no token ids)."""
-    if args.task in ("s2s", "s2c"):
+def collate(args, ds, items, cfg, task=None, epoch=0):
+    """A batch of ``items`` of ``task`` (the CLI's when None)."""
+    task = task or args.task
+    if task == "pretrain_speech":
+        return ds.collate(items, cfg.conv_features.out_length)
+    if task == "pretrain_text":
+        return ds.collate(items, epoch=epoch)
+    if task in ("s2s", "s2c"):
         return ds.collate(items)
     return ds.collate(items, cfg.eos_id, cfg.pad_id)
+
+
+def epoch_units(ds, args, epoch):
+    """[(task, [batch indices, ...]), ...]: the epoch's updates.  One task:
+    each batch its own unit (``--accum`` consecutive units make an
+    update).  Joint pretraining (``ds`` a dict): modality-pure units of
+    ``--accum`` batches, each task's batches repeated round-robin to its
+    share (``--text-ratio`` for the text), shuffled by the seed and the
+    epoch (JAX cli/train.py:404-420, whose units are single batches)."""
+    if not isinstance(ds, dict):
+        return [(args.task, [idxs])
+                for idxs in make_batches(ds.sizes, args, args.seed + epoch)]
+    units = []
+    for name, d in ds.items():
+        bs = make_batches(d.sizes, args, args.seed + epoch)
+        reps = args.text_ratio if name == "pretrain_text" else 1.0
+        n = max(int(round(len(bs) / args.accum * reps)), 1)
+        units += [(name, [bs[(i * args.accum + a) % len(bs)] for a in range(args.accum)])
+                  for i in range(n)]
+    np.random.default_rng(args.seed + 31 * epoch).shuffle(units)
+    return units
 
 
 def main(argv=None):
     """Run the training loop; returns {"steps", "history": [per-update
     metrics as floats], "final_loss", "checkpoint"}."""
-    from ..train.trainer import TASKS as PORTED_TASKS
-
     args = build_parser().parse_args(argv)
-    if args.task not in PORTED_TASKS:
-        raise SystemExit(f"--task {args.task} is not ported to "
-                         f"speecht5_tpu_torch yet; only {PORTED_TASKS} train")
-    if args.labels is None and args.task in ("s2t", "t2s"):
+    if args.labels is None and args.task in ("s2t", "t2s", "pretrain_speech", "pretrain"):
         raise SystemExit(f"--task {args.task} needs --labels")
+    if args.task == "pretrain":
+        if args.text_file is None:
+            raise SystemExit("--task pretrain needs --text-file")
+        if args.valid_manifest:
+            raise SystemExit("--valid-manifest is not supported with --task pretrain "
+                             "(run a separate eval of the fine-tune task instead)")
 
     from .. import config as C
     from ..data.dictionary import load_cli_dictionary
@@ -321,7 +388,8 @@ def main(argv=None):
         no_freeze_encoder_layers=tuple(
             int(i) for i in args.no_freeze_encoder_layers.split(",") if i),
     )
-    trainer = Trainer(model, args.task, tcfg,
+    multitask = isinstance(ds, dict)
+    trainer = Trainer(model, list(ds) if multitask else args.task, tcfg,
                       generator=torch.Generator().manual_seed(args.seed + 7))
 
     valid_ds = None
@@ -342,15 +410,17 @@ def main(argv=None):
         print(f"resumed at step {trainer.step}", flush=True)
 
     def batch_stream():
-        """(epoch, batch index, collated batch) from the saved position on,
-        epoch after epoch; runs on the prefetch thread."""
+        """(epoch, unit index, task, collated batch) from the saved position
+        on, epoch after epoch; runs on the prefetch thread."""
         epoch, start = epoch0, batch0
         while True:
-            for bi, idxs in enumerate(make_batches(ds.sizes, args, args.seed + epoch)):
+            for bi, (task, group) in enumerate(epoch_units(ds, args, epoch)):
                 if bi < start:
                     continue
-                items = [ds[int(i)] for i in idxs]
-                yield epoch, bi, collate(args, ds, items, cfg)
+                d = ds[task] if multitask else ds
+                for idxs in group:
+                    items = [d[int(i)] for i in idxs]
+                    yield epoch, bi, task, collate(args, d, items, cfg, task, epoch)
             epoch, start = epoch + 1, 0
 
     # preemption: SIGTERM / SIGINT set a flag, read between updates (JAX
@@ -365,6 +435,7 @@ def main(argv=None):
             pass
 
     history, micro = [], []
+    final = None
     log_sums, log_n = {}, 0
     last_path = None
     preempted = False
@@ -373,7 +444,7 @@ def main(argv=None):
     timer.phase("data")
     stream = prefetch(batch_stream())
     try:
-        for epoch, bi, batch in stream:
+        for epoch, bi, task, batch in stream:
             if trainer.step >= args.max_updates:   # resumed at the end
                 break
             if not micro:   # between updates
@@ -393,13 +464,16 @@ def main(argv=None):
             if len(micro) < args.accum:
                 continue
             timer.phase("step")
-            metrics = trainer.train_step(micro)
+            metrics = (trainer.train_step(micro, task) if multitask
+                       else trainer.train_step(micro))
             micro = []
             timer.phase("log", fence=metrics["loss"])
             if profiler is not None and trainer.step >= 15:
                 profiler.__exit__(None, None, None)
                 profiler = None
-            row = {k: float(v) for k, v in metrics.items()}
+            prefix = f"{task}/" if multitask else ""
+            row = {prefix + k: float(v) for k, v in metrics.items()}
+            final = row[prefix + "loss"]
             history.append(row)
             for k, v in row.items():
                 log_sums[k] = log_sums.get(k, 0.0) + v
@@ -442,7 +516,6 @@ def main(argv=None):
             profiler.__exit__(None, None, None)
         for sig, handler in prev_handlers.items():
             signal.signal(sig, handler)
-    final = history[-1]["loss"] if history else None
     print(f"phases: {timer.summary()}", flush=True)
     print(json.dumps({"done": True, "steps": trainer.step, "final_loss": final,
                       "wall": round(time.time() - t_start, 1)}), flush=True)

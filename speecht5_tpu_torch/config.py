@@ -8,10 +8,9 @@ In the port, ``encoder.use_pallas_attn=True`` and
 ``ops/cuda_kernels.py`` (the flag names are kept from the JAX package).
 
 Presets mirror the registered fairseq architectures (`t5_transformer_base`,
-`t5_transformer_base_asr`, reference speecht5.py:1385-1447).  This slice of
-the port carries ``speecht5_base``, ``speecht5_base_asr``,
-``speecht5_base_sid`` and ``speecht5_tiny``; the other presets arrive with
-the slices that use them.
+`t5_transformer_large`, `t5_transformer_base_asr`, reference
+speecht5.py:1385-1447): ``speecht5_base``, ``speecht5_large``,
+``speecht5_base_asr``, ``speecht5_base_sid`` and ``speecht5_tiny``.
 """
 
 from __future__ import annotations
@@ -343,6 +342,32 @@ def speecht5_base(**kw) -> SpeechT5Config:
             num_layers=6, layer_norm_first=False, layerdrop=0.05, use_rel_pos_bias=False
         ),
         masking=MaskingConfig(mask_prob=0.80),
+    )
+    return replace(cfg, **kw)
+
+
+def speecht5_large(**kw) -> SpeechT5Config:
+    """t5_transformer_large (reference speecht5.py:1402-1425; JAX
+    config.py:350-376): pre-LN encoder and decoder at d 1024, 16 heads,
+    FFN 4096, 24 + 6 layers, no dropout, the ``layer_norm`` conv extractor,
+    a 768-d HuBERT head, the extractor trained at full gradient.  ``remat``
+    stays off, as in the reference (fairseq --checkpoint-activations is
+    opt-in): --override encoder.remat=True decoder.remat=True turns it on."""
+    enc = TransformerConfig(
+        d_model=1024, ffn_dim=4096, num_layers=24, num_heads=16,
+        dropout=0.0, attention_dropout=0.0, layer_norm_first=True,
+    )
+    dec = TransformerConfig(
+        d_model=1024, ffn_dim=4096, num_layers=6, num_heads=16,
+        dropout=0.0, attention_dropout=0.0, layer_norm_first=True,
+        use_rel_pos_bias=False,
+    )
+    cfg = SpeechT5Config(
+        encoder=enc,
+        decoder=dec,
+        conv_features=ConvFeatureConfig(mode="layer_norm"),
+        hubert=HubertHeadConfig(final_dim=768),
+        feature_grad_mult=1.0,
     )
     return replace(cfg, **kw)
 

@@ -1,7 +1,7 @@
-"""Manifest-TSV datasets and batching of the four fine-tune tasks (the
-port's copy of the s2t, t2s, s2c and s2s parts of
-``speecht5_tpu/data/manifests.py`` :33-465, which imports JAX through
-``ops.mel`` and so cannot be imported here).
+"""Manifest-TSV datasets and batching of the four fine-tune tasks and of
+pretraining (the port's copy of ``speecht5_tpu/data/manifests.py``
+:33-684, which imports JAX through ``ops.mel`` and so cannot be imported
+here).
 
 - audio manifests: first line = root dir, then "relpath\\tnframes" rows
   (reference data/speech_to_text_dataset.py:74-140); label files are
@@ -15,7 +15,10 @@ port's copy of the s2t, t2s, s2c and s2s parts of
 - batching by token count with length-sorted ordering (fairseq
   batch_by_size semantics);
 - batches are padded to bucketed lengths, as in the JAX package, so the
-  card sees few distinct shapes.
+  card sees few distinct shapes;
+- pretraining: ``TextPretrainDataset`` (token blocks of a raw text corpus,
+  BART noising at collation) and ``SpeechPretrainDataset`` (waveforms with
+  50 Hz km labels and the fbank decoder target).
 """
 
 from __future__ import annotations
@@ -443,4 +446,175 @@ class SpeechToSpeechDataset:
                 L = min(len(sthin), mel_len // r)
                 src_mel[b, :L] = sthin[:L]
             batch["src_mel"] = src_mel
+        return batch
+
+
+@dataclass
+class TextPretrainDataset:
+    """BART text pretraining over a raw text corpus (JAX manifests.py
+    :469-579; reference tasks/speecht5.py:439-480): each line encoded by
+    the dictionary (no EOS), packed into blocks of ``tokens_per_sample`` - 2
+    (``break_mode`` none: one continuous stream; complete: whole lines;
+    eos: one line each), framed by BOS / EOS, and noised per item at
+    collation (``text_noising.noise_tokens``, seeded by the item and the
+    epoch).  A fairseq-binarized corpus is not read here (the binarized
+    reader is not ported)."""
+
+    text_file: str
+    dictionary: object
+    tokens_per_sample: int = 512
+    break_mode: str = "none"            # none | complete | eos
+    bos_id: int = 0
+    eos_id: int = 2
+    pad_id: int = 1
+    mask_id: Optional[int] = None       # <mask> id; required for noising
+    noising: Optional[object] = None    # NoisingConfig; None = the default
+    seed: int = 1
+
+    def __post_init__(self):
+        from . import text_noising as TN
+
+        if self.noising is None:
+            self.noising = TN.NoisingConfig()
+        if self.text_file.endswith((".bin", ".idx")):
+            raise NotImplementedError(f"{self.text_file}: binarized corpora are not "
+                                      "read by the port; give a raw text file")
+        sents = []
+        for line in read_lines(self.text_file):
+            if not line.strip():
+                continue
+            ids = self.dictionary.encode_line(line, append_eos=False)
+            if len(ids):
+                sents.append(np.asarray(ids, np.int64))
+        block = self.tokens_per_sample - 2  # room for bos/eos
+        self.blocks = []
+        if self.break_mode == "eos":
+            self.blocks = [s[:block] for s in sents]
+        elif self.break_mode == "complete":
+            cur, n = [], 0
+            for s in sents:
+                if n + len(s) > block and cur:
+                    self.blocks.append(np.concatenate(cur))
+                    cur, n = [], 0
+                cur.append(s[:block])
+                n += len(s)
+            if cur:
+                self.blocks.append(np.concatenate(cur))
+        else:
+            stream = np.concatenate(sents) if sents else np.zeros(0, np.int64)
+            self.blocks = [stream[i : i + block] for i in range(0, len(stream), block)]
+        self.sizes = np.asarray([len(b) + 2 for b in self.blocks], np.int64)
+
+    def __len__(self):
+        return len(self.blocks)
+
+    def __getitem__(self, i: int) -> Dict:
+        toks = np.concatenate([[self.bos_id], self.blocks[i], [self.eos_id]])
+        return {"id": i, "tokens": toks.astype(np.int64)}
+
+    def collate(self, items: List[Dict], bucketed: bool = True,
+                epoch: int = 0) -> Dict[str, np.ndarray]:
+        """-> {"tokens": the noised source, "targets": the clean tokens,
+        "prev_tokens": the targets shifted right behind EOS, "ids"}, padded
+        to token buckets."""
+        from .text_noising import noise_tokens
+
+        if self.mask_id is None:
+            raise ValueError("mask_id is required for BART noising")
+        B = len(items)
+        vocab = len(self.dictionary)
+        pairs = [noise_tokens(it["tokens"], self.noising, self.mask_id, vocab,
+                              seed=self.seed + 1000003 * epoch + int(it["id"]))
+                 for it in items]
+        src_len = max(len(s) for s, _ in pairs)
+        tgt_len = max(len(t) for _, t in pairs)
+        if bucketed:
+            src_len = bucket_length(src_len, TOKEN_BUCKETS)
+            tgt_len = bucket_length(tgt_len, TOKEN_BUCKETS)
+        tokens = np.full((B, src_len), self.pad_id, np.int64)
+        targets = np.full((B, tgt_len), self.pad_id, np.int64)
+        prev = np.full((B, tgt_len), self.pad_id, np.int64)
+        for b, (src, tgt) in enumerate(pairs):
+            Ls, Lt = min(len(src), src_len), min(len(tgt), tgt_len)
+            tokens[b, :Ls] = src[:Ls]
+            targets[b, :Lt] = tgt[:Lt]
+            prev[b, 0] = self.eos_id
+            prev[b, 1:Lt] = tgt[: Lt - 1]
+        return {"tokens": tokens, "targets": targets, "prev_tokens": prev,
+                "ids": np.asarray([it["id"] for it in items])}
+
+
+@dataclass
+class SpeechPretrainDataset:
+    """HuBERT-style speech pretraining (JAX manifests.py:582-684; reference
+    data/speech_dataset.py:186-476): waveform, frame-level km labels (one
+    utterance a line, space-separated ints, at ``label_rate`` Hz) and the
+    fbank decoder target, on the host or, with ``device_mel``, as the
+    reflect-padded waveform for ``train/trainer.device_mel_batch``.  A
+    waveform longer than ``max_sample_size`` is cropped, its labels with
+    it, at a start drawn from a ``np.random.Generator`` seeded with
+    ``seed`` (JAX draws it from numpy's global RNG, :624).  Speech2C's
+    token decoder targets (``add_decoder_target``) arrive with that
+    family."""
+
+    manifest: str
+    km_labels: str
+    label_rate: float = 50.0
+    sample_rate: int = 16000
+    max_sample_size: int = 250000
+    n_mels: int = 80
+    reduction_factor: int = 2
+    normalize: bool = False
+    device_mel: bool = False
+    seed: int = 0
+
+    def __post_init__(self):
+        self.root, self.names, self.sizes = load_audio_manifest(self.manifest)
+        self.label_lines = read_lines(self.km_labels)
+        self.rng = np.random.default_rng(self.seed)
+
+    def __len__(self):
+        return len(self.names)
+
+    def __getitem__(self, i: int) -> Dict:
+        wav, _ = read_audio(os.path.join(self.root, self.names[i]))
+        if self.normalize:
+            wav = layer_norm_wav(wav)
+        labels = np.asarray(self.label_lines[i].split(), np.int64)
+        if len(wav) > self.max_sample_size:
+            start = int(self.rng.integers(0, len(wav) - self.max_sample_size + 1))
+            wav = wav[start : start + self.max_sample_size]
+            ls = int(start * self.label_rate / self.sample_rate)
+            le = ls + int(self.max_sample_size * self.label_rate / self.sample_rate)
+            labels = labels[ls:le]
+        item = {"id": i, "wav": wav.astype(np.float32), "labels": labels}
+        if self.device_mel:
+            item["tgt_wav_raw"] = item["wav"]
+        else:
+            item["mel"] = log_mel_numpy(wav, n_mels=self.n_mels)
+        return item
+
+    def collate(self, items: List[Dict], frame_fn, bucketed: bool = True
+                ) -> Dict[str, np.ndarray]:
+        """frame_fn: waveform samples -> encoder frames (the conv length
+        arithmetic).  -> {"wav", "wav_lengths", "km_labels" [B, frames]
+        (the labels cut to the frames, 0 past them), the mel targets, "ids"}."""
+        B = len(items)
+        wav_len = max(len(it["wav"]) for it in items)
+        if bucketed:
+            wav_len = bucket_length(wav_len, AUDIO_BUCKETS)
+        frames = int(frame_fn(wav_len))
+        wav = np.zeros((B, wav_len), np.float32)
+        wav_lengths = np.zeros((B,), np.int32)
+        km = np.zeros((B, frames), np.int64)
+        for b, it in enumerate(items):
+            w = it["wav"][:wav_len]
+            wav[b, : len(w)] = w
+            wav_lengths[b] = len(w)
+            lab = it["labels"][:frames]
+            km[b, : len(lab)] = lab
+        batch = {"wav": wav, "wav_lengths": wav_lengths, "km_labels": km,
+                 "ids": np.asarray([it["id"] for it in items])}
+        batch.update(collate_mel_targets(items, self.reduction_factor, self.n_mels,
+                                         bucketed, self.device_mel))
         return batch

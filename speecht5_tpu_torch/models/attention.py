@@ -5,10 +5,13 @@ modules/multihead_attention.py:24-522): q is scaled by head_dim**-0.5
 before use; the relative-position bias is the first-order term
 B[b,h,i,j] = q_scaled[b,h,i,:] . pe_k[clip(i-j)] (reference :343-353);
 masks use -1e9, not -inf, so a fully masked row gives a uniform softmax.
-Self-attention (encoder, causal decoder) and cross-attention against the
-encoder output are ported with probability dropout on the training path,
-and the attention weights (the f32 softmax before dropout, JAX
-attention.py:305-316) on request.  Decode steps (JAX attention.py:159-221):
+A pre-LN layer hands in its own normed table instead of a band: the plain
+path adds ``relative_bias`` (one einsum against the table, then the
+gather-free skew, JAX attention.py:33-101), the kernels read the band built
+from that table.  Self-attention (encoder, causal decoder) and
+cross-attention against the encoder output are ported with probability
+dropout on the training path, and the attention weights (the f32 softmax
+before dropout, JAX attention.py:305-316) on request.  Decode steps (JAX attention.py:159-221):
 the self-attention KV cache is written at ``cache_index`` (in place: the
 beam loop never needs the old buffer), read through the ancestry map
 ``cache_rows`` and masked causally at the step; cross-attention reads K/V
@@ -32,6 +35,9 @@ NEG_INF = -1e9
 # the fused kernels keep a whole score row on chip; longer sequences take
 # the plain path, the JAX module's own routing rule (attention.py:236)
 MAX_FUSED_KEYS = 1024
+# the band's rows are stored padded to a multiple of 8 elements (16 bytes in
+# bf16), the row stride the wgmma kernels' TMA maps need
+BAND_ROW_MULTIPLE = 8
 
 
 def rel_position_index(q_pos, k_pos, max_dist: int):
@@ -47,8 +53,9 @@ def band_from_table(pos_table, T: int, max_dist: int, dtype=None,
 
     Built once per encoder forward and shared by every layer and head of the
     post-LN stack (the reference applies norm_k to the table only on the
-    pre-LN path, transformer_layer.py:90-93).  The JAX package realises the
-    same band with a gather-free skew (``_skew_band``); here it is one
+    pre-LN path, transformer_layer.py:90-93); on the kernel route a pre-LN
+    layer builds one from its own normed table.  The JAX package realises
+    the same band with a gather-free skew (``_skew_band``); here it is one
     gather.  With ``row_multiple`` > 1 the band's rows are stored padded to
     Tp, a multiple of it, and the result is the ``[Dh, T, T]`` view of that
     ``[Dh, T, Tp]`` storage (strides ``(T * Tp, Tp, 1)``): the layout the
@@ -69,6 +76,38 @@ def band_from_table(pos_table, T: int, max_dist: int, dtype=None,
 def relative_bias_banded(q, pos_band):
     """q: [B, Tq, H, Dh] (scaled); pos_band: [Dh, T, T] -> bias [B, H, Tq, Tk]."""
     return torch.einsum("bqhd,dqk->bhqk", q, pos_band.to(q.dtype))
+
+
+def _skew_band(scores_r, T: int, max_dist: int):
+    """B[..., i, j] = S[..., i, clip(i - j, -M, M - 1) + M] from S =
+    ``scores_r`` [..., T, 2M], with a pad and reshapes only (JAX
+    attention.py:33-66, the same steps): the reversed columns padded by T,
+    flattened and re-cut with one element less a row, so that row i
+    shifts left by i; the distances past the table's clip take its first
+    or last column."""
+    M = max_dist
+    R = 2 * M
+    W = R + T
+    p = F.pad(scores_r.flip(-1), (0, T))
+    flat = p.reshape(*p.shape[:-2], T * W)
+    band = flat[..., : T * (W - 1)].reshape(*p.shape[:-2], T, W - 1)[..., M - 1 : M - 1 + T]
+    dev = scores_r.device
+    col = (torch.arange(T, device=dev)[None, :] - torch.arange(T, device=dev)[:, None]
+           + (M - 1))
+    out = torch.where(col <= 0, scores_r[..., -1:], band)
+    return torch.where(col >= R - 1, scores_r[..., :1], out)
+
+
+def relative_bias(q, pos_table):
+    """q: [B, T, H, Dh] (scaled); pos_table: [2M, Dh] -> bias [B, H, T, T]
+    of full self-attention (JAX attention.py:86-101): one einsum against
+    the table, then the skew; at T == 1 the single entry at distance 0."""
+    T = q.shape[1]
+    M = pos_table.shape[0] // 2
+    scores_r = torch.einsum("bqhd,rd->bhqr", q, pos_table.to(q.dtype))
+    if T == 1:
+        return scores_r[..., M : M + 1]
+    return _skew_band(scores_r, T, M)
 
 
 class MultiheadAttention(nn.Module):
@@ -101,25 +140,37 @@ class MultiheadAttention(nn.Module):
     def head_dim(self):
         return self.d_model // self.num_heads
 
+    def fused(self, Tk: int) -> bool:
+        """Whether full self-attention over ``Tk`` keys with a rel-pos bias
+        takes a kernel in the current mode (JAX attention.py:225-236): the
+        inference kernel when not training, the train kernel when training,
+        each when its flag asks, up to ``MAX_FUSED_KEYS`` keys."""
+        return (Tk <= MAX_FUSED_KEYS
+                and (self.use_pallas_train if self.training else self.use_pallas))
+
     def train_seed(self, pos_band, Tk: int, generator=None):
         """The train kernel's dropout seed for a training self-attention
-        pass over ``Tk`` keys with ``pos_band``, drawn now from
+        pass over ``Tk`` keys with ``pos_band`` (a band or a per-layer
+        table: anything but None), drawn now from
         ``generator`` (a CPU ``torch.Generator``, the default one when None:
         no device sync), or None when such a pass draws none (another route,
         or no dropout).  The caller draws it, once, outside any recomputed
         (checkpointed) call, and hands it to ``forward`` as ``dropout_seed``."""
-        if (self.training and self.use_pallas_train and self.dropout > 0.0
-                and pos_band is not None and Tk <= MAX_FUSED_KEYS):
+        if (self.training and self.dropout > 0.0 and pos_band is not None
+                and self.fused(Tk)):
             # an int32 draw, as jax.random.randint(.., 0, 2**31-1)
             return int(torch.randint(0, 2 ** 31 - 1, (), generator=generator))
         return None
 
-    def forward(self, x, key_valid=None, pos_band=None, *, x_kv=None,
+    def forward(self, x, key_valid=None, pos_band=None, *, pos_table=None, x_kv=None,
                 causal: bool = False, dropout_seed=None,
                 return_weights: bool = False, cache=None, cache_index=None,
                 cache_rows=None, cross_kv=None, return_max_prob: bool = False):
         """x: [B, Tq, D]; key_valid: bool [B, Tk] (True = attend, a
-        contiguous prefix); pos_band: [Dh, T, T] or None; x_kv: [B, Tk, D]
+        contiguous prefix); pos_band: [Dh, T, T] or None; pos_table: a
+        layer's own [2M, Dh] table (the pre-LN layers'; the plain path adds
+        ``relative_bias``, the kernels take the band built from it by
+        ``band_from_table``); x_kv: [B, Tk, D]
         for cross-attention (None = self-attention); causal: mask keys after
         the query.  ``dropout_seed``: the train kernel's dropout seed from
         ``train_seed`` (required when that pass drops out).  -> [B, Tq, D],
@@ -156,9 +207,14 @@ class MultiheadAttention(nn.Module):
         # the JAX routing (models/attention.py:225-236): full, non-causal
         # self-attention with a band, up to 1024 keys; the inference kernel
         # when not training, the train kernel when training and asked for
-        fused = (pos_band is not None and x_kv is None and not causal
-                 and Tk <= MAX_FUSED_KEYS and not return_weights
-                 and (self.use_pallas_train if self.training else self.use_pallas))
+        fused = ((pos_band is not None or pos_table is not None) and x_kv is None
+                 and not causal and not return_weights and self.fused(Tk))
+        if fused and pos_band is None:
+            # the layer's band, row-padded as the kernels read it; gathered
+            # from the table as given, cast after (the gather's backward
+            # sums in the table's dtype)
+            pos_band = band_from_table(pos_table, Tk, pos_table.shape[0] // 2,
+                                       dtype=self.dtype, row_multiple=BAND_ROW_MULTIPLE)
         if fused:
             # [B, T, H, Dh] -> [B*H, T, Dh] rows; contiguous() matters at
             # B == 1, where reshape returns a strided view
@@ -192,10 +248,11 @@ class MultiheadAttention(nn.Module):
         if causal:
             cm = torch.ones(Tq, Tk, dtype=torch.bool, device=x.device).tril()
             mask = cm if mask is None else mask & cm
-        return self._dense(q, k, v, pos_band, mask, return_weights)
+        return self._dense(q, k, v, pos_band, mask, return_weights, pos_table)
 
-    def _dense(self, q, k, v, pos_band, mask, return_weights):
-        """The plain path: logits in the score dtype (+ the band's bias),
+    def _dense(self, q, k, v, pos_band, mask, return_weights, pos_table=None):
+        """The plain path: logits in the score dtype (+ the band's bias, or
+        the per-layer table's by ``relative_bias``),
         -1e9 where ``mask`` (broadcast to [B, H, Tq, Tk]) is False, f32
         softmax, probabilities in the compute dtype, dropout, P.V."""
         B, Tq = q.shape[:2]
@@ -203,6 +260,8 @@ class MultiheadAttention(nn.Module):
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k).to(score_dtype)
         if pos_band is not None:
             logits = logits + relative_bias_banded(q, pos_band).to(score_dtype)
+        elif pos_table is not None:
+            logits = logits + relative_bias(q, pos_table).to(score_dtype)
         if mask is not None:
             logits = torch.where(mask, logits,
                                  torch.full((), NEG_INF, dtype=score_dtype,

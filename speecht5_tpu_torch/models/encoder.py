@@ -1,13 +1,15 @@
-"""Shared transformer encoder stack (post-LN) with the CTC head.
+"""Shared transformer encoder stack (post-LN or pre-LN) with the CTC head.
 
 Port of ``speecht5_tpu/models/encoder.py`` (reference modules/encoder.py
 :61-380): one clipped-distance relative position table shared by all layers
 (``pos_emb``: Embedding(2*max_dist, head_dim)); the post-LN stack applies
-the top-level LayerNorm to its *input* (encoder.py:226-227); the band is
-built once per forward and shared by every layer (JAX encoder.py:94-105);
-the CTC projection reads the dropped-out encoder output (encoder.py
-:138-142: a second dropout draw on training passes -- the contract, not a
-slip).  Layerdrop (training only, JAX encoder.py:114-124) skips a layer
+the top-level LayerNorm to its *input* (encoder.py:226-227) and builds the
+band once per forward, shared by every layer (JAX encoder.py:94-105); the
+pre-LN stack (Large) applies it to its *output* (:275-276) and hands the
+table to every layer, which norms it with its own ``norm_k`` (no shared
+band: on the kernel route each layer builds its own); the CTC projection
+reads the dropped-out encoder output (encoder.py :138-142: a second
+dropout draw on training passes -- the contract, not a slip).  Layerdrop (training only, JAX encoder.py:114-124) skips a layer
 with probability ``layerdrop``; the JAX package runs the layer and selects,
 which gives the same output and gradient for the same draw.  ``remat``
 (JAX encoder.py:51-56, ``nn.remat``) recomputes each layer in the backward
@@ -28,13 +30,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..config import TransformerConfig
-from .attention import band_from_table
+from .attention import BAND_ROW_MULTIPLE, band_from_table
 from .common import LayerNorm32
 from .layers import EncoderLayer
-
-# the band's rows are stored padded to a multiple of 8 elements (16 bytes in
-# bf16), the row stride the wgmma kernels' TMA maps need
-BAND_ROW_MULTIPLE = 8
 
 
 class RelPosTable(nn.Module):
@@ -52,9 +50,6 @@ class TransformerEncoder(nn.Module):
     def __init__(self, cfg: TransformerConfig, ctc_vocab_size: Optional[int] = None,
                  dtype=torch.float32):
         super().__init__()
-        if cfg.layer_norm_first:
-            raise NotImplementedError(
-                "pre-LN encoder stacks arrive with the Large slice")
         self.cfg = cfg
         self.dtype = dtype
         self.layers = nn.ModuleList(
@@ -73,10 +68,14 @@ class TransformerEncoder(nn.Module):
 
         Returns dict(encoder_out, valid_mask[, ctc_logits])."""
         cfg = self.cfg
-        x = self.layer_norm(x).to(self.dtype)
+        pre_ln = cfg.layer_norm_first
+        if not pre_ln:
+            x = self.layer_norm(x).to(self.dtype)
         x = F.dropout(x, cfg.dropout, self.training)
-        pos_band = None
-        if self.pos_emb is not None:
+        pos_band = pos_table = None
+        if self.pos_emb is not None and pre_ln:
+            pos_table = self.pos_emb().float()
+        elif self.pos_emb is not None:
             # built from the f32 table and then cast, so the gather's
             # backward sums in f32; at T == 1 the band is the single entry
             # pe_k[M], the value the JAX package gathers on that path.  Its
@@ -88,12 +87,15 @@ class TransformerEncoder(nn.Module):
             if self.training and cfg.layerdrop > 0.0:
                 if torch.rand((), generator=generator) < cfg.layerdrop:
                     continue
-            seed = layer.self_attn.train_seed(pos_band, x.shape[1], generator)
+            seed = layer.self_attn.train_seed(
+                pos_band if pos_table is None else pos_table, x.shape[1], generator)
             if cfg.remat and self.training:
-                x = checkpoint(layer, x, valid_mask, pos_band, dropout_seed=seed,
-                               use_reentrant=False)
+                x = checkpoint(layer, x, valid_mask, pos_band, pos_table=pos_table,
+                               dropout_seed=seed, use_reentrant=False)
             else:
-                x = layer(x, valid_mask, pos_band, dropout_seed=seed)
+                x = layer(x, valid_mask, pos_band, pos_table=pos_table, dropout_seed=seed)
+        if pre_ln:
+            x = self.layer_norm(x).to(self.dtype)
         out = {"encoder_out": x, "valid_mask": valid_mask}
         if with_ctc and self.proj is not None:
             out["ctc_logits"] = self.ctc_head(

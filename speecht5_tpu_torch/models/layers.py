@@ -8,12 +8,14 @@ reference never passes the bias hook, transformer_layer.py:229-242),
 cross-attention against the encoder output and the FFN, teacher-forced or
 one cached decode step at a time, post-LN or, with ``layer_norm_first``,
 pre-LN (each sub-block's LayerNorm on its input, JAX layers.py:131-230:
-the fusion LM's trunk).  Activation is the exact (erf) GELU; dropout
-follows each sub-block and activation dropout the GELU, on training passes
-only.  The post-LN path never applies ``norm_k`` (reference
-transformer_layer.py:112-119), so the JAX tree holds no ``norm_k``
-parameters for it and neither does the port.  The pre-LN encoder layer
-(Large, with ``norm_k`` on the table) arrives with its slice.
+the fusion LM's trunk and Large's decoder).  The encoder layer is post-LN
+or, at Large, pre-LN (JAX layers.py:95-112): the LayerNorm on each
+sub-block's input, and its own ``norm_k`` (a LayerNorm over the head
+dimension) on the shared rel-pos table before self-attention.
+Activation is the exact (erf) GELU; dropout follows each sub-block and
+activation dropout the GELU, on training passes only.  The post-LN path
+never applies ``norm_k`` (reference transformer_layer.py:112-119), so the
+JAX tree holds no ``norm_k`` parameters for it and neither does the port.
 """
 
 from __future__ import annotations
@@ -25,11 +27,6 @@ from torch import nn
 from ..config import TransformerConfig
 from .attention import MultiheadAttention
 from .common import Dense, LayerNorm32
-
-
-def _post_ln_only(cfg: TransformerConfig):
-    if cfg.layer_norm_first:
-        raise NotImplementedError("pre-LN encoder layers arrive with the Large slice")
 
 
 class FeedForward(nn.Module):
@@ -48,14 +45,16 @@ class FeedForward(nn.Module):
 
 
 class EncoderLayer(nn.Module):
-    """reference transformer_layer.py:23-134 (TransformerSentenceEncoderLayer),
-    post-LN only."""
+    """reference transformer_layer.py:23-134 (TransformerSentenceEncoderLayer):
+    post-LN (the shared band in ``pos_band``) or, with ``layer_norm_first``,
+    pre-LN (the shared table in ``pos_table``, normed by this layer's
+    ``norm_k`` in f32)."""
 
     def __init__(self, cfg: TransformerConfig, dtype=torch.float32):
         super().__init__()
-        _post_ln_only(cfg)
         self.cfg = cfg
         self.dtype = dtype
+        self.pre_ln = cfg.layer_norm_first
         self.self_attn = MultiheadAttention(
             cfg.d_model, cfg.num_heads, cfg.attention_dropout, dtype=dtype,
             use_pallas=cfg.use_pallas_attn,
@@ -65,17 +64,28 @@ class EncoderLayer(nn.Module):
         self.self_attn_layer_norm = LayerNorm32(cfg.d_model, eps=cfg.layer_norm_eps)
         self.final_layer_norm = LayerNorm32(cfg.d_model, eps=cfg.layer_norm_eps)
         self.ffn = FeedForward(cfg, dtype)
+        if self.pre_ln and cfg.rel_pos.enabled and cfg.use_rel_pos_bias:
+            self.norm_k = LayerNorm32(cfg.head_dim, eps=cfg.layer_norm_eps)
 
     def _drop(self, x):
         return F.dropout(x, self.cfg.dropout, self.training)
 
-    def forward(self, x, key_valid=None, pos_band=None, *, dropout_seed=None):
-        residual = x
-        y = self.self_attn(x, key_valid, pos_band, dropout_seed=dropout_seed)
-        x = self.self_attn_layer_norm(residual + self._drop(y)).to(self.dtype)
-        residual = x
-        x = residual + self._drop(self.ffn(x))
-        return self.final_layer_norm(x).to(self.dtype)
+    def forward(self, x, key_valid=None, pos_band=None, *, pos_table=None,
+                dropout_seed=None):
+        if not self.pre_ln:
+            residual = x
+            y = self.self_attn(x, key_valid, pos_band, dropout_seed=dropout_seed)
+            x = self.self_attn_layer_norm(residual + self._drop(y)).to(self.dtype)
+            residual = x
+            x = residual + self._drop(self.ffn(x))
+            return self.final_layer_norm(x).to(self.dtype)
+        # the normed table stays f32: each route casts it to the compute
+        # dtype where it reads it (after the kernel route's gather)
+        table = None if pos_table is None else self.norm_k(pos_table)
+        y = self.self_attn(self.self_attn_layer_norm(x).to(self.dtype), key_valid,
+                           pos_table=table, dropout_seed=dropout_seed)
+        x = x + self._drop(y)
+        return x + self._drop(self.ffn(self.final_layer_norm(x).to(self.dtype)))
 
 
 class DecoderLayer(nn.Module):

@@ -9,7 +9,9 @@
   ``feat_out`` (d -> n_mels * r) and ``prob_out`` (d -> r) in f32, and the
   Tacotron2 conv postnet whose residual refines the frames;
 - ``SpeakerDecoderPostnet`` (reference speaker_decoder_postnet.py:129-200):
-  the SID head on the pooled features.
+  the SID head on the pooled features;
+- ``SpeechEncoderPostnet`` (reference speech_encoder_postnet.py:17-124; JAX
+  postnets.py:149-189): the HuBERT masked-prediction head.
 
 The postnets' BatchNorm follows flax's ``nn.BatchNorm(momentum=0.9,
 epsilon=1e-5, dtype=float32)``: statistics in f32 over every position
@@ -30,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import SpeechT5Config
+from ..ops.heads import cosine_logits
 from .common import Dense
 
 
@@ -223,3 +226,28 @@ class SpeakerDecoderPostnet(nn.Module):
         else:
             phi = torch.where(cosine > th, phi, cosine - mm)
         return cfg.scale * (t * phi + (1.0 - t) * cosine), embed
+
+
+class SpeechEncoderPostnet(nn.Module):
+    """The HuBERT head: ``final_proj`` (f32) of the encoder output, then
+    per label set the cosine logits against its rows of
+    ``label_embs_concat`` at temperature ``logit_temp``; with
+    ``untie_final_proj`` each label set reads its own slice of the
+    projection."""
+
+    def __init__(self, cfg: SpeechT5Config):
+        super().__init__()
+        h = cfg.hubert
+        self.cfg = h
+        self.label_embs_concat = nn.Parameter(torch.empty(sum(h.num_classes), h.final_dim))
+        out = h.final_dim * (len(h.num_classes) if h.untie_final_proj else 1)
+        self.final_proj = nn.Linear(cfg.d_model, out)
+
+    def forward(self, x):
+        """x: [B, T, D] -> list of f32 logits [B, T, C_i], one per label set."""
+        h = self.cfg
+        proj = self.final_proj(x.float())
+        n = len(h.num_classes)
+        projs = proj.chunk(n, dim=-1) if h.untie_final_proj else [proj] * n
+        embs = self.label_embs_concat.split(list(h.num_classes))
+        return [cosine_logits(p, e, h.logit_temp) for p, e in zip(projs, embs)]

@@ -115,21 +115,26 @@ class _PerChannelGroupNorm(nn.Module):
 
 class ConvFeatureExtractor(nn.Module):
     """wav2vec2-style stack of strided Conv1d blocks
-    (reference speech_encoder_prenet.py:278-374), "default" mode.
+    (reference speech_encoder_prenet.py:278-374; JAX prenets.py:223-292).
 
     Layer 0 (one input channel) runs as the JAX package's ``_Conv0MatMul``:
-    framing by shifted strided views and one [*, k] @ [k, C] matmul.  Layers
-    1.. run per ``cfg.impl``: "pallas" -> the CUDA conv stack of
-    ``ops/cuda_kernels`` (the port's counterpart of the JAX
+    framing by shifted strided views and one [*, k] @ [k, C] matmul.
+    "default" mode (Base): GroupNorm after layer 0, then each layer's exact
+    GELU; layers 1.. run per ``cfg.impl``: "pallas" -> the CUDA conv stack
+    of ``ops/cuda_kernels`` (the port's counterpart of the JAX
     ``conv_stack_fused``), "polyphase" -> per-tap matmuls, "xla" -> conv1d.
+    "layer_norm" mode (Large): every layer is conv, then ``ln_<i>`` over the
+    channels in f32 (flax's epsilon, 1e-6), then the exact GELU; layers 1..
+    run as ``F.conv1d`` whatever ``impl`` says, as JAX's stack engages its
+    kernel in "default" mode only (prenets.py:236).
     """
 
     def __init__(self, cfg: ConvFeatureConfig, dtype=torch.float32):
         super().__init__()
-        if cfg.mode != "default" or cfg.bias:
+        if cfg.mode not in ("default", "layer_norm") or cfg.bias:
             raise NotImplementedError(
-                "only the 'default' mode without conv bias is ported "
-                "(layer_norm mode arrives with the Large slice)")
+                "only the 'default' and 'layer_norm' modes without conv bias are "
+                "ported")
         dim0, k0, s0 = cfg.layers[0]
         if k0 % s0:
             raise NotImplementedError("conv 0 needs stride | kernel")
@@ -138,8 +143,11 @@ class ConvFeatureExtractor(nn.Module):
         c_in = 1
         for i, (dim, k, _) in enumerate(cfg.layers):
             self.add_module(f"conv_{i}", _ConvKernel(dim, c_in, k))
+            if cfg.mode == "layer_norm":
+                self.add_module(f"ln_{i}", LayerNorm32(dim, eps=1e-6))
             c_in = dim
-        self.group_norm = _PerChannelGroupNorm(dim0, 1e-5, dtype)
+        if cfg.mode == "default":
+            self.group_norm = _PerChannelGroupNorm(dim0, 1e-5, dtype)
 
     @property
     def convs(self):
@@ -155,8 +163,19 @@ class ConvFeatureExtractor(nn.Module):
         w = self.convs[0].weight[:, 0, :].t().to(self.dtype)    # [k, C]
         return frames @ w
 
+    def _layer_norm_forward(self, wav):
+        x = self._conv0(wav)
+        for i, ((_, _, s), c) in enumerate(zip(self.cfg.layers, self.convs)):
+            if i:
+                x = F.conv1d(x.transpose(1, 2), c.weight.to(self.dtype),
+                             stride=s).transpose(1, 2)
+            x = F.gelu(getattr(self, f"ln_{i}")(x).to(self.dtype))
+        return x
+
     def forward(self, wav):
         """wav: [B, T] -> [B, frames, C_out]."""
+        if self.cfg.mode == "layer_norm":
+            return self._layer_norm_forward(wav)
         x = F.gelu(self.group_norm(self._conv0(wav)))  # exact (erf) GELU
         rest = self.cfg.layers[1:]
         if not rest:
@@ -195,11 +214,15 @@ class SpeechEncoderPrenet(nn.Module):
         self.pos_conv = WeightNormConv1d(cfg.d_model, cfg.conv_pos,
                                          cfg.conv_pos_groups, dtype)
 
-    def forward(self, wav, wav_lengths, *, mask: bool = False, generator=None):
+    def forward(self, wav, wav_lengths, *, mask: bool = False, generator=None,
+                masks=None):
         """wav: [B, T] raw 16 kHz; wav_lengths: [B] (on any device: a CPU
         tensor lets the masks be drawn with no device sync) -> (x [B,
-        frames, D], valid bool [B, frames]).  ``mask``: HuBERT masking, drawn
-        from the CPU ``generator`` (the default CPU generator when None)."""
+        frames, D], valid bool [B, frames], the time mask bool [B, frames]
+        on x's device or None, ``features_pen``: the mean square of the conv
+        features in f32, JAX prenets.py:342).  ``mask``: HuBERT masking,
+        drawn from the CPU ``generator`` (the default CPU generator when
+        None), or ``masks`` = (time mask, channel mask or None) as given."""
         cfg = self.cfg
         frame_lengths = cfg.conv_features.out_length(wav_lengths)
         # feature grad scaling (reference :156-164): 0 detaches the
@@ -209,22 +232,27 @@ class SpeechEncoderPrenet(nn.Module):
             feats = self.feature_extractor(wav)
         if mult not in (0.0, 1.0):
             feats = GradMultiply.apply(feats, mult)
+        features_pen = feats.float().pow(2).mean()
         frames = feats.shape[1]
         valid = length_mask(frame_lengths.to(feats.device, non_blocking=True), frames)
         x = self.layer_norm(feats).to(self.dtype)
         if self.post_extract_proj is not None:
             x = self.post_extract_proj(x)
         x = F.dropout(x, cfg.encoder.dropout, self.training)
+        time_mask = None
         if mask and cfg.masking.mask_prob > 0:
-            time_mask, chan_mask = sample_feature_masks(
-                frame_lengths.cpu(), frames, x.shape[-1], cfg.masking, generator)
+            if masks is None:
+                masks = sample_feature_masks(frame_lengths.cpu(), frames, x.shape[-1],
+                                             cfg.masking, generator)
+            time_mask, chan_mask = masks
             dev = dict(device=x.device, non_blocking=True)
+            time_mask = time_mask.to(**dev)
             x = apply_feature_masks(
-                x, time_mask.to(**dev), self.mask_emb,
+                x, time_mask, self.mask_emb,
                 None if chan_mask is None else chan_mask.to(**dev))
         x = x + F.gelu(self.pos_conv(x))
         x = x + fairseq_sinusoidal(valid, cfg.d_model).to(self.dtype)
-        return x, valid
+        return x, valid, time_mask, features_pen
 
 
 class TextDecoderPrenet(nn.Module):

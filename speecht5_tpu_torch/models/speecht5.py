@@ -1,4 +1,5 @@
-"""SpeechT5 model: all six fine-tune tasks (ASR, TTS, VC/SE, SID).
+"""SpeechT5 model: all six fine-tune tasks (ASR, TTS, VC/SE, SID) and
+speech and text pretraining.
 
 Port of the parts of ``speecht5_tpu/models/speecht5.py`` that the serving
 paths and the s2t, t2s, s2s and s2c train steps run: ``encode_speech``
@@ -10,9 +11,15 @@ paths and the s2t, t2s, s2s and s2c train steps run: ``encode_speech``
 (:268-297, the TTS / VC decoder's steps), ``ctc_logits`` (:301),
 ``forward_s2t`` (:327-334), ``forward_t2s`` (:336), ``forward_s2s``
 (:344-382), ``_sid_head``, ``forward_s2c`` and ``generate_class``
-(:384-432).  The pretraining heads arrive with their slice.  Submodule
+(:384-432), and pretraining (:304-325, :434-475): ``hubert_logits``
+(the HuBERT head, built in every model as JAX builds it), ``apply_codebook``
+(the Gumbel quantizer's codes mixed into the encoder output),
+``forward_pretrain_speech`` and ``forward_pretrain_text``.  Submodule
 names follow the JAX tree, so ``utils/convert.from_jax_params`` maps one
-onto the other.
+onto the other.  A state dict without the HuBERT head's keys (a port
+checkpoint written before the head existed) still loads, strict or not:
+the head keeps its values, as JAX's ``partial_load`` keeps a missing
+subtree's init.
 """
 
 from __future__ import annotations
@@ -28,7 +35,9 @@ from ..utils.device import resolve_device
 from .decoder import TransformerDecoder
 from .encoder import TransformerEncoder
 from .common import Dense
-from .postnets import SpeakerDecoderPostnet, SpeechDecoderPostnet, TextDecoderPostnet
+from .postnets import (SpeakerDecoderPostnet, SpeechDecoderPostnet,
+                       SpeechEncoderPostnet, TextDecoderPostnet)
+from .quantizer import GumbelVectorQuantizer
 from .prenets import (SpeechDecoderPrenet, SpeechEncoderPrenet, TextDecoderPrenet,
                       TextEncoderPrenet)
 
@@ -55,22 +64,33 @@ class SpeechT5Model(nn.Module):
             self.spkembs_projection = Dense(d_in, cfg.d_model, dt)
         self.speaker_decoder_postnet = (SpeakerDecoderPostnet(cfg.d_model, cfg.sid)
                                         if cfg.sid.num_classes > 0 else None)
+        self.speech_encoder_postnet = SpeechEncoderPostnet(cfg)
+        self.quantizer = None
+        if cfg.quantizer.enabled:
+            qc = cfg.quantizer
+            self.quantizer = GumbelVectorQuantizer(
+                cfg.d_model, qc.latent_vars, qc.latent_groups,
+                qc.latent_dim or cfg.d_model,
+                (qc.temp_start, qc.temp_end, qc.temp_decay), dt)
+        self.register_load_state_dict_post_hook(_head_keys_optional)
 
     def encode_speech(self, wav, wav_lengths, *, mask: bool = False,
                       with_ctc: bool = False, generator=None,
-                      prepend_cls: bool = False, shuffle: bool = False):
+                      prepend_cls: bool = False, shuffle: bool = False, masks=None):
         """wav: [B, T] f32 raw 16 kHz; wav_lengths: [B] int ->
-        dict(encoder_out [B, frames, D], valid_mask [B, frames][, ctc_logits]).
-        Dropout, layerdrop and (with ``mask``) HuBERT masking run on training
-        passes; ``generator`` is the CPU generator of the host-side draws.
+        dict(encoder_out [B, frames, D], valid_mask [B, frames], time_mask
+        (None without masking), features_pen[, ctc_logits]).  Dropout and
+        layerdrop run on training passes, HuBERT masking with ``mask``
+        (drawn, or ``masks`` as given: the prenet's); ``generator`` is the
+        CPU generator of the host-side draws.
         ``shuffle`` (SID training): one time permutation shared by the batch,
         drawn from ``generator``, then the valid frames compacted to the
         front (``shuffle_frames``).  ``prepend_cls``: a zero token through
         the text decoder prenet (no dropout), prepended as a valid frame
         (reference speecht5.py:826-828); the encoder builds its band for the
         T + 1 frames."""
-        x, valid = self.speech_encoder_prenet(wav, wav_lengths, mask=mask,
-                                              generator=generator)
+        x, valid, time_mask, features_pen = self.speech_encoder_prenet(
+            wav, wav_lengths, mask=mask, generator=generator, masks=masks)
         if shuffle:
             perm = torch.randperm(x.shape[1], generator=generator)
             x, valid = shuffle_frames(x, valid, perm.to(x.device))
@@ -81,7 +101,8 @@ class SpeechT5Model(nn.Module):
             x = torch.cat([cls.to(x.dtype), x], dim=1)
             valid = torch.cat([torch.ones((B, 1), dtype=torch.bool, device=x.device),
                                valid], dim=1)
-        return self.encoder(x, valid, with_ctc=with_ctc, generator=generator)
+        enc = self.encoder(x, valid, with_ctc=with_ctc, generator=generator)
+        return {**enc, "time_mask": time_mask, "features_pen": features_pen}
 
     def encode_text(self, tokens, *, generator=None):
         """tokens: [B, T] (pad_id-padded) -> dict(encoder_out, valid_mask)."""
@@ -183,6 +204,66 @@ class SpeechT5Model(nn.Module):
     def ctc_logits(self, enc):
         return self.encoder.ctc_head(enc["encoder_out"])
 
+    def hubert_logits(self, enc):
+        """The HuBERT head's f32 logits, one [B, T, C_i] per label set."""
+        return self.speech_encoder_postnet(enc["encoder_out"])
+
+    def apply_codebook(self, enc, *, num_updates: int = 0, generator=None,
+                       gumbel=None, perm=None):
+        """Codebook mixing (JAX :304-325, reference speecht5.py:858-882):
+        the quantizer's codes replace int(T * codebook_prob) time positions
+        of the encoder output, the same positions in every row: the first of
+        a time permutation ``perm`` [T] (drawn from the CPU ``generator``
+        when None).  -> (enc with the mixed ``encoder_out``, the quantizer's
+        dict)."""
+        out = enc["encoder_out"]
+        q = self.quantizer(out, num_updates=num_updates, generator=generator,
+                           gumbel=gumbel)
+        T = out.shape[1]
+        n_replace = int(T * self.cfg.quantizer.codebook_prob)
+        if perm is None:
+            perm = codebook_perm(T, generator)
+        w = torch.zeros(T, dtype=q["x"].dtype, device=out.device)
+        w[perm[:n_replace].to(out.device)] = 1.0
+        w = w[None, :, None]
+        mixed = w * q["x"] + (1.0 - w) * out
+        return {**enc, "encoder_out": mixed.to(out.dtype)}, q
+
+    def forward_pretrain_speech(self, wav, wav_lengths, prev_mel, tgt_lengths,
+                                spkembs=None, *, num_updates: int = 0, generator=None,
+                                masks=None, gumbel=None, perm=None, keep_masks=None):
+        """Speech pretraining forward (JAX :434-462): the masked speech
+        encoder, the HuBERT logits, codebook mixing when the quantizer is
+        on, and the teacher-forced mel decode -> dict(hubert_logits,
+        time_mask, valid_mask, features_pen, before, after, stop_logits,
+        attn, quantizer).  ``masks``, ``gumbel``, ``perm`` and
+        ``keep_masks`` hand in the random draws (else drawn from
+        ``generator``; the Tacotron prenet's from the device's)."""
+        enc = self.encode_speech(wav, wav_lengths, mask=True, generator=generator,
+                                 masks=masks)
+        hubert_logits = self.hubert_logits(enc)
+        q = None
+        if self.quantizer is not None:
+            enc, q = self.apply_codebook(enc, num_updates=num_updates,
+                                         generator=generator, gumbel=gumbel, perm=perm)
+        before, after, stop_logits, attn = self.decode_speech(
+            enc, prev_mel, tgt_lengths, spkembs, need_attn=True, keep_masks=keep_masks)
+        return {"hubert_logits": hubert_logits, "time_mask": enc["time_mask"],
+                "valid_mask": enc["valid_mask"], "features_pen": enc["features_pen"],
+                "before": before, "after": after, "stop_logits": stop_logits,
+                "attn": attn, "quantizer": q}
+
+    def forward_pretrain_text(self, tokens, prev_tokens, *, num_updates: int = 0,
+                              generator=None, gumbel=None, perm=None):
+        """BART text denoising forward (JAX :464-475) -> dict(logits f32 [B,
+        T, V], quantizer)."""
+        enc = self.encode_text(tokens, generator=generator)
+        q = None
+        if self.quantizer is not None:
+            enc, q = self.apply_codebook(enc, num_updates=num_updates,
+                                         generator=generator, gumbel=gumbel, perm=perm)
+        return {"logits": self.decode_text(enc, prev_tokens), "quantizer": q}
+
     def forward_s2t(self, wav, wav_lengths, prev_tokens, *, mask: bool = True,
                     generator=None):
         """ASR training forward -> (dec_logits [B, T, V], ctc_logits [B,
@@ -279,6 +360,21 @@ class SpeechT5Model(nn.Module):
         return logits.argmax(dim=-1)
 
 
+def codebook_perm(T: int, generator=None):
+    """The codebook mixing's time permutation [T], from the CPU generator."""
+    return torch.randperm(T, generator=generator)
+
+
+HEAD_PREFIX = "speech_encoder_postnet."
+
+
+def _head_keys_optional(module, incompatible):
+    """Load-state hook: the HuBERT head's keys may be absent (a checkpoint
+    written before the port built the head); the head keeps its values."""
+    incompatible.missing_keys[:] = [k for k in incompatible.missing_keys
+                                    if not k.startswith(HEAD_PREFIX)]
+
+
 def shuffle_frames(x, valid, perm):
     """SID train-time augmentation (JAX :153-156): the frames of every row
     permuted by ``perm`` [T], then the valid frames moved back to the front
@@ -300,13 +396,19 @@ def init_model(cfg: SpeechT5Config, generator: torch.Generator = None,
     embedding's variance scaling, normal(0.02) for the weight-normed conv's
     direction, a uniform mask embedding, unit ``alpha`` scales, BatchNorm
     statistics of 0 mean and unit variance, and the speaker head's normal
-    class matrix (std C^-0.5) and embedding (std E^-0.5)."""
+    class matrix (std C^-0.5) and embedding (std E^-0.5); the HuBERT
+    head's and the quantizer's uniform embeddings and lecun-normal
+    projections are drawn last, so the other weights are those of a model
+    without them."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     model = SpeechT5Model(cfg)
+    late = ("speech_encoder_postnet", "quantizer")
     with torch.no_grad():
-        for mod in model.modules():
+        for name, mod in model.named_modules():
+            if name.startswith(late):
+                continue
             if isinstance(mod, nn.Linear):
                 mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.in_features),
                                    generator=generator)
@@ -337,4 +439,13 @@ def init_model(cfg: SpeechT5Config, generator: torch.Generator = None,
                 w = getattr(postnet, f"conv_{i}").weight
                 _, c_in, k = w.shape
                 w.normal_(0.0, 1.0 / math.sqrt(c_in * k), generator=generator)
+        for mod in (model.speech_encoder_postnet, model.quantizer):
+            if mod is None:
+                continue
+            emb, lin = ((mod.label_embs_concat, mod.final_proj)
+                        if mod is model.speech_encoder_postnet
+                        else (mod.vars, mod.weight_proj))
+            emb.uniform_(0.0, 1.0, generator=generator)
+            lin.weight.normal_(0.0, 1.0 / math.sqrt(lin.in_features), generator=generator)
+            lin.bias.zero_()
     return model.to(dev).eval()

@@ -16,8 +16,9 @@ loader that builds them.
   replaces ``conv_stack_pallas`` / ``conv_stack_fused`` (pallas_kernels.py
   :714, :783).  One launch per layer: bf16 an implicit GEMM on wgmma tensor
   cores fed by TMA, f32 the CUDA-core kernel; an autograd function whose
-  backward is the vjp of the plain twin, as ``conv_stack_fused``'s is the
-  vjp of ``_conv_stack_ref``.
+  backward is the vjp of the library conv (``conv_stack_library``, cuDNN
+  on the card), as ``conv_stack_fused``'s is the vjp of XLA's conv in
+  ``_conv_stack_ref``.
 - ``banded_attention_train`` (``csrc/banded_attention_train.cu``,
   ``csrc/banded_attention_train_bwd.cu``): the differentiable form of the
   attention with in-kernel counter-hash probability dropout; replaces
@@ -513,10 +514,24 @@ def _conv_stack_forward(x, weights, specs):
     return x
 
 
+def conv_stack_library(x, weights, specs):
+    """The conv stack through the library conv: per layer ``F.conv1d``
+    (cuDNN on the card) in x's dtype, then the exact GELU in that dtype,
+    as the JAX ``_conv_stack_ref`` runs XLA's conv.  The function whose vjp
+    is the stack's backward; same arguments and result as
+    ``conv_stack_plain``."""
+    dtype = x.dtype
+    y = x.transpose(1, 2)
+    for (_, s), w in zip(specs, weights):
+        y = F.gelu(F.conv1d(y, w.to(dtype).permute(2, 1, 0), stride=s))
+    return y.transpose(1, 2)
+
+
 class _ConvStack(torch.autograd.Function):
-    """Forward: the kernel.  Backward: the vjp of ``conv_stack_plain``
+    """Forward: the kernel.  Backward: the vjp of ``conv_stack_library``
     (recomputed), as the JAX ``conv_stack_fused`` differentiates through
-    ``_conv_stack_ref``; the TPU package has no backward kernel either."""
+    ``_conv_stack_ref`` (XLA's conv, outside any Pallas kernel); the TPU
+    package has no backward kernel either."""
 
     @staticmethod
     def forward(ctx, x, specs, *weights):
@@ -531,7 +546,7 @@ class _ConvStack(torch.autograd.Function):
             xs = x.detach().requires_grad_(ctx.needs_input_grad[0])
             ws = [w.detach().requires_grad_(need)
                   for w, need in zip(weights, ctx.needs_input_grad[2:])]
-            y = conv_stack_plain(xs, ws, ctx.specs)
+            y = conv_stack_library(xs, ws, ctx.specs)
             wanted = [t for t in (xs, *ws) if t.requires_grad]
             grads = iter(torch.autograd.grad(y, wanted, g))
         return (next(grads) if xs.requires_grad else None, None,
@@ -545,7 +560,7 @@ def conv_stack(x, weights, specs):
     tensors, cast to x's dtype as the JAX kernel does.  VALID padding, no
     bias.  On CUDA: one kernel launch per layer; bf16 needs every Cin and
     Cout a multiple of 8 and k <= 8 (it raises otherwise).  Differentiable
-    in x and the weights (the backward is the plain twin's vjp)."""
+    in x and the weights (the backward is ``conv_stack_library``'s vjp)."""
     return _ConvStack.apply(x, tuple(specs), *weights)
 
 

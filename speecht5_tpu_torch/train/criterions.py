@@ -9,9 +9,12 @@ JAX package's denominators:
   criterions/text_to_speech_loss.py:72-427);
 - s2c (:86-100): label-smoothed cross-entropy over the speaker classes and
   the accuracy (reference speech_to_text_loss.py:186-209; the margin is the
-  model's).
-
-The pretraining losses arrive with their slice.
+  model's);
+- pretraining (:228-321): the HuBERT masked / unmasked cross-entropy
+  (reference speech_pretrain_criterion.py:99-120, its NCE with the
+  positive prepended being CE over the codebook), the speech pretraining
+  loss (HuBERT, the feature penalty, the codebook diversity term and the
+  TTS-style decoder loss) and the BART text loss.
 """
 
 from __future__ import annotations
@@ -140,5 +143,83 @@ def tts_loss(before, after, stop_logits, target_mel, dec_lengths, *,
         ga = guided_attention_loss(attn, enc_lengths, olens // r, guided_attn_sigma)
         loss = loss + guided_attn_lambda * ga
         metrics["enc_dec_attn_loss"] = ga
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+def hubert_loss(hubert_logits, target_list, time_mask, valid_mask, *,
+                pred_masked_weight: float = 1.0, pred_nomask_weight: float = 0.0):
+    """hubert_logits: list of [B, T, C] f32; target_list: list of [B, T]
+    frame labels; time_mask (None: nothing masked) and valid_mask bool [B,
+    T] -> (loss, metrics): per label set ``loss_m_i`` / ``loss_u_i``, the
+    mean NLL over the masked / unmasked valid frames, and ``acc_m_i``."""
+    if time_mask is None:
+        time_mask = torch.zeros_like(valid_mask)
+    m_b = time_mask & valid_mask
+    u_b = ~time_mask & valid_mask
+    n_masked = m_b.sum().clamp_min(1)
+    n_unmasked = u_b.sum().clamp_min(1)
+    m, u = m_b.float(), u_b.float()
+    metrics = {}
+    loss = torch.zeros((), device=valid_mask.device)
+    for i, (logits, targets) in enumerate(zip(hubert_logits, target_list)):
+        lp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(lp, -1, targets[..., None].long())[..., 0]
+        loss_m = (nll * m).sum() / n_masked
+        loss_u = (nll * u).sum() / n_unmasked
+        metrics[f"loss_m_{i}"] = loss_m
+        metrics[f"loss_u_{i}"] = loss_u
+        metrics[f"acc_m_{i}"] = ((logits.argmax(-1) == targets) & m_b).sum() / n_masked
+        if pred_masked_weight > 0:
+            loss = loss + pred_masked_weight * loss_m
+        if pred_nomask_weight > 0:
+            loss = loss + pred_nomask_weight * loss_u
+    return loss, metrics
+
+
+def _diversity(q):
+    """The codebook diversity term (G V - prob perplexity) / (G V)."""
+    return (q["num_vars"] - q["prob_perplexity"]) / q["num_vars"]
+
+
+def speech_pretrain_loss(out, target_list, target_mel, dec_lengths, enc_lengths, *,
+                         reduction_factor: int = 2, dec_weight: float = 1.0,
+                         hubert_weight: float = 1.0, feature_pen_weight: float = 10.0,
+                         prob_ppl_weight: float = 0.1, use_guided_attn: bool = True):
+    """``out``: ``forward_pretrain_speech``'s dict; target_mel [B, F,
+    n_mels] with dec_lengths [B] frames; enc_lengths [B] conv frames ->
+    (loss, metrics; the decoder's prefixed ``dec_``)."""
+    loss, metrics = hubert_loss(out["hubert_logits"], target_list, out["time_mask"],
+                                out["valid_mask"])
+    loss = hubert_weight * loss + feature_pen_weight * out["features_pen"]
+    metrics["features_pen"] = out["features_pen"]
+    q = out.get("quantizer")
+    if q is not None:
+        loss = loss + prob_ppl_weight * _diversity(q)
+        metrics["prob_perplexity"] = q["prob_perplexity"]
+        metrics["code_perplexity"] = q["code_perplexity"]
+    if dec_weight > 0:
+        dec_loss, dmetrics = tts_loss(
+            out["before"], out["after"], out["stop_logits"], target_mel, dec_lengths,
+            reduction_factor=reduction_factor, attn=out.get("attn"),
+            enc_lengths=enc_lengths, use_guided_attn=use_guided_attn)
+        loss = loss + dec_weight * dec_loss
+        metrics.update({f"dec_{k}": v for k, v in dmetrics.items()})
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+def text_pretrain_loss(out, targets, pad_id: int, *, label_smoothing: float = 0.1,
+                       bart_weight: float = 1.0, prob_ppl_weight: float = 0.1):
+    """``out``: ``forward_pretrain_text``'s dict; targets [B, T] the clean
+    tokens -> (loss, metrics: bart_loss, nll_loss[, prob_perplexity])."""
+    ce, nll = label_smoothed_ce(out["logits"], targets, targets != pad_id,
+                                label_smoothing)
+    loss = bart_weight * ce
+    metrics = {"bart_loss": ce, "nll_loss": nll}
+    q = out.get("quantizer")
+    if q is not None:
+        loss = loss + prob_ppl_weight * _diversity(q)
+        metrics["prob_perplexity"] = q["prob_perplexity"]
     metrics["loss"] = loss
     return loss, metrics

@@ -1,15 +1,23 @@
-"""The train steps of the four SpeechT5 fine-tune tasks (port of
-``speecht5_tpu/train/trainer.py`` :31-434): s2t (ASR), t2s (TTS), s2s
-(VC / SE) and s2c (SID).
+"""The train steps of the four SpeechT5 fine-tune tasks and of
+pretraining (port of ``speecht5_tpu/train/trainer.py`` :31-434): s2t
+(ASR), t2s (TTS), s2s (VC / SE), s2c (SID), pretrain_speech and
+pretrain_text.
 
 One update = ``accum_steps`` micro-batches (fairseq --update-freq), each a
 forward and backward of the task's loss: s2t ``forward_s2t`` +
 ``s2t_loss``; t2s ``device_mel_batch`` (the mel targets from the waveform,
 through the log-mel kernel on the card) + ``forward_t2s`` + ``tts_loss``;
 s2s ``device_mel_batch`` (the target's mels and, for SE, the source's) +
-``forward_s2s`` + ``tts_loss``; s2c ``forward_s2c`` + ``sid_loss``.  The
-gradients are averaged, then (as the JAX optax chain) clipped by their
-global norm and applied by AdamW:
+``forward_s2s`` + ``tts_loss``; s2c ``forward_s2c`` + ``sid_loss``;
+pretrain_speech ``device_mel_batch`` + ``forward_pretrain_speech`` +
+``speech_pretrain_loss`` (the km labels as the one label set);
+pretrain_text ``forward_pretrain_text`` + ``text_pretrain_loss``.  Joint
+pretraining gives one ``Trainer`` both pretraining tasks: one optimizer
+and one update count over modality-pure batches, each update naming its
+task (JAX runs one step program per task on one state); the update count
+drives the quantizer's temperature.  The gradients are averaged, then
+(as the JAX optax chain) clipped by their global norm and applied by
+AdamW:
 
 - clipping as ``optax.clip_by_global_norm``: g unchanged when norm < c,
   else g * c / norm (no epsilon);
@@ -28,9 +36,9 @@ global norm and applied by AdamW:
   ``batch_stats`` through the micro-batches.
 
 The host-side random draws (HuBERT masks, layerdrop, the train kernel's
-dropout seeds, the SID frame shuffle) come from one CPU
-``torch.Generator``; dropout of activations draws from the device's
-generator.
+dropout seeds, the SID frame shuffle, the Gumbel noise and the codebook
+permutation) come from one CPU ``torch.Generator``; dropout of activations
+draws from the device's generator.
 """
 
 from __future__ import annotations
@@ -43,7 +51,7 @@ from ..ops.cuda_kernels import fused_log_mel
 from . import criterions
 from .schedules import inverse_sqrt, polynomial_decay, tri_stage
 
-TASKS = ("s2t", "t2s", "s2s", "s2c")
+TASKS = ("s2t", "t2s", "s2s", "s2c", "pretrain_speech", "pretrain_text")
 
 
 def device_mel_batch(batch, n_mels: int, r: int):
@@ -99,6 +107,7 @@ class TrainConfig:
     ctc_weight: float = 0.0
     zero_infinity: bool = False
     label_smoothing: float = 0.1
+    dec_weight: float = 1.0          # pretrain_speech: the decoder's loss
     use_guided_attn: bool = False
     freeze_encoder_updates: int = 0
     freeze_decoder_updates: int = 0
@@ -145,15 +154,18 @@ def freeze_horizon(name: str, cfg: TrainConfig) -> int:
 
 
 class Trainer:
-    """s2t / t2s / s2s / s2c trainer: the model, its AdamW and the update
-    count."""
+    """The model, its AdamW and the update count, for one task or, given a
+    list (joint pretraining), for each of them: ``train_step`` then names
+    the task of its batches."""
 
-    def __init__(self, model, task: str, cfg: TrainConfig, *, generator=None):
-        if task not in TASKS:
-            raise ValueError(f"task {task!r} is not ported; only {TASKS} are")
+    def __init__(self, model, task, cfg: TrainConfig, *, generator=None):
+        self.tasks = [task] if isinstance(task, str) else list(task)
+        for t in self.tasks:
+            if t not in TASKS:
+                raise ValueError(f"task {t!r} is not ported; only {TASKS} are")
         self.model = model
         self.cfg = cfg
-        self.task = task
+        self.task = self.tasks[0]
         self.named = list(model.named_parameters())
         self.horizons = [freeze_horizon(n, cfg) for n, _ in self.named]
         self.optimizer = torch.optim.AdamW(
@@ -173,11 +185,22 @@ class Trainer:
         prev_mel (host mels).  s2s: wav and wav_lengths as s2t, the t2s
         targets and spkembs, and for SE src_wav / src_frames (device mels)
         or src_mel (host mels).  s2c: wav, wav_lengths and targets [B]
-        class ids."""
+        class ids.  pretrain_speech: the s2t waveform, ``km_labels`` [B,
+        frames] and the t2s mel targets; pretrain_text: tokens, targets and
+        prev_tokens [B, L]."""
         if self.task in ("t2s", "s2s"):
             return self._tts_loss(batch)
         if self.task == "s2c":
             return self._sid_loss(batch)
+        if self.task == "pretrain_speech":
+            return self._speech_pretrain_loss(batch)
+        if self.task == "pretrain_text":
+            mcfg = self.model.cfg
+            out = self.model.forward_pretrain_text(
+                batch["tokens"], batch["prev_tokens"], num_updates=self.step,
+                generator=self.generator)
+            return criterions.text_pretrain_loss(out, batch["targets"], mcfg.pad_id,
+                                                 label_smoothing=self.cfg.label_smoothing)
         mcfg = self.model.cfg
         cfg = self.cfg
         logits, ctc_logits, enc_valid = self.model.forward_s2t(
@@ -220,6 +243,20 @@ class Trainer:
         return criterions.sid_loss(logits, batch["targets"],
                                    label_smoothing=self.cfg.label_smoothing)
 
+    def _speech_pretrain_loss(self, batch):
+        """The speech pretraining loss (JAX trainer.py:204-225); the encoder
+        lengths counted in conv frames."""
+        mcfg = self.model.cfg
+        batch = device_mel_batch(batch, mcfg.n_mels, mcfg.reduction_factor)
+        out = self.model.forward_pretrain_speech(
+            batch["wav"], batch["wav_lengths"], batch["prev_mel"],
+            batch["dec_lengths_r"], batch.get("spkembs"), num_updates=self.step,
+            generator=self.generator)
+        return criterions.speech_pretrain_loss(
+            out, [batch["km_labels"]], batch["target_mel"], batch["dec_lengths"],
+            out["valid_mask"].sum(-1), reduction_factor=mcfg.reduction_factor,
+            dec_weight=self.cfg.dec_weight, use_guided_attn=self.cfg.use_guided_attn)
+
     @torch.no_grad()
     def eval_step(self, batch):
         """Validation forward (no masking, dropout, layerdrop or frame
@@ -243,10 +280,15 @@ class Trainer:
         metrics["_enc_lengths"] = enc_valid.sum(-1)
         return metrics
 
-    def train_step(self, micro_batches):
-        """One update over ``accum_steps`` micro-batches -> metrics (0-dim
-        tensors on the model's device, averaged over the micro-batches, and
+    def train_step(self, micro_batches, task=None):
+        """One update over ``accum_steps`` micro-batches of ``task`` (one of
+        the trainer's; the first when None) -> metrics (0-dim tensors on the
+        model's device, averaged over the micro-batches, and
         ``grad_norm``)."""
+        if task is not None:
+            if task not in self.tasks:
+                raise ValueError(f"task {task!r} is not one of {self.tasks}")
+            self.task = task
         if len(micro_batches) != self.cfg.accum_steps:
             raise ValueError(f"expected {self.cfg.accum_steps} micro-batches, "
                              f"got {len(micro_batches)}")

@@ -13,6 +13,8 @@ returns a ``state_dict`` for the port's ``SpeechT5Model``.  Layouts:
 - ``alpha`` (positional scales) [1]     -> ``alpha``
 - ``layers_<i>``                        -> ``layers.<i>``
 - the speaker head's ``projection_weight`` [C, E] -> ``output_projection.weight``
+- the HuBERT head's ``label_embs_concat`` and the quantizer's ``vars`` as
+  they are
 
 ``lm_from_jax_params`` carries the fusion LM (JAX ``models/lm.py``) the
 same way.
@@ -41,7 +43,8 @@ import torch
 PORTED_SUBTREES = ("speech_encoder_prenet", "text_encoder_prenet", "encoder",
                    "decoder", "text_decoder_prenet", "text_decoder_postnet",
                    "speech_decoder_prenet", "speech_decoder_postnet",
-                   "spkembs_projection", "speaker_decoder_postnet")
+                   "spkembs_projection", "speaker_decoder_postnet",
+                   "speech_encoder_postnet", "quantizer")
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -58,7 +61,7 @@ def _leaf(name: str, value: np.ndarray):
         return name, value.reshape(1, 1, -1)
     if name in ("scale", "embedding"):
         return "weight", value
-    if name in ("bias", "mask_emb", "alpha"):
+    if name in ("bias", "mask_emb", "alpha", "label_embs_concat", "vars"):
         return name, value
     if name == "projection_weight":
         return "output_projection.weight", value
@@ -158,15 +161,17 @@ _FAIRSEQ_RULES = [(re.compile(a), b) for a, b in (
      r"speaker_decoder_postnet.\1.weight"),
     (r"speaker_decoder_postnet\.(bn_pooling|bn_embedding)\.(weight|bias|running_mean"
      r"|running_var)$", r"speaker_decoder_postnet.\1.\2"),
+    (r"hubert_layer\.label_embs_concat$", r"speech_encoder_postnet.label_embs_concat"),
+    (r"hubert_layer\.final_proj\.(weight|bias)$", r"speech_encoder_postnet.final_proj.\1"),
+    (r"quantizer\.vars$", r"quantizer.vars"),
+    (r"quantizer\.weight_proj\.(weight|bias)$", r"quantizer.weight_proj.\1"),
 )]
 _FAIRSEQ_SKIP = re.compile(r"(\._float_tensor|\.version|num_updates|num_batches_tracked)$")
 
 
 def map_fairseq_key(key: str):
     """A fairseq SpeechT5 key -> the port's key; "" for a buffer to skip
-    (as JAX skips it); None for a key the port does not take: unknown to
-    the reference, or of a module the port lacks (the HuBERT head and the
-    quantizer: JAX maps them, the port has no such module yet)."""
+    (as JAX skips it); None for a key unknown to the reference."""
     if _FAIRSEQ_SKIP.search(key):
         return ""
     for pat, repl in _FAIRSEQ_RULES:
@@ -253,9 +258,9 @@ def load_fairseq_checkpoint(path):
     """Read a fairseq SpeechT5 ``.pt`` (JAX utils/convert.py:335) without
     fairseq or omegaconf installed.  -> (state_dict of f32 tensors under the
     port's keys, the checkpoint's ``cfg`` or ``args`` as plain Python or
-    None, unknown keys: the ones the reference does not map and those of
-    modules the port lacks).  Raises, naming the key, on a model entry that
-    is not a tensor, and when no key maps."""
+    None, unknown keys: the ones the reference does not map).  Raises,
+    naming the key, on a model entry that is not a tensor, and when no key
+    maps."""
     ckpt = torch.load(path, map_location="cpu", weights_only=False,
                       pickle_module=_tolerant_pickle_module())
     if not isinstance(ckpt, dict):

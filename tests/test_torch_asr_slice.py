@@ -50,9 +50,10 @@ def _wav(B, T, seed=0):
 
 def _init_jax(cfg, T=4000):
     """Parameters (and BatchNorm statistics) of every sub-net the port has:
-    the s2t and t2s forwards'."""
+    the s2t and t2s forwards' and the HuBERT head's."""
     def both(m, wav, lens, prev, tokens, prev_mel, tgt_lengths, spk):
         m.forward_t2s(tokens, prev_mel, tgt_lengths, spk, deterministic=True)
+        m.hubert_logits(m.encode_speech(wav, lens))
         return m.forward_s2t(wav, lens, prev, mask=False, deterministic=True)
 
     wav = jnp.zeros((1, T), jnp.float32)
@@ -90,7 +91,7 @@ def tiny():
 
 
 @pytest.mark.parametrize("preset", ["speecht5_base", "speecht5_base_asr",
-                                    "speecht5_tiny"])
+                                    "speecht5_tiny", "speecht5_large"])
 def test_config_presets_match_jax(preset):
     a = dataclasses.asdict(getattr(PC, preset)())
     b = dataclasses.asdict(getattr(JC, preset)())
@@ -119,8 +120,8 @@ def test_speech_prenet_matches_jax(tiny, impl):
         variables, jnp.asarray(wav), jnp.asarray(lens),
         method=lambda m, w, l: m.speech_encoder_prenet(w, l))
     with torch.no_grad():
-        x, valid = model.speech_encoder_prenet(torch.from_numpy(wav),
-                                               torch.from_numpy(lens))
+        x, valid, *_ = model.speech_encoder_prenet(torch.from_numpy(wav),
+                                                   torch.from_numpy(lens))
     np.testing.assert_array_equal(valid.numpy(), np.asarray(jvalid))
     np.testing.assert_allclose(x.numpy(), np.asarray(jx), atol=ATOL)
 

@@ -5,7 +5,7 @@ converter script.
 
 A fairseq-format ``.pt`` is written on the spot from a seeded tiny port
 model (``chip_smoke.write_fairseq_checkpoint``: fairseq's key names, an
-``argparse`` ``args`` entry, keys of modules the port lacks), plus an
+``argparse`` ``args`` entry, keys of modules the model lacks), plus an
 omegaconf-style ``cfg`` object whose class lives in a stand-in module
 that exists only while the file is written and while JAX reads it.  Every
 comparison is exact (``torch.equal`` / ``np.array_equal``): both sides only
@@ -43,10 +43,10 @@ from speecht5_tpu_torch.utils.convert import (PORTED_SUBTREES, from_jax_batch_st
                                               from_jax_params, load_fairseq_checkpoint)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-LACKED = {"hubert_layer.final_proj.weight": (8, 64), "hubert_layer.label_embs_concat": (4, 8),
-          "quantizer.vars": (1, 4, 8), "quantizer.weight_proj.weight": (4, 64)}
-# a module the port has, of a task (s2c) the tiny preset leaves out: the
-# loader converts it, the model takes no such key
+# modules the port has that the tiny preset leaves out, the quantizer (of
+# pretraining) and a speaker head (of s2c): the loader converts them, the
+# model takes no such key
+LACKED = {"quantizer.vars": (1, 4, 8), "quantizer.weight_proj.weight": (4, 64)}
 SPEAKER_KEY = {"speaker_decoder_postnet.output_embedding.weight": (6, 64)}
 
 
@@ -124,14 +124,15 @@ def test_fairseq_loader_matches_jax_without_omegaconf(fairseq_pt, monkeypatch):
     assert set(state) == set(want)
     for key, value in want.items():
         assert state[key].dtype == torch.float32 and torch.equal(state[key], value), key
-    # JAX's unknown keys, and those of modules the port lacks (JAX maps them)
-    lacked = [k for k in LACKED if map_speecht5_key(k)[0][0] not in PORTED_SUBTREES]
-    assert lacked == list(LACKED)
-    assert sorted(unknown) == sorted(junknown + lacked)
+    # every module JAX maps, the port has: the unknown keys are JAX's
+    assert all(map_speecht5_key(k)[0][0] in PORTED_SUBTREES for k in LACKED)
+    assert sorted(unknown) == sorted(junknown)
     assert "mystery_head.weight" in junknown
-    # every tensor of the model came back under its own name, and the
-    # speaker head's key under its own
-    assert set(state) == set(sd) | set(SPEAKER_KEY)
+    # every tensor of the model came back under its own name (the HuBERT
+    # head's too), and the quantizer's and the speaker head's keys under
+    # their own
+    assert any(k.startswith("speech_encoder_postnet.") for k in sd)
+    assert set(state) == set(sd) | set(SPEAKER_KEY) | set(LACKED)
     assert all(torch.equal(state[k], sd[k]) for k in sd)
     assert cfg["model"]["encoder_layers"] == 2 and cfg["task"]["_name"] == "speecht5"
 
@@ -249,11 +250,13 @@ def test_jax_checkpoint_converter_script(tmp_path):
                          capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stderr[-3000:]
     line = json.loads(res.stdout.strip().splitlines()[-1])
-    assert line["step"] == 4 and "speech_encoder_postnet" in line["left_out"]
+    # the HuBERT head crosses too: no sub-net of the JAX model is left out
+    assert line["step"] == 4 and line["left_out"] == []
     state, step = PCk.restore_model(out)
     want = {**from_jax_params(_flat(variables["params"])),
             **from_jax_batch_stats(_flat(variables["batch_stats"]))}
     assert step == 4 and set(state) == set(want)
+    assert any(k.startswith("speech_encoder_postnet.") for k in state)
     assert all(torch.equal(state[k], want[k]) for k in want)
     model = init_model(PC.speecht5_tiny(**chip_smoke.DICT_CFG), device="cpu")
     model.load_state_dict(state)        # every key of the port's model

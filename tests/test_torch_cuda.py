@@ -755,3 +755,83 @@ def test_flash_bias_max_prob_matches_twin(card, dtype, case):
     _close(maxp, ref_maxp, dtype)
     _close(got, ref, dtype)
     assert torch.equal(got, K.flash_attention_bias_cached(q4, k4, v4, valid, rows))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("train", [False, True])
+def test_pre_ln_encoder_kernel_route_matches_plain_route(card, dtype, train):
+    """A Large-shaped pre-LN encoder stack (3 layers, 16 heads of Dh 64,
+    each layer's norm_k on the table) at T 133 with ragged lengths: the
+    kernel route (each layer's row-padded band into the inference or the
+    train kernel) against the plain route (``relative_bias``), the output
+    and, training, the table's and norm_k's gradients of a fixed random
+    projection of the output (f32 1e-4 of max |ref|; bf16 3e-2).  The sum
+    of squares would be a constant after the final LayerNorm.  The norm_k
+    biases, whose gradient is analytically 0 (each adds one constant to a
+    row of logits), stay within the same share of the largest gradient on
+    both routes."""
+    from dataclasses import replace
+
+    from speecht5_tpu_torch.config import RelPosConfig, TransformerConfig
+    from speecht5_tpu_torch.models.encoder import TransformerEncoder
+
+    cfg = TransformerConfig(d_model=1024, ffn_dim=4096, num_layers=3, num_heads=16,
+                            dropout=0.0, attention_dropout=0.0, layer_norm_first=True,
+                            rel_pos=RelPosConfig(max_distance=160))
+    torch.manual_seed(0)
+    plain = TransformerEncoder(cfg, dtype=dtype).to(card).train(train)
+    kern = TransformerEncoder(replace(cfg, use_pallas_attn=True, use_pallas_attn_train=True),
+                              dtype=dtype).to(card).train(train)
+    kern.load_state_dict(plain.state_dict())
+    T = 133
+    x = torch.randn(2, T, 1024, device=card)
+    proj = torch.randn(2, T, 1024, device=card)
+    valid = torch.arange(T, device=card)[None, :] < torch.tensor([[T], [71]], device=card)
+    outs = []
+    K.reset_launch_counts()
+    for enc in (kern, plain):
+        with torch.set_grad_enabled(train):
+            y = enc(x, valid)["encoder_out"]
+            if train:
+                (y.float() * proj).sum().backward()
+        outs.append((y.detach(), {n: p.grad for n, p in enc.named_parameters()
+                                  if "norm_k" in n or "pe_k" in n} if train else {}))
+    counts = K.launch_counts()
+    if train:
+        per = K.train_launches_per_layer(dtype)
+        assert all(counts[n] == 3 * per[n] for n in per), counts
+    else:
+        assert counts["banded_flash_attention"] == 3 * K.fwd_launches(dtype), counts
+    (yk, gk), (yp, gp) = outs
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    assert (yk.float() - yp.float()).abs().max() <= tol * yp.float().abs().max()
+    gmax = max((g.float().abs().max() for g in gp.values()), default=0.0)
+    for n, g in gp.items():
+        if n.endswith("norm_k.bias"):
+            assert max(gk[n].abs().max(), g.abs().max()) <= tol * gmax, n
+        else:
+            assert (gk[n] - g).abs().max() <= tol * g.abs().max(), n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_stack_backward_recomputes_through_the_library_conv(card, dtype):
+    """The conv stack's backward on the card: autograd through
+    ``conv_stack_library`` (cuDNN), not the twin: its dx and dw equal that
+    function's own autograd within 1e-5 of max |ref| (f32; bf16 1e-2: the
+    same recompute, cuDNN's gradient algorithms may differ run to run), and
+    the twin's within f32 1e-4 of max |ref| or bf16 3e-2."""
+    g = torch.Generator().manual_seed(0)
+    specs = ((3, 2), (3, 2), (2, 2))
+    x = torch.randn(2, 801, 512, generator=g).to(card, dtype)
+    ws = [(torch.randn(k, 512, 512, generator=g) * 512 ** -0.5).to(card, dtype)
+          for k, _ in specs]
+    grads = []
+    for fn in (K.conv_stack, K.conv_stack_library, K.conv_stack_plain):
+        leaves = [t.detach().clone().requires_grad_() for t in (x, *ws)]
+        y = fn(leaves[0], leaves[1:], specs)
+        go = torch.randn(y.shape, generator=torch.Generator().manual_seed(1)).to(y)
+        grads.append(torch.autograd.grad(y, leaves, go))
+    f32 = dtype == torch.float32
+    for a, b, c in zip(*grads):
+        assert (a.float() - b.float()).abs().max() <= (1e-5 if f32 else 1e-2) * b.float().abs().max()
+        assert (a.float() - c.float()).abs().max() <= (1e-4 if f32 else 3e-2) * c.float().abs().max()

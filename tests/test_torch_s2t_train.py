@@ -78,9 +78,10 @@ def _flat(params):
 
 
 def _init_both(m, wav, lens, prev, prev_mel, tgt_lengths, spk):
-    """Create the parameters of the t2s and s2t forwards (every sub-net the
-    port has)."""
+    """Create the parameters of the t2s and s2t forwards and the HuBERT head
+    (every sub-net the port has)."""
     m.forward_t2s(prev, prev_mel, tgt_lengths, spk, deterministic=True)
+    m.hubert_logits(m.encode_speech(wav, lens))
     return m.forward_s2t(wav, lens, prev, mask=False, deterministic=True)
 
 
@@ -400,6 +401,9 @@ def test_cli_train_runs_resumes_and_validates_on_cpu(tmp_path, capsys):
     assert sorted(os.listdir(f"{d}/ckpt")) == [
         "best", "checkpoint_2.pt", "checkpoint_3.pt"]
     assert sorted(os.listdir(f"{d}/ckpt/best")) == ["best.json", "checkpoint_3.pt"]
-    with pytest.raises(SystemExit, match="not ported"):
-        cli_train.main(["--task", "pretrain_speech", "--manifest", "m", "--save-dir", d,
+    # pretraining trains (tests/test_torch_pretrain.py); the joint task
+    # refuses validation, as JAX's CLI does
+    with pytest.raises(SystemExit, match="valid-manifest"):
+        cli_train.main(["--task", "pretrain", "--manifest", "m", "--labels", "k",
+                        "--text-file", "t", "--valid-manifest", "v", "--save-dir", d,
                         "--device", "cpu"])

@@ -310,7 +310,7 @@ def test_shuffle_compaction_matches_jax_and_eval_never_shuffles(full):
         # a training pass permutes with the generator's randperm, then compacts
         g = torch.Generator().manual_seed(3)
         enc = on.train().encode_speech(*args, generator=g, shuffle=True)
-        x0, v0 = on.speech_encoder_prenet(*args)
+        x0, v0, *_ = on.speech_encoder_prenet(*args)
         xs, vs = shuffle_frames(x0, v0, torch.randperm(x0.shape[1],
                                                        generator=torch.Generator().manual_seed(3)))
         want = on.encoder(xs, vs)

@@ -80,6 +80,7 @@ def _state_dict(params, batch_stats):
 
 def _init_both(m, wav, lens, prev, tokens, prev_mel, tgt_lengths, spk):
     m.forward_t2s(tokens, prev_mel, tgt_lengths, spk, deterministic=True)
+    m.hubert_logits(m.encode_speech(wav, lens))      # the HuBERT head the port has
     return m.forward_s2t(wav, lens, prev, mask=False, deterministic=True)
 
 

@@ -282,8 +282,9 @@ def test_inference_kernel_refuses_to_drop_a_gradient():
 
 def test_conv_stack_gradient_is_the_twin_vjp():
     """The conv stack's autograd function (forward: the kernel, here its
-    twin) differentiates through the plain twin, as conv_stack_fused
-    differentiates through _conv_stack_ref."""
+    twin) differentiates through the library conv (``conv_stack_library``),
+    as conv_stack_fused differentiates through _conv_stack_ref (XLA's
+    conv): its dx and dw are those of autograd through that function."""
     rng = np.random.default_rng(0)
     specs = ((3, 2), (2, 2))
     x = torch.from_numpy(rng.standard_normal((2, 41, 8)).astype(np.float32))
@@ -293,6 +294,28 @@ def test_conv_stack_gradient_is_the_twin_vjp():
     leaves = [t.clone().requires_grad_() for t in (x, *ws)]
     K.conv_stack(leaves[0], leaves[1:], specs).backward(g)
     refs = [t.clone().requires_grad_() for t in (x, *ws)]
-    K.conv_stack_plain(refs[0], refs[1:], specs).backward(g)
+    K.conv_stack_library(refs[0], refs[1:], specs).backward(g)
     for a, b in zip(leaves, refs):
         torch.testing.assert_close(a.grad, b.grad, rtol=0, atol=1e-6)
+
+
+def test_conv_stack_gradient_equals_autograd_through_the_twin():
+    """The library recompute's dx and dw (the backward since the twin's vjp
+    left the card's path) equal autograd through ``conv_stack_plain``, the
+    twin, within 1e-5 of each gradient's max |g| in f32 (the two sum their
+    products in other orders), at the Base extractor's layer shapes (k 3,
+    3, 2, stride 2, 512 channels) cut in time."""
+    rng = np.random.default_rng(1)
+    specs = ((3, 2), (3, 2), (2, 2))
+    x = torch.from_numpy(rng.standard_normal((2, 63, 512)).astype(np.float32))
+    ws = [torch.from_numpy((rng.standard_normal((k, 512, 512)) * 512 ** -0.5)
+                           .astype(np.float32)) for k, _ in specs]
+    leaves = [t.clone().requires_grad_() for t in (x, *ws)]
+    y = K.conv_stack(leaves[0], leaves[1:], specs)
+    g = torch.from_numpy(rng.standard_normal(tuple(y.shape)).astype(np.float32))
+    y.backward(g)
+    refs = [t.clone().requires_grad_() for t in (x, *ws)]
+    K.conv_stack_plain(refs[0], refs[1:], specs).backward(g)
+    for a, b in zip(leaves, refs):
+        torch.testing.assert_close(a.grad, b.grad, rtol=0,
+                                   atol=1e-5 * float(b.grad.abs().max()))

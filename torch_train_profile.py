@@ -12,8 +12,8 @@ s2s that of its s2s phase (SpeechT5-Base, bf16, guided attention, batch 8
 of 2-6 s source / target pairs with x-vectors); s2c that of its s2c phase
 (speecht5_base_sid, 8 classes, bf16, accum 2 x batch 8 of 4-10 s
 utterances cropped to 8 s).  Each is built once with the kernels on (s2t,
-s2s, s2c: train attention and conv stack, the conv's backward the twin's
-vjp; t2s and s2s: the log-mel kernel making the targets from the waveform
+s2s, s2c: train attention and conv stack, the conv's backward the library
+conv's vjp; t2s and s2s: the log-mel kernel making the targets from the waveform
 inside the update) and once with the flags off (the plain PyTorch path;
 for t2s and s2s the log-mel twin makes the targets on the card inside the
 update, in the kernel's place, with TF32 off),
