@@ -64,7 +64,13 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                micro-batch (N 64 = 4 x 16, T 781: the 250000-sample crop,
                bf16, dropout 0) and the beam's decode steps at 16 heads
                ("large_cross_cached": N 16, Tq 5, Tk 799;
-               "large_self_cache": N 80, Tk 201; f32 and bf16).
+               "large_self_cache": N 80, Tk 201; f32 and bf16).  The
+               parity sweep's batch (phase 28: 4 clips of 4000 samples,
+               beam 2, max_len 8), bf16: the inference attention at N 48,
+               T 12 ("sweep_b4"), the conv stack at batch 4
+               ("b4_T799"), and its beam's decode steps in f32 and bf16
+               ("sweep_cross_cached": q [4, 2, 12, 64], Tk 12;
+               "sweep_self_cache": the cache [8, 9, 12, 64]).
 3. serve    -- the serving path: the port's ASR Service (ctc_greedy, bf16,
                both inference kernels on) at full speecht5_base_asr width
                with random weights, answering 3 s, 11 s and 21 s requests in
@@ -93,8 +99,16 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                the train-attention kernel and the conv kernel on) on
                speecht5_base_asr at full width with random weights, over a
                synthetic corpus of 32 seeded 8-16 s utterances written to a
-               temporary directory: 3 updates, then a resume that takes one
-               more.  Every loss and grad norm must be finite; each train
+               temporary directory as a recipe's raw data and made ready by
+               ``cli/prep.py``: 16 as 16 kHz FLAC, 16 as 48 kHz FLAC that
+               ``prep resample --sr 16000`` turns into 16 kHz WAV (FLAC
+               written by ``write_flac``: VERBATIM subframes, a CONSTANT
+               one for each leading block of silence, the samples' MD5),
+               ``prep manifest --ext .wav .flac`` and ``prep wrd2ltr``
+               (every row's length checked against its decoded audio): 3
+               updates, then a resume that takes one more; each update's
+               ``utils/flops.s2t_train_flops`` and MFU against 989e12.
+               Every loss and grad norm must be finite; each train
                wrapper must launch its kernels once per encoder layer run
                (layerdrop skips some; bf16: the forward two launches, bias
                pass and main loop, dq/dband three, bias pass, main loop and
@@ -209,7 +223,8 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                ``--lm-ckpt`` (a seeded lm_tiny, model-only), CTC greedy with
                ``--avg-last 2``, ``ctc_lexicon`` and ``ctc_rescore``, each
                printing its JSON line (a finite WER over 8 utterances); the
-               three inference kernels must launch.
+               three inference kernels must launch; the beam's
+               ``asr_decode_flops`` (per model of its ensemble) and MFU.
 20. serve rescore -- Service(--decoder ctc_rescore) at speecht5_base_asr,
                bf16, batch 1, buckets 4/8/16 s, both inference kernels on,
                the 3 s, 11 s and 21 s requests served open-vocabulary, then
@@ -244,9 +259,11 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                512 tokens a block, bf16, --normalize, mels on the card, the
                train-attention kernel on) over 16 seeded 8-15.6 s
                utterances with 500-class km labels and a seeded text
-               corpus, the run seed the first whose first 3 updates hold
-               both tasks: 3 updates and a resume, every metric finite; the
-               log-mel kernel once per speech update, the train kernels
+               corpus (read from its fairseq-binarized ``.bin/.idx``,
+               written by the port's ``MMapIndexedDatasetWriter``, whose
+               blocks must equal the raw text's), the run seed the first
+               whose first 3 updates hold both tasks: 3 updates and a
+               resume, every metric finite; the log-mel kernel once per speech update, the train kernels
                once per encoder layer run (24 an update), the conv,
                inference and decode-step kernels never.  Then one bf16
                pretrain_speech and one s2t update (batch 4, 8-15.6 s) on
@@ -266,12 +283,19 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                beam request.
 27. large parity -- f32, kernel route against plain route, buckets 4/16:
                greedy CTC ids (as 4) and the beam (as 6).
+28. parity sweep -- right after 19: the checkpoint-day sweep's dry run,
+               ``cli/parity.py --dry-run --dry-run-arch speecht5_base_asr
+               --arms --device cuda`` (bf16, every kernel on): a random-init
+               Base model saved model-only, 4 clips of 4000 samples, the
+               beam (beam 2, max_len 8, CTC weight 0.3), CTC greedy and the
+               rescore arm; every WER finite, and the inference attention,
+               conv and decode-step kernels must launch.
 
 The launch counts are zeroed just before each driven path (serve, serve
 beam, train, train t2s, the warm-started train and request, serve tts,
 train s2s, the VC requests, train s2c, the SID inference, evaluate, the
-two rescore runs, the LM-fused beam, Large's pretraining, greedy and beam
-requests) and read just after; a kernel of that
+parity sweep, the two rescore runs, the LM-fused beam, Large's
+pretraining, greedy and beam requests) and read just after; a kernel of that
 path that was never launched fails.
 Output: an early line with the card's name and power limit as nvidia-smi
 gives them, one ``{"kernels": [...]}`` line, and as the last line
@@ -285,6 +309,7 @@ starts (phase 11) is waited for, or killed on a failure.
 from __future__ import annotations
 
 import faulthandler
+import hashlib
 import json
 import math
 import os
@@ -376,6 +401,11 @@ EVAL_BATCH, EVAL_MAX_S, EVAL_MAX_LEN = 8, 5.0, 60
 EVAL_FRAMES = C.ConvFeatureConfig().out_length(int(EVAL_MAX_S * 16000))
 EVAL_CONV_T = (int(EVAL_MAX_S * 16000) - 10) // 5 + 1    # after conv 0 (k 10, s 5)
 EVAL_LM_HEADS, EVAL_LM_DH = 4, 16
+# the parity sweep's dry run (cli/parity.py --dry-run): 4 clips of 4000
+# samples (the 0.25 s audio bucket) in one batch, beam 2, max_len 8
+SWEEP_BATCH, SWEEP_SAMPLES, SWEEP_BEAM, SWEEP_MAX_LEN = 4, 4000, 2, 8
+SWEEP_FRAMES = C.ConvFeatureConfig().out_length(SWEEP_SAMPLES)
+SWEEP_CONV_T = (SWEEP_SAMPLES - 10) // 5 + 1
 TRAIN_OVERRIDES = ["encoder.use_pallas_attn_train=True", "conv_features.impl='pallas'"]
 # recipes/asr_finetune.sh (the flags of the s2t path; its lr/warmup/updates
 # and --finetune-from are the run's, not the step's)
@@ -511,10 +541,11 @@ def make_service(cfg, model, dict_path, device, buckets, decoder="ctc_greedy",
     return Service(args, model=model, cfg=cfg, device=device)
 
 
-def synth_audio(seconds: float, seed: int) -> np.ndarray:
-    """Deterministic speech-like test signal: a few gliding tones + noise."""
+def synth_audio(seconds: float, seed: int, sr: int = SR) -> np.ndarray:
+    """Deterministic speech-like test signal at ``sr`` Hz: a few gliding
+    tones + noise."""
     rng = np.random.default_rng(seed)
-    t = np.arange(int(seconds * SR)) / SR
+    t = np.arange(int(seconds * sr)) / sr
     wav = 0.02 * rng.standard_normal(t.shape)
     for _ in range(4):
         f0, f1 = rng.uniform(100, 3000, size=2)
@@ -1018,8 +1049,11 @@ def flash_bias_cache_case(case, dtype, device="cuda", seed=4):
     12, 64], the cache [40, 61, 12, 64], each row's ancestors within its
     sample's 5 rows), "eval_lm_self_cache" (the tiny LM's 4 heads of Dh 16)
     and "eval_cross_cached" (q [8, 5, 12, 64] against 5 s of encoder
-    frames, each sample's own 2-5 s of them valid).  -> q4, k4, v4,
-    key_valid, rows."""
+    frames, each sample's own 2-5 s of them valid).  The parity sweep's
+    beam at batch 4 x beam 2 over 4000-sample clips: "sweep_self_cache"
+    (the cache [8, 9, 12, 64] at step 4 of max_len 8) and
+    "sweep_cross_cached" (q [4, 2, 12, 64] against the clips' 12 encoder
+    frames, all valid).  -> q4, k4, v4, key_valid, rows."""
     g = torch.Generator().manual_seed(seed)
     H, D = {"lm_self_cache": (LM_HEADS, LM_DH),
             "eval_lm_self_cache": (EVAL_LM_HEADS, EVAL_LM_DH)}.get(case, (12, 64))
@@ -1036,24 +1070,31 @@ def flash_bias_cache_case(case, dtype, device="cuda", seed=4):
                       for _ in range(2))
         rows = None
         key_valid = torch.arange(Tk)[None, :] < valid
-    elif case in ("self_cache", "lm_self_cache", "eval_self_cache", "eval_lm_self_cache"):
-        B, Tc, pos = ((EVAL_BATCH * BEAM, EVAL_MAX_LEN + 1, 30) if case.startswith("eval")
-                      else (BEAM, BEAM_MAX_LEN + 1, 100))
+    elif case in ("self_cache", "lm_self_cache", "eval_self_cache", "eval_lm_self_cache",
+                  "sweep_self_cache"):
+        Bs, beam, Tc, pos = {"eval": (EVAL_BATCH, BEAM, EVAL_MAX_LEN + 1, 30),
+                             "sweep": (SWEEP_BATCH, SWEEP_BEAM, SWEEP_MAX_LEN + 1, 4)}.get(
+            case.split("_")[0], (1, BEAM, BEAM_MAX_LEN + 1, 100))
+        B = Bs * beam
         q4 = (torch.randn(B, 1, H, D, generator=g) * D ** -0.5).to(dtype)
         k4, v4 = (torch.randn(B, Tc, H, D, generator=g).to(dtype) for _ in range(2))
-        rows = (torch.arange(B) // BEAM * BEAM)[:, None] + torch.randint(
-            0, BEAM, (B, Tc), generator=g)
+        rows = (torch.arange(B) // beam * beam)[:, None] + torch.randint(
+            0, beam, (B, Tc), generator=g)
         rows[:, pos + 1:] = torch.arange(B)[:, None]     # the rows' own next writes
         key_valid = torch.arange(Tc)[None, :] <= pos
     else:
-        Bs, Tk = (EVAL_BATCH, EVAL_FRAMES) if case == "eval_cross_cached" else (1, 799)
-        q4 = (torch.randn(Bs, BEAM, H, 64, generator=g) * 64 ** -0.5).to(dtype)
+        Bs, beam, Tk = {"eval_cross_cached": (EVAL_BATCH, BEAM, EVAL_FRAMES),
+                        "sweep_cross_cached": (SWEEP_BATCH, SWEEP_BEAM, SWEEP_FRAMES)
+                        }.get(case, (1, BEAM, 799))
+        q4 = (torch.randn(Bs, beam, H, 64, generator=g) * 64 ** -0.5).to(dtype)
         k4, v4 = (torch.randn(Bs, H, Tk, 64, generator=g).to(dtype).transpose(1, 2)
                   for _ in range(2))
         rows = None
         if case == "eval_cross_cached":
             valid = torch.randint(2 * Tk // 5, Tk + 1, (Bs,), generator=g)
             valid[0] = Tk                                  # the batch's longest clip
+        elif case == "sweep_cross_cached":
+            valid = torch.full((Bs,), Tk)                  # clips of one length
         else:
             valid = torch.tensor([549])
         key_valid = torch.arange(Tk)[None, :] < valid[:, None]
@@ -1067,14 +1108,16 @@ def _flash_bias_record(case, dtype):
     SDPA (an f32 0/-1e9 mask, scale 1) on the same K/V as the yardstick,
     timed both ways.  "cross", "self" and "lm_self" call the contract entry
     on [N, T, D] rows, "cross_cached", "self_cache", "lm_self_cache",
-    the three "eval_" cases, "tts_self", "tts_cross" and "vc_cross" the
+    the "eval_", "large_" and "sweep_" cases, "tts_self", "tts_cross" and
+    "vc_cross" the
     cached entry on the decoder's layouts; the last two with
     the max-probability output, held against the twin's (f32 1e-4, bf16
     3e-2 of max |ref|) and timed with and without it."""
     maxp_call = None
     if case in ("self_cache", "cross_cached", "tts_self", "tts_cross", "vc_cross",
                 "lm_self_cache", "eval_self_cache", "eval_lm_self_cache",
-                "eval_cross_cached", "large_cross_cached", "large_self_cache"):
+                "eval_cross_cached", "large_cross_cached", "large_self_cache",
+                "sweep_cross_cached", "sweep_self_cache"):
         q4, k4, v4, key_valid, rows = flash_bias_cache_case(case, dtype)
         B, Tq, H, D = q4.shape
         N, Tk = B * H, k4.shape[1]
@@ -1177,7 +1220,11 @@ def phase_kernels():
     5 s bound: the inference attention with ragged lengths
     ("bfloat16/eval_b8", T 249), the conv stack ("bfloat16/b8_T15999") and
     the decode steps of its beam and tiny LM ("<dtype>/eval_cross_cached",
-    "<dtype>/eval_self_cache", "<dtype>/eval_lm_self_cache", D 16)."""
+    "<dtype>/eval_self_cache", "<dtype>/eval_lm_self_cache", D 16).  The
+    parity sweep's batch of 4 clips of 4000 samples: the inference attention
+    ("bfloat16/sweep_b4", T 12), the conv stack ("bfloat16/b4_T799") and
+    its beam's decode steps ("<dtype>/sweep_cross_cached",
+    "<dtype>/sweep_self_cache")."""
     records = {name: {} for name in KERNELS}
     failures = []
     for batch in (1, 2):
@@ -1229,6 +1276,16 @@ def phase_kernels():
     if not ok:
         failures.append(f"banded_flash_attention eval_b8: max|diff| "
                         f"{rec['max_abs_err']} > {rec['tolerance']}")
+    ok, rec = _attention_record(SWEEP_BATCH, torch.bfloat16, T=SWEEP_FRAMES, valid=SWEEP_FRAMES)
+    records["banded_flash_attention"]["bfloat16/sweep_b4"] = rec
+    if not ok:
+        failures.append(f"banded_flash_attention sweep_b4: max|diff| "
+                        f"{rec['max_abs_err']} > {rec['tolerance']}")
+    ok, rec = _conv_record(SWEEP_BATCH, torch.bfloat16, T=SWEEP_CONV_T)
+    records["conv_stack"][f"bfloat16/b4_T{SWEEP_CONV_T}"] = rec
+    if not ok:
+        failures.append(f"conv_stack b4 T{SWEEP_CONV_T}: max|diff| {rec['max_abs_err']} "
+                        f"> {rec['tolerance']}")
     for T in (EVAL_CONV_T, 19199, 25599):
         ok, rec = _conv_record(8, torch.bfloat16, T=T)
         records["conv_stack"][f"bfloat16/b8_T{T}"] = rec
@@ -1266,7 +1323,7 @@ def phase_kernels():
     for case in ("cross", "self", "cross_cached", "self_cache", "tts_self", "tts_cross",
                  "vc_cross", "lm_self", "lm_self_cache", "eval_cross_cached",
                  "eval_self_cache", "eval_lm_self_cache", "large_cross_cached",
-                 "large_self_cache"):
+                 "large_self_cache", "sweep_cross_cached", "sweep_self_cache"):
         for dtype in (torch.float32, torch.bfloat16):
             key = f"{str(dtype).split('.')[-1]}/{case}"
             ok, rec = _flash_bias_record(case, dtype)
@@ -1557,6 +1614,186 @@ def write_corpus(directory: str, n: int, seconds=(8.0, 16.0), seed: int = 0):
     return manifest, labels, write_dictionary(directory)
 
 
+# ------------------------------------------------------------------ FLAC
+
+FLAC_BLOCK = 4096
+FLAC_SAMPLE_SIZE_CODE = {8: 1, 12: 2, 16: 4, 20: 5, 24: 6, 32: 7}
+
+
+def _crc_table(poly: int, width: int) -> np.ndarray:
+    """The byte table of a CRC of ``width`` bits, MSB first, no reflection."""
+    top, mask, table = 1 << (width - 1), (1 << width) - 1, []
+    for b in range(256):
+        c = b << (width - 8)
+        for _ in range(8):
+            c = (c << 1) ^ poly if c & top else c << 1
+        table.append(c & mask)
+    return np.asarray(table, np.int64)
+
+
+CRC8 = _crc_table(0x07, 8)          # FLAC frame header
+CRC16 = _crc_table(0x8005, 16)      # FLAC frame
+
+
+def _crc16_frames(frames) -> np.ndarray:
+    """CRC-16 of each byte string, all at once: with init 0 a leading zero
+    byte leaves a CRC unchanged, so the frames are left-padded to one
+    length and stepped together."""
+    n = max(len(f) for f in frames)
+    cols = np.zeros((n, len(frames)), np.int64)
+    for i, f in enumerate(frames):
+        cols[n - len(f):, i] = np.frombuffer(f, np.uint8)
+    crc = np.zeros(len(frames), np.int64)
+    for col in cols:
+        crc = ((crc << 8) & 0xFFFF) ^ CRC16[(crc >> 8) ^ col]
+    return crc
+
+
+def _pack(fields) -> bytes:
+    """[(values, widths)] -> the bits of each value, its width of them MSB
+    first, in order, zero-padded to a byte (a value and its width each a
+    number or an array).  Whole-byte widths take a byte path."""
+    pairs = [np.broadcast_arrays(np.atleast_1d(np.asarray(v, np.int64)),
+                                 np.asarray(w, np.int64)) for v, w in fields]
+    if all(np.ndim(w) == 0 and w % 8 == 0 for _, w in fields):
+        out = []
+        for v, w in pairs:
+            nb = int(w[0]) // 8
+            out.append(np.stack([(v >> (8 * (nb - 1 - i))) & 0xFF for i in range(nb)],
+                                1).astype(np.uint8).tobytes())
+        return b"".join(out)
+    vals = np.concatenate([v for v, _ in pairs])
+    widths = np.concatenate([w for _, w in pairs])
+    field = np.repeat(np.arange(len(widths)), widths)
+    start = np.cumsum(widths) - widths
+    shift = widths[field] - 1 - (np.arange(len(field)) - start[field])
+    bits = (vals[field] >> np.minimum(shift, 62)) & 1
+    return np.packbits(bits.astype(np.uint8)).tobytes()
+
+
+def _utf8_number(v: int) -> bytes:
+    """FLAC's UTF-8-style coding of a frame number (up to 36 bits)."""
+    if v < 0x80:
+        return bytes([v])
+    n = next(n for n in range(2, 8) if v < 1 << (5 * n + 1))
+    out = [0x80 | ((v >> (6 * i)) & 0x3F) for i in range(n - 1)][::-1]
+    return bytes([((0xFF << (8 - n)) & 0xFF) | (v >> (6 * (n - 1)))] + out)
+
+
+def _rice_fields(residual: np.ndarray):
+    """One partition of Rice-coded ``residual``: the coding method (4-bit
+    parameters, or 5-bit ones where the best parameter passes 14), the
+    partition order 0, the parameter that makes the fewest bits, then each
+    value zigzagged, as a unary quotient and the parameter's low bits."""
+    u = np.where(residual >= 0, 2 * residual, -2 * residual - 1).astype(np.int64)
+    k = int(np.argmin([(u >> k).sum() + len(u) * (k + 1) for k in range(31)]))
+    method = 0 if k < 15 else 1
+    codes = np.stack([np.ones_like(u), u & ((1 << k) - 1)], 1).ravel()
+    widths = np.stack([(u >> k) + 1, np.full_like(u, k)], 1).ravel()
+    return [(method, 2), (0, 4), (k, 4 + method), (codes, widths)]
+
+
+def _subframe_fields(x: np.ndarray, bps: int, order):
+    """CONSTANT where the block holds one value; else VERBATIM (``order``
+    None) or FIXED of ``order`` (0-4: the order-th difference, Rice coded)."""
+    if (x == x[0]).all():
+        return [(0x00, 8), (x[:1], bps)]
+    if order is None:
+        return [(0x02, 8), (x, bps)]
+    return [((8 + order) << 1, 8), (x[:order], bps)] + _rice_fields(np.diff(x, n=order))
+
+
+def write_flac(path: str, samples: np.ndarray, sr: int, bps: int = 16, order=None,
+               block: int = FLAC_BLOCK, total_samples: bool = True) -> bytes:
+    """Encode integer ``samples`` ([n] mono or [n, channels], each within
+    ``bps`` signed bits) as a FLAC file: STREAMINFO with the samples' MD5
+    (0 total samples when not ``total_samples``), then fixed-size frames of
+    independent channels with their CRC-8 and CRC-16, each subframe
+    CONSTANT, VERBATIM or FIXED (``_subframe_fields``).  Returns the MD5
+    (of the interleaved samples as little-endian whole bytes)."""
+    x = np.asarray(samples, np.int64)
+    x = x[:, None] if x.ndim == 1 else x
+    n, ch = x.shape
+    le = np.stack([(x >> (8 * b)) & 0xFF for b in range(-(-bps // 8))], -1)
+    md5 = hashlib.md5(le.astype(np.uint8).tobytes()).digest()
+    bs = min(block, n)
+    info = _pack([(bs, 16), (bs, 16), (0, 24), (0, 24), (sr, 20), (ch - 1, 3),
+                  (bps - 1, 5), (n if total_samples else 0, 36)]) + md5
+    frames = []
+    for f, s0 in enumerate(range(0, n, block)):
+        blk = x[s0:s0 + block]
+        head = (bytes([0xFF, 0xF8, (7 << 4) | 0, ((ch - 1) << 4)
+                       | (FLAC_SAMPLE_SIZE_CODE.get(bps, 0) << 1)])
+                + _utf8_number(f) + _pack([(len(blk) - 1, 16)]))
+        crc8 = 0
+        for b in head:
+            crc8 = int(CRC8[crc8 ^ b])
+        frames.append(head + bytes([crc8]) + _pack(
+            [fl for c in range(ch) for fl in _subframe_fields(blk[:, c], bps, order)]))
+    crcs = _crc16_frames(frames)
+    with open(path, "wb") as fh:
+        fh.write(b"fLaC" + bytes([0x80, 0, 0, len(info)]) + info)
+        for fr, crc in zip(frames, crcs):
+            fh.write(fr + int(crc).to_bytes(2, "big"))
+    return md5
+
+
+def write_flac_corpus(directory: str, n: int, seconds=(8.0, 16.0), seed: int = 0):
+    """``write_corpus``'s ``n`` utterances and transcripts as a recipe's raw
+    data, made ready by ``cli/prep.py``: the even ones 16 kHz FLAC under
+    ``audio/``, the odd ones 48 kHz FLAC under ``raw48k/`` that
+    ``prep resample --sr 16000`` turns into 16 kHz WAV under ``audio/``;
+    each starts with one block of silence (a CONSTANT subframe, the rest
+    VERBATIM); ``prep manifest --ext .wav .flac`` lists ``audio/``, and
+    ``prep wrd2ltr`` turns the word transcripts, in the manifest's order,
+    into letter labels.  Every row's length is checked against its decoded
+    audio.  -> (manifest, labels, dictionary, {seconds of each step})."""
+    from speecht5_tpu_torch.cli import prep
+    from speecht5_tpu_torch.data.audio import read_audio
+
+    rng = np.random.default_rng(seed)
+    letters = [chr(ord("A") + i) for i in range(26)]
+    audio, raw = os.path.join(directory, "audio"), os.path.join(directory, "raw48k")
+    os.makedirs(audio)
+    os.makedirs(raw)
+    secs_of = {}
+    t0 = time.perf_counter()
+    words = {}
+    for i in range(n):
+        secs = float(rng.uniform(*seconds))
+        sr = SR if i % 2 == 0 else 3 * SR
+        wav = synth_audio(secs, seed=seed + 1000 + i, sr=sr)
+        wav[:FLAC_BLOCK] = 0.0
+        pcm = np.clip(np.round(wav * 32767.0), -32768, 32767).astype(np.int64)
+        write_flac(os.path.join(audio if sr == SR else raw, f"utt{i}.flac"), pcm, sr)
+        words[f"utt{i}"] = " ".join("".join(rng.choice(letters, int(rng.integers(2, 8))))
+                                    for _ in range(max(1, int(secs * 2.5))))
+    secs_of["write_flac"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prep.main(["resample", "--input", raw, "--output", audio, "--sr", str(SR)])
+    secs_of["resample"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    manifest = os.path.join(directory, "train.tsv")
+    prep.main(["manifest", "--audio-root", audio, "--out", manifest, "--ext", ".wav", ".flac"])
+    with open(manifest, encoding="utf-8") as f:
+        rows = [l.split("\t") for l in f.read().splitlines()[1:]]
+    wrd, labels = os.path.join(directory, "train.wrd"), os.path.join(directory, "train.ltr")
+    with open(wrd, "w", encoding="utf-8") as f:
+        f.write("".join(words[os.path.splitext(r)[0]] + "\n" for r, _ in rows))
+    prep.main(["wrd2ltr", "--input", wrd, "--output", labels])
+    secs_of["manifest_wrd2ltr"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kinds = sorted(os.path.splitext(r)[1] for r, _ in rows)
+    if kinds != [".flac"] * ((n + 1) // 2) + [".wav"] * (n // 2):
+        raise AssertionError(f"manifest rows {rows}")
+    for r, size in rows:
+        wav, sr = read_audio(os.path.join(audio, r))
+        if sr != SR or len(wav) != int(size) or not np.isfinite(wav).all():
+            raise AssertionError(f"{r}: {sr} Hz, {len(wav)} samples, manifest {size}")
+    secs_of["decode_check"] = time.perf_counter() - t0
+    return manifest, labels, write_dictionary(directory), secs_of
+
+
 class _LayerRuns:
     """Counts training forwards of encoder layers (layerdrop skips some)."""
 
@@ -1581,8 +1818,10 @@ def phase_train(work_dir, arch="speecht5_base_asr", device="cuda", n_utts=32, up
     checkpoint (1.8 GB at Base with the Adam moments) is kept, in
     ``work_dir``/ckpt.  Returns the launch counts of the first run, the
     encoder layer runs, the per-update metrics and wall times, and the
-    run's arguments ("args")."""
-    manifest, labels, dict_path = write_corpus(work_dir, n_utts, seconds, seed)
+    run's arguments ("args").  The corpus is FLAC, made ready by
+    ``cli/prep.py`` (``write_flac_corpus``); each update's
+    ``s2t_train_flops`` and its MFU against the bf16 peak are logged."""
+    manifest, labels, dict_path, prep = write_flac_corpus(work_dir, n_utts, seconds, seed)
     args = ["--task", "s2t", "--arch", arch, "--manifest", manifest,
             "--labels", labels, "--dict", dict_path,
             "--save-dir", os.path.join(work_dir, "ckpt"), *flags, "--keep-last", "1",
@@ -1590,8 +1829,29 @@ def phase_train(work_dir, arch="speecht5_base_asr", device="cuda", n_utts=32, up
     for ov in TRAIN_OVERRIDES:
         args += ["--override", ov]
     result = train_and_resume(args, os.path.join(work_dir, "ckpt"), updates, device, "s2t")
+    result["prep"] = prep
+    result["mfu"] = train_mfu(getattr(C, arch)(**DICT_CFG), result, device)
     log(json.dumps({"phase": "train", **result}))
+    log(json.dumps({"phase": "train_mfu", **result["mfu"]}))
     return {**result, "args": args}
+
+
+def train_mfu(cfg, result, device) -> dict:
+    """``utils/flops.s2t_train_flops`` of each update of the first run (its
+    micro-batches' padded shapes: batch, waveform samples, target tokens)
+    and, on the card, the MFU of its wall time against
+    ``flops.chip_peak_flops()`` (989e12: one H100 SXM, dense bf16) beside
+    the card's name and power limit."""
+    from speecht5_tpu_torch.utils import flops
+
+    per = [sum(flops.s2t_train_flops(cfg, mb["wav"][0], mb["wav"][1], mb["targets"][1])
+               for mb in micro) for micro in result["update_shapes"]]
+    if torch.device(device).type != "cuda":
+        return {"update_flops": per, "mfu": "not measured (no card)"}
+    return {"update_flops": per, "update_ms": result["update_ms"],
+            "peak_flops": flops.chip_peak_flops(),
+            "mfu": [flops.mfu(f, ms / 1e3) for f, ms in zip(per, result["update_ms"])],
+            "card": card_line()}
 
 
 def train_and_resume(args, save_dir, updates, device, what, accum=1):
@@ -1600,12 +1860,14 @@ def train_and_resume(args, save_dir, updates, device, what, accum=1):
     resume that takes one more, keeping only the newest checkpoint.  Fails
     unless both runs reach their steps with finite metrics.  -> {"counts",
     "layer_runs" (training forwards of encoder layers), "micro_batches",
-    "wall_s", "update_ms", "history" (both runs), "metrics" (the first
-    update's names)}."""
+    "wall_s", "update_ms", "update_shapes" (each update's micro-batches'
+    tensor shapes), "history" (both runs), "metrics" (the first update's
+    names)}."""
     _sync(device)
     K.reset_launch_counts()
     t0 = time.perf_counter()
-    with _LayerRuns() as runs, _UpdateTimes(device) as update_ms:
+    timer = _UpdateTimes(device)
+    with _LayerRuns() as runs, timer as update_ms:
         first = cli_train.main(args + ["--max-updates", str(updates)])
     _sync(device)
     wall = time.perf_counter() - t0
@@ -1622,7 +1884,7 @@ def train_and_resume(args, save_dir, updates, device, what, accum=1):
     if saved != [f"checkpoint_{updates + 1}.pt"]:
         raise AssertionError(f"{what} checkpoints saved: {saved}")
     return {"counts": counts, "layer_runs": runs.n, "micro_batches": updates * accum,
-            "wall_s": wall, "update_ms": update_ms,
+            "wall_s": wall, "update_ms": update_ms, "update_shapes": timer.shapes,
             "history": first["history"] + resumed["history"],
             "metrics": sorted(first["history"][0])}
 
@@ -2030,16 +2292,19 @@ def phase_warm_start(arch="speecht5_base_asr", device="cuda", n_utts=32, updates
 
 class _UpdateTimes:
     """The wall ms of each ``Trainer.train_step`` (one update, every
-    micro-batch), ending in a synchronize on the card; a list."""
+    micro-batch), ending in a synchronize on the card; a list.  ``shapes``:
+    each update's micro-batches as {key: tensor shape}."""
 
     def __init__(self, device):
-        self.device, self.times = device, []
+        self.device, self.times, self.shapes = device, [], []
 
     def __enter__(self):
         self.real = Trainer.train_step
         real, times, device = self.real, self.times, self.device
 
         def timed(trainer, micro, *task):
+            self.shapes.append([{k: tuple(v.shape) for k, v in mb.items()
+                                 if isinstance(v, torch.Tensor)} for mb in micro])
             _sync(device)
             t0 = time.perf_counter()
             out = real(trainer, micro, *task)
@@ -2052,6 +2317,53 @@ class _UpdateTimes:
 
     def __exit__(self, *exc):
         Trainer.train_step = self.real
+
+
+class _DecodeTimes:
+    """Each ``ASRDecoder`` call: its wall ms (ending in a synchronize on the
+    card), batch, waveform samples, decode steps, models and beam; a
+    list."""
+
+    def __init__(self, device):
+        self.device, self.calls = device, []
+
+    def __enter__(self):
+        from speecht5_tpu_torch.decode.asr import ASRDecoder
+
+        self.cls, self.real = ASRDecoder, ASRDecoder.__call__
+        real, calls, device = self.real, self.calls, self.device
+
+        def timed(dec, *args):
+            _sync(device)
+            t0, before = time.perf_counter(), dec.steps_run
+            out = real(dec, *args)
+            _sync(device)
+            calls.append({"ms": (time.perf_counter() - t0) * 1e3,
+                          "batch": int(args[0].shape[0]), "samples": int(args[0].shape[1]),
+                          "steps": dec.steps_run - before, "models": len(dec.models),
+                          "beam": dec.beam_size})
+            return out
+
+        ASRDecoder.__call__ = timed
+        return self.calls
+
+    def __exit__(self, *exc):
+        self.cls.__call__ = self.real
+
+
+def decode_mfu(cfg, calls, device) -> dict:
+    """``utils/flops.asr_decode_flops`` of each beam call (per model of an
+    ensemble; a fusion LM's work is not counted) and, on the card, its MFU
+    against the bf16 peak beside the card's name and power limit."""
+    from speecht5_tpu_torch.utils import flops
+
+    per = [c["models"] * flops.asr_decode_flops(cfg, c["batch"], c["beam"], c["samples"],
+                                                c["steps"]) for c in calls]
+    if torch.device(device).type != "cuda":
+        return {"calls": calls, "decode_flops": per, "mfu": "not measured (no card)"}
+    return {"calls": calls, "decode_flops": per, "peak_flops": flops.chip_peak_flops(),
+            "mfu": [flops.mfu(f, c["ms"] / 1e3) for f, c in zip(per, calls)],
+            "card": card_line()}
 
 
 def _preempt_and_resume(train_args, d, max_updates):
@@ -3117,16 +3429,52 @@ def phase_evaluate(work_dir, train_args, updates, device="cuda",
     _sync(device)
     K.reset_launch_counts()
     results = {}
-    for name, flags in runs.items():
-        res = evaluate.main(common + flags)
-        if (res["metric"] != "wer" or res["n_utts"] != n_utts
-                or not math.isfinite(res["value"])):
-            raise AssertionError(f"evaluate {name}: {res}")
-        results[name] = res
+    with _DecodeTimes(device) as calls:
+        for name, flags in runs.items():
+            res = evaluate.main(common + flags)
+            if (res["metric"] != "wer" or res["n_utts"] != n_utts
+                    or not math.isfinite(res["value"])):
+                raise AssertionError(f"evaluate {name}: {res}")
+            results[name] = res
     _sync(device)
     counts = K.launch_counts()
     result = {"counts": counts, "results": results}
     log(json.dumps({"phase": "evaluate", **result}))
+    log(json.dumps({"phase": "evaluate_mfu", **decode_mfu(cfg, calls, device)}))
+    return result
+
+
+def phase_parity_sweep(device="cuda", arch="speecht5_base_asr", dtype="bfloat16",
+                       overrides=BEAM_OVERRIDES):
+    """The checkpoint-day sweep as its dry run: ``cli/parity.py --dry-run
+    --dry-run-arch <arch> --arms`` on ``device`` (``dtype``, every kernel on)
+    in a temporary directory: random-init fixtures (SWEEP_*: 4 clips of
+    4000 samples, the model saved model-only), the joint beam (beam 2,
+    max_len 8, CTC weight 0.3), then CTC greedy and the rescore arm.  The
+    row's WER ("ours") and both arms' must be finite.  -> {"counts" (its
+    launches), "record", "wall_s"}."""
+    from speecht5_tpu_torch.cli import parity
+
+    with tempfile.TemporaryDirectory() as d:
+        argv = ["--ckpt-dir", os.path.join(d, "ckpt"), "--data-dir", os.path.join(d, "data"),
+                "--dry-run", "--dry-run-arch", arch, "--arms", "--device", device,
+                "--dtype", dtype, "--batch-size", str(SWEEP_BATCH),
+                *[a for ov in overrides for a in ("--override", ov)]]
+        _sync(device)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        records = parity.main(argv)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        counts = K.launch_counts()
+    rec = records[0] if len(records) == 1 else {}
+    wers = [rec.get("ours")] + [a.get("wer") for a in rec.get("arms", {}).values()]
+    if (rec.get("status") != "report_only" or set(rec.get("arms", {}))
+            != {"ctc_greedy", "ctc_rescore"}
+            or not all(w is not None and math.isfinite(w) for w in wers)):
+        raise AssertionError(f"parity sweep records: {records}")
+    result = {"counts": counts, "record": rec, "wall_s": wall}
+    log(json.dumps({"phase": "parity_sweep", **result}))
     return result
 
 
@@ -3162,8 +3510,9 @@ def write_pretrain_corpus(directory: str, n: int, seconds=LARGE_SPEECH_S,
                           text_lines: int = 400, seed: int = 0):
     """``write_corpus``'s ``n`` utterances with 50 Hz km labels of
     ``KM_CLASSES`` classes (one line an utterance) and a text corpus of
-    ``text_lines`` lines of random letter words (fairseq .ltr tokens).
-    -> (manifest, km labels, text file, dictionary)."""
+    ``text_lines`` lines of random letter words (fairseq .ltr tokens), raw
+    (``text.txt``) and binarized (``text.bin/.idx``, ``binarize_text``).
+    -> (manifest, km labels, raw text file, dictionary)."""
     manifest, _, dict_path = write_corpus(directory, n, seconds, seed)
     rng = np.random.default_rng(seed + 1)
     with open(manifest, encoding="utf-8") as f:
@@ -3179,7 +3528,28 @@ def write_pretrain_corpus(directory: str, n: int, seconds=LARGE_SPEECH_S,
             words = ["".join(rng.choice(letters, int(rng.integers(2, 8))))
                      for _ in range(int(rng.integers(3, 9)))]
             f.write(" ".join(" ".join(w) + " |" for w in words) + "\n")
+    binarize_text(text, dict_path)
     return manifest, km, text, dict_path
+
+
+def binarize_text(text: str, dict_path: str) -> str:
+    """Each non-empty line of ``text`` encoded by the dictionary (no EOS),
+    written through the port's ``MMapIndexedDatasetWriter`` as fairseq's
+    mmap ``<text without its suffix>.bin/.idx``; returns the ``.bin``
+    path."""
+    from speecht5_tpu_torch.data import binarized
+    from speecht5_tpu_torch.data.dictionary import load_cli_dictionary
+
+    dictionary, _ = load_cli_dictionary(dict_path)
+    prefix = os.path.splitext(text)[0]
+    w = binarized.MMapIndexedDatasetWriter(prefix, binarized.best_fitting_dtype(len(dictionary)))
+    with open(text, encoding="utf-8") as f:
+        for line in f:
+            ids = dictionary.encode_line(line, append_eos=False) if line.strip() else []
+            if len(ids):
+                w.add_item(ids)
+    w.finalize()
+    return binarized.data_file(prefix)
 
 
 def pretrain_datasets(cfg, manifest, km, text, dict_path, seed=0):
@@ -3219,16 +3589,24 @@ def phase_train_pretrain_large(device="cuda", n_utts=16, updates=3, seed=0,
     pretrain`` (recipes/joint_pretrain.sh's flags, batch 4, bf16, the
     quantizer on, the train-attention kernel on, mels on the card) over 16
     seeded 8-15.6 s utterances with 500-class km labels and a seeded text
-    corpus: ``updates`` updates of both tasks, then a resume.  Checks: every
-    metric finite; the log-mel kernel once per speech update, the train
-    kernels once per encoder layer run (24 an update, speech or text), the
-    conv, inference and decode-step kernels never.  Then
-    ``large_update_profile``."""
+    corpus read from its fairseq-binarized ``.bin/.idx`` (whose blocks must
+    first equal those of the raw text): ``updates`` updates of both tasks,
+    then a resume.  Checks: every metric finite; the log-mel kernel once
+    per speech update, the train kernels once per encoder layer run (24 an
+    update, speech or text), the conv, inference and decode-step kernels
+    never.  Then ``large_update_profile``."""
     ovs = LARGE_TRAIN_OVERRIDES + list(overrides)
     cfg = large_config("bfloat16", ovs, arch)
     with tempfile.TemporaryDirectory() as d:
-        manifest, km, text, dict_path = write_pretrain_corpus(d, n_utts, seconds, seed=seed)
-        run_seed = mixed_seed(*pretrain_datasets(cfg, manifest, km, text, dict_path), updates)
+        manifest, km, raw, dict_path = write_pretrain_corpus(d, n_utts, seconds, seed=seed)
+        text = os.path.splitext(raw)[0] + ".bin"
+        speech_ds, text_ds = pretrain_datasets(cfg, manifest, km, text, dict_path)
+        raw_blocks = pretrain_datasets(cfg, manifest, km, raw, dict_path)[1].blocks
+        if not (len(text_ds.blocks) == len(raw_blocks) > 0 and all(
+                np.array_equal(a, b) for a, b in zip(text_ds.blocks, raw_blocks))):
+            raise AssertionError(f"binarized text blocks differ from the raw file's: "
+                                 f"{len(text_ds.blocks)} / {len(raw_blocks)}")
+        run_seed = mixed_seed(speech_ds, text_ds, updates)
         args = ["--task", "pretrain", "--arch", arch, "--manifest", manifest,
                 "--labels", km, "--text-file", text, "--dict", dict_path,
                 "--save-dir", os.path.join(d, "ckpt"), *PRETRAIN_FLAGS, "--keep-last", "1",
@@ -3238,7 +3616,8 @@ def phase_train_pretrain_large(device="cuda", n_utts=16, updates=3, seed=0,
         result = train_and_resume(args, os.path.join(d, "ckpt"), updates, device, "pretrain")
     tasks = [next(iter(row)).split("/")[0] for row in result["history"]]
     speech = tasks[:updates].count("pretrain_speech")
-    result.update(tasks=tasks, speech_updates=speech, run_seed=run_seed)
+    result.update(tasks=tasks, speech_updates=speech, run_seed=run_seed,
+                  text_file=os.path.basename(text), text_blocks=len(raw_blocks))
     c = result["counts"]
     if not 0 < speech < updates or result["layer_runs"] != cfg.encoder.num_layers * updates:
         raise AssertionError(f"pretrain updates {tasks}, {result['layer_runs']} layer runs")
@@ -3505,6 +3884,13 @@ def main():
                if ev[n] == 0]
     if missing:
         raise AssertionError(f"evaluate never launched {missing}: {ev}")
+    t0 = time.perf_counter()
+    sweep = phase_parity_sweep()["counts"]
+    walls["parity_sweep"] = time.perf_counter() - t0
+    missing = [n for n in ("banded_flash_attention", "conv_stack", "flash_attention_bias")
+               if sweep[n] == 0]
+    if missing:
+        raise AssertionError(f"the parity sweep never launched {missing}: {sweep}")
     tc = trained["counts"]
     if tc["banded_flash_attention"] != 0 or tc["conv_stack"] == 0:
         raise AssertionError(f"train path launches wrong: {tc}")
@@ -3614,7 +4000,8 @@ def main():
                "warm_start_serve": wsc, "serve_tts": tts["counts"],
                "train_s2s": s2s["counts"], "vc_decode": vc["counts"],
                "train_s2c": s2c["counts"], "sid_inference": sid["counts"],
-               "evaluate": ev, "serve_rescore": rescore["open"]["counts"],
+               "evaluate": ev, "parity_sweep": sweep,
+               "serve_rescore": rescore["open"]["counts"],
                "serve_rescore_lexicon": rescore["lexicon"]["counts"],
                "beam_lm": beam_lm["counts"], "train_pretrain_large": pre["counts"],
                "serve_large": served_large["counts"],

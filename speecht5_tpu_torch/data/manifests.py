@@ -16,9 +16,10 @@ here).
   batch_by_size semantics);
 - batches are padded to bucketed lengths, as in the JAX package, so the
   card sees few distinct shapes;
-- pretraining: ``TextPretrainDataset`` (token blocks of a raw text corpus,
-  BART noising at collation) and ``SpeechPretrainDataset`` (waveforms with
-  50 Hz km labels and the fbank decoder target).
+- pretraining: ``TextPretrainDataset`` (token blocks of a raw or
+  fairseq-binarized text corpus, BART noising at collation) and
+  ``SpeechPretrainDataset`` (waveforms with 50 Hz km labels and the fbank
+  decoder target).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..ops.mel import log_mel_numpy
+from . import binarized
 from .audio import layer_norm_wav, read_audio
 from .dictionary import Dictionary
 
@@ -451,17 +453,19 @@ class SpeechToSpeechDataset:
 
 @dataclass
 class TextPretrainDataset:
-    """BART text pretraining over a raw text corpus (JAX manifests.py
-    :469-579; reference tasks/speecht5.py:439-480): each line encoded by
-    the dictionary (no EOS), packed into blocks of ``tokens_per_sample`` - 2
-    (``break_mode`` none: one continuous stream; complete: whole lines;
-    eos: one line each), framed by BOS / EOS, and noised per item at
-    collation (``text_noising.noise_tokens``, seeded by the item and the
-    epoch).  A fairseq-binarized corpus is not read here (the binarized
-    reader is not ported)."""
+    """BART text pretraining over a text corpus (JAX manifests.py:469-579;
+    reference tasks/speecht5.py:439-480): each line encoded by the
+    dictionary (no EOS; ``encode_line``, or ``encode`` for a
+    ``SentencePieceModel``), or read already numericalized from a
+    fairseq-binarized ``<prefix>.bin/.idx`` (``text_file`` the prefix or
+    either file, ``data/binarized.py``), packed into blocks of
+    ``tokens_per_sample`` - 2 (``break_mode`` none: one continuous stream;
+    complete: whole lines; eos: one line each), framed by BOS / EOS, and
+    noised per item at collation (``text_noising.noise_tokens``, seeded by
+    the item and the epoch)."""
 
     text_file: str
-    dictionary: object
+    dictionary: object                  # Dictionary or SentencePieceModel
     tokens_per_sample: int = 512
     break_mode: str = "none"            # none | complete | eos
     bos_id: int = 0
@@ -476,16 +480,23 @@ class TextPretrainDataset:
 
         if self.noising is None:
             self.noising = TN.NoisingConfig()
-        if self.text_file.endswith((".bin", ".idx")):
-            raise NotImplementedError(f"{self.text_file}: binarized corpora are not "
-                                      "read by the port; give a raw text file")
         sents = []
-        for line in read_lines(self.text_file):
-            if not line.strip():
-                continue
-            ids = self.dictionary.encode_line(line, append_eos=False)
-            if len(ids):
-                sents.append(np.asarray(ids, np.int64))
+        prefix = self.text_file
+        if prefix.endswith((".bin", ".idx")):
+            prefix = prefix[:-4]
+        if binarized.exists(prefix):
+            ds = binarized.MMapIndexedDataset(prefix)
+            sents = [ds[i] for i in range(len(ds)) if len(ds[i])]
+        else:
+            for line in read_lines(self.text_file):
+                if not line.strip():
+                    continue
+                if hasattr(self.dictionary, "encode_line"):
+                    ids = self.dictionary.encode_line(line, append_eos=False)
+                else:
+                    ids = self.dictionary.encode(line)
+                if len(ids):
+                    sents.append(np.asarray(ids, np.int64))
         block = self.tokens_per_sample - 2  # room for bos/eos
         self.blocks = []
         if self.break_mode == "eos":

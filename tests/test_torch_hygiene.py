@@ -55,7 +55,10 @@ def test_port_and_smoke_import_with_jax_blocked():
             "speecht5_tpu_torch.data.native", "speecht5_tpu_torch.decode.lexicon",
             "speecht5_tpu_torch.decode.nbest", "speecht5_tpu_torch.models.lm",
             "speecht5_tpu_torch.cli.evaluate", "speecht5_tpu_torch.models.quantizer",
-            "speecht5_tpu_torch.ops.heads", "speecht5_tpu_torch.data.text_noising"} <= names
+            "speecht5_tpu_torch.ops.heads", "speecht5_tpu_torch.data.text_noising",
+            "speecht5_tpu_torch.data.binarized", "speecht5_tpu_torch.data.sentencepiece",
+            "speecht5_tpu_torch.data.prep", "speecht5_tpu_torch.cli.prep",
+            "speecht5_tpu_torch.utils.flops", "speecht5_tpu_torch.cli.parity"} <= names
 
 
 def test_no_import_lines_reach_jax():
@@ -290,3 +293,76 @@ def test_chip_smoke_warm_start_and_tts_phases_run_on_cpu_with_twins():
     want = chip_smoke.tts_launches_expected(C.speecht5_base(dtype="bfloat16"), 10)
     assert want["banded_flash_attention"] == 24 and want["flash_attention_bias"] == 120
     assert sum(want.values()) == 144
+
+
+def test_parity_cli_defaults_to_cuda_and_raises_before_its_fixtures(tmp_path):
+    from speecht5_tpu_torch.cli import parity
+
+    assert parity.build_parser().get_default("device") == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: asking for cuda does not raise here")
+    with pytest.raises(RuntimeError, match="cuda"):
+        parity.main(["--ckpt-dir", str(tmp_path / "c"), "--data-dir", str(tmp_path / "d"),
+                     "--dry-run"])
+    assert not (tmp_path / "c").exists() and not (tmp_path / "d").exists()
+
+
+def test_prep_cli_is_host_only():
+    """cli/prep.py takes no device: none of its subcommands has a --device."""
+    src = (REPO / "speecht5_tpu_torch" / "cli" / "prep.py").read_text()
+    assert "--device" not in src and not re.search(r"^\s*(import|from)\s+torch\b", src, re.M)
+
+
+def test_chip_smoke_flac_corpus_and_prep_chain_run_on_cpu(tmp_path):
+    """The train phase's corpus: even utterances 16 kHz FLAC, odd ones 48 kHz
+    FLAC resampled by cli/prep.py to 16 kHz WAV; the manifest lists both
+    kinds with their decoded lengths, the labels follow its order."""
+    from speecht5_tpu_torch.data.audio import read_audio
+    from speecht5_tpu_torch.data.native import flac_info
+
+    manifest, labels, dict_path, secs = chip_smoke.write_flac_corpus(
+        str(tmp_path), 5, seconds=(0.3, 0.6), seed=2)
+    rows = [l.split("\t") for l in open(manifest).read().splitlines()[1:]]
+    assert sorted(r for r, _ in rows) == ["utt0.flac", "utt1.wav", "utt2.flac", "utt3.wav",
+                                         "utt4.flac"]
+    assert set(secs) == {"write_flac", "resample", "manifest_wrd2ltr", "decode_check"}
+    n48, *fmt, _ = flac_info(str(tmp_path / "raw48k" / "utt1.flac"))
+    assert fmt == [48000, 1, 16] and dict(rows)["utt1.wav"] == str(-(-n48 // 3))
+    wav, sr = read_audio(str(tmp_path / "audio" / "utt0.flac"))
+    assert sr == 16000 and not wav[:chip_smoke.FLAC_BLOCK].any() and wav.any()
+    ltr = open(labels).read().splitlines()
+    assert len(ltr) == 5 and all(l.endswith("|") for l in ltr)
+    assert os.path.basename(dict_path) == "dict.ltr.txt"
+
+
+def test_chip_smoke_parity_sweep_runs_on_cpu_with_twins():
+    """The parity sweep's dry run at the tiny preset, every kernel flag on
+    (their twins on the CPU): a report-only record with finite WERs for
+    the beam and both arms, and no launch; its MFU helpers say "not
+    measured" off the card."""
+    sweep = chip_smoke.phase_parity_sweep(device="cpu", arch="speecht5_tiny", dtype="float32")
+    assert set(sweep["counts"].values()) == {0}
+    assert sweep["record"]["status"] == "report_only"
+    assert set(sweep["record"]["arms"]) == {"ctc_greedy", "ctc_rescore"}
+    cfg = C.speecht5_tiny()
+    calls = [{"ms": 1.0, "batch": 4, "samples": 4000, "steps": 8, "models": 2, "beam": 2}]
+    dec = chip_smoke.decode_mfu(cfg, calls, "cpu")
+    from speecht5_tpu_torch.utils import flops
+
+    assert dec["decode_flops"] == [2 * flops.asr_decode_flops(cfg, 4, 2, 4000, 8)]
+    assert dec["mfu"].startswith("not measured")
+
+
+def test_chip_smoke_pretrain_large_reads_binarized_text_on_cpu():
+    """Phase 24 at the Large-shaped tiny preset: the text corpus binarized
+    by the port's writer, its blocks equal to the raw file's, read through
+    --text-file <prefix>.bin by cli/train.main for 3 updates of both tasks
+    and a resume; the twins run, so no launches."""
+    ovs = ["encoder.layer_norm_first=True", "decoder.layer_norm_first=True",
+           "conv_features.mode='layer_norm'", "quantizer.enabled=True",
+           "hubert.num_classes=(504,)"]
+    r = chip_smoke.phase_train_pretrain_large(device="cpu", arch="speecht5_tiny",
+                                              overrides=ovs, seconds=(0.5, 1.2), n_utts=8)
+    assert set(r["counts"].values()) == {0} and r["text_blocks"] > 3
+    assert {"pretrain_speech", "pretrain_text"} <= set(r["tasks"][:3])
+    assert r["text_file"] == "text.bin"
