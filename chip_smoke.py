@@ -83,7 +83,7 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                200, CTC weight 0.3) at speecht5_base_asr, bf16, batch 1,
                every kernel on (decoder.use_pallas_attn too), warming each
                bucket (random weights: every warm-up and chunk runs all 200
-               steps) and serving the 3 s, 11 s and 21 s requests; per
+               steps) and serving the 3 s and 11 s requests; per
                request the decode steps and each kernel's launches: the
                decode-step kernel 12 a step (6 layers x self + cross), the
                inference attention 24 (12 layers x bias pass and main loop)
@@ -100,7 +100,7 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                speecht5_base_asr at full width with random weights, over a
                synthetic corpus of 32 seeded 8-16 s utterances written to a
                temporary directory as a recipe's raw data and made ready by
-               ``cli/prep.py``: 16 as 16 kHz FLAC, 16 as 48 kHz FLAC that
+               ``cli/prep.py``: 28 as 16 kHz FLAC, 4 as 48 kHz FLAC that
                ``prep resample --sr 16000`` turns into 16 kHz WAV (FLAC
                written by ``write_flac``: VERBATIM subframes, a CONSTANT
                one for each leading block of silence, the samples' MD5),
@@ -193,8 +193,8 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                device_mel): 2 log-mel launches, src_mel within 2e-3).
 16. VC decode -- ``TTSDecoder.speech_to_speech`` at speecht5_base, bf16,
                batch 1, every kernel on, a 3 s source and a 512-d x-vector,
-               HiFi-GAN at the released config, the stop bias at -8: per
-               request wall ms, decode steps, audio seconds and launches
+               HiFi-GAN at the released config, the stop bias at -8: one
+               request, its wall ms, decode steps, audio seconds and launches
                (24 inference attention and 6 conv a request, 12 decode-step
                a step); then the f32 kernel path against the plain path:
                lengths equal, mel and stop probabilities within 2e-3, focus
@@ -242,7 +242,7 @@ Phases, each timed; any failure raises and the exit code is non-zero:
 22. beam lm -- ``ASRDecoder`` with a fusion LM (the reference's geometry:
                d 1280, 20 pre-LN layers, 16 heads of Dh 80, ~0.45 B
                parameters, random seeded, bf16) at beam 5, max_len 200, CTC
-               weight 0.3, LM weight 0.3, every kernel on, a 3 s and an 11 s
+               weight 0.3, LM weight 0.3, every kernel on, a 3 s
                request: wall ms, decode steps, and 12 + 20 decode-step
                launches a step (the decoder's self and cross, the LM's self
                at D 80), 24 inference attention and 6 conv a request; then
@@ -275,14 +275,15 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                the plain route, losses within 1e-4 relative, gradients
                through ``grad_gate`` (norm_k's, the table's, the HuBERT
                head's and the quantizer's included).
-26. serve large -- Service at speecht5_large, bf16, buckets 4/8/16 s, the
-               3 s and 11 s requests: greedy (24 x 2 inference attention
-               launches a request, no conv launch: the layer_norm mode has
-               no kernel) and the beam (beam 5, max_len 200, CTC weight
+26. serve large -- Service at speecht5_large, bf16, buckets 4/8/16 s:
+               greedy on the 3 s and 11 s requests (24 x 2 inference
+               attention launches a request, no conv launch: the layer_norm
+               mode has no kernel) and the beam on the 3 s one (beam 5, max_len 200, CTC weight
                0.3; 12 decode-step launches a step), then one profiled
                beam request.
 27. large parity -- f32, kernel route against plain route, buckets 4/16:
-               greedy CTC ids (as 4) and the beam (as 6).
+               greedy CTC ids (as 4) on the 3 s and 11 s requests and the
+               beam (as 6) on the 3 s one.
 28. parity sweep -- right after 19: the checkpoint-day sweep's dry run,
                ``cli/parity.py --dry-run --dry-run-arch speecht5_base_asr
                --arms --device cuda`` (bf16, every kernel on): a random-init
@@ -290,20 +291,58 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                beam (beam 2, max_len 8, CTC weight 0.3), CTC greedy and the
                rescore arm; every WER finite, and the inference attention,
                conv and decode-step kernels must launch.
+29. parallel train -- ``cli/train.py --task s2t --arch speecht5_base_asr``
+               at full width, f32, the kernel route, dropout, layerdrop and
+               masking off, a global batch of 8 seeded 2-4 s clips (ragged
+               transcripts), 3 updates at a fixed seed: once in this process,
+               then by the fixed table ``PARALLEL_MODES``, every mode's
+               ranks sharing the card over gloo (spawned, a file store in a
+               temporary directory, gloo on loopback), all modes at once:
+               data parallel, ``--fsdp`` and ``--n-model-shards 2``, 2
+               ranks each.  Each mode prints
+               its backend, world size, mesh, per-update losses and grad
+               norms and the launch counts of its ranks; its losses must be
+               within 1e-4 (tensor parallel 2e-3) of the one-process run's,
+               and the train attention kernels and the conv kernel must
+               launch on every rank.  Then, right after 19 in its directory,
+               the wrapper's cost: 2 bf16 updates at the recipe's flags in
+               this process and as data parallelism at world size 1 over
+               NCCL (``PARALLEL_WRAPPER``), each update's wall side by side.
+30. parallel evaluate -- right after 19, on its checkpoint:
+               ``cli/evaluate.py --decoder beam --data-parallel`` (bf16,
+               every kernel on, beam 5, max_len 60, CTC weight 0.3) over 2
+               gloo ranks sharing the card, batch 8 of 8 seeded 4 s clips
+               (one length, so each rank's 4 rows are bit for bit the
+               one-process run's batch of 4: a random-weight beam's near
+               ties cannot flip between the two), hypotheses gathered on
+               rank 0: its hypotheses and WER must equal ``cli/evaluate.py
+               --batch-size 4`` in this process, and the inference
+               attention, conv and decode-step kernels must launch on both
+               ranks.
+
+Depth cut to make room for 29-30 (PR 17): the train phase resamples 4 of
+its 32 utterances from 48 kHz (16 before), serve beam and beam parity take
+the 3 s and 11 s requests (the 21 s chunked request stays in serve and
+parity), the VC phase decodes one request, the LM-fused beam one 3 s
+request, and Large's beam serving and beam parity the 3 s request.
 
 The launch counts are zeroed just before each driven path (serve, serve
 beam, train, train t2s, the warm-started train and request, serve tts,
 train s2s, the VC requests, train s2c, the SID inference, evaluate, the
 parity sweep, the two rescore runs, the LM-fused beam, Large's
-pretraining, greedy and beam requests) and read just after; a kernel of that
-path that was never launched fails.
+pretraining, greedy and beam requests, each parallel rank's run) and read
+just after; a kernel of that path that was never launched fails.
 Output: an early line with the card's name and power limit as nvidia-smi
 gives them, one ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  A watchdog ends a hung run with a
 traceback after 1100 s.  Phases 24-27 take ``arch`` / ``overrides`` (or a
-config) so that they rehearse on the CPU at a Large-shaped tiny preset.  The script opens no socket; the training loop's
-data prefetch thread ends with each run, and the one train subprocess it
-starts (phase 11) is waited for, or killed on a failure.
+config) so that they rehearse on the CPU at a Large-shaped tiny preset.
+The script opens sockets on loopback only: gloo's (and NCCL's) between the
+ranks of phases 29-30, which meet through a file store.  The training
+loop's data prefetch thread ends with each run; the train subprocess of
+phase 11 and the ranks of phases 29-30 are waited for, or killed on a
+failure or after ``PARALLEL_RANK_S``, and a rank's non-zero exit fails the
+run.
 """
 
 from __future__ import annotations
@@ -313,6 +352,7 @@ import hashlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -437,6 +477,27 @@ S2S_FLAGS = ["--guided-attn", "--lr", "1e-4", "--warmup", "6000", "--batch-size"
 S2C_FLAGS = ["--lr", "2e-4", "--warmup", "2000", "--accum", "2", "--batch-size", "8",
              "--max-sample-size", "128000", "--dtype", "bfloat16"]
 SID_SPEAKERS = 8
+# phase 29: the modes of the parallel train path, a fixed table (name, ranks,
+# backend, flags); every rank of a mode shares the one card, which NCCL
+# refuses and gloo carries (its collectives on the card's tensors staged
+# through the host)
+# (FSDP over tensor parallelism is not in it: on the card over gloo,
+# FSDP's post-backward moves the split gradients with DTensor's functional
+# collectives, which crash over gloo on a card's tensors; the CPU tests
+# hold that mode on 4 gloo ranks)
+PARALLEL_MODES = (("dp", 2, "gloo", []),
+                  ("fsdp", 2, "gloo", ["--fsdp"]),
+                  ("tp", 2, "gloo", ["--n-model-shards", "2"]))
+PARALLEL_TOL = {"dp": 1e-4, "fsdp": 1e-4, "tp": 2e-3}   # relative, on the losses
+# the wrapper's cost: data parallelism at world size 1 over NCCL
+PARALLEL_WRAPPER = ("dp_nccl", 1, "nccl", [])
+PARALLEL_RANK_S = 300       # a rank's watchdog
+PARALLEL_BATCH, PARALLEL_SECONDS = 8, (2.0, 4.0)
+PARALLEL_EVAL_SECONDS = 4.0
+# depth cut for phases 29-30: the train phase resamples every 8th utterance
+# from 48 kHz, the beam phases skip the 21 s request, and so on (main())
+RESAMPLED_EVERY = 8
+BEAM_REQUESTS_S = (3, 11)
 # encoder frames at Base: a 3 s VC source, the 6 s s2s audio bucket, the
 # 8 s s2c crop (--max-sample-size 128000)
 VC_SOURCE_S = 3.0
@@ -1511,20 +1572,24 @@ def phase_serve_beam(base_cfg, device="cuda", dtype="bfloat16",
 def beam_device_launches(svc, wav) -> dict:
     """Every launch the card runs for one beam request (kernels, copies and
     fills, from ``torch.profiler``'s device events), and per decode step:
-    the encoder's few hundred launches a chunk are in the total too."""
+    the encoder's few hundred launches a chunk are in the total too.  Only
+    the device is traced: reading a 200-step request's host events as
+    well took ~50 s (PR 17)."""
     from torch.profiler import ProfilerActivity, profile
 
     steps0 = svc.asr.steps_run
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:   # device events only
         svc.transcribe(wav)
         torch.cuda.synchronize()
     steps = svc.asr.steps_run - steps0
+    t0 = time.perf_counter()
     n = sum(1 for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False))
     return {"device_launches": n, "decode_steps": steps,
-            "per_step": n / steps if steps else None}
+            "per_step": n / steps if steps else None,
+            "trace_read_s": time.perf_counter() - t0}
 
 
 def phase_beam_parity(base_cfg, device="cuda", requests_s=(3, 11, 21),
@@ -1738,10 +1803,12 @@ def write_flac(path: str, samples: np.ndarray, sr: int, bps: int = 16, order=Non
     return md5
 
 
-def write_flac_corpus(directory: str, n: int, seconds=(8.0, 16.0), seed: int = 0):
+def write_flac_corpus(directory: str, n: int, seconds=(8.0, 16.0), seed: int = 0,
+                      resampled_every: int = 2):
     """``write_corpus``'s ``n`` utterances and transcripts as a recipe's raw
-    data, made ready by ``cli/prep.py``: the even ones 16 kHz FLAC under
-    ``audio/``, the odd ones 48 kHz FLAC under ``raw48k/`` that
+    data, made ready by ``cli/prep.py``: utterance i is 48 kHz FLAC under
+    ``raw48k/`` when i % ``resampled_every`` == 1, else 16 kHz FLAC under
+    ``audio/`` (the default: the even ones 16 kHz, the odd ones 48 kHz); the 48 kHz ones
     ``prep resample --sr 16000`` turns into 16 kHz WAV under ``audio/``;
     each starts with one block of silence (a CONSTANT subframe, the rest
     VERBATIM); ``prep manifest --ext .wav .flac`` lists ``audio/``, and
@@ -1761,7 +1828,7 @@ def write_flac_corpus(directory: str, n: int, seconds=(8.0, 16.0), seed: int = 0
     words = {}
     for i in range(n):
         secs = float(rng.uniform(*seconds))
-        sr = SR if i % 2 == 0 else 3 * SR
+        sr = 3 * SR if i % resampled_every == 1 else SR
         wav = synth_audio(secs, seed=seed + 1000 + i, sr=sr)
         wav[:FLAC_BLOCK] = 0.0
         pcm = np.clip(np.round(wav * 32767.0), -32768, 32767).astype(np.int64)
@@ -1784,7 +1851,8 @@ def write_flac_corpus(directory: str, n: int, seconds=(8.0, 16.0), seed: int = 0
     secs_of["manifest_wrd2ltr"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     kinds = sorted(os.path.splitext(r)[1] for r, _ in rows)
-    if kinds != [".flac"] * ((n + 1) // 2) + [".wav"] * (n // 2):
+    n48 = sum(1 for i in range(n) if i % resampled_every == 1)
+    if kinds != [".flac"] * (n - n48) + [".wav"] * n48:
         raise AssertionError(f"manifest rows {rows}")
     for r, size in rows:
         wav, sr = read_audio(os.path.join(audio, r))
@@ -1821,7 +1889,8 @@ def phase_train(work_dir, arch="speecht5_base_asr", device="cuda", n_utts=32, up
     run's arguments ("args").  The corpus is FLAC, made ready by
     ``cli/prep.py`` (``write_flac_corpus``); each update's
     ``s2t_train_flops`` and its MFU against the bf16 peak are logged."""
-    manifest, labels, dict_path, prep = write_flac_corpus(work_dir, n_utts, seconds, seed)
+    manifest, labels, dict_path, prep = write_flac_corpus(work_dir, n_utts, seconds, seed,
+                                                          RESAMPLED_EVERY)
     args = ["--task", "s2t", "--arch", arch, "--manifest", manifest,
             "--labels", labels, "--dict", dict_path,
             "--save-dir", os.path.join(work_dir, "ckpt"), *flags, "--keep-last", "1",
@@ -2574,20 +2643,23 @@ def device_profile(run, steps_run) -> dict:
     from ``torch.profiler``'s device events), per decode step too
     (``steps_run()``, a decoder's step count, read before and after), the
     device's busy time (the union of the launches' intervals), the idle
-    share of the profiled wall and the largest device times by name."""
+    share of the profiled wall and the largest device times by name.  Only
+    the device is traced (as ``beam_device_launches``)."""
     from torch.profiler import ProfilerActivity, profile
 
     steps0 = steps_run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:   # device events only
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     steps = steps_run() - steps0
+    t0 = time.perf_counter()
     events = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and not getattr(e, "is_user_annotation", False)]
+    read_s = time.perf_counter() - t0
     busy = _union_ms([(e.time_range.start, e.time_range.end) for e in events])
     by_name = {}     # summed under the name's first 60 characters
     for e in events:
@@ -2597,7 +2669,7 @@ def device_profile(run, steps_run) -> dict:
     return {"device_launches": len(events), "decode_steps": steps,
             "per_step": len(events) / steps if steps else None, "device_busy_ms": busy,
             "wall_ms_profiled": wall, "idle_share": 1.0 - busy / wall,
-            "top_device_ms": {n: round(t, 3) for n, t in top}}
+            "top_device_ms": {n: round(t, 3) for n, t in top}, "trace_read_s": read_s}
 
 
 def _union_ms(intervals) -> float:
@@ -3444,6 +3516,263 @@ def phase_evaluate(work_dir, train_args, updates, device="cuda",
     return result
 
 
+# ---------------------------------------------------- parallel (29-30)
+
+
+def _rank_entry(rank, world, store, backend, entry, argv, device, queue):
+    """One spawned rank: ``cli/train.main`` or ``cli/evaluate.main`` with the
+    ``--distributed-*`` flags, its launch counts zeroed just before and read
+    just after, each train update timed; puts {"rank", "result", "counts",
+    "update_ms"} (or {"rank", "error"}) on ``queue``."""
+    import traceback
+
+    faulthandler.enable()
+    faulthandler.dump_traceback_later(PARALLEL_RANK_S, exit=True)
+    # the numerics of main()'s process: no TF32 anywhere
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        from speecht5_tpu_torch.cli import evaluate
+
+        flags = ["--distributed-num-processes", str(world), "--distributed-process-id",
+                 str(rank), "--distributed-coordinator", f"file://{store}",
+                 "--distributed-platform", backend]
+        if entry == "evaluate":
+            flags = ["--data-parallel"] + flags
+        _sync(device)
+        K.reset_launch_counts()
+        with _UpdateTimes(device) as update_ms:
+            result = (cli_train.main if entry == "train" else evaluate.main)(argv + flags)
+        _sync(device)
+        if entry == "train":
+            result = {k: result[k] for k in ("steps", "history", "final_loss")}
+        queue.put({"rank": rank, "result": result, "counts": K.launch_counts(),
+                   "update_ms": update_ms})
+    except BaseException:
+        queue.put({"rank": rank, "error": traceback.format_exc()})
+        raise
+
+
+class Ranks:
+    """``world`` spawned ranks of ``entry`` ("train" / "evaluate") on
+    ``argv``, meeting through a file store in a temporary directory, gloo
+    on loopback: ``start`` them, then ``wait`` for every rank's message
+    (in rank order); all are killed when one fails or the time runs out.
+    ``env``: the children's environment (this process's when None)."""
+
+    def __init__(self, entry, argv, world, backend, device="cuda", env=None,
+                 timeout=PARALLEL_RANK_S):
+        self.entry, self.argv, self.world, self.backend = entry, argv, world, backend
+        self.device, self.env, self.timeout = device, env, timeout
+
+    def start(self):
+        import multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        self.queue, self.dir = ctx.Queue(), tempfile.mkdtemp()
+        saved = dict(os.environ)
+        try:
+            os.environ.clear()
+            os.environ.update({**(saved if self.env is None else self.env),
+                               "GLOO_SOCKET_IFNAME": "lo"})
+            self.procs = [ctx.Process(target=_rank_entry, args=(
+                r, self.world, os.path.join(self.dir, "store"), self.backend, self.entry,
+                self.argv, self.device, self.queue)) for r in range(self.world)]
+            for p in self.procs:
+                p.start()
+        finally:
+            os.environ.clear()
+            os.environ.update(saved)
+        self.deadline = time.perf_counter() + self.timeout
+        return self
+
+    def wait(self) -> list:
+        import queue as queue_mod
+
+        msgs = {}
+        try:
+            while len(msgs) < self.world:
+                try:
+                    m = self.queue.get(timeout=5)
+                except queue_mod.Empty:
+                    dead = [p.exitcode for p in self.procs if p.exitcode not in (None, 0)]
+                    if dead or time.perf_counter() > self.deadline:
+                        raise AssertionError(f"{self.entry} ranks: exit codes {dead}, "
+                                             f"{len(msgs)} of {self.world} reported")
+                    continue
+                if "error" in m:
+                    raise AssertionError(f"{self.entry} rank {m['rank']} failed:\n"
+                                         f"{m['error']}")
+                msgs[m["rank"]] = m
+            for p in self.procs:
+                p.join(timeout=60)
+            codes = [p.exitcode for p in self.procs]
+            if codes != [0] * self.world:
+                raise AssertionError(f"{self.entry} ranks exited {codes}")
+        finally:
+            self.kill()
+        return [msgs[r] for r in range(self.world)]
+
+    def kill(self):
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def run_ranks(entry, argv, world, backend, device="cuda", env=None):
+    """``Ranks(...)`` started and waited for."""
+    return Ranks(entry, argv, world, backend, device, env).start().wait()
+
+
+def parallel_train_args(work_dir, arch="speecht5_base_asr", device="cuda", n_utts=PARALLEL_BATCH,
+                        seconds=PARALLEL_SECONDS, seed=0):
+    """Phase 29's corpus in ``work_dir`` and ``cli/train.py``'s arguments:
+    s2t, f32, the kernel route, every stochastic part off, one global batch
+    of ``n_utts`` an update, a fixed seed (the save dir appended by the
+    caller)."""
+    manifest, labels, dict_path = write_corpus(work_dir, n_utts, seconds, seed + 29)
+    args = ["--task", "s2t", "--arch", arch, "--manifest", manifest, "--labels", labels,
+            "--dict", dict_path, "--batch-size", str(n_utts), "--ctc-weight", "0.5",
+            "--dtype", "float32", "--log-interval", "1", "--keep-last", "1",
+            "--seed", str(seed + 1), "--device", device, "--mask-prob", "0"]
+    for ov in DETERMINISTIC + TRAIN_OVERRIDES:
+        args += ["--override", ov]
+    return args
+
+
+def phase_parallel_train(device="cuda", arch="speecht5_base_asr", updates=3,
+                         modes=PARALLEL_MODES, n_utts=PARALLEL_BATCH,
+                         seconds=PARALLEL_SECONDS, seed=0, env=None):
+    """Phase 29: the one-process run, then each mode of ``modes`` as spawned
+    ranks (``run_ranks``; ``env`` their environment).  Every rank's losses
+    within ``PARALLEL_TOL`` of the one-process run's; on a card the train
+    attention and conv kernels launch on every rank.  -> {"one", "modes":
+    {name: {backend, world, mesh, losses, grad_norms, counts}}}."""
+    on_card = torch.device(device).type == "cuda"
+    out = {"card": card_line() if on_card else "cpu", "modes": {}}
+    with tempfile.TemporaryDirectory() as d:
+        args = parallel_train_args(d, arch, device, n_utts, seconds, seed)
+        _sync(device)
+        K.reset_launch_counts()
+        one = cli_train.main(args + ["--save-dir", os.path.join(d, "one"),
+                                     "--max-updates", str(updates)])
+        _sync(device)
+        ref = [r["loss"] for r in one["history"]]
+        out["one"] = {"losses": ref, "grad_norms": [r["grad_norm"] for r in one["history"]],
+                      "counts": K.launch_counts()}
+        # every mode's ranks at once: they share the card, and the phase
+        # checks values, not times
+        runs = [Ranks("train", args + flags + ["--save-dir", os.path.join(d, name),
+                                               "--max-updates", str(updates)],
+                      world, backend, device, env) for name, world, backend, flags in modes]
+        try:
+            for r in runs:
+                r.start()
+            results = [r.wait() for r in runs]
+        finally:
+            for r in runs:
+                if hasattr(r, "procs"):
+                    r.kill()
+        for (name, world, backend, flags), ranks in zip(modes, results):
+            n_model = int(flags[flags.index("--n-model-shards") + 1]) if (
+                "--n-model-shards" in flags) else 1
+            rec = {"backend": backend, "world": world,
+                   "mesh": {"data": world // n_model, "model": n_model},
+                   "losses": [[h["loss"] for h in r["result"]["history"]] for r in ranks],
+                   "grad_norms": [[h["grad_norm"] for h in r["result"]["history"]]
+                                  for r in ranks],
+                   "counts": [r["counts"] for r in ranks]}
+            out["modes"][name] = rec
+            log(json.dumps({"parallel_train": name, **rec}))
+            for losses in rec["losses"]:
+                rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+                if len(losses) != updates or not rel <= PARALLEL_TOL[name]:
+                    raise AssertionError(f"parallel {name}: losses {losses} against the "
+                                         f"one-process run's {ref}")
+            missing = [n for c in rec["counts"] for n in TRAIN_KERNELS + ("conv_stack",)
+                       if on_card and c[n] == 0]
+            if missing:
+                raise AssertionError(f"parallel {name}: a rank never launched {missing}")
+    log(json.dumps({"phase": "parallel_train", "one": out["one"], "card": out["card"]}))
+    return out
+
+
+def phase_parallel_wrapper(train_args, work_dir, device="cuda", updates=2,
+                           mode=PARALLEL_WRAPPER, env=None):
+    """Phase 29's wrapper cost: ``updates`` updates of ``train_args`` (the
+    train phase's recipe run, bf16) in this process and as ``mode`` (data
+    parallelism at world size 1 over NCCL): each update's wall ms side by
+    side, the card's name and power limit beside them."""
+    name, world, backend, flags = mode
+    one_dir, par_dir = os.path.join(work_dir, "wrap_one"), os.path.join(work_dir, "wrap_dp")
+    with _UpdateTimes(device) as one_ms:
+        one = cli_train.main(train_args + ["--save-dir", one_dir, "--max-updates",
+                                           str(updates)])
+    ranks = run_ranks("train", train_args + flags + ["--save-dir", par_dir, "--max-updates",
+                                                     str(updates)], world, backend, device,
+                      env)
+    rec = {"mode": name, "backend": backend, "world": world,
+           "update_ms_one_process": one_ms, "update_ms_wrapped": ranks[0]["update_ms"],
+           "losses_one_process": [h["loss"] for h in one["history"]],
+           "losses_wrapped": [h["loss"] for h in ranks[0]["result"]["history"]],
+           "card": card_line() if torch.device(device).type == "cuda" else "cpu"}
+    log(json.dumps({"phase": "parallel_wrapper", **rec}))
+    shutil.rmtree(one_dir, ignore_errors=True)
+    shutil.rmtree(par_dir, ignore_errors=True)
+    return rec
+
+
+def phase_parallel_evaluate(work_dir, device="cuda", arch="speecht5_base_asr", n_utts=8,
+                            seconds=PARALLEL_EVAL_SECONDS, max_len=EVAL_MAX_LEN, seed=0,
+                            dtype="bfloat16", world=2, env=None):
+    """Phase 30: ``cli/evaluate.py --decoder beam --data-parallel`` over
+    ``world`` gloo ranks on the checkpoint in ``work_dir``/ckpt and
+    ``n_utts`` seeded clips of one length, batch ``n_utts``, against the
+    one-process evaluate at batch ``n_utts // world``: hypotheses and WER
+    equal; on a card the inference attention, conv and decode-step kernels
+    launch on every rank."""
+    d = os.path.join(work_dir, "parallel_evaluate")
+    os.makedirs(d)
+    manifest, labels, dict_path = write_corpus(d, n_utts, (seconds, seconds), seed + 30)
+    common = ["--task", "s2t", "--arch", arch, "--manifest", manifest, "--labels", labels,
+              "--dict", dict_path, "--ckpt", os.path.join(work_dir, "ckpt"),
+              "--dtype", dtype, "--normalize", "--device", device, "--beam", str(BEAM),
+              "--max-len", str(max_len), "--ctc-weight", "0.3",
+              *[a for ov in BEAM_OVERRIDES for a in ("--override", ov)]]
+    from speecht5_tpu_torch.cli import evaluate
+
+    _sync(device)
+    K.reset_launch_counts()
+    one = evaluate.main(common + ["--batch-size", str(n_utts // world),
+                                  "--results-path", os.path.join(d, "one")])
+    _sync(device)
+    one_counts = K.launch_counts()
+    ranks = run_ranks("evaluate", common + ["--batch-size", str(n_utts), "--results-path",
+                                            os.path.join(d, "dp")], world, "gloo", device, env)
+    hyps = [open(os.path.join(d, p, "hyps.txt"), encoding="utf-8").read().splitlines()
+            for p in ("one", "dp")]
+    res = ranks[0]["result"]
+    rec = {"world": world, "backend": "gloo", "wer_one_process": one["value"],
+           "wer_data_parallel": res["value"], "n_utts": res["n_utts"],
+           "hypotheses_equal": hyps[0] == hyps[1], "one_process_counts": one_counts,
+           "counts": [r["counts"] for r in ranks],
+           "wall_s": {"one_process": one["wall_s"], "data_parallel": res["wall_s"]},
+           "card": card_line() if torch.device(device).type == "cuda" else "cpu"}
+    log(json.dumps({"phase": "parallel_evaluate", **rec}))
+    if not (rec["hypotheses_equal"] and res["value"] == one["value"]
+            and len(hyps[1]) == n_utts):
+        raise AssertionError(f"data-parallel evaluate differs: {hyps}")
+    if torch.device(device).type == "cuda":
+        missing = [n for c in rec["counts"] for n in
+                   ("banded_flash_attention", "conv_stack", "flash_attention_bias")
+                   if c[n] == 0]
+        if missing:
+            raise AssertionError(f"parallel evaluate: a rank never launched {missing}")
+    return rec
+
+
 def phase_parity_sweep(device="cuda", arch="speecht5_base_asr", dtype="bfloat16",
                        overrides=BEAM_OVERRIDES):
     """The checkpoint-day sweep as its dry run: ``cli/parity.py --dry-run
@@ -3829,6 +4158,13 @@ def check_t2s_counts(result):
     check_train_counts(c, runs, "text-encoder")
 
 
+def _wall(walls, name, t0):
+    """Record phase ``name``'s wall since ``t0`` and log it at once, so that
+    a run the watchdog ends still shows where its time went."""
+    walls[name] = time.perf_counter() - t0
+    log(json.dumps({"phase_wall": name, "seconds": walls[name]}))
+
+
 def main():
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     if not torch.cuda.is_available():
@@ -3844,16 +4180,16 @@ def main():
     walls = {}
     t0 = time.perf_counter()
     phase_build()
-    walls["build"] = time.perf_counter() - t0
+    _wall(walls, "build", t0)
 
     t0 = time.perf_counter()
     records = phase_kernels()
-    walls["kernels"] = time.perf_counter() - t0
+    _wall(walls, "kernels", t0)
 
     base = C.speecht5_base_asr()
     t0 = time.perf_counter()
     served = phase_serve(base)
-    walls["serve"] = time.perf_counter() - t0
+    _wall(walls, "serve", t0)
     log(json.dumps({"phase": "serve", "launches": served["counts"]}))
     missing = [n for n in ("banded_flash_attention", "conv_stack")
                if served["counts"][n] == 0]
@@ -3862,31 +4198,37 @@ def main():
 
     t0 = time.perf_counter()
     phase_parity(base)
-    walls["parity"] = time.perf_counter() - t0
+    _wall(walls, "parity", t0)
 
     t0 = time.perf_counter()
-    beam = phase_serve_beam(base)
-    walls["serve_beam"] = time.perf_counter() - t0
+    beam = phase_serve_beam(base, requests_s=BEAM_REQUESTS_S)
+    _wall(walls, "serve_beam", t0)
     log(json.dumps({"phase": "serve_beam", "launches": beam["counts"]}))
 
     t0 = time.perf_counter()
-    phase_beam_parity(base)
-    walls["beam_parity"] = time.perf_counter() - t0
+    phase_beam_parity(base, requests_s=BEAM_REQUESTS_S)
+    _wall(walls, "beam_parity", t0)
 
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
         trained = phase_train(d)
-        walls["train"] = time.perf_counter() - t0
+        _wall(walls, "train", t0)
         t0 = time.perf_counter()
         ev = phase_evaluate(d, trained["args"], updates=3)["counts"]
-        walls["evaluate"] = time.perf_counter() - t0
+        _wall(walls, "evaluate", t0)
+        t0 = time.perf_counter()
+        peval = phase_parallel_evaluate(d)
+        _wall(walls, "parallel_evaluate", t0)
+        t0 = time.perf_counter()
+        phase_parallel_wrapper(trained["args"], d)
+        _wall(walls, "parallel_wrapper", t0)
     missing = [n for n in ("banded_flash_attention", "conv_stack", "flash_attention_bias")
                if ev[n] == 0]
     if missing:
         raise AssertionError(f"evaluate never launched {missing}: {ev}")
     t0 = time.perf_counter()
     sweep = phase_parity_sweep()["counts"]
-    walls["parity_sweep"] = time.perf_counter() - t0
+    _wall(walls, "parity_sweep", t0)
     missing = [n for n in ("banded_flash_attention", "conv_stack", "flash_attention_bias")
                if sweep[n] == 0]
     if missing:
@@ -3900,20 +4242,24 @@ def main():
 
     t0 = time.perf_counter()
     phase_train_parity(base)
-    walls["train_parity"] = time.perf_counter() - t0
+    _wall(walls, "train_parity", t0)
+
+    t0 = time.perf_counter()
+    ptrain = phase_parallel_train()
+    _wall(walls, "parallel_train", t0)
 
     t0 = time.perf_counter()
     t2s = phase_train_t2s()
-    walls["train_t2s"] = time.perf_counter() - t0
+    _wall(walls, "train_t2s", t0)
     check_t2s_counts(t2s)
 
     t0 = time.perf_counter()
     phase_t2s_parity(C.speecht5_base())
-    walls["t2s_parity"] = time.perf_counter() - t0
+    _wall(walls, "t2s_parity", t0)
 
     t0 = time.perf_counter()
     warm = phase_warm_start()
-    walls["warm_start"] = time.perf_counter() - t0
+    _wall(walls, "warm_start", t0)
     check_train_counts(warm["train_counts"], warm["layer_runs"], "warm-started encoder")
     wsc = warm["serve_counts"]
     if wsc["banded_flash_attention"] != base.encoder.num_layers * K.fwd_launches(
@@ -3922,58 +4268,58 @@ def main():
 
     t0 = time.perf_counter()
     tts = phase_serve_tts(C.speecht5_base())
-    walls["serve_tts"] = time.perf_counter() - t0
+    _wall(walls, "serve_tts", t0)
     log(json.dumps({"phase": "serve_tts", "launches": tts["counts"]}))
 
     t0 = time.perf_counter()
     phase_tts_parity(C.speecht5_base())
-    walls["tts_parity"] = time.perf_counter() - t0
+    _wall(walls, "tts_parity", t0)
 
     t0 = time.perf_counter()
     s2s = phase_train_s2s()
-    walls["train_s2s"] = time.perf_counter() - t0
+    _wall(walls, "train_s2s", t0)
     check_speech_train_counts(s2s, C.speecht5_base(), 1, "s2s")
 
     t0 = time.perf_counter()
     phase_s2s_parity(C.speecht5_base())
-    walls["s2s_parity"] = time.perf_counter() - t0
+    _wall(walls, "s2s_parity", t0)
 
     t0 = time.perf_counter()
-    vc = phase_vc_decode(C.speecht5_base())
-    walls["vc_decode"] = time.perf_counter() - t0
+    vc = phase_vc_decode(C.speecht5_base(), requests=1)
+    _wall(walls, "vc_decode", t0)
 
     t0 = time.perf_counter()
     s2c = phase_train_s2c()
-    walls["train_s2c"] = time.perf_counter() - t0
+    _wall(walls, "train_s2c", t0)
     check_speech_train_counts(s2c, C.speecht5_base_sid(), 0, "s2c")
 
     t0 = time.perf_counter()
     sid = phase_s2c_parity(C.speecht5_base_sid(num_classes=SID_SPEAKERS))
-    walls["s2c_parity"] = time.perf_counter() - t0
+    _wall(walls, "s2c_parity", t0)
 
     t0 = time.perf_counter()
     rescore = phase_serve_rescore(base)
-    walls["serve_rescore"] = time.perf_counter() - t0
+    _wall(walls, "serve_rescore", t0)
 
     t0 = time.perf_counter()
     phase_rescore_parity(base)
-    walls["rescore_parity"] = time.perf_counter() - t0
+    _wall(walls, "rescore_parity", t0)
 
     t0 = time.perf_counter()
-    beam_lm = phase_beam_lm(base)
-    walls["beam_lm"] = time.perf_counter() - t0
+    beam_lm = phase_beam_lm(base, requests_s=LARGE_REQUESTS_S[:1])
+    _wall(walls, "beam_lm", t0)
 
     t0 = time.perf_counter()
     phase_beam_lm_parity(base)
-    walls["beam_lm_parity"] = time.perf_counter() - t0
+    _wall(walls, "beam_lm_parity", t0)
 
     t0 = time.perf_counter()
     pre = phase_train_pretrain_large()
-    walls["train_pretrain_large"] = time.perf_counter() - t0
+    _wall(walls, "train_pretrain_large", t0)
 
     t0 = time.perf_counter()
     phase_pretrain_parity()
-    walls["pretrain_parity"] = time.perf_counter() - t0
+    _wall(walls, "pretrain_parity", t0)
 
     large = C.speecht5_large()
     t0 = time.perf_counter()
@@ -3983,14 +4329,14 @@ def main():
             * large.encoder.num_layers * K.fwd_launches(torch.bfloat16)}
     if served_large["counts"] != want:
         raise AssertionError(f"Large greedy launches {served_large['counts']}, want {want}")
-    beam_large = phase_serve_beam(large, requests_s=LARGE_REQUESTS_S)
+    beam_large = phase_serve_beam(large, requests_s=LARGE_REQUESTS_S[:1])
     log(json.dumps({"phase": "serve_beam_large", "launches": beam_large["counts"]}))
-    walls["serve_large"] = time.perf_counter() - t0
+    _wall(walls, "serve_large", t0)
 
     t0 = time.perf_counter()
     phase_parity(large, requests_s=LARGE_REQUESTS_S, buckets=LARGE_PARITY_BUCKETS)
-    phase_beam_parity(large, requests_s=LARGE_REQUESTS_S, buckets=LARGE_PARITY_BUCKETS)
-    walls["large_parity"] = time.perf_counter() - t0
+    phase_beam_parity(large, requests_s=LARGE_REQUESTS_S[:1], buckets=LARGE_PARITY_BUCKETS)
+    _wall(walls, "large_parity", t0)
 
     walls["total"] = time.perf_counter() - t_start
     log(json.dumps({"phase_seconds": walls, "card": card_line()}))
@@ -4005,7 +4351,10 @@ def main():
                "serve_rescore_lexicon": rescore["lexicon"]["counts"],
                "beam_lm": beam_lm["counts"], "train_pretrain_large": pre["counts"],
                "serve_large": served_large["counts"],
-               "serve_beam_large": beam_large["counts"]}
+               "serve_beam_large": beam_large["counts"],
+               **{f"parallel_train_{m}_rank{r}": c for m, rec in ptrain["modes"].items()
+                  for r, c in enumerate(rec["counts"])},
+               **{f"parallel_evaluate_rank{r}": c for r, c in enumerate(peval["counts"])}}
     counts = {n: sum(c[n] for c in by_path.values()) for n in KERNELS}
     log(json.dumps(kernels_line(records, counts, by_path)))
     torch.cuda.synchronize()

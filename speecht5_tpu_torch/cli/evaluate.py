@@ -21,6 +21,15 @@ the LM runs in the model's dtype and takes the decode-step kernel when the
 model's decoder does (``--override decoder.use_pallas_attn=True``).  Runs on
 the card unless ``--device cpu``.
 
+``--data-parallel`` (s2t): each batch's rows are shared out over the ranks
+of the process group (``--distributed-*``, as ``cli/train.py`` takes them,
+or torchrun's variables), each rank decodes its block and rank 0 gathers
+the hypotheses and scores them.  The batch must be a multiple of the ranks;
+the tail batch is padded with its last utterance, whose extra decodes are
+never read.  JAX shards each batch over the devices of one process; the
+port runs one process per card, so the launch topology differs and the
+result does not.  In one process it is the plain path.
+
 Usage:
     python -m speecht5_tpu_torch.cli.evaluate --task s2t \\
         --arch speecht5_base_asr --manifest test.tsv --labels test.ltr \\
@@ -102,7 +111,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--override", action="append", default=[],
                    help="config field override, dotted path = literal, repeatable")
     p.add_argument("--data-parallel", action="store_true",
-                   help="not ported: shard decode batches over several cards")
+                   help="s2t: share each decode batch's rows over the ranks of the "
+                        "process group (batch size a multiple of the ranks; the "
+                        "tail batch is padded)")
+    p.add_argument("--distributed-coordinator", default=None,
+                   help="host:port of process 0 (or a file:// store)")
+    p.add_argument("--distributed-num-processes", type=int, default=None)
+    p.add_argument("--distributed-process-id", type=int, default=None)
+    p.add_argument("--distributed-platform", default=None,
+                   help="force a backend (cpu / gloo: gloo; nccl, the default on "
+                        "a card)")
     p.add_argument("--device", default="cuda",
                    help="torch device; the CPU only when asked for")
     return p
@@ -211,6 +229,8 @@ def s2t_decoder(args, model, cfg, dictionary, device):
 def evaluate_s2t(args, model, cfg, dictionary, device) -> dict:
     from ..data.dictionary import letters_to_text
     from ..data.manifests import SpeechToTextDataset
+    from ..parallel import distributed as D
+    from ..parallel.sharding import shard_decode_batch
     from ..utils.metrics import corpus_bleu, corpus_wer
 
     if args.labels is None:
@@ -219,14 +239,33 @@ def evaluate_s2t(args, model, cfg, dictionary, device) -> dict:
                              dictionary=dictionary, normalize=args.normalize,
                              max_sample_size=args.max_sample_size)
     decode_rows = s2t_decoder(args, model, cfg, dictionary, device)
+    n_ranks = D.process_count() if args.data_parallel else 1
+    if args.batch_size % n_ranks:
+        raise SystemExit(f"--batch-size {args.batch_size} must be a multiple of "
+                         f"the {n_ranks} ranks")
+    if args.data_parallel:
+        log(f"data-parallel decode over {n_ranks} ranks")
     refs, hyps = [], []
     for s in range(0, len(ds), args.batch_size):
         idxs = list(range(s, min(s + args.batch_size, len(ds))))
-        batch = ds.collate([ds[i] for i in idxs], cfg.eos_id, cfg.pad_id)
-        rows = decode_rows(batch["wav"], batch["wav_lengths"])
+        items = [ds[i] for i in idxs]
+        if args.data_parallel:
+            items += [items[-1]] * (args.batch_size - len(items))
+        batch = ds.collate(items, cfg.eos_id, cfg.pad_id)
+        wav, wlen = batch["wav"], batch["wav_lengths"]
+        if args.data_parallel:
+            wav, wlen = shard_decode_batch((wav, wlen), None)
+        rows = decode_rows(wav, wlen)
+        if args.data_parallel:
+            gathered = D.gather_objects([np.asarray(r) for r in rows])
+            if gathered is None:
+                continue
+            rows = [r for part in gathered for r in part]
         for b, i in enumerate(idxs):
             hyps.append(letters_to_text(dictionary.string(rows[b])))
             refs.append(letters_to_text(ds.label_lines[i]))
+    if not D.is_primary():
+        return {"process": D.process_index(), "n_utts": len(ds)}
     scorer = corpus_bleu if args.metric == "bleu" else corpus_wer
     result = {"metric": args.metric, "value": scorer(refs, hyps), "n_utts": len(ds)}
     if args.decoder != "beam":
@@ -307,9 +346,8 @@ def main(argv=None):
         p.error("--lm-path requires --lexicon (the word n-gram LM scores "
                 "lexicon words; without a lexicon it would be silently "
                 "ignored — for neural-LM beam fusion use --lm-ckpt)")
-    if args.data_parallel:
-        raise SystemExit("--data-parallel is not ported yet (ROADMAP A.8: "
-                         "parallelism); evaluate on one card")
+    if args.data_parallel and args.task != "s2t":
+        raise SystemExit("--data-parallel decodes s2t only (JAX shards the s2t decoders only)")
     if args.ensemble_last > 1 and args.task != "s2t":
         raise SystemExit("--ensemble-last is only supported for --task s2t "
                          "(use --avg-last for weight-space averaging instead)")
@@ -317,9 +355,15 @@ def main(argv=None):
     from .. import config as C
     from ..data.dictionary import load_cli_dictionary
     from ..data.manifests import SpeechToClassDataset
+    from ..parallel import distributed as D
+    from ..parallel.sharding import shard_decode_variables
     from ..utils.device import resolve_device
 
     device = resolve_device(args.device)
+    if args.data_parallel and args.distributed_num_processes:
+        D.initialize(args.distributed_coordinator, args.distributed_num_processes,
+                     args.distributed_process_id, args.distributed_platform, device)
+        device = D.local_device(device)
     dictionary, cfg_kw = load_cli_dictionary(args.dict_path, args.vocab_size)
     cfg_kw["dtype"] = args.dtype
     cfg = C.apply_overrides(getattr(C, args.arch)(**cfg_kw), args.override)
@@ -338,7 +382,10 @@ def main(argv=None):
             cfg = C.replace(cfg, sid=C.replace(cfg.sid, num_classes=ds.num_classes))
 
     model, note = load_models(args, cfg, device)
-    print(note, flush=True)
+    log(note)
+    if args.data_parallel:
+        for m in model if isinstance(model, list) else [model]:
+            shard_decode_variables(m, None)
     if args.results_path:
         os.makedirs(args.results_path, exist_ok=True)
 
@@ -351,8 +398,17 @@ def main(argv=None):
         else:
             result = evaluate_tts(args, model, cfg, dictionary, device)
     result["wall_s"] = round(time.time() - t0, 2)
-    print(json.dumps(result), flush=True)
+    log(json.dumps(result))
+    D.shutdown()
     return result
+
+
+def log(line: str) -> None:
+    """Print on rank 0 (every process is rank 0 outside a process group)."""
+    from ..parallel import distributed as D
+
+    if D.is_primary():
+        print(line, flush=True)
 
 
 if __name__ == "__main__":

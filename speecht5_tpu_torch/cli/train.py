@@ -77,7 +77,28 @@ every ``--accum`` micro-batch of it, then saves a resumable checkpoint at
 that update (the data position included), prints ``{"preempted": true,
 "step": N}`` and returns; a rerun resumes from it.  ``--profile-dir``
 writes a ``torch.profiler`` trace of updates 10-14 there
-(``utils/profiling.trace``).  Multi-process training is not ported yet.
+(``utils/profiling.trace``).
+
+Across processes (JAX cli/train.py:259-270, the same flags): one process
+per card, each started with ``--distributed-num-processes N
+--distributed-process-id i --distributed-coordinator host:port`` (or under
+``torchrun``, which sets RANK / WORLD_SIZE / MASTER_*: then pass only
+``--distributed-num-processes N``).  ``--distributed-platform`` forces the
+backend (``cpu`` / ``gloo``: gloo, which may also carry a card's tensors;
+the default on a card is NCCL).  The processes form a ``('data', 'model')``
+mesh: ``--n-model-shards M`` splits each layer over M consecutive ranks
+(Megatron tensor parallelism), ``--fsdp`` shards the parameters and AdamW's
+moments over the data ranks (ZeRO); otherwise data parallelism.  Every
+rank walks the same batch order and loads only its rows of each global
+batch of ``--batch-size`` (``process_rows``; ranks of one model group load
+the same rows), shapes are unified across ranks, and the losses and
+gradients are those of the global batch.  Only rank 0 logs, validates to
+the log and writes checkpoints (gathered whole, so any topology resumes
+them); validation counts are summed across ranks; a SIGTERM on any rank
+stops every rank at the same update boundary.
+
+    torchrun --nproc-per-node 8 -m speecht5_tpu_torch.cli.train --task s2t \
+        --arch speecht5_base_asr ... --batch-size 64 --distributed-num-processes 8
 """
 
 from __future__ import annotations
@@ -171,9 +192,46 @@ def build_parser():
                    help="override vocab (tasks without a dictionary)")
     p.add_argument("--override", action="append", default=[],
                    help="config field override, dotted path = literal, repeatable")
+    p.add_argument("--n-model-shards", type=int, default=1,
+                   help="tensor-parallel ranks per model replica")
+    p.add_argument("--fsdp", action="store_true",
+                   help="shard parameters and optimizer state over the data ranks")
+    p.add_argument("--distributed-coordinator", default=None,
+                   help="host:port of process 0 (or a file:// store)")
+    p.add_argument("--distributed-num-processes", type=int, default=None)
+    p.add_argument("--distributed-process-id", type=int, default=None)
+    p.add_argument("--distributed-platform", default=None,
+                   help="force a backend for the multi-process run (cpu / gloo: "
+                        "gloo; nccl, the default on a card)")
     p.add_argument("--device", default="cuda",
                    help="torch device; the CPU only when asked for")
     return p
+
+
+def pad_values(cfg) -> dict:
+    """Pad ids of the token-valued batch keys for ``unify_batch_shapes``."""
+    return {k: cfg.pad_id for k in ("targets", "prev_tokens", "tokens")}
+
+
+def setup_parallel(args):
+    """Join the process group the ``--distributed-*`` flags name and build
+    the mesh -> (device, mesh or None, data index, model index)."""
+    from ..parallel import distributed as D
+    from ..parallel.sharding import make_mesh
+    from ..utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    if not args.distributed_num_processes:
+        if args.n_model_shards != 1 or args.fsdp:
+            raise SystemExit("--n-model-shards / --fsdp need --distributed-num-processes")
+        return device, None, 0, 0
+    D.initialize(args.distributed_coordinator, args.distributed_num_processes,
+                 args.distributed_process_id, args.distributed_platform, device)
+    device = D.local_device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    mesh = make_mesh(n_model=args.n_model_shards, device_type=device.type)
+    return device, mesh, mesh.get_local_rank("data"), mesh.get_local_rank("model")
 
 
 def make_batches(sizes, args, seed):
@@ -194,16 +252,21 @@ def make_batches(sizes, args, seed):
 def run_validation(trainer, ds, args, cfg, dictionary, device):
     """Average eval-step metrics over the full batches of ``ds``, and for
     s2t the greedy-CTC UER (tokens) and WER (words) when CTC is trained (the
-    reference's valid-time WER, speech_to_text_loss.py:232-297)."""
+    reference's valid-time WER, speech_to_text_loss.py:232-297).  Across
+    processes each rank scores its rows of every batch, the metrics are the
+    global batch's and the error counts are summed (JAX :115-169)."""
     from ..data.dictionary import letters_to_text
+    from ..parallel import distributed as D
     from ..utils.metrics import edit_distance
 
     sums, n_batches = {}, 0
     uer_err = uer_tot = wer_err = wer_tot = 0
     B = args.batch_size
+    rows = D.process_rows(B, trainer.mesh)
     for s in range(0, len(ds) - len(ds) % B, B):
-        items = [ds[i] for i in range(s, s + B)]
-        out = trainer.eval_step(_to_device(collate(args, ds, items, cfg), device))
+        items = [ds[i] for i in range(s + rows.start, s + rows.stop)]
+        batch = D.unify_batch_shapes(collate(args, ds, items, cfg), pad_values(cfg))
+        out = trainer.eval_step(_to_device(batch, device))
         ids = out.pop("_ctc_ids", None)
         lens = out.pop("_enc_lengths", None)
         for k, v in out.items():
@@ -226,6 +289,13 @@ def run_validation(trainer, ds, args, cfg, dictionary, device):
                 wer_err += edit_distance(ref_w, hyp_w)
                 wer_tot += len(ref_w)
     result = {k: v / max(n_batches, 1) for k, v in sums.items()}
+    # the ranks of one model group score the same rows: count them once
+    first = trainer.mesh is None or trainer.mesh.get_local_rank("model") == 0
+    counts = D.allsum_scalars({k: v * first for k, v in (
+        ("uer_err", uer_err), ("uer_tot", uer_tot), ("wer_err", wer_err),
+        ("wer_tot", wer_tot))})
+    uer_err, uer_tot, wer_err, wer_tot = (counts[k] for k in (
+        "uer_err", "uer_tot", "wer_err", "wer_tot"))
     if uer_tot:
         result["uer"] = uer_err / uer_tot
         if wer_tot:
@@ -343,13 +413,15 @@ def main(argv=None):
     from ..data.dictionary import load_cli_dictionary
     from ..data.prefetch import prefetch
     from ..models.speecht5 import init_model
+    from ..parallel import distributed as D
     from ..train.trainer import Trainer, TrainConfig
     from ..utils.checkpoint import restore_latest, save_checkpoint
-    from ..utils.device import resolve_device
     from ..utils.profiling import PhaseTimer, trace
 
     t_start = time.time()
-    device = resolve_device(args.device)
+    device, mesh, data_index, _ = setup_parallel(args)
+    primary = D.is_primary()
+    log = (lambda line: print(line, flush=True)) if primary else (lambda line: None)
     dictionary, cfg_kw = load_cli_dictionary(args.dict_path, args.vocab_size)
     cfg_kw["dtype"] = args.dtype
     cfg = getattr(C, args.arch)(**cfg_kw)
@@ -370,9 +442,11 @@ def main(argv=None):
         if cfg.sid.num_classes != ds.num_classes:
             cfg = C.replace(cfg, sid=C.replace(cfg.sid, num_classes=ds.num_classes))
         # the label -> id map, so that eval manifests reuse the training one
-        os.makedirs(args.save_dir, exist_ok=True)
-        ds.save_class_map(os.path.join(args.save_dir, "class_map.txt"))
-    torch.manual_seed(args.seed)   # the device generator: activation dropout
+        if primary:
+            os.makedirs(args.save_dir, exist_ok=True)
+            ds.save_class_map(os.path.join(args.save_dir, "class_map.txt"))
+    # the device generator (activation dropout), one stream per data rank
+    torch.manual_seed(args.seed + data_index)
     model = init_model(cfg, torch.Generator().manual_seed(args.seed), device)
     if args.finetune_from:
         warm_start(model, args.finetune_from)
@@ -390,7 +464,13 @@ def main(argv=None):
     )
     multitask = isinstance(ds, dict)
     trainer = Trainer(model, list(ds) if multitask else args.task, tcfg,
-                      generator=torch.Generator().manual_seed(args.seed + 7))
+                      generator=torch.Generator().manual_seed(args.seed + 7 + data_index),
+                      mesh=mesh, fsdp=args.fsdp, layer_seed=args.seed)
+    if mesh is not None:
+        log(json.dumps({"parallel": {
+            "backend": torch.distributed.get_backend(), "world": D.process_count(),
+            "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+            "fsdp": trainer.fsdp, "device": str(device)}}))
 
     valid_ds = None
     if args.valid_manifest:
@@ -407,7 +487,7 @@ def main(argv=None):
     data_state = restore_latest(args.save_dir, trainer)
     if data_state is not None:
         epoch0, batch0 = data_state.get("epoch", 0), data_state.get("batch", 0)
-        print(f"resumed at step {trainer.step}", flush=True)
+        log(f"resumed at step {trainer.step}")
 
     def batch_stream():
         """(epoch, unit index, task, collated batch) from the saved position
@@ -419,7 +499,7 @@ def main(argv=None):
                     continue
                 d = ds[task] if multitask else ds
                 for idxs in group:
-                    items = [d[int(i)] for i in idxs]
+                    items = [d[int(i)] for i in idxs[D.process_rows(len(idxs), mesh)]]
                     yield epoch, bi, task, collate(args, d, items, cfg, task, epoch)
             epoch, start = epoch + 1, 0
 
@@ -448,18 +528,19 @@ def main(argv=None):
             if trainer.step >= args.max_updates:   # resumed at the end
                 break
             if not micro:   # between updates
-                if stop["flag"]:
+                # every rank stops at the same update boundary
+                if D.allsum_scalars({"stop": float(stop["flag"])})["stop"] > 0:
                     last_path = save_checkpoint(
                         args.save_dir, trainer,
                         data_state={"epoch": epoch, "batch": bi},
                         keep_last=args.keep_last)
-                    print(json.dumps({"preempted": True, "step": trainer.step}),
-                          flush=True)
+                    log(json.dumps({"preempted": True, "step": trainer.step}))
                     preempted = True
                     break
                 if args.profile_dir and trainer.step == 10 and profiler is None:
                     profiler = trace(args.profile_dir)
                     profiler.__enter__()
+            batch = D.unify_batch_shapes(batch, pad_values(cfg))
             micro.append(_to_device(batch, device))
             if len(micro) < args.accum:
                 continue
@@ -480,9 +561,8 @@ def main(argv=None):
             log_n += 1
             step = trainer.step
             if step % args.log_interval == 0 or step >= args.max_updates:
-                print(json.dumps({"step": step, **{
-                    k: round(v / log_n, 4) for k, v in log_sums.items()}}),
-                    flush=True)
+                log(json.dumps({"step": step, **{
+                    k: round(v / log_n, 4) for k, v in log_sums.items()}}))
                 log_sums, log_n = {}, 0
             if valid_ds is not None and step % args.valid_interval == 0:
                 vm = run_validation(trainer, valid_ds, args, cfg, dictionary, device)
@@ -497,11 +577,12 @@ def main(argv=None):
                                     data_state={"epoch": epoch, "batch": bi + 1},
                                     keep_last=1)
                     best = {"metric": metric, "value": vm[metric], "step": step}
-                    with open(os.path.join(best_dir, "best.json"), "w",
-                              encoding="utf-8") as f:
-                        json.dump(best, f)
+                    if primary:
+                        with open(os.path.join(best_dir, "best.json"), "w",
+                                  encoding="utf-8") as f:
+                            json.dump(best, f)
                     line["new_best"] = metric
-                print(json.dumps(line), flush=True)
+                log(json.dumps(line))
             if step % args.save_interval == 0 or step >= args.max_updates:
                 last_path = save_checkpoint(
                     args.save_dir, trainer,
@@ -516,9 +597,13 @@ def main(argv=None):
             profiler.__exit__(None, None, None)
         for sig, handler in prev_handlers.items():
             signal.signal(sig, handler)
-    print(f"phases: {timer.summary()}", flush=True)
-    print(json.dumps({"done": True, "steps": trainer.step, "final_loss": final,
+    log(f"phases: {timer.summary()}")
+    print(json.dumps({"done": True, "steps": trainer.step,
+                      "process": D.process_index(), "final_loss": final,
                       "wall": round(time.time() - t_start, 1)}), flush=True)
+    D.set_data_group(None)
+    if mesh is not None:
+        D.shutdown()
     return {"steps": trainer.step, "history": history, "final_loss": final,
             "checkpoint": None if last_path is None else str(last_path),
             "preempted": preempted,

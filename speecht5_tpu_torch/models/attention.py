@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import cuda_kernels
+from ..parallel.distributed import dropout_row_offset
 from .common import Dense
 
 NEG_INF = -1e9
@@ -189,8 +190,12 @@ class MultiheadAttention(nn.Module):
         each row, head and query [B, H, Tq]), which the kernel gives from
         the same launch (the TTS decoder's focus rate)."""
         B, Tq, _ = x.shape
-        H, Dh = self.num_heads, self.head_dim
-        q = self.q_proj(x).view(B, Tq, H, Dh) * (Dh ** -0.5)
+        Dh = self.head_dim
+        q = self.q_proj(x)
+        # the heads this rank holds: all of them, or its share under tensor
+        # parallelism (q_proj split by columns)
+        H = q.shape[-1] // Dh
+        q = q.view(B, Tq, H, Dh) * (Dh ** -0.5)
         if cross_kv is not None:
             return self._cross_step(q, cross_kv, key_valid, return_weights,
                                     return_max_prob)
@@ -234,12 +239,13 @@ class MultiheadAttention(nn.Module):
                         raise ValueError("the train kernel's dropout needs "
                                          "dropout_seed (train_seed)")
                     seed = 0
+                # the rows' flat (batch x head) place in the global batch
+                seed = cuda_kernels.offset_seed(seed, dropout_row_offset(N))
                 o = cuda_kernels.banded_attention_train(
-                    qf, kf, vf, band, lengths,
-                    dropout_rate=self.dropout, seed=seed)
+                    qf, kf, vf, band, lengths, dropout_rate=self.dropout, seed=seed)
             else:
                 o = cuda_kernels.banded_flash_attention(qf, kf, vf, band, lengths)
-            o = o.view(B, H, Tq, Dh).transpose(1, 2).reshape(B, Tq, self.d_model)
+            o = o.view(B, H, Tq, Dh).transpose(1, 2).reshape(B, Tq, H * Dh)
             return self.out_proj(o)
 
         mask = None
@@ -269,7 +275,7 @@ class MultiheadAttention(nn.Module):
         weights = torch.softmax(logits.float(), dim=-1)
         probs = F.dropout(weights.to(self.dtype), self.dropout, self.training)
         out = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(self.dtype))
-        out = self.out_proj(out.reshape(B, Tq, self.d_model))
+        out = self.out_proj(out.reshape(B, Tq, -1))
         return (out, weights) if return_weights else out
 
     def _decode_kernel(self, return_weights: bool) -> bool:

@@ -17,7 +17,11 @@ pass of a training forward (``torch.utils.checkpoint``): the layer's draws
 from the CPU generator (the train kernel's dropout seed) are made before
 the checkpointed call and handed in, and the checkpoint restores the global
 RNG states of the layer's dropout, so the recompute repeats the forward bit
-for bit.
+for bit.  The layer-wide draws (layerdrop, the train kernel's dropout
+seeds) come from ``layer_generator`` when it is set: the trainer seeds it
+from the run's seed and the update count, the same on every rank, so that
+data- and tensor-parallel ranks skip the same layers and key one dropout
+hash (JAX makes one such draw per global batch).
 """
 
 from __future__ import annotations
@@ -59,12 +63,14 @@ class TransformerEncoder(nn.Module):
                         if cfg.rel_pos.enabled else None)
         self.proj = (nn.Linear(cfg.d_model, ctc_vocab_size)
                      if ctc_vocab_size is not None else None)
+        self.layer_generator = None
 
     def forward(self, x, valid_mask=None, *, with_ctc: bool = False,
                 generator=None):
         """x: [B, T, D]; valid_mask: bool [B, T] True=valid.  ``generator``:
         CPU ``torch.Generator`` for the layerdrop draws and the train
-        kernel's dropout seeds (the default CPU generator when None).
+        kernel's dropout seeds when ``layer_generator`` is None (the default
+        CPU generator when both are).
 
         Returns dict(encoder_out, valid_mask[, ctc_logits])."""
         cfg = self.cfg
@@ -83,12 +89,13 @@ class TransformerEncoder(nn.Module):
             pos_band = band_from_table(
                 self.pos_emb().float(), x.shape[1], cfg.rel_pos.max_distance,
                 dtype=self.dtype, row_multiple=BAND_ROW_MULTIPLE)
+        draws = generator if self.layer_generator is None else self.layer_generator
         for layer in self.layers:
             if self.training and cfg.layerdrop > 0.0:
-                if torch.rand((), generator=generator) < cfg.layerdrop:
+                if torch.rand((), generator=draws) < cfg.layerdrop:
                     continue
             seed = layer.self_attn.train_seed(
-                pos_band if pos_table is None else pos_table, x.shape[1], generator)
+                pos_band if pos_table is None else pos_table, x.shape[1], draws)
             if cfg.remat and self.training:
                 x = checkpoint(layer, x, valid_mask, pos_band, pos_table=pos_table,
                                dropout_seed=seed, use_reentrant=False)

@@ -19,7 +19,9 @@ but the channel (B x T, padding included); the running statistics move by
 ``momentum * old + (1 - momentum) * batch`` with the *biased* batch
 variance (``nn.BatchNorm1d`` would use torch's momentum convention and the
 unbiased variance), on training passes only, as JAX's mutable
-``batch_stats``.  ``project_frames``, ``stop_probs`` and ``refine`` arrive
+``batch_stats``.  Under data parallelism the batch statistics are those of
+the global batch (sums over the data ranks, differentiable), so every rank
+moves the same running statistics.  ``project_frames``, ``stop_probs`` and ``refine`` arrive
 with TTS decoding.
 """
 
@@ -33,6 +35,7 @@ from torch import nn
 
 from ..config import SpeechT5Config
 from ..ops.heads import cosine_logits
+from ..parallel.distributed import data_mean, gather_last_dim
 from .common import Dense
 
 
@@ -50,6 +53,9 @@ class TextDecoderPostnet(nn.Module):
         if self.output_projection is None:
             if embed_matrix is None:
                 raise ValueError("share_input_output_embed needs embed_matrix")
+            if hasattr(embed_matrix, "device_mesh"):   # split by tensor parallelism
+                embed_matrix = gather_last_dim(embed_matrix.to_local(),
+                                               embed_matrix.device_mesh.get_group())
             return x.float() @ embed_matrix.float().t()
         return self.output_projection(x.float())
 
@@ -73,8 +79,8 @@ class BatchNorm32(nn.Module):
         xf = x.float()
         if self.training:
             axes = tuple(range(xf.dim() - 1))
-            mean = xf.mean(dim=axes)
-            var = ((xf * xf).mean(dim=axes) - mean * mean).clamp_min(0.0)
+            mean = data_mean(xf, axes)
+            var = (data_mean(xf * xf, axes) - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)

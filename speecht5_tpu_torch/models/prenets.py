@@ -27,6 +27,7 @@ from torch import nn
 from ..config import ConvFeatureConfig, SpeechT5Config
 from ..ops import cuda_kernels
 from ..ops.masking import apply_feature_masks, sample_feature_masks
+from ..parallel.distributed import mean_share
 from ..ops.positional import (espnet_sinusoidal, espnet_sinusoidal_table,
                               fairseq_sinusoidal, fairseq_sinusoidal_table)
 from ..utils.masks import length_mask
@@ -220,7 +221,8 @@ class SpeechEncoderPrenet(nn.Module):
         tensor lets the masks be drawn with no device sync) -> (x [B,
         frames, D], valid bool [B, frames], the time mask bool [B, frames]
         on x's device or None, ``features_pen``: the mean square of the conv
-        features in f32, JAX prenets.py:342).  ``mask``: HuBERT masking,
+        features in f32, JAX prenets.py:342; under data parallelism this rank's
+        share of the global batch's mean).  ``mask``: HuBERT masking,
         drawn from the CPU ``generator`` (the default CPU generator when
         None), or ``masks`` = (time mask, channel mask or None) as given."""
         cfg = self.cfg
@@ -232,7 +234,7 @@ class SpeechEncoderPrenet(nn.Module):
             feats = self.feature_extractor(wav)
         if mult not in (0.0, 1.0):
             feats = GradMultiply.apply(feats, mult)
-        features_pen = feats.float().pow(2).mean()
+        features_pen = mean_share(feats.float().pow(2))
         frames = feats.shape[1]
         valid = length_mask(frame_lengths.to(feats.device, non_blocking=True), frames)
         x = self.layer_norm(feats).to(self.dtype)

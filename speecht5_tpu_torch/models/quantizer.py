@@ -8,6 +8,8 @@ argmax codes at eval, and the perplexities of the diversity loss.
 The Gumbel noise is drawn from an explicit ``torch.Generator`` as
 -log(-log(u)), u uniform in [1e-9, 1) (the JAX draw's range), or taken as
 given (``gumbel``), so a test can hand both packages the same noise.
+Under data parallelism the code probabilities are averaged over the global
+B x T (``data_mean``, differentiable), as JAX averages its global array.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.distributed import data_mean
 
 
 def gumbel_noise(shape, generator=None, device=None):
@@ -53,7 +57,7 @@ class GumbelVectorQuantizer(nn.Module):
         B, T, _ = x.shape
         G, V = self.groups, self.num_vars
         logits = self.weight_proj(x.float()).reshape(B * T * G, V)
-        avg_probs = torch.softmax(logits, dim=-1).reshape(B * T, G, V).mean(0)
+        avg_probs = data_mean(torch.softmax(logits, dim=-1).reshape(B * T, G, V), (0,))
         prob_ppl = torch.exp(-(avg_probs * torch.log(avg_probs + 1e-7)).sum(-1)).sum()
         temp = self.current_temp(num_updates)
         if self.training:
@@ -66,7 +70,7 @@ class GumbelVectorQuantizer(nn.Module):
         else:
             idx = logits.argmax(-1)
             onehot = F.one_hot(idx, V).float()
-        hard_probs = F.one_hot(idx, V).float().reshape(B * T, G, V).mean(0)
+        hard_probs = data_mean(F.one_hot(idx, V).float().reshape(B * T, G, V), (0,))
         code_ppl = torch.exp(-(hard_probs * torch.log(hard_probs + 1e-7)).sum(-1)).sum()
         sel = torch.einsum("ngv,gvd->ngd", onehot.reshape(B * T, G, V),
                            self.vars.reshape(G, V, -1))

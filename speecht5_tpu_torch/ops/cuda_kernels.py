@@ -586,14 +586,15 @@ def dropout_threshold(rate: float) -> int:
 
 
 def dropout_keep_plain(seed: int, rate: float, N: int, Tq: int, Tk: int,
-                       device=None):
+                       device=None, n_offset: int = 0):
     """bool [N, Tq, Tk] keep mask of the lowbias32 counter hash of
     (seed, n, global row, global column), bit for bit the TPU kernel's
-    ``_dropout_keep`` (pallas_kernels.py:265-287)."""
+    ``_dropout_keep`` (pallas_kernels.py:265-287); row n of the call is
+    flat row ``n_offset + n`` of the hash."""
     i64 = dict(dtype=torch.int64, device=device)
     row = torch.arange(Tq, **i64)[None, :, None]
     col = torch.arange(Tk, **i64)[None, None, :]
-    n = torch.arange(N, **i64)[:, None, None]
+    n = (torch.arange(N, **i64) + int(n_offset))[:, None, None] & _M32
     x = _mul32(row, 0x9E3779B1) ^ _mul32(col, 0x85EBCA77)
     x = (x + ((int(seed) & _M32) + _mul32(n, 0x27D4EB2F))) & _M32
     x = x ^ (x >> 16)
@@ -901,6 +902,14 @@ def train_launches_per_layer(dtype) -> dict:
             "banded_attention_train_bwd_dkv": 1}
 
 
+def offset_seed(seed: int, n_offset: int) -> int:
+    """The seed under which the kernels' hash of row n, seed + n *
+    0x27D4EB2F (mod 2**32), is that of row ``n_offset + n`` under ``seed``:
+    how a call's rows take their flat (batch x head) place in a larger
+    batch, with the kernels' arithmetic unchanged."""
+    return (int(seed) + _mul32(torch.tensor(int(n_offset) & _M32), 0x27D4EB2F).item()) & _M32
+
+
 class _BandedAttentionTrain(torch.autograd.Function):
     """Forward kernel saves the row statistics; the backward kernels
     regenerate p and the dropout mask from them and the seed (bf16 on the
@@ -938,7 +947,9 @@ def banded_attention_train(q, k, v, pe_band, lengths=None, *,
     contract of ``banded_attention_train`` (pallas_kernels.py:517).
 
     q/k/v [N, T, Dh] (q pre-scaled); pe_band [Dh, T, T]; lengths [N] int32
-    contiguous valid key counts; seed: a Python int.  Gradients reach q, k,
+    contiguous valid key counts; seed: a Python int (``offset_seed`` places
+    the rows of a data- or tensor-parallel rank in the global batch's
+    dropout hash).  Gradients reach q, k,
     v and pe_band (contiguous or row-padded, ``band_row_stride``).  CUDA:
     T <= 1024, Dh <= 64 (bf16: a multiple of 16)."""
     N, T, _ = q.shape

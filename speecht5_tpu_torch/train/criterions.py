@@ -15,6 +15,14 @@ JAX package's denominators:
   positive prepended being CE over the codebook), the speech pretraining
   loss (HuBERT, the feature penalty, the codebook diversity term and the
   TTS-style decoder loss) and the BART text loss.
+
+Under data parallelism each rank computes its share of the global-batch
+loss: the local sum over the global count (``data_allreduce`` of the local
+counts), so the shares sum to JAX's loss over the global batch and the
+gradients are summed across the data ranks.  Every metric is such a share;
+a term that every rank computes whole (the codebook diversity, the
+perplexities) enters divided by the number of data ranks
+(``data_size``).  In one process both are the identity.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.ctc import ctc_loss
+from ..parallel.distributed import data_allreduce, data_size
 from ..utils.masks import length_mask
 
 
@@ -37,7 +46,7 @@ def label_smoothed_ce(logits, targets, valid, eps: float = 0.1):
     eps_i = eps / (V - 1)
     loss = (1.0 - eps - eps_i) * nll + eps_i * smooth
     w = valid.float()
-    denom = w.sum().clamp_min(1.0)
+    denom = data_allreduce(w.sum()).clamp_min(1.0)
     return (loss * w).sum() / denom, (nll * w).sum() / denom
 
 
@@ -58,7 +67,7 @@ def s2t_loss(dec_logits, ctc_logits, enc_valid, targets, pad_id: int,
         metrics["nll_loss"] = nll
         pred = dec_logits.argmax(-1)
         metrics["accuracy"] = (((pred == targets) & valid).sum()
-                               / valid.sum().clamp_min(1))
+                               / data_allreduce(valid.sum()).clamp_min(1))
     if ctc_weight > 0 and ctc_logits is not None:
         lp = torch.log_softmax(ctc_logits.float(), dim=-1)
         enc_lengths = enc_valid.sum(-1)
@@ -66,7 +75,7 @@ def s2t_loss(dec_logits, ctc_logits, enc_valid, targets, pad_id: int,
         tgt_lengths = (valid & (targets != eos_id)).sum(-1)
         nll_ctc = ctc_loss(lp, enc_lengths, targets, tgt_lengths, blank_id,
                            zero_infinity=zero_infinity)
-        ctc = nll_ctc.sum() / tgt_lengths.sum().clamp_min(1)
+        ctc = nll_ctc.sum() / data_allreduce(tgt_lengths.sum()).clamp_min(1)
         loss = loss + ctc_weight * ctc
         metrics["ctc_loss"] = ctc
     metrics["loss"] = loss
@@ -78,7 +87,8 @@ def sid_loss(logits, targets, label_smoothing: float = 0.0):
     nll_loss, accuracy)."""
     valid = torch.ones(targets.shape, dtype=torch.bool, device=targets.device)
     ce, nll = label_smoothed_ce(logits.float(), targets, valid, label_smoothing)
-    acc = (logits.argmax(-1) == targets).float().mean()
+    acc = ((logits.argmax(-1) == targets).float().sum()
+           / data_allreduce(torch.tensor(float(targets.numel()), device=targets.device)))
     return ce, {"loss": ce, "nll_loss": nll, "accuracy": acc}
 
 
@@ -98,7 +108,7 @@ def guided_attention_loss(attn, enc_lengths, dec_lengths, sigma: float = 0.4,
     valid = (t_dec < olen) & (t_enc < ilen)
     w = torch.where(valid, w, torch.zeros((), device=dev))
     num = (attn.float() * w[None, :, None]).sum()
-    return num / torch.clamp_min(valid.sum() * L * H, 1)
+    return num / torch.clamp_min(data_allreduce(valid.sum()) * L * H, 1)
 
 
 def tts_loss(before, after, stop_logits, target_mel, dec_lengths, *,
@@ -116,7 +126,7 @@ def tts_loss(before, after, stop_logits, target_mel, dec_lengths, *,
     olens = dec_lengths - dec_lengths % r
     mask = length_mask(olens, T)[..., None]
     w = mask.float()
-    denom = torch.clamp_min(w.sum() * before.shape[-1], 1.0)
+    denom = torch.clamp_min(data_allreduce(w.sum()) * before.shape[-1], 1.0)
     tgt = target_mel.float()
     l1 = ((after - tgt).abs() * w).sum() / denom + ((before - tgt).abs() * w).sum() / denom
     l2 = (((after - tgt) ** 2) * w).sum() / denom + (((before - tgt) ** 2) * w).sum() / denom
@@ -130,7 +140,7 @@ def tts_loss(before, after, stop_logits, target_mel, dec_lengths, *,
               + (bce_pos_weight - 1.0) * stop_labels
               * (softplus_neg + torch.clamp_min(-z, 0.0)))
     wm = mask[..., 0].float()
-    bce = (bce_el * wm).sum() / torch.clamp_min(wm.sum(), 1.0)
+    bce = (bce_el * wm).sum() / torch.clamp_min(data_allreduce(wm.sum()), 1.0)
 
     if loss_type == "L1":
         loss = l1 + bce_loss_lambda * bce
@@ -157,8 +167,8 @@ def hubert_loss(hubert_logits, target_list, time_mask, valid_mask, *,
         time_mask = torch.zeros_like(valid_mask)
     m_b = time_mask & valid_mask
     u_b = ~time_mask & valid_mask
-    n_masked = m_b.sum().clamp_min(1)
-    n_unmasked = u_b.sum().clamp_min(1)
+    n_masked = data_allreduce(m_b.sum()).clamp_min(1)
+    n_unmasked = data_allreduce(u_b.sum()).clamp_min(1)
     m, u = m_b.float(), u_b.float()
     metrics = {}
     loss = torch.zeros((), device=valid_mask.device)
@@ -178,8 +188,9 @@ def hubert_loss(hubert_logits, target_list, time_mask, valid_mask, *,
 
 
 def _diversity(q):
-    """The codebook diversity term (G V - prob perplexity) / (G V)."""
-    return (q["num_vars"] - q["prob_perplexity"]) / q["num_vars"]
+    """This rank's share of the codebook diversity term (G V - prob
+    perplexity) / (G V), which every data rank computes whole."""
+    return (q["num_vars"] - q["prob_perplexity"]) / q["num_vars"] / data_size()
 
 
 def speech_pretrain_loss(out, target_list, target_mel, dec_lengths, enc_lengths, *,
@@ -196,8 +207,8 @@ def speech_pretrain_loss(out, target_list, target_mel, dec_lengths, enc_lengths,
     q = out.get("quantizer")
     if q is not None:
         loss = loss + prob_ppl_weight * _diversity(q)
-        metrics["prob_perplexity"] = q["prob_perplexity"]
-        metrics["code_perplexity"] = q["code_perplexity"]
+        metrics["prob_perplexity"] = q["prob_perplexity"] / data_size()
+        metrics["code_perplexity"] = q["code_perplexity"] / data_size()
     if dec_weight > 0:
         dec_loss, dmetrics = tts_loss(
             out["before"], out["after"], out["stop_logits"], target_mel, dec_lengths,
@@ -220,6 +231,6 @@ def text_pretrain_loss(out, targets, pad_id: int, *, label_smoothing: float = 0.
     q = out.get("quantizer")
     if q is not None:
         loss = loss + prob_ppl_weight * _diversity(q)
-        metrics["prob_perplexity"] = q["prob_perplexity"]
+        metrics["prob_perplexity"] = q["prob_perplexity"] / data_size()
     metrics["loss"] = loss
     return loss, metrics

@@ -35,10 +35,36 @@ AdamW:
   on every training micro-batch, in order, as JAX threads its mutable
   ``batch_stats`` through the micro-batches.
 
-The host-side random draws (HuBERT masks, layerdrop, the train kernel's
-dropout seeds, the SID frame shuffle, the Gumbel noise and the codebook
-permutation) come from one CPU ``torch.Generator``; dropout of activations
-draws from the device's generator.
+The host-side random draws of a rank's rows (HuBERT masks, the SID frame
+shuffle, the Gumbel noise and the codebook permutation) come from one CPU
+``torch.Generator``; the layer-wide draws (layerdrop, the train kernel's
+dropout seeds) from a CPU generator seeded by ``layer_seed`` and the
+update count, the same on every rank; dropout of activations draws from
+the device's generator.
+
+Parallelism (JAX ``Trainer(..., mesh, fsdp)``, trainer.py:444): with a
+``('data', 'model')`` mesh (``parallel/sharding.make_mesh``) each rank
+computes the losses of its rows as its share of the global-batch loss
+(``criterions``), so the gradients are summed across the data ranks:
+
+- data parallel: one flat, bucketed all-reduce (SUM) of every gradient
+  over the data ranks after the update's last micro-batch.  Our own rather
+  than DDP's: DDP averages, and its reducer has to be told which
+  parameters the loss skipped; here an untouched parameter has a zero
+  gradient, as in JAX, and the sum is JAX's global-batch gradient;
+- FSDP (``fsdp=True``): ``fully_shard`` per encoder and decoder layer and
+  at the root, parameters split as ``param_specs(fsdp=True)`` places them,
+  gradients reduce-scattered as sums (synced on the last micro-batch
+  only); the parameters it keeps whole are summed as above;
+- tensor parallel (``n_model`` > 1): ``parallelize_module`` by the
+  sharding rules; the attention modules run their local heads.  With
+  ``fsdp`` too, FSDP then shards over the data ranks an axis that the
+  model split left whole (JAX's 2-D placement).
+
+The clip norm is the global norm over the sharded gradients (each shard's
+squares summed over the mesh dims it is split on), and AdamW and the
+freeze horizons work on the sharded parameters.  The initial weights are
+made from one seed on every rank and checked to agree.
 """
 
 from __future__ import annotations
@@ -46,8 +72,12 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 
 from ..ops.cuda_kernels import fused_log_mel
+from ..parallel import distributed as D
+from ..parallel.sharding import (apply_fsdp, apply_tensor_parallel, mesh_shape,
+                                 redistribute)
 from . import criterions
 from .schedules import inverse_sqrt, polynomial_decay, tri_stage
 
@@ -158,7 +188,8 @@ class Trainer:
     list (joint pretraining), for each of them: ``train_step`` then names
     the task of its batches."""
 
-    def __init__(self, model, task, cfg: TrainConfig, *, generator=None):
+    def __init__(self, model, task, cfg: TrainConfig, *, generator=None,
+                 mesh=None, fsdp: bool = False, layer_seed: int = 0):
         self.tasks = [task] if isinstance(task, str) else list(task)
         for t in self.tasks:
             if t not in TASKS:
@@ -166,11 +197,37 @@ class Trainer:
         self.model = model
         self.cfg = cfg
         self.task = self.tasks[0]
+        self.mesh = mesh
+        self.layer_seed = layer_seed
+        shape = mesh_shape(mesh)
+        # with a mesh the data-parallel sums run even over one data rank
+        self.data_group = None if mesh is None else mesh.get_group("data")
+        D.set_data_group(self.data_group)
+        if mesh is not None:
+            D.check_replicated([t.detach() for t in model.state_dict().values()],
+                               "initial model state")
+        if shape["model"] > 1:
+            apply_tensor_parallel(model, mesh)
+        # the gradients this trainer sums over the data ranks itself
+        self.fsdp = fsdp and shape["data"] > 1
+        if self.fsdp:
+            self.summed = apply_fsdp(model, mesh)
+        else:
+            self.summed = list(model.parameters()) if self.data_group is not None else []
         self.named = list(model.named_parameters())
         self.horizons = [freeze_horizon(n, cfg) for n, _ in self.named]
+        # the whole tensors in one group; split ones by placement, updated
+        # one at a time: an update then never moves a tensor between ranks
+        # (DTensor's collectives do not run over gloo on a card's tensors)
+        groups = {}
+        for _, p in self.named:
+            key = (p.device_mesh, p.placements) if _is_dtensor(p) else None
+            groups.setdefault(key, []).append(p)
         self.optimizer = torch.optim.AdamW(
-            [p for _, p in self.named], lr=cfg.lr, betas=tuple(cfg.betas),
-            eps=cfg.adam_eps, weight_decay=cfg.weight_decay)
+            [{"params": g} if key is None else {"params": g, "foreach": False}
+             for key, g in groups.items()],
+            lr=cfg.lr, betas=tuple(cfg.betas), eps=cfg.adam_eps,
+            weight_decay=cfg.weight_decay)
         self.schedule = make_schedule(cfg)
         self.step = 0
         self.generator = (generator if generator is not None
@@ -268,7 +325,7 @@ class Trainer:
         mcfg, cfg = self.model.cfg, self.cfg
         self.model.eval()
         if self.task != "s2t":
-            return self.loss(batch)[1]
+            return self._global_metrics(self.loss(batch)[1])
         logits, ctc_logits, enc_valid = self.model.forward_s2t(
             batch["wav"], batch["wav_lengths"], batch["prev_tokens"], mask=False)
         _, metrics = criterions.s2t_loss(
@@ -276,9 +333,20 @@ class Trainer:
             mcfg.blank_id, eos_id=mcfg.eos_id, ce_weight=cfg.ce_weight,
             ctc_weight=max(cfg.ctc_weight, 1e-9),
             label_smoothing=cfg.label_smoothing)
+        metrics = self._global_metrics(metrics)
         metrics["_ctc_ids"] = ctc_logits.argmax(-1)
         metrics["_enc_lengths"] = enc_valid.sum(-1)
         return metrics
+
+    def _global_metrics(self, metrics):
+        """Each metric summed over the data ranks (every one is a rank's
+        share of the global-batch value): one all-reduce."""
+        if self.data_group is None or not metrics:
+            return metrics
+        keys = sorted(metrics)
+        vec = torch.stack([metrics[k].detach().float().reshape(()) for k in keys])
+        dist.all_reduce(vec, group=self.data_group)
+        return dict(zip(keys, vec.unbind()))
 
     def train_step(self, micro_batches, task=None):
         """One update over ``accum_steps`` micro-batches of ``task`` (one of
@@ -294,14 +362,19 @@ class Trainer:
                              f"got {len(micro_batches)}")
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
+        self.model.encoder.layer_generator = torch.Generator().manual_seed(
+            self.layer_seed * 1_000_003 + self.step)
         sums = {}
-        for mb in micro_batches:
+        for i, mb in enumerate(micro_batches):
+            if self.fsdp:   # reduce-scatter after the last micro-batch only
+                self.model.set_requires_gradient_sync(i == len(micro_batches) - 1)
             loss, metrics = self.loss(mb)
             (loss / len(micro_batches)).backward()
             for k, v in metrics.items():
                 v = v.detach()
                 sums[k] = v if k not in sums else sums[k] + v
-        metrics = {k: v / len(micro_batches) for k, v in sums.items()}
+        metrics = self._global_metrics(
+            {k: v / len(micro_batches) for k, v in sums.items()})
 
         grads = []
         for (_, p), horizon in zip(self.named, self.horizons):
@@ -310,13 +383,16 @@ class Trainer:
                 continue
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+            elif _is_dtensor(p):
+                p.grad = redistribute(p.grad, p)
             grads.append(p.grad)
-        norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads))) if grads else torch.zeros(())
+        if self.summed:
+            sum_gradients([p.grad for p in self.summed], self.data_group)
+        norm = global_norm(grads)
         if self.cfg.clip_norm > 0 and grads:
             c = self.cfg.clip_norm
             scale = torch.where(norm < c, torch.ones_like(norm), c / norm)
-            torch._foreach_mul_(grads, scale)
+            torch._foreach_mul_([_local(g) for g in grads], scale.to(_local(grads[0])))
         lr = self.schedule(self.step)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
@@ -324,3 +400,58 @@ class Trainer:
         self.step += 1
         metrics["grad_norm"] = norm
         return metrics
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def _local(t):
+    """The rank's part of a (possibly split) tensor."""
+    return t.to_local() if _is_dtensor(t) else t
+
+
+BUCKET_BYTES = 25 * 2 ** 20
+
+
+def sum_gradients(grads, group) -> None:
+    """Sum ``grads`` (each rank's local parts) over ``group`` in place, in
+    flat buckets of about ``BUCKET_BYTES``, one all-reduce each."""
+    from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+    bucket, size = [], 0
+    tensors = [_local(g) for g in grads if g is not None]
+    for i, t in enumerate(tensors):
+        bucket.append(t)
+        size += t.numel() * t.element_size()
+        last = i == len(tensors) - 1
+        if size >= BUCKET_BYTES or last or tensors[i + 1].dtype != t.dtype \
+                or tensors[i + 1].device != t.device:
+            flat = _flatten_dense_tensors(bucket)
+            dist.all_reduce(flat, group=group)
+            for dst, src in zip(bucket, _unflatten_dense_tensors(flat, bucket)):
+                dst.copy_(src)
+            bucket, size = [], 0
+
+
+def global_norm(grads):
+    """The L2 norm over every element of ``grads``, split or whole: a split
+    gradient's squares are summed over the mesh dims it is split on, a
+    whole one (the same on every rank) is counted once."""
+    if not grads:
+        return torch.zeros(())
+    plain = [g for g in grads if not _is_dtensor(g)]
+    norms = list(torch._foreach_norm(plain)) if plain else []
+    split = {}
+    for g in grads:
+        if _is_dtensor(g):
+            dims = tuple(i for i, pl in enumerate(g.placements) if pl.is_shard())
+            split.setdefault((g.device_mesh, dims), []).append(g.to_local())
+    for (mesh, dims), tensors in split.items():
+        sq = torch.stack(torch._foreach_norm(tensors)).square().sum()
+        for d in dims:
+            dist.all_reduce(sq, group=mesh.get_group(d))
+        norms.append(sq.sqrt())
+    return torch.linalg.vector_norm(torch.stack(norms))

@@ -167,8 +167,6 @@ def test_evaluate_refuses_what_jax_refuses(setup, tmp_path, capsys):
     with pytest.raises(SystemExit):          # a word LM without a lexicon
         evaluate.main(base + ["--decoder", "ctc_lexicon", "--lm-path", setup["arpa"]])
     assert "--lm-path requires --lexicon" in capsys.readouterr().err
-    with pytest.raises(SystemExit, match="A.8"):
-        evaluate.main(base + ["--data-parallel"])
     with pytest.raises(SystemExit, match="requires --decoder beam"):
         evaluate.main(base + ["--decoder", "ctc_greedy", "--ensemble-last", "2"])
     with pytest.raises(SystemExit, match="no best checkpoint"):

@@ -366,3 +366,59 @@ def test_chip_smoke_pretrain_large_reads_binarized_text_on_cpu():
     assert set(r["counts"].values()) == {0} and r["text_blocks"] > 3
     assert {"pretrain_speech", "pretrain_text"} <= set(r["tasks"][:3])
     assert r["text_file"] == "text.bin"
+
+
+def test_parallel_package_imports_without_jax_and_nccl_needs_a_card(tmp_path):
+    """``parallel/`` imports with JAX and the JAX package blocked, and a
+    backend that needs a card raises on a machine without one instead of
+    falling back to gloo on the CPU, through ``initialize`` and through
+    ``cli/train.py --distributed-platform nccl``."""
+    code = (f"import sys\nfor m in {BLOCKED!r}:\n    sys.modules[m] = None\n"
+            "import speecht5_tpu_torch.parallel.distributed as D\n"
+            "import speecht5_tpu_torch.parallel.sharding as S\n"
+            "print(D.backend_for(None, 'cpu'), D.backend_for('cpu'), D.backend_for(None))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["gloo", "gloo", "nccl"]
+    pat = re.compile(r"^\s*(import|from)\s+(jax|flax|speecht5_tpu)\b")
+    files = list((REPO / "speecht5_tpu_torch" / "parallel").glob("*.py"))
+    assert len(files) == 3 and not [f for f in files
+                                    if any(pat.match(l) for l in f.read_text().splitlines())]
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: nccl does not raise here")
+    from speecht5_tpu_torch.cli import train as cli_train
+    from speecht5_tpu_torch.parallel import distributed as D
+
+    with pytest.raises(RuntimeError, match="nccl backend needs a card"):
+        D.initialize(f"file://{tmp_path}/store", 1, 0, "nccl", "cpu")
+    with pytest.raises(RuntimeError, match="nccl backend needs a card"):
+        cli_train.main(["--task", "s2t", "--manifest", "m.tsv", "--labels", "l",
+                        "--save-dir", str(tmp_path), "--device", "cpu",
+                        "--distributed-num-processes", "1", "--distributed-platform", "nccl"])
+    assert not torch.distributed.is_initialized()
+
+
+def test_chip_smoke_parallel_phases_run_on_cpu_with_twins(tmp_path):
+    """Phases 29-30 at the tiny preset on the CPU: the parallel train
+    modes of the fixed table as spawned gloo ranks against the one-process
+    run, data-parallel evaluate against the one-process
+    evaluate, and the wrapper's cost at world size 1 (gloo here: NCCL needs
+    the card)."""
+    from conftest import cpu_subprocess_env
+
+    env = {**cpu_subprocess_env(), "OMP_NUM_THREADS": "1"}
+    out = chip_smoke.phase_parallel_train(device="cpu", arch="speecht5_tiny",
+                                          seconds=(0.3, 0.6), env=env)
+    assert set(out["modes"]) == {"dp", "fsdp", "tp"}
+    assert out["modes"]["tp"]["mesh"] == {"data": 1, "model": 2}
+    trained = chip_smoke.phase_train(str(tmp_path), "speecht5_tiny", device="cpu", n_utts=4,
+                                     updates=1, seconds=(0.3, 0.6),
+                                     flags=["--batch-size", "2", "--ctc-weight", "0.5"])
+    ev = chip_smoke.phase_parallel_evaluate(str(tmp_path), device="cpu", arch="speecht5_tiny",
+                                            seconds=0.5, max_len=8, dtype="float32", env=env)
+    assert ev["hypotheses_equal"] and ev["n_utts"] == 8
+    wrap = chip_smoke.phase_parallel_wrapper(trained["args"], str(tmp_path), device="cpu",
+                                             mode=("dp_gloo", 1, "gloo", []), env=env)
+    assert wrap["losses_wrapped"] == wrap["losses_one_process"]
+    assert len(wrap["update_ms_wrapped"]) == 2
