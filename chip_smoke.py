@@ -70,7 +70,15 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                T 12 ("sweep_b4"), the conv stack at batch 4
                ("b4_T799"), and its beam's decode steps in f32 and bf16
                ("sweep_cross_cached": q [4, 2, 12, 64], Tk 12;
-               "sweep_self_cache": the cache [8, 9, 12, 64]).
+               "sweep_self_cache": the cache [8, 9, 12, 64]).  The
+               sibling families' shapes (phases 31-33), bf16: the inference
+               attention at T 549 ("slm_T549", SpeechLM's 11 s request),
+               the train kernels at N 48 (4 x 12), T 512 and 149
+               ("r0.1/b4_T512", the unit encoder on mono units;
+               "r0.1/b4_T149", the CTC recipe's 3 s utterances), the conv
+               stack at batch 4 on 16 s ("b4"), and the 3 s beam's grouped
+               cross step in f32 and bf16 ("sib_cross_cached": q [1, 5, 12,
+               64], Tk 149).
 3. serve    -- the serving path: the port's ASR Service (ctc_greedy, bf16,
                both inference kernels on) at full speecht5_base_asr width
                with random weights, answering 3 s, 11 s and 21 s requests in
@@ -83,7 +91,7 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                200, CTC weight 0.3) at speecht5_base_asr, bf16, batch 1,
                every kernel on (decoder.use_pallas_attn too), warming each
                bucket (random weights: every warm-up and chunk runs all 200
-               steps) and serving the 3 s and 11 s requests; per
+               steps) and serving the 3 s request (a depth cut); per
                request the decode steps and each kernel's launches: the
                decode-step kernel 12 a step (6 layers x self + cross), the
                inference attention 24 (12 layers x bias pass and main loop)
@@ -319,18 +327,49 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                --batch-size 4`` in this process, and the inference
                attention, conv and decode-step kernels must launch on both
                ranks.
+31. speechlm -- SpeechLM-P Base (``models/speechlm.SpeechLMConfig()``: 6 + 6
+               post-LN layers, d 768, 504 units, bf16, every kernel flag
+               on): 3 updates of ``train/joint.speechlm_joint_loss`` at
+               batch 4 over a ``MultiCorpusLoader`` of a speech corpus (8-16
+               s, km units at 50 Hz) and a mono-unit corpus (256-511
+               units); ``recipes/speechlm_ctc_finetune.run`` for 2 updates
+               on the joint model's stack (3 s utterances); greedy CTC
+               (``CTCDecoder``) on a 3 s and an 11 s request; FastText2Unit
+               at ``fastspeech2_s()``: 3 updates and ``generate`` (no kernel).
+32. speechut -- SpeechUT Base: 3 updates of
+               ``recipes/speechut_joint_pretrain.run`` at batch 4 (speech,
+               paired and mono streams), then the beam (beam 5, max_len 200,
+               CTC 0.3) on a 3 s request through ``ASRDecoder``.
+33. speech2c -- ``speech2c_base()``: 3 updates of
+               ``recipes/speech2c_pretrain.run`` on a
+               ``SpeechPretrainDataset(add_decoder_target=True)`` corpus of 8
+               utterances of 8-16 s (batch 4), then the beam on a 3 s request.
+34. siblings parity -- f32, the draws handed in, each family's kernel route
+               against its plain route: the joint / pretraining losses
+               (1e-4) and gradients (1e-3 of max |g|), SpeechLM's greedy CTC
+               ids, SpeechUT's and Speech2C's best beam hypotheses (max_len
+               60).  31-33 check every launch count exactly (the unit
+               encoder's pass over SpeechUT's speech frames feeds no loss
+               term: forward kernel only); the kernels phase adds their
+               shapes (attention T 549, the train kernels at N 48, T 512
+               and 149, the conv stack at batch 4, the 3 s beam's cross
+               step).
 
 Depth cut to make room for 29-30 (PR 17): the train phase resamples 4 of
 its 32 utterances from 48 kHz (16 before), serve beam and beam parity take
 the 3 s and 11 s requests (the 21 s chunked request stays in serve and
 parity), the VC phase decodes one request, the LM-fused beam one 3 s
-request, and Large's beam serving and beam parity the 3 s request.
+request, and Large's beam serving and beam parity the 3 s request.  For
+31-34: Base's beam parity and Large's greedy parity take the 3 s
+request alone, so does serve beam (the 11 s request stays in serve and
+serve Large), and phase 34's f32 beams stop at max_len 60.
 
 The launch counts are zeroed just before each driven path (serve, serve
 beam, train, train t2s, the warm-started train and request, serve tts,
 train s2s, the VC requests, train s2c, the SID inference, evaluate, the
 parity sweep, the two rescore runs, the LM-fused beam, Large's
-pretraining, greedy and beam requests, each parallel rank's run) and read
+pretraining, greedy and beam requests, each parallel rank's run, and each
+sibling family's updates, CTC recipe, requests and beam) and read
 just after; a kernel of that path that was never launched fails.
 Output: an early line with the card's name and power limit as nvidia-smi
 gives them, one ``{"kernels": [...]}`` line, and as the last line
@@ -367,14 +406,33 @@ from speecht5_tpu_torch.cli import train as cli_train
 from speecht5_tpu_torch.cli.serve import SR, Service, build_parser
 from speecht5_tpu_torch.data.audio import layer_norm_wav, write_wav
 from speecht5_tpu_torch.decode.tts import CHECK_EVERY
-from speecht5_tpu_torch.data.manifests import (TOKEN_BUCKETS, SpeechToTextDataset,
+from speecht5_tpu_torch.data.manifests import (AUDIO_BUCKETS, TOKEN_BUCKETS,
+                                               SpeechPretrainDataset, SpeechToTextDataset,
                                                bucket_length, collate_mel_targets)
+from speecht5_tpu_torch.data.multicorpus import MultiCorpusLoader, TokenCorpusSpec
+from speecht5_tpu_torch.decode.asr import ASRDecoder, CTCDecoder
 from speecht5_tpu_torch.models.attention import band_from_table
+from speecht5_tpu_torch.models.common import init_weights
 from speecht5_tpu_torch.models.encoder import BAND_ROW_MULTIPLE
+from speecht5_tpu_torch.models.fastspeech2 import (fastspeech2_s, fastspeech2_tiny,
+                                                   init_fastspeech2)
 from speecht5_tpu_torch.models.layers import EncoderLayer
+from speecht5_tpu_torch.models.speech2c import (init_speech2c, speech2c_base,
+                                                speech2c_pretrain_loss)
+from speecht5_tpu_torch.models.speechlm import (SpeechLMConfig, SpeechLMCtc, init_speechlm,
+                                                mix_selection, speechlm_tiny, text_masking)
+from speecht5_tpu_torch.models.speechut import SpeechUTConfig, init_speechut, speechut_tiny
 from speecht5_tpu_torch.models.speecht5 import init_model
 from speecht5_tpu_torch.ops import cuda_kernels as K
+from speecht5_tpu_torch.ops.masking import sample_feature_masks
 from speecht5_tpu_torch.ops.mel import mel_filterbank
+from speecht5_tpu_torch.recipes import speech2c_pretrain as s2c_recipe
+from speecht5_tpu_torch.recipes import speechlm_ctc_finetune as slm_recipe
+from speecht5_tpu_torch.recipes import speechut_joint_pretrain as sut_recipe
+from speecht5_tpu_torch.recipes.common import adamw as recipe_adamw
+from speecht5_tpu_torch.train.criterions import fasttext2unit_loss
+from speecht5_tpu_torch.train.joint import (JointLossConfig, speechlm_joint_loss,
+                                            speechut_joint_loss)
 from speecht5_tpu_torch.train.trainer import Trainer, TrainConfig, device_mel_batch
 
 WATCHDOG_S = 1100
@@ -1114,7 +1172,9 @@ def flash_bias_cache_case(case, dtype, device="cuda", seed=4):
     beam at batch 4 x beam 2 over 4000-sample clips: "sweep_self_cache"
     (the cache [8, 9, 12, 64] at step 4 of max_len 8) and
     "sweep_cross_cached" (q [4, 2, 12, 64] against the clips' 12 encoder
-    frames, all valid).  -> q4, k4, v4, key_valid, rows."""
+    frames, all valid).  The SpeechUT / Speech2C beam on a 3 s request:
+    "sib_cross_cached" (q [1, 5, 12, 64] against its 149 encoder frames, all
+    valid).  -> q4, k4, v4, key_valid, rows."""
     g = torch.Generator().manual_seed(seed)
     H, D = {"lm_self_cache": (LM_HEADS, LM_DH),
             "eval_lm_self_cache": (EVAL_LM_HEADS, EVAL_LM_DH)}.get(case, (12, 64))
@@ -1145,7 +1205,8 @@ def flash_bias_cache_case(case, dtype, device="cuda", seed=4):
         key_valid = torch.arange(Tc)[None, :] <= pos
     else:
         Bs, beam, Tk = {"eval_cross_cached": (EVAL_BATCH, BEAM, EVAL_FRAMES),
-                        "sweep_cross_cached": (SWEEP_BATCH, SWEEP_BEAM, SWEEP_FRAMES)
+                        "sweep_cross_cached": (SWEEP_BATCH, SWEEP_BEAM, SWEEP_FRAMES),
+                        "sib_cross_cached": (1, BEAM, VC_SOURCE_FRAMES)
                         }.get(case, (1, BEAM, 799))
         q4 = (torch.randn(Bs, beam, H, 64, generator=g) * 64 ** -0.5).to(dtype)
         k4, v4 = (torch.randn(Bs, H, Tk, 64, generator=g).to(dtype).transpose(1, 2)
@@ -1154,8 +1215,8 @@ def flash_bias_cache_case(case, dtype, device="cuda", seed=4):
         if case == "eval_cross_cached":
             valid = torch.randint(2 * Tk // 5, Tk + 1, (Bs,), generator=g)
             valid[0] = Tk                                  # the batch's longest clip
-        elif case == "sweep_cross_cached":
-            valid = torch.full((Bs,), Tk)                  # clips of one length
+        elif case in ("sweep_cross_cached", "sib_cross_cached"):
+            valid = torch.full((Bs,), Tk)                  # every frame valid
         else:
             valid = torch.tensor([549])
         key_valid = torch.arange(Tk)[None, :] < valid[:, None]
@@ -1169,8 +1230,8 @@ def _flash_bias_record(case, dtype):
     SDPA (an f32 0/-1e9 mask, scale 1) on the same K/V as the yardstick,
     timed both ways.  "cross", "self" and "lm_self" call the contract entry
     on [N, T, D] rows, "cross_cached", "self_cache", "lm_self_cache",
-    the "eval_", "large_" and "sweep_" cases, "tts_self", "tts_cross" and
-    "vc_cross" the
+    the "eval_", "large_", "sweep_" and "sib_" cases, "tts_self", "tts_cross"
+    and "vc_cross" the
     cached entry on the decoder's layouts; the last two with
     the max-probability output, held against the twin's (f32 1e-4, bf16
     3e-2 of max |ref|) and timed with and without it."""
@@ -1178,7 +1239,7 @@ def _flash_bias_record(case, dtype):
     if case in ("self_cache", "cross_cached", "tts_self", "tts_cross", "vc_cross",
                 "lm_self_cache", "eval_self_cache", "eval_lm_self_cache",
                 "eval_cross_cached", "large_cross_cached", "large_self_cache",
-                "sweep_cross_cached", "sweep_self_cache"):
+                "sweep_cross_cached", "sweep_self_cache", "sib_cross_cached"):
         q4, k4, v4, key_valid, rows = flash_bias_cache_case(case, dtype)
         B, Tq, H, D = q4.shape
         N, Tk = B * H, k4.shape[1]
@@ -1285,7 +1346,11 @@ def phase_kernels():
     parity sweep's batch of 4 clips of 4000 samples: the inference attention
     ("bfloat16/sweep_b4", T 12), the conv stack ("bfloat16/b4_T799") and
     its beam's decode steps ("<dtype>/sweep_cross_cached",
-    "<dtype>/sweep_self_cache")."""
+    "<dtype>/sweep_self_cache").  The sibling families: the inference
+    attention at T 549 ("bfloat16/slm_T549"), the train kernels at N 48, T
+    512 and 149 ("bfloat16/r0.1/b4_T512", "bfloat16/r0.1/b4_T149"), the
+    conv stack at batch 4 on 16 s ("bfloat16/b4") and the 3 s beam's cross
+    step ("<dtype>/sib_cross_cached")."""
     records = {name: {} for name in KERNELS}
     failures = []
     for batch in (1, 2):
@@ -1375,6 +1440,27 @@ def phase_kernels():
         failures.append("train kernels large: "
                         + json.dumps({n: r["errors"] for n, r in recs.items()}))
     torch.cuda.empty_cache()
+    # the sibling families (phases 31-33): SpeechLM's 11 s CTC request, the
+    # unit encoder on a batch of 4 mono-unit rows (T 512) and the CTC
+    # recipe's 3 s utterances (T 149), the speech batch of 4 at 16 s
+    ok, rec = _attention_record(1, torch.bfloat16, T=SIB_CTC_T, valid=SIB_CTC_T)
+    records["banded_flash_attention"][f"bfloat16/slm_T{SIB_CTC_T}"] = rec
+    if not ok:
+        failures.append(f"banded_flash_attention slm_T{SIB_CTC_T}: max|diff| "
+                        f"{rec['max_abs_err']} > {rec['tolerance']}")
+    for T in (SIB_MONO_UNITS[1], SIB_RECIPE_T):
+        key = f"bfloat16/r0.1/b4_T{T}"
+        ok, recs = _train_records(torch.bfloat16, 0.1, batch=SIB_BATCH, T=T)
+        for name, rec in recs.items():
+            records[name][key] = rec
+        if not ok:
+            failures.append(f"train kernels {key}: "
+                            + json.dumps({n: r["errors"] for n, r in recs.items()}))
+    ok, rec = _conv_record(SIB_BATCH, torch.bfloat16)
+    records["conv_stack"]["bfloat16/b4"] = rec
+    if not ok:
+        failures.append(f"conv_stack b4: max|diff| {rec['max_abs_err']} > {rec['tolerance']}")
+    torch.cuda.empty_cache()
     for batch, samples, center in ((16, 767 * 256 + 1024, False), (2, 48000, True)):
         ok, rec = _mel_record(batch, samples, center)
         records["fused_log_mel"][f"float32/b{batch}"] = rec
@@ -1384,7 +1470,8 @@ def phase_kernels():
     for case in ("cross", "self", "cross_cached", "self_cache", "tts_self", "tts_cross",
                  "vc_cross", "lm_self", "lm_self_cache", "eval_cross_cached",
                  "eval_self_cache", "eval_lm_self_cache", "large_cross_cached",
-                 "large_self_cache", "sweep_cross_cached", "sweep_self_cache"):
+                 "large_self_cache", "sweep_cross_cached", "sweep_self_cache",
+                 "sib_cross_cached"):
         for dtype in (torch.float32, torch.bfloat16):
             key = f"{str(dtype).split('.')[-1]}/{case}"
             ok, rec = _flash_bias_record(case, dtype)
@@ -4108,6 +4195,551 @@ def phase_pretrain_parity(device="cuda", batch=2, seconds=LARGE_SPEECH_S, seed=0
     return result
 
 
+# ------------------------------------------------------- sibling families
+
+# phases 31-34: SpeechLM, SpeechUT and Speech2C at full width, then
+# each family's kernel route against its plain route in f32
+SLM_FLAGS = ["speech_encoder.use_pallas_attn=True",
+             "speech_encoder.use_pallas_attn_train=True",
+             "unit_encoder.use_pallas_attn=True", "unit_encoder.use_pallas_attn_train=True",
+             "conv_features.impl='pallas'"]
+SUT_FLAGS = SLM_FLAGS + ["decoder.use_pallas_attn=True"]
+SPEECH2C_FLAGS = TRAIN_OVERRIDES + BEAM_OVERRIDES
+SIB_BATCH, SIB_UPDATES = 4, 3
+SIB_SPEECH_S = (8.0, 16.0)
+SIB_MONO_UNITS = (256, 512)          # the mono-unit corpus' lengths (<= 1024 keys)
+SIB_PAIRED_UNITS = (100, 250)        # paired units; their text about a fifth
+SIB_REQUESTS_S = (3, 11)             # SpeechLM CTC requests
+SIB_BEAM_S = 3                       # the SpeechUT / Speech2C beam's request
+SIB_CTC_S = 3.0                      # the CTC recipe's utterances at Base
+SIB_PARITY_MAX_LEN = 60              # the f32 parity beams (the served ones: 200)
+SIB_CTC_T = C.ConvFeatureConfig().out_length(SIB_REQUESTS_S[1] * 16000)      # 549
+SIB_RECIPE_T = C.ConvFeatureConfig().out_length(int(SIB_CTC_S * 16000))      # 149
+# the tiny presets' sizes, for the CPU rehearsals
+SIB_TINY = {"speech_s": (0.3, 0.6), "mono": (8, 16), "paired": (6, 12),
+            "requests_s": (0.3, 0.5), "beam_s": 0.3, "max_len": 8, "ctc_s": 0.25,
+            "batch": 2}
+
+
+def _sib_sizes(tiny: bool) -> dict:
+    if tiny:
+        return SIB_TINY
+    return {"speech_s": SIB_SPEECH_S, "mono": SIB_MONO_UNITS, "paired": SIB_PAIRED_UNITS,
+            "requests_s": SIB_REQUESTS_S, "beam_s": SIB_BEAM_S, "max_len": BEAM_MAX_LEN,
+            "ctc_s": SIB_CTC_S, "batch": SIB_BATCH}
+
+
+def sibling_config(family: str, dtype: str, kernels: bool, tiny: bool = False,
+                   overrides=()):
+    """The family's Base preset (``tiny``: its tiny preset) at ``dtype``,
+    its kernel flags on with ``kernels``."""
+    base = {"speechlm": (speechlm_tiny, SpeechLMConfig),
+            "speechut": (speechut_tiny, SpeechUTConfig),
+            "speech2c": (lambda: C.speecht5_tiny(vocab_size=20),
+                         speech2c_base)}[family][0 if tiny else 1]()
+    flags = {"speechlm": SLM_FLAGS, "speechut": SUT_FLAGS,
+             "speech2c": SPEECH2C_FLAGS}[family]
+    return C.apply_overrides(C.replace(base, dtype=dtype),
+                             (flags if kernels else []) + list(overrides))
+
+
+def sibling_still(family: str):
+    """Every dropout and layerdrop of the family's stacks at 0 (parity)."""
+    stacks = {"speechlm": ("speech_encoder", "unit_encoder"),
+              "speechut": ("speech_encoder", "unit_encoder", "decoder"),
+              "speech2c": ("encoder", "decoder")}[family]
+    return [f"{s}.{f}=0.0" for s in stacks
+            for f in ("dropout", "attention_dropout", "activation_dropout", "layerdrop")]
+
+
+def sibling_loader(cfg, streams, sizes: dict, seed: int, device, batch: int):
+    """A ``MultiCorpusLoader`` over seeded in-memory corpora of 3 batches
+    each: "speech" (``speech_s`` seconds of synthetic audio, random km
+    units at the frame rate), "text" / "text_mono" (``mono`` units, padded
+    with pad_id at the end) and "text_paired" (``paired`` units and a text
+    of about a fifth as many tokens with EOS, its EOS-shifted prev).  At
+    most ``batch`` items a batch: every step has ``batch`` rows of each."""
+    rng = np.random.default_rng(seed)
+    n = 3 * batch
+    V = cfg.unit_vocab_size
+    corpora = {}
+    if "speech" in streams:
+        items = []
+        for i in range(n):
+            wav = synth_audio(float(rng.uniform(*sizes["speech_s"])), seed=700 + seed + i)
+            items.append({"wav": wav, "units": rng.integers(
+                0, V, cfg.conv_features.out_length(len(wav)))})
+        corpora["speech"] = (items, [len(x["wav"]) for x in items])
+    for name in ("text", "text_mono"):
+        if name in streams:
+            items = [rng.integers(2, V, int(rng.integers(*sizes["mono"]))) for _ in range(n)]
+            corpora[name] = ([{"units": u} for u in items], [len(u) for u in items])
+    if "text_paired" in streams:
+        items = []
+        for _ in range(n):
+            u = rng.integers(2, V, int(rng.integers(*sizes["paired"])))
+            text = rng.integers(5, cfg.text_vocab_size, max(len(u) // 5, 2))
+            items.append({"units": u, "targets": np.append(text, cfg.eos_id)})
+        corpora["text_paired"] = (items, [len(x["units"]) for x in items])
+
+    def pad(rows, value):
+        out = np.full((len(rows), max(len(r) for r in rows)), value, np.int64)
+        for b, r in enumerate(rows):
+            out[b, : len(r)] = r
+        return torch.from_numpy(out).to(device)
+
+    def collate_speech(items):
+        T = bucket_length(max(len(x["wav"]) for x in items), AUDIO_BUCKETS)
+        wav = np.zeros((len(items), T), np.float32)
+        for b, x in enumerate(items):
+            wav[b, : len(x["wav"])] = x["wav"]
+        units = np.zeros((len(items), cfg.conv_features.out_length(T)), np.int64)
+        for b, x in enumerate(items):
+            units[b, : len(x["units"])] = x["units"]
+        return {"wav": torch.from_numpy(wav).to(device),
+                "wav_lengths": torch.tensor([len(x["wav"]) for x in items], dtype=torch.int32),
+                "units": torch.from_numpy(units).to(device)}
+
+    def collate_units(items):
+        return {"units": pad([x["units"] for x in items], cfg.pad_id)}
+
+    def collate_paired(items):
+        tgt = pad([x["targets"] for x in items], cfg.pad_id)
+        prev = torch.cat([torch.full_like(tgt[:, :1], cfg.eos_id), tgt[:, :-1]], 1)
+        return {"units": pad([x["units"] for x in items], cfg.pad_id),
+                "prev_tokens": prev, "targets": tgt}
+
+    collate = {"speech": collate_speech, "text": collate_units, "text_mono": collate_units,
+               "text_paired": collate_paired}
+    total = sum(len(items) for items, _ in corpora.values())
+    specs = [TokenCorpusSpec(name, items, collate[name], sizes_,
+                             sample_ratio=len(items) / total)
+             for name, (items, sizes_) in corpora.items()]
+    return MultiCorpusLoader(specs, max_tokens=10 ** 12, seed=seed, max_sentences=batch)
+
+
+def _expect(counts, want, what, skip=()):
+    """Every kernel's launches but those of ``skip`` equal ``want`` (0
+    where not named)."""
+    full = {**dict.fromkeys(KERNELS, 0), **want}
+    bad = {n: [counts[n], full[n]] for n in KERNELS if n not in skip and counts[n] != full[n]}
+    if bad:
+        raise AssertionError(f"{what} launches [got, want]: {bad}")
+
+
+def _cuda(device) -> bool:
+    return torch.device(device).type == "cuda"
+
+
+def _finite(values, what):
+    if not all(math.isfinite(float(v)) for v in values):
+        raise AssertionError(f"{what}: non-finite {values}")
+
+
+def phase_speechlm(device="cuda", tiny=False, seed=0):
+    """SpeechLM-P Base (``SpeechLMConfig()``, bf16, every kernel flag on):
+    ``SIB_UPDATES`` updates of ``speechlm_joint_loss`` at batch 4 over a
+    ``MultiCorpusLoader`` of a speech corpus (8-16 s, km units at 50 Hz)
+    and a mono-unit corpus (256-511 units); the CTC recipe
+    (``recipes/speechlm_ctc_finetune.run``) for 2 updates on the joint
+    model's stack, then greedy CTC through ``decode/asr.CTCDecoder`` on a 3
+    s and an 11 s request; then FastText2Unit at ``fastspeech2_s()``: 3
+    updates of ``fasttext2unit_loss`` and ``generate``.  Launches checked
+    exactly: a joint update runs 18 train-attention layers (6 speech, 6
+    unit on the speech frames, 6 unit on the mono units) and 6 conv
+    launches; a CTC request 12 inference layers (2 launches each in bf16)
+    and 6 conv launches; FastText2Unit none."""
+    sz = _sib_sizes(tiny)
+    dev = torch.device(device)
+    cfg = sibling_config("speechlm", "bfloat16", True, tiny)
+    loader = sibling_loader(cfg, ("speech", "text"), sz, seed, dev, sz["batch"])
+    model = init_speechlm(cfg, torch.Generator().manual_seed(seed), dev).train()
+    opt = recipe_adamw(model, 5e-4)
+    gen = torch.Generator().manual_seed(seed + 1)
+    out = {"ok": False, "losses": [], "step_s": []}
+    L = cfg.speech_encoder.num_layers + 2 * cfg.unit_encoder.num_layers
+    K.reset_launch_counts()
+    for step, joint in loader.iter_epoch(0):
+        if step == SIB_UPDATES:
+            break
+        t0 = time.perf_counter()
+        loss, m = speechlm_joint_loss(model, joint, JointLossConfig(), generator=gen)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        _sync(dev)
+        out["step_s"].append(time.perf_counter() - t0)
+        out["losses"].append(loss.item())
+    counts = {"train": K.launch_counts()}
+    _finite(out["losses"], "speechlm joint losses")
+    ups = len(out["losses"])
+    if _cuda(dev):
+        check_train_counts(counts["train"], ups * L, "SpeechLM encoder")
+        _expect(counts["train"], {"conv_stack": ups * 6}, "speechlm train", TRAIN_KERNELS)
+
+    # the CTC fine-tune surface on the joint model's stack: its recipe, then
+    # greedy requests
+    ctc = init_weights(SpeechLMCtc(cfg, 32), torch.Generator().manual_seed(seed + 3)).to(dev)
+    ctc.speechlm.load_state_dict(model.state_dict(), strict=False)
+    data = slm_recipe.synthetic_corpus(seed, n=sz["batch"], t_wav=int(sz["ctc_s"] * 16000))
+    K.reset_launch_counts()
+    fin = slm_recipe.run(cfg, steps=2, device=dev, model=ctc, data=data, log=lambda s: None)
+    counts["ctc_finetune"] = K.launch_counts()
+    _finite(fin["losses"], "CTC recipe losses")
+    out["ctc_recipe_losses"] = fin["losses"]
+    dec = CTCDecoder(ctc.eval(), blank_id=0, device=dev)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i, secs in enumerate(sz["requests_s"]):
+        wav = synth_audio(secs, seed=300 + i)
+        ids, lens = dec.frame_ids(wav[None], [len(wav)])
+        if int(lens[0]) != cfg.conv_features.out_length(len(wav)) or not (
+                (ids >= 0) & (ids < 32)).all():
+            raise AssertionError(f"CTC request {secs} s: {lens}, ids {ids.min()}-{ids.max()}")
+    _sync(dev)
+    out["ctc_requests_s"] = time.perf_counter() - t0
+    counts["ctc"] = K.launch_counts()
+    n_enc = cfg.speech_encoder.num_layers + cfg.unit_encoder.num_layers
+    if _cuda(dev):
+        fwd = K.fwd_launches(torch.bfloat16)
+        check_train_counts(counts["ctc_finetune"], 2 * n_enc, "SpeechLM CTC encoder")
+        _expect(counts["ctc_finetune"], {"conv_stack": 3 * 6,
+                                         "banded_flash_attention": n_enc * fwd},
+                "CTC recipe (2 updates and its greedy pass)", TRAIN_KERNELS)
+        _expect(counts["ctc"], {"banded_flash_attention": len(sz["requests_s"]) * n_enc * fwd,
+                                "conv_stack": len(sz["requests_s"]) * 6}, "SpeechLM CTC")
+
+    # FastText2Unit (no kernel: its attention has no rel-pos band)
+    fcfg = C.replace(fastspeech2_tiny() if tiny else fastspeech2_s(), dtype="bfloat16")
+    t2u = init_fastspeech2(fcfg, torch.Generator().manual_seed(seed + 2), dev).train()
+    topt = recipe_adamw(t2u, 5e-4)
+    rng = np.random.default_rng(seed)
+    K.reset_launch_counts()
+    t2u_losses = []
+    for _ in range(3):
+        lens = rng.integers(8, 24 if tiny else 60, sz["batch"])
+        src = np.full((sz["batch"], lens.max()), fcfg.pad_id, np.int64)
+        dur = np.zeros(src.shape, np.int64)
+        for b, n in enumerate(lens):
+            src[b, :n] = rng.integers(2, fcfg.src_vocab_size, n)
+            dur[b, :n] = rng.integers(1, 3 if tiny else 8, n)
+        src_t, dur_t = torch.from_numpy(src).to(dev), torch.from_numpy(dur).to(dev)
+        tgt = torch.from_numpy(rng.integers(0, fcfg.unit_vocab_size,
+                                            (sz["batch"], fcfg.max_target_len))).to(dev)
+        logits, _, ov, ld = t2u(src_t, dur_t)
+        loss, _ = fasttext2unit_loss(logits, ov, tgt, ld, dur_t, src_t != fcfg.pad_id)
+        topt.zero_grad(set_to_none=True)
+        loss.backward()
+        topt.step()
+        t2u_losses.append(loss.item())
+    units, ulens, _ = t2u.eval().generate(src_t, d_factor=4.0)
+    _sync(dev)
+    counts["fasttext2unit"] = K.launch_counts()
+    _finite(t2u_losses, "FastText2Unit losses")
+    if units.shape != (sz["batch"], fcfg.max_target_len) or not (
+            (ulens >= 0) & (ulens <= fcfg.max_target_len)).all():
+        raise AssertionError(f"FastText2Unit generate: {tuple(units.shape)}, lengths {ulens}")
+    if _cuda(dev):
+        _expect(counts["fasttext2unit"], {}, "FastText2Unit")
+    out.update(counts=counts, t2u_losses=t2u_losses,
+               generated_lengths=ulens.tolist(), ok=True)
+    log(json.dumps({"phase": "speechlm", **out}))
+    del model, ctc, t2u, opt, topt
+    torch.cuda.empty_cache()
+    return out
+
+
+def _beam_request(model, sz, device, seed, ctc_weight=0.3):
+    """One beam request (beam 5, CTC ``ctc_weight``) through ``ASRDecoder``
+    -> (BeamResult, decode steps, wall s)."""
+    dec = ASRDecoder(model, beam_size=BEAM, max_len=sz["max_len"], ctc_weight=ctc_weight,
+                     device=device)
+    wav = synth_audio(sz["beam_s"], seed=seed)
+    t0 = time.perf_counter()
+    res = dec(wav[None], [len(wav)])
+    _sync(device)
+    return res, dec.steps_run, time.perf_counter() - t0
+
+
+def _beam_counts(cfg, enc_layers, steps, chunks=1):
+    return {"banded_flash_attention": chunks * enc_layers * K.fwd_launches(torch.bfloat16),
+            "conv_stack": chunks * 6,
+            "flash_attention_bias": steps * 2 * cfg.decoder.num_layers}
+
+
+def phase_speechut(device="cuda", tiny=False, seed=0):
+    """SpeechUT Base (``SpeechUTConfig()``: 6 + 6 encoder layers, 6 decoder
+    layers; bf16, every kernel flag on): ``SIB_UPDATES`` updates of
+    ``recipes/speechut_joint_pretrain.run`` (``speechut_joint_loss`` at the
+    recipe's weights) over speech, paired and mono streams of batch 4, then
+    the beam (beam 5, max_len 200, CTC 0.3) on a 3 s request through
+    ``ASRDecoder``.  An update runs 24 train-attention layers (6 + 6 on the
+    speech frames, 6 on the paired units, 6 on the mono units; the unit
+    encoder's 6 on the speech frames feed no loss term, so they launch the
+    forward kernel only) and 6 conv launches; the request 12 inference
+    layers, 6 conv launches and 12 decode-step launches a step."""
+    sz = _sib_sizes(tiny)
+    dev = torch.device(device)
+    cfg = sibling_config("speechut", "bfloat16", True, tiny)
+    loader = sibling_loader(cfg, ("speech", "text_paired", "text_mono"), sz, seed, dev,
+                            sz["batch"])
+    model = init_speechut(cfg, torch.Generator().manual_seed(seed), dev)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = sut_recipe.run(cfg, steps=SIB_UPDATES, seed=seed, device=dev, model=model,
+                         loader=loader, log=lambda s: None)
+    _sync(dev)
+    out = {"ok": False, "losses": res["losses"], "train_s": time.perf_counter() - t0,
+           "metrics": res["metrics"]}
+    counts = {"train": K.launch_counts()}
+    _finite(res["losses"], "speechut joint losses")
+    # the unit encoder's pass over the speech frames feeds no loss term
+    # (the speech branch's loss reads the speech encoder's HuBERT logits):
+    # its layers run the forward kernel and no backward
+    back = cfg.speech_encoder.num_layers + 2 * cfg.unit_encoder.num_layers
+    fwd_only = cfg.unit_encoder.num_layers
+    if _cuda(dev):
+        per = K.train_launches_per_layer(torch.bfloat16)
+        want = {n: SIB_UPDATES * back * per[n] for n in TRAIN_KERNELS}
+        want["banded_attention_train_fwd"] += SIB_UPDATES * fwd_only * per[
+            "banded_attention_train_fwd"]
+        _expect(counts["train"], want, "SpeechUT train (train kernels)",
+                [n for n in KERNELS if n not in TRAIN_KERNELS])
+        _expect(counts["train"], {"conv_stack": SIB_UPDATES * 6}, "speechut train",
+                TRAIN_KERNELS)
+    K.reset_launch_counts()
+    beam, steps, wall = _beam_request(res["model"], sz, dev, seed=400)
+    counts["beam"] = K.launch_counts()
+    if _cuda(dev):
+        _expect(counts["beam"], _beam_counts(cfg, cfg.speech_encoder.num_layers
+                                             + cfg.unit_encoder.num_layers, steps),
+                "SpeechUT beam")
+    out.update(counts=counts, beam_steps=steps, beam_s=wall,
+               best=beam.tokens[0, 0, : int(beam.lengths[0, 0])].tolist()[:12], ok=True)
+    log(json.dumps({"phase": "speechut", **out}))
+    del model, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def speech2c_corpus(directory, cfg, n, seconds, seed=0):
+    """``n`` seeded utterances of ``seconds`` (min, max) with km labels in
+    runs of 1-4 frames (as HuBERT units repeat at 50 Hz), codes < vocab - 4
+    -> a ``SpeechPretrainDataset(add_decoder_target=True)``."""
+    manifest, _, _ = write_corpus(directory, n, seconds=seconds, seed=seed)
+    rng = np.random.default_rng(seed)
+    with open(manifest, encoding="utf-8") as f:
+        sizes = [int(l.split("\t")[1]) for l in f.read().splitlines()[1:] if l]
+    km = os.path.join(directory, "train.km")
+    with open(km, "w", encoding="utf-8") as f:
+        for n_s in sizes:
+            frames = n_s * 50 // 16000
+            runs = rng.integers(1, 5, frames)
+            labels = np.repeat(rng.integers(0, cfg.vocab_size - 4, frames), runs)[:frames]
+            f.write(" ".join(map(str, labels)) + "\n")
+    return SpeechPretrainDataset(manifest=manifest, km_labels=km, device_mel=True,
+                                 add_decoder_target=True, pad_id=cfg.pad_id,
+                                 eos_id=cfg.eos_id)
+
+
+def phase_speech2c(device="cuda", tiny=False, seed=0):
+    """``speech2c_base()`` (12 + 6 layers, 504 codes; bf16, every kernel
+    flag on): ``SIB_UPDATES`` pretraining updates of
+    ``recipes/speech2c_pretrain.run`` at batch 4 on a
+    ``SpeechPretrainDataset(add_decoder_target=True)`` corpus of 8 seeded
+    8-16 s utterances (HuBERT CE + the decoder's CE on the deduplicated
+    codes), then the beam on a 3 s request.  An update runs 12
+    train-attention layers and 6 conv launches; the request as SpeechUT's."""
+    sz = _sib_sizes(tiny)
+    dev = torch.device(device)
+    cfg = sibling_config("speech2c", "bfloat16", True, tiny)
+    with tempfile.TemporaryDirectory() as d:
+        ds = speech2c_corpus(d, cfg, 2 * sz["batch"], sz["speech_s"], seed)
+        batches = [ds.collate([ds[i] for i in range(s, s + sz["batch"])],
+                              cfg.conv_features.out_length)
+                   for s in range(0, len(ds), sz["batch"])]
+    lens = [int(b["decoder_target_lengths"].max()) for b in batches]
+    model = init_speech2c(cfg, torch.Generator().manual_seed(seed), dev)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = s2c_recipe.run(cfg, steps=SIB_UPDATES, seed=seed, device=dev, model=model,
+                         batches=batches, log=lambda s: None)
+    _sync(dev)
+    out = {"ok": False, "losses": res["losses"], "first": res["first"], "last": res["last"],
+           "train_s": time.perf_counter() - t0, "code_target_lengths": lens}
+    counts = {"train": K.launch_counts()}
+    _finite(res["losses"], "speech2c losses")
+    if _cuda(dev):
+        check_train_counts(counts["train"], SIB_UPDATES * cfg.encoder.num_layers,
+                           "Speech2C encoder")
+        _expect(counts["train"], {"conv_stack": SIB_UPDATES * 6}, "speech2c train",
+                TRAIN_KERNELS)
+    K.reset_launch_counts()
+    beam, steps, wall = _beam_request(res["model"], sz, dev, seed=401)
+    counts["beam"] = K.launch_counts()
+    if _cuda(dev):
+        _expect(counts["beam"], _beam_counts(cfg, cfg.encoder.num_layers, steps),
+                "Speech2C beam")
+    out.update(counts=counts, beam_steps=steps, beam_s=wall, ok=True)
+    log(json.dumps({"phase": "speech2c", **out}))
+    del model, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def _twin_models(family, init, tiny, device, seed, extra=()):
+    """The family's f32 model on the kernel route and on the plain route,
+    with the same weights (stochastic parts at 0)."""
+    still = sibling_still(family) + list(extra)
+    cfg_k = sibling_config(family, "float32", True, tiny, still)
+    cfg_p = sibling_config(family, "float32", False, tiny, still)
+    mk = init(cfg_k, torch.Generator().manual_seed(seed), device)
+    mp = init(cfg_p, torch.Generator().manual_seed(seed), device)
+    mp.load_state_dict(mk.state_dict())
+    return cfg_k, cfg_p, mk, mp
+
+
+def _route_loss_grads(models, loss_fn):
+    """loss_fn(model) on each model in train mode -> [(loss, {name: grad})]."""
+    out = []
+    for m in models:
+        m.train()
+        loss = loss_fn(m)
+        loss.backward()
+        out.append((loss.item(), {n: p.grad for n, p in m.named_parameters()}))
+        m.eval()
+    return out
+
+
+def _gate(what, results, loss_rtol, grad_rtol):
+    (lk, gk), (lp, gp) = results
+    worst, name = grad_diff(gk, gp)
+    rec = {"loss_kernel": lk, "loss_plain": lp, "loss_rel_diff": abs(lk - lp) / abs(lp),
+           "worst_grad_rel_diff": worst, "worst_grad_param": name}
+    if rec["loss_rel_diff"] > loss_rtol or worst > grad_rtol:
+        raise AssertionError(f"{what}: kernel and plain routes differ: {rec}")
+    return rec
+
+
+def _beam_gate(what, res_k, res_p, gap_tol, score_rtol):
+    """The kernel route's best hypothesis equals the plain route's (or is
+    its second at a near tie, within ``gap_tol``), the best scores within
+    ``score_rtol``."""
+    a = res_k.tokens[0, 0, : int(res_k.lengths[0, 0])].tolist()
+    hyps = [res_p.tokens[0, j, : int(res_p.lengths[0, j])].tolist()
+            for j in range(res_p.tokens.shape[1])]
+    sp = res_p.scores[0].tolist()
+    rel = abs(res_k.scores[0, 0].item() - sp[0]) / abs(sp[0])
+    tie = a != hyps[0] and a == hyps[1] and sp[0] - sp[1] < gap_tol
+    if (a != hyps[0] and not tie) or rel > score_rtol:
+        raise AssertionError(f"{what}: beams differ: {a[:20]} vs {hyps[0][:20]}, "
+                             f"score rel diff {rel}")
+    return {"best_equal": a == hyps[0], "near_tie": tie, "score_rel_diff": rel,
+            "length": len(a)}
+
+
+def phase_siblings_parity(device="cuda", tiny=False, seed=0, loss_rtol=1e-4,
+                          grad_rtol=1e-3, gap_tol=1e-4, score_rtol=1e-4, max_frac=1e-3):
+    """f32 on the card, every stochastic part at 0, the draws (HuBERT
+    masks, the mix selection) drawn once and handed to both routes, the
+    same weights: each family's kernel route against its plain route.
+    SpeechLM: the joint loss (1e-4) and every gradient (1e-3 of max |g|,
+    ``grad_rel_diffs``) on 2 speech utterances and 2 mono-unit rows, then
+    greedy CTC ids on a 3 s request (equal, but for frames whose plain
+    top-2 gap is under 1e-4, at most 0.1% of them).  SpeechUT: the joint
+    loss and gradients with the paired and mono streams, then the beam's
+    best hypothesis on a 3 s request (equal, or a near tie of the plain
+    route's top two; best scores 1e-4), max_len 60.  Speech2C: the
+    pretraining loss and gradients, then the beam as SpeechUT's."""
+    sz = dict(_sib_sizes(tiny), batch=2)
+    if not tiny:
+        sz["max_len"] = SIB_PARITY_MAX_LEN
+    dev = torch.device(device)
+    out = {"ok": False}
+
+    def draws_for(cfg, joint, text_key, speech_masking):
+        g = torch.Generator().manual_seed(seed + 5)
+        sp = joint["speech"]
+        fl = cfg.conv_features.out_length(sp["wav_lengths"]).cpu()
+        T = sp["units"].shape[1]
+        tm, cm = sample_feature_masks(fl, T, cfg.d_model, speech_masking, g)
+        mix = mix_selection(fl, T, cfg.masking, tm, g)
+        u = joint[text_key]["units"]
+        um = sample_feature_masks((u != cfg.pad_id).sum(-1).cpu(), u.shape[1], cfg.d_model,
+                                  text_masking(cfg.masking), g)
+        return {"speech": {"masks": (tm, cm), "mix_sel": mix}, text_key: {"masks": um}}
+
+    # SpeechLM
+    cfg, cfg_p, mk, mp = _twin_models("speechlm", init_speechlm, tiny, dev, seed)
+    joint = next(sibling_loader(cfg, ("speech", "text"), sz, seed, dev, 2).iter_epoch(0))[1]
+    dr = draws_for(cfg, joint, "text", cfg.masking)
+    jc = JointLossConfig()
+    rec = {"joint": _gate("SpeechLM joint loss", _route_loss_grads(
+        (mk, mp), lambda m: speechlm_joint_loss(m, joint, jc, draws=dr)[0]),
+        loss_rtol, grad_rtol)}
+    ck = init_weights(SpeechLMCtc(cfg, 32), torch.Generator().manual_seed(seed + 3)).to(dev)
+    cp = SpeechLMCtc(cfg_p, 32).to(dev)
+    ck.speechlm.load_state_dict(mk.state_dict(), strict=False)
+    cp.load_state_dict(ck.state_dict())
+    wav = synth_audio(sz["beam_s"], seed=500)
+    with torch.no_grad():
+        lk, _ = ck.eval()(torch.from_numpy(wav[None]).to(dev),
+                          torch.tensor([len(wav)], device=dev))
+        lp, _ = cp.eval()(torch.from_numpy(wav[None]).to(dev),
+                          torch.tensor([len(wav)], device=dev))
+    bad = (lk.argmax(-1) != lp.argmax(-1))[0].nonzero()[:, 0]
+    gap = 0.0
+    if len(bad):
+        top2 = torch.topk(lp[0, bad], 2, dim=-1).values
+        gap = (top2[:, 0] - top2[:, 1]).max().item()
+    rec["ctc"] = {"frames": lk.shape[1], "differing_frames": len(bad),
+                  "max_top2_gap_at_differing": gap}
+    if len(bad) > max_frac * lk.shape[1] or (len(bad) and gap >= gap_tol):
+        raise AssertionError(f"SpeechLM CTC ids of the kernel route differ: {rec['ctc']}")
+    out["speechlm"] = rec
+    del mk, mp, ck, cp
+
+    # SpeechUT
+    cfg, _, mk, mp = _twin_models("speechut", init_speechut, tiny, dev, seed)
+    joint = next(sibling_loader(cfg, ("speech", "text_paired", "text_mono"), sz, seed, dev,
+                                2).iter_epoch(0))[1]
+    dr = draws_for(cfg, joint, "text_mono", text_masking(cfg.masking))
+    rec = {"joint": _gate("SpeechUT joint loss", _route_loss_grads(
+        (mk, mp), lambda m: speechut_joint_loss(m, joint, sut_recipe.JOINT, draws=dr)[0]),
+        loss_rtol, grad_rtol)}
+    rk, rp = (_beam_request(m, sz, dev, seed=501)[0] for m in (mk, mp))
+    rec["beam"] = _beam_gate("SpeechUT", rk, rp, gap_tol, score_rtol)
+    out["speechut"] = rec
+    del mk, mp
+
+    # Speech2C
+    cfg, _, mk, mp = _twin_models("speech2c", init_speech2c, tiny, dev, seed,
+                               ["masking.mask_channel_prob=0.0"])
+    with tempfile.TemporaryDirectory() as d:
+        ds = speech2c_corpus(d, cfg, 2, sz["speech_s"], seed + 1)
+        b = {k: torch.as_tensor(v).to(dev) for k, v in
+             ds.collate([ds[0], ds[1]], cfg.conv_features.out_length).items()
+             if hasattr(v, "dtype")}
+    fl = cfg.conv_features.out_length(b["wav_lengths"]).cpu()
+    masks = sample_feature_masks(fl, b["km_labels"].shape[1], cfg.d_model, cfg.masking,
+                                 torch.Generator().manual_seed(seed + 6))
+
+    def s2c_loss(m):
+        o = m.forward_pretrain(b["wav"], b["wav_lengths"], b["prev_tokens"], masks=masks)
+        return speech2c_pretrain_loss(o, b["km_labels"], b["decoder_targets"], cfg.pad_id)[0]
+
+    rec = {"pretrain": _gate("Speech2C pretraining loss", _route_loss_grads(
+        (mk, mp), s2c_loss), loss_rtol, grad_rtol)}
+    rk, rp = (_beam_request(m, sz, dev, seed=502)[0] for m in (mk, mp))
+    rec["beam"] = _beam_gate("Speech2C", rk, rp, gap_tol, score_rtol)
+    out["speech2c"] = rec
+    del mk, mp
+    out["ok"] = True
+    log(json.dumps({"phase": "siblings_parity", **out}))
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernels_line(records, counts, by_path=None):
     """The contract line: each kernel's path case (MAIN_CASE) in the named
     keys, the other cases under "other"; ``launches`` from the runs of the
@@ -4201,12 +4833,12 @@ def main():
     _wall(walls, "parity", t0)
 
     t0 = time.perf_counter()
-    beam = phase_serve_beam(base, requests_s=BEAM_REQUESTS_S)
+    beam = phase_serve_beam(base, requests_s=BEAM_REQUESTS_S[:1])
     _wall(walls, "serve_beam", t0)
     log(json.dumps({"phase": "serve_beam", "launches": beam["counts"]}))
 
     t0 = time.perf_counter()
-    phase_beam_parity(base, requests_s=BEAM_REQUESTS_S)
+    phase_beam_parity(base, requests_s=BEAM_REQUESTS_S[:1])
     _wall(walls, "beam_parity", t0)
 
     with tempfile.TemporaryDirectory() as d:
@@ -4334,9 +4966,25 @@ def main():
     _wall(walls, "serve_large", t0)
 
     t0 = time.perf_counter()
-    phase_parity(large, requests_s=LARGE_REQUESTS_S, buckets=LARGE_PARITY_BUCKETS)
+    phase_parity(large, requests_s=LARGE_REQUESTS_S[:1], buckets=LARGE_PARITY_BUCKETS)
     phase_beam_parity(large, requests_s=LARGE_REQUESTS_S[:1], buckets=LARGE_PARITY_BUCKETS)
     _wall(walls, "large_parity", t0)
+
+    t0 = time.perf_counter()
+    slm = phase_speechlm()
+    _wall(walls, "speechlm", t0)
+
+    t0 = time.perf_counter()
+    sut = phase_speechut()
+    _wall(walls, "speechut", t0)
+
+    t0 = time.perf_counter()
+    s2c_pre = phase_speech2c()
+    _wall(walls, "speech2c", t0)
+
+    t0 = time.perf_counter()
+    phase_siblings_parity()
+    _wall(walls, "siblings_parity", t0)
 
     walls["total"] = time.perf_counter() - t_start
     log(json.dumps({"phase_seconds": walls, "card": card_line()}))
@@ -4354,7 +5002,10 @@ def main():
                "serve_beam_large": beam_large["counts"],
                **{f"parallel_train_{m}_rank{r}": c for m, rec in ptrain["modes"].items()
                   for r, c in enumerate(rec["counts"])},
-               **{f"parallel_evaluate_rank{r}": c for r, c in enumerate(peval["counts"])}}
+               **{f"parallel_evaluate_rank{r}": c for r, c in enumerate(peval["counts"])},
+               **{f"speechlm_{k}": c for k, c in slm["counts"].items()},
+               **{f"speechut_{k}": c for k, c in sut["counts"].items()},
+               **{f"speech2c_{k}": c for k, c in s2c_pre["counts"].items()}}
     counts = {n: sum(c[n] for c in by_path.values()) for n in KERNELS}
     log(json.dumps(kernels_line(records, counts, by_path)))
     torch.cuda.synchronize()

@@ -53,9 +53,8 @@ def main(argv=None):
     "checkpoint"}."""
     import torch
 
-    from .. import config as C
     from ..data.dictionary import load_cli_dictionary
-    from ..models.speecht5 import init_model
+    from ..models.registry import arch_config, init_for_arch
     from ..utils.checkpoint import partial_load, save_model_only
     from ..utils.convert import load_fairseq_checkpoint
     from ..utils.convert_hf import convert_hf_state_dict, load_hf_checkpoint
@@ -72,9 +71,9 @@ def main(argv=None):
     else:
         converted, _, unknown = load_fairseq_checkpoint(args.pt)
     if cfg is None:
-        cfg = getattr(C, args.arch)(**cfg_kw)
+        cfg = arch_config(args.arch, **cfg_kw)
 
-    model = init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    model = init_for_arch(args.arch, cfg, torch.Generator().manual_seed(0), "cpu")
     target = model.state_dict()
     missing = sorted(set(target) - set(converted))
     extra = sorted(set(converted) - set(target))

@@ -126,10 +126,10 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _build_model(cfg, state, device):
-    from ..models.speecht5 import init_model
+def _build_model(cfg, state, device, arch="speecht5_base"):
+    from ..models.registry import init_for_arch
 
-    model = init_model(cfg, device=device)
+    model = init_for_arch(arch, cfg, device=device)
     model.load_state_dict(state)
     return model
 
@@ -146,20 +146,21 @@ def load_models(args, cfg, device):
             raise SystemExit(f"no checkpoints found in {args.ckpt}")
         states = [restore_model(args.ckpt, step=s)[0] for s in steps]
         if args.ensemble_last > 1:
-            return ([_build_model(cfg, s, device) for s in states],
+            return ([_build_model(cfg, s, device, args.arch) for s in states],
                     f"ensemble of {len(states)} checkpoints {steps}")
-        return (_build_model(cfg, average_checkpoints(states), device),
+        return (_build_model(cfg, average_checkpoints(states), device, args.arch),
                 f"averaged {len(states)} checkpoints {steps}")
     if args.use_best:
         state, step = restore_model(os.path.join(args.ckpt, "best"))
         if state is None:
             raise SystemExit(f"no best checkpoint under {args.ckpt}/best "
                              f"(train with --best-checkpoint-metric)")
-        return _build_model(cfg, state, device), f"loaded BEST checkpoint step {step}"
+        return (_build_model(cfg, state, device, args.arch),
+                f"loaded BEST checkpoint step {step}")
     state, step = restore_model(args.ckpt)
     if state is None:
         raise SystemExit(f"no checkpoint found in {args.ckpt}")
-    return _build_model(cfg, state, device), f"loaded checkpoint step {step}"
+    return _build_model(cfg, state, device, args.arch), f"loaded checkpoint step {step}"
 
 
 def load_lm(args, cfg, device):
@@ -355,6 +356,7 @@ def main(argv=None):
     from .. import config as C
     from ..data.dictionary import load_cli_dictionary
     from ..data.manifests import SpeechToClassDataset
+    from ..models.registry import arch_config
     from ..parallel import distributed as D
     from ..parallel.sharding import shard_decode_variables
     from ..utils.device import resolve_device
@@ -366,7 +368,7 @@ def main(argv=None):
         device = D.local_device(device)
     dictionary, cfg_kw = load_cli_dictionary(args.dict_path, args.vocab_size)
     cfg_kw["dtype"] = args.dtype
-    cfg = C.apply_overrides(getattr(C, args.arch)(**cfg_kw), args.override)
+    cfg = C.apply_overrides(arch_config(args.arch, **cfg_kw), args.override)
     if args.task == "s2t" and dictionary is None:
         raise SystemExit("--dict is required for --task s2t (hypotheses are "
                          "detokenized through the dictionary)")

@@ -27,7 +27,7 @@ upstream publishes only as MOS/CMOS run report-only.  Two faults of the
 JAX harness are repaired here (ROADMAP C.2): its ST, VC and TTS rows name
 presets no config defines (here: ``speecht5_base`` at the dictionary's
 vocabulary), and its speech2c row names a preset outside ``config`` (here:
-``skipped_unported_family`` until the family is ported); its decoder-arm
+``models/registry`` resolves it to ``models/speech2c.py``); its decoder-arm
 sweep kept the lexicon and word LM flags while dropping their weight
 (here the arms drop every LM flag).
 """
@@ -123,7 +123,9 @@ MATRIX = [
 
 
 # families whose model the port lacks, and the ROADMAP item that ports them
-UNPORTED_FAMILIES = {"speech2c": "ROADMAP A.9"}
+# (none since Speech2C arrived: its preset resolves through
+# ``models/registry``)
+UNPORTED_FAMILIES = {}
 # evaluate flags of the fusion LM and the lexicon decoder's word LM, each
 # with its value: the decoder-arm sweep runs without them
 LM_FLAGS = ("--lm-ckpt", "--lm-weight", "--lm-arch", "--lm-path", "--lexicon",

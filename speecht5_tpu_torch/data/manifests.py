@@ -564,9 +564,15 @@ class SpeechPretrainDataset:
     reflect-padded waveform for ``train/trainer.device_mel_batch``.  A
     waveform longer than ``max_sample_size`` is cropped, its labels with
     it, at a start drawn from a ``np.random.Generator`` seeded with
-    ``seed`` (JAX draws it from numpy's global RNG, :624).  Speech2C's
-    token decoder targets (``add_decoder_target``) arrive with that
-    family."""
+    ``seed`` (JAX draws it from numpy's global RNG, :624).
+
+    With ``add_decoder_target`` the batch also carries Speech2C's token
+    decoder targets (JAX :664-683; reference Speech2C/speech2c/data/
+    speech2c_dataset.py:65-110): the km labels cut to the frames, collapsed
+    by unique-consecutive (pretraining) or kept frame-level
+    (``fine_tuning``), offset by ``unit_offset`` into the token vocabulary
+    (a fairseq Dictionary's 4 specials first), EOS appended, padded to a
+    token bucket, with the EOS-shifted ``prev_tokens``."""
 
     manifest: str
     km_labels: str
@@ -578,6 +584,11 @@ class SpeechPretrainDataset:
     normalize: bool = False
     device_mel: bool = False
     seed: int = 0
+    add_decoder_target: bool = False
+    fine_tuning: bool = False
+    pad_id: int = 1
+    eos_id: int = 2
+    unit_offset: int = 4
 
     def __post_init__(self):
         self.root, self.names, self.sizes = load_audio_manifest(self.manifest)
@@ -609,7 +620,8 @@ class SpeechPretrainDataset:
                 ) -> Dict[str, np.ndarray]:
         """frame_fn: waveform samples -> encoder frames (the conv length
         arithmetic).  -> {"wav", "wav_lengths", "km_labels" [B, frames]
-        (the labels cut to the frames, 0 past them), the mel targets, "ids"}."""
+        (the labels cut to the frames, 0 past them), the mel targets, "ids"
+        [, "decoder_targets", "prev_tokens", "decoder_target_lengths"]}."""
         B = len(items)
         wav_len = max(len(it["wav"]) for it in items)
         if bucketed:
@@ -628,4 +640,27 @@ class SpeechPretrainDataset:
                  "ids": np.asarray([it["id"] for it in items])}
         batch.update(collate_mel_targets(items, self.reduction_factor, self.n_mels,
                                          bucketed, self.device_mel))
+        if self.add_decoder_target:
+            batch.update(self._decoder_targets(items, frames, bucketed))
         return batch
+
+    def _decoder_targets(self, items, frames: int, bucketed: bool):
+        seqs = []
+        for it in items:
+            lab = it["labels"][:frames]
+            if not self.fine_tuning and len(lab):
+                lab = lab[np.concatenate(([True], lab[1:] != lab[:-1]))]
+            seqs.append(np.concatenate([lab + self.unit_offset, [self.eos_id]]))
+        B, L = len(seqs), max(len(q) for q in seqs)
+        if bucketed:
+            L = bucket_length(L, TOKEN_BUCKETS)
+        dec_tgt = np.full((B, L), self.pad_id, np.int64)
+        prev = np.full((B, L), self.pad_id, np.int64)
+        prev[:, 0] = self.eos_id
+        for b, q in enumerate(seqs):
+            n = min(len(q), L)
+            dec_tgt[b, :n] = q[:n]
+            prev[b, 1:n] = q[: n - 1]
+        return {"decoder_targets": dec_tgt, "prev_tokens": prev,
+                "decoder_target_lengths": np.asarray([min(len(q), L) for q in seqs],
+                                                     np.int32)}

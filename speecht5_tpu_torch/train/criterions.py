@@ -234,3 +234,22 @@ def text_pretrain_loss(out, targets, pad_id: int, *, label_smoothing: float = 0.
         metrics["prob_perplexity"] = q["prob_perplexity"] / data_size()
     metrics["loss"] = loss
     return loss, metrics
+
+
+def fasttext2unit_loss(logits, out_valid, unit_targets, log_dur_out, durations, src_valid,
+                       *, label_smoothing: float = 0.0, dur_loss_weight: float = 1.0):
+    """FastText2Unit loss (JAX criterions.py:102-131; reference speechlm/
+    criterions/fasttext2unit_loss.py:71-115): label-smoothed CE over the
+    regulated frames plus ``dur_loss_weight`` x the MSE of log(dur + 1).
+    logits [B, L, V]; out_valid bool [B, L]; unit_targets [B, L];
+    log_dur_out, durations, src_valid [B, T] -> (loss, metrics loss,
+    ce_loss, nll_loss, dur_loss, accuracy)."""
+    ce, nll = label_smoothed_ce(logits.float(), unit_targets, out_valid, label_smoothing)
+    log_dur = torch.log(durations.float() + 1.0)
+    sv = src_valid.float()
+    dur_mse = ((log_dur_out - log_dur) ** 2 * sv).sum() / torch.clamp_min(sv.sum(), 1.0)
+    loss = ce + dur_loss_weight * dur_mse
+    acc = (((logits.argmax(-1) == unit_targets) & out_valid).sum()
+           / torch.clamp_min(out_valid.sum(), 1))
+    return loss, {"loss": loss, "ce_loss": ce, "nll_loss": nll, "dur_loss": dur_mse,
+                  "accuracy": acc}

@@ -17,7 +17,10 @@ returns a ``state_dict`` for the port's ``SpeechT5Model``.  Layouts:
   they are
 
 ``lm_from_jax_params`` carries the fusion LM (JAX ``models/lm.py``) the
-same way.
+same way, and ``speechlm_from_jax_params``, ``fastspeech2_from_jax_params``,
+``speechut_from_jax_params`` and ``speech2c_from_jax_params`` the sibling
+families (their trees whole: the port names their sub-nets as JAX does;
+SpeechLM and SpeechUT's ``label_embs*`` as they are).
 
 Only the subtrees the port has (``PORTED_SUBTREES``) are carried; the
 others are left out of the result.  ``from_jax_batch_stats`` carries the
@@ -61,7 +64,8 @@ def _leaf(name: str, value: np.ndarray):
         return name, value.reshape(1, 1, -1)
     if name in ("scale", "embedding"):
         return "weight", value
-    if name in ("bias", "mask_emb", "alpha", "label_embs_concat", "vars"):
+    if name in ("bias", "mask_emb", "alpha", "label_embs_concat", "vars") or \
+            name.startswith("label_embs"):
         return name, value
     if name == "projection_weight":
         return "output_projection.weight", value
@@ -74,7 +78,7 @@ def _convert(flat: dict, collection: str, leaf_fn, subtrees=PORTED_SUBTREES) -> 
         parts = key.split("/")
         if parts[0] == collection:
             parts = parts[1:]
-        if parts[0] not in subtrees:
+        if subtrees is not None and parts[0] not in subtrees:
             continue
         path = [re.sub(r"^layers_(\d+)$", r"layers.\1", p) for p in parts[:-1]]
         leaf, arr = leaf_fn(parts[-1], np.asarray(value, np.float32))
@@ -95,6 +99,37 @@ def lm_from_jax_params(flat: dict) -> dict:
     ``layer_norm``, an untied ``output_projection``)."""
     return _convert(flat, "params", _leaf,
                     ("embed_tokens", "decoder", "output_projection"))
+
+
+def speechlm_from_jax_params(flat: dict) -> dict:
+    """The JAX ``SpeechLMModel``'s (or ``SpeechLMCtc``'s, under
+    ``speechlm/``, or ``SpeechLMS2T``'s) flattened ``params`` -> the state
+    dict of the port's ``models/speechlm`` module of the same name."""
+    return _convert(flat, "params", _leaf, None)
+
+
+def fastspeech2_from_jax_params(flat: dict) -> dict:
+    """The JAX ``FastText2Unit``'s flattened ``params`` (flax ``nn.Conv``
+    kernels [k, C_in, C_out]) -> the port's ``models/fastspeech2.
+    FastText2Unit`` state dict."""
+    return _convert(flat, "params", _leaf, None)
+
+
+def speechut_from_jax_params(flat: dict) -> dict:
+    """The JAX ``SpeechUTModel``'s flattened ``params`` -> the port's
+    ``models/speechut.SpeechUTModel`` state dict."""
+    return _convert(flat, "params", _leaf, None)
+
+
+SPEECH2C_SUBTREES = ("speech_encoder_prenet", "encoder", "decoder", "text_decoder_prenet",
+                     "text_decoder_postnet", "speech_encoder_postnet")
+
+
+def speech2c_from_jax_params(flat: dict) -> dict:
+    """The JAX ``Speech2CModel``'s flattened ``params`` (SpeechT5's names,
+    a subset of its sub-nets) -> the port's ``models/speech2c.
+    Speech2CModel`` state dict."""
+    return _convert(flat, "params", _leaf, SPEECH2C_SUBTREES)
 
 
 def _stat_leaf(name: str, value: np.ndarray):

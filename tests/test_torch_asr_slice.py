@@ -59,10 +59,12 @@ def _init_jax(cfg, T=4000):
     wav = jnp.zeros((1, T), jnp.float32)
     lens = jnp.full((1,), T, jnp.int32)
     prev = jnp.full((1, 4), cfg.eos_id, jnp.int32)
-    return JModel(cfg).init(
-        {"params": jax.random.PRNGKey(0)}, wav, lens, prev, prev,
+    # one jitted init: the values of an eager one, compiled once instead of
+    # op by op
+    return jax.jit(lambda key: JModel(cfg).init(
+        {"params": key}, wav, lens, prev, prev,
         jnp.zeros((1, 2, cfg.n_mels)), jnp.full((1,), 2, jnp.int32),
-        jnp.ones((1, cfg.spk_embed_dim)), method=both)
+        jnp.ones((1, cfg.spk_embed_dim)), method=both))(jax.random.PRNGKey(0))
 
 
 def _flat(variables, collection="params"):
@@ -205,16 +207,14 @@ def test_base_width_one_layer_matches_jax():
     model.load_state_dict(_state_dict(variables))
     wav, lens = _wav(1, 6400, seed=3), np.array([6400], np.int32)
     jm = JModel(jcfg)
-    jenc = jm.apply(variables, jnp.asarray(wav), jnp.asarray(lens),
-                    method="encode_speech")
+    jout, jlogits = jax.jit(lambda v, w, n: jm.apply(
+        v, w, n, method=lambda m, w, n: (lambda e: (e["encoder_out"], m.ctc_logits(e)))(
+            m.encode_speech(w, n))))(variables, jnp.asarray(wav), jnp.asarray(lens))
     with torch.no_grad():
         enc = model.encode_speech(torch.from_numpy(wav), torch.from_numpy(lens))
         logits = model.ctc_logits(enc)
-    np.testing.assert_allclose(enc["encoder_out"].numpy(),
-                               np.asarray(jenc["encoder_out"]), atol=ATOL)
-    np.testing.assert_allclose(
-        logits.numpy(), np.asarray(jm.apply(variables, jenc, method="ctc_logits")),
-        atol=ATOL)
+    np.testing.assert_allclose(enc["encoder_out"].numpy(), np.asarray(jout), atol=ATOL)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), atol=ATOL)
 
 
 def test_service_micro_batches_chunks_of_one_request(tiny, tmp_path):

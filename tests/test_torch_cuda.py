@@ -835,3 +835,96 @@ def test_conv_stack_backward_recomputes_through_the_library_conv(card, dtype):
     for a, b, c in zip(*grads):
         assert (a.float() - b.float()).abs().max() <= (1e-5 if f32 else 1e-2) * b.float().abs().max()
         assert (a.float() - c.float()).abs().max() <= (1e-4 if f32 else 3e-2) * c.float().abs().max()
+
+
+def _family_models(family, dtype, card):
+    """The family at Base width with one layer a stack (12 heads of Dh 64,
+    the 7-layer conv stack), no dropout, on the kernel route and on the
+    plain route with the same weights."""
+    from speecht5_tpu_torch.config import apply_overrides, replace
+    from speecht5_tpu_torch.models.common import init_weights
+
+    if family == "speech2c":
+        from speecht5_tpu_torch.models.speech2c import Speech2CModel as M, speech2c_base as P
+        stacks = ("encoder", "decoder")
+        flags = ["encoder.use_pallas_attn=True", "encoder.use_pallas_attn_train=True"]
+    else:
+        if family == "speechlm":
+            from speecht5_tpu_torch.models.speechlm import SpeechLMModel as M
+            from speecht5_tpu_torch.models.speechlm import SpeechLMConfig as P
+            stacks = ("speech_encoder", "unit_encoder")
+        else:
+            from speecht5_tpu_torch.models.speechut import SpeechUTModel as M
+            from speecht5_tpu_torch.models.speechut import SpeechUTConfig as P
+            stacks = ("speech_encoder", "unit_encoder", "decoder")
+        flags = [f"{s}.{f}=True" for s in ("speech_encoder", "unit_encoder")
+                 for f in ("use_pallas_attn", "use_pallas_attn_train")]
+    still = [f"{s}.{f}" for s in stacks for f in (
+        "num_layers=1", "dropout=0.0", "attention_dropout=0.0", "activation_dropout=0.0")]
+    base = apply_overrides(replace(P(), dtype=str(dtype).split(".")[-1]), still)
+    models = []
+    for ovs in (flags + ["conv_features.impl='pallas'"], []):
+        torch.manual_seed(0)
+        models.append(init_weights(M(apply_overrides(base, ovs)),
+                                   torch.Generator().manual_seed(0)).to(card))
+    models[1].load_state_dict(models[0].state_dict())
+    return base, models
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("family", ["speechlm", "speechut", "speech2c"])
+def test_sibling_family_kernel_route_matches_plain_route(card, family, dtype):
+    """SpeechLM, SpeechUT and Speech2C at Base width (one layer a stack) on
+    2 s and 1.3 s of audio: the kernel route (conv stack, inference and
+    train attention) against the plain route with the same weights and
+    masks: the unit encoder's (Speech2C: the encoder's) output in eval mode,
+    and in train mode the HuBERT logits and the gradients of a fixed random
+    projection of them (f32 1e-4 of max |ref|, gradients 1e-3; bf16 3e-2).
+    The k_proj biases, whose gradient is analytically 0, stay within that
+    share of the largest gradient on both routes."""
+    from speecht5_tpu_torch.ops.masking import sample_feature_masks
+
+    cfg, (kern, plain) = _family_models(family, dtype, card)
+    g = torch.Generator().manual_seed(1)
+    wav = torch.randn(2, 32000, generator=g).to(card) * 0.1
+    lens = torch.tensor([32000, 20800], device=card)
+    T = cfg.conv_features.out_length(32000)
+    fl = cfg.conv_features.out_length(lens.cpu())
+    masks = sample_feature_masks(fl, T, cfg.d_model, cfg.masking, g)
+    units = torch.randint(0, 504, (2, T), generator=g).to(card)
+    mix = torch.zeros(2, T, dtype=torch.bool)
+    outs = []
+    K.reset_launch_counts()
+    for m in (kern, plain):
+        with torch.no_grad():
+            enc = m.eval().encode_speech(wav, lens) if family != "speechlm" else {
+                "encoder_out": m.eval().extract_features(wav, lens)[0]}
+        m.train()
+        if family == "speechlm":
+            logits = m.forward_speech(wav, lens, units, masks=masks, mix_sel=mix)["logits_1"]
+        elif family == "speechut":
+            logits = m.forward_speech(wav, lens, units, masks=masks, mix_sel=mix)[
+                "hubert_logits"]
+        else:
+            prev = torch.full((2, 5), 2, device=card)
+            logits = m.forward_pretrain(wav, lens, prev, masks=masks)["hubert_logits"][0]
+        proj = torch.randn(logits.shape, generator=torch.Generator().manual_seed(2)).to(card)
+        (logits.float() * proj).sum().backward()
+        outs.append((enc["encoder_out"].float(), logits.detach().float(),
+                     {n: p.grad.float() for n, p in m.named_parameters()
+                      if p.grad is not None}))
+    counts = K.launch_counts()
+    assert counts["conv_stack"] >= 2 and counts["banded_flash_attention"] > 0, counts
+    assert counts["banded_attention_train_fwd"] > 0, counts
+    (ek, lk, gk), (ep, lp, gp) = outs
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    assert (ek - ep).abs().max() <= tol * ep.abs().max()
+    assert (lk - lp).abs().max() <= tol * lp.abs().max()
+    gtol = 1e-3 if dtype == torch.float32 else 3e-2
+    assert set(gk) == set(gp)
+    gmax = max(x.abs().max() for x in gp.values())
+    for n, x in gp.items():
+        if n.endswith("k_proj.bias"):
+            assert max(gk[n].abs().max(), x.abs().max()) <= gtol * gmax, n
+        else:
+            assert (gk[n] - x).abs().max() <= gtol * x.abs().max(), n

@@ -1,9 +1,9 @@
 """The port's trainer across processes held against JAX's ``Trainer`` on
 the conftest's 8-device CPU mesh: the same global batch of 8 rows, 3
 updates, the port as 2 gloo ranks of 4 rows each (children started with the
-conftest's hermetic environment, one launch for every case, rendezvous
-through a file store in ``tmp_path``).  Losses and grad norms must agree
-within 1e-4 relative for
+conftest's hermetic environment, one launch per case started by its test,
+rendezvous through a file store in ``tmp_path``).  Losses and grad norms
+must agree within 1e-4 relative for
 
 - s2t (CTC + CE, 2 micro-batches an update), whose label lengths differ
   between the two halves of the batch, so a per-rank mean would fail;
@@ -172,59 +172,55 @@ MASK_OVERRIDES = S2T + ["encoder.attention_dropout=0.1",
                         "encoder.use_pallas_attn_train=True"]
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """JAX's results for every case, and the port's from one 2-rank launch
-    (the pretraining case last: its draws stay installed in the ranks)."""
-    want, jobs_of = {}, {}
-    with pytest.MonkeyPatch.context() as mp:
-        d = Draws()
+_JAX = {}      # JAX's results and the port's job, by case
 
-        def jmasks(rng, x, lengths, mask_emb, **kw):
-            import jax.numpy as jnp
 
-            Bx, T, _ = x.shape
-            tm = jnp.asarray(d.time_mask(Bx, T)) & (jnp.arange(T)[None, :] < lengths[:, None])
-            return jnp.where(tm[:, :, None], mask_emb.astype(x.dtype)[None, None, :], x), tm
+def _jax_case(name):
+    """JAX's results and the port's job for ``name`` (computed once; the
+    pretraining case with the draws handed to JAX)."""
+    if name in JAX_AS:
+        want, job = _jax_case(JAX_AS[name])
+        return want, {**job, "fsdp": CASES[name][5]}
+    if name not in _JAX:
+        with pytest.MonkeyPatch.context() as mp:
+            d = Draws()
 
-        mp.setattr(JPre, "apply_feature_masks", jmasks)
-        mp.setattr(JQmod, "jax", _JaxProxy(uniform=lambda key, shape, minval=0.0, maxval=1.0,
-                                           **kw: jax.numpy.asarray(d.uniform(shape))))
-        mp.setattr(JSmod, "jax", _JaxProxy(
-            permutation=lambda key, n, **kw: jax.numpy.asarray(d.perm(n))))
-        for name in CASES:
-            if name in JAX_AS:
-                continue
-            want[name], jobs_of[name] = _jax_run(name)
-    for name, ref in JAX_AS.items():
-        want[name] = want[ref]
-        jobs_of[name] = {**jobs_of[ref], "fsdp": CASES[name][5]}
-    order = [n for n in CASES if n not in ("pretrain_speech",) + FOUR_RANKS]
-    order.append("pretrain_speech")
-    res = run_jobs(tmp_path_factory.mktemp("ddp"),
-                   [jobs_of[n] for n in order] + [_mask_job(1), _mask_job(2)], timeout=600)
-    got = dict(zip(order + ["masks_dp", "masks_tp"], res))
-    res4 = run_jobs(tmp_path_factory.mktemp("ddp4"), [jobs_of[n] for n in FOUR_RANKS],
-                    world=4, timeout=600)
-    got.update(zip(FOUR_RANKS, res4))
-    return want, got
+            def jmasks(rng, x, lengths, mask_emb, **kw):
+                import jax.numpy as jnp
+
+                Bx, T, _ = x.shape
+                tm = jnp.asarray(d.time_mask(Bx, T)) & (jnp.arange(T)[None, :]
+                                                        < lengths[:, None])
+                return jnp.where(tm[:, :, None], mask_emb.astype(x.dtype)[None, None, :],
+                                 x), tm
+
+            mp.setattr(JPre, "apply_feature_masks", jmasks)
+            mp.setattr(JQmod, "jax", _JaxProxy(
+                uniform=lambda key, shape, minval=0.0, maxval=1.0, **kw:
+                jax.numpy.asarray(d.uniform(shape))))
+            mp.setattr(JSmod, "jax", _JaxProxy(
+                permutation=lambda key, n, **kw: jax.numpy.asarray(d.perm(n))))
+            _JAX[name] = _jax_run(name)
+    return _JAX[name]
 
 
 @pytest.mark.parametrize("name", list(CASES))
-def test_two_ranks_equal_jax_global_batch(runs, name):
-    """Under tensor parallelism the grad norm is held against JAX's data
-    parallel run of the same batches: JAX's 4 x 2 mesh gives the weight-norm
-    pos conv other gradients than its 8 x 1 mesh (ROADMAP C.2), while its
-    losses agree with both."""
-    want, got = runs
+def test_two_ranks_equal_jax_global_batch(tmp_path, name):
+    """Each case's ranks are started by its own case (``run_jobs``, bounded
+    by ``LAUNCH_S``).  Under tensor parallelism the grad norm is held
+    against JAX's data parallel run of the same batches: JAX's 4 x 2 mesh
+    gives the weight-norm pos conv other gradients than its 8 x 1 mesh
+    (ROADMAP C.2), while its losses agree with both."""
+    want, job = _jax_case(name)
+    (got,) = run_jobs(tmp_path, [job], world=4 if name in FOUR_RANKS else 2)
     rtol = RTOL_TP if name.endswith("_tp") else RTOL
-    assert len(got[name]) == (4 if name in FOUR_RANKS else 2)
-    for rank in got[name]:      # every rank reports the global metrics
+    assert len(got) == (4 if name in FOUR_RANKS else 2)
+    for rank in got:            # every rank reports the global metrics
         for key in ("loss", "grad_norm"):
-            ref = want["s2t" if key == "grad_norm" and name.endswith("_tp") else name]
+            ref = _jax_case("s2t")[0] if key == "grad_norm" and name.endswith("_tp") else want
             np.testing.assert_allclose(rank[key], ref[key], rtol=rtol,
                                        err_msg=f"{name} {key}")
-    assert len(want[name]["loss"]) == UPDATES
+    assert len(want["loss"]) == UPDATES
 
 
 def test_a_per_rank_mean_would_differ_from_the_global_batch():
@@ -236,12 +232,13 @@ def test_a_per_rank_mean_would_differ_from_the_global_batch():
     assert counts[0] != counts[1]
 
 
-def test_dropout_masks_are_the_global_rows_and_differ_across_model_ranks(runs):
+def test_dropout_masks_are_the_global_rows_and_differ_across_model_ranks(tmp_path):
     """Data ranks: each rank's first train-kernel keep mask is its rows of
     the one-process run's (the same layer generator draws the seed, the
     row offset places the rows); model ranks: the two halves of the heads
     draw different masks."""
-    _, got = runs
+    got = dict(zip(("masks_dp", "masks_tp"),
+                   run_jobs(tmp_path, [_mask_job(1), _mask_job(2)])))
     record, plain = [], K.dropout_keep_plain
 
     def spy(*args, **kw):

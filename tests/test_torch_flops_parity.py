@@ -148,18 +148,27 @@ def test_every_matrix_arch_resolves_or_is_an_unported_family(tmp_path, monkeypat
     """C.2 repair: JAX's MATRIX names speecht5_base_st/_vc/_tts (no config
     has them) and speech2c_base (models/speech2c.py, not config), so
     evaluate's getattr(C, arch) would raise on those rows.  The port's rows
-    resolve to its presets at the dictionary's vocabulary, and the
-    speech2c row is skipped as an unported family."""
+    resolve to its presets at the dictionary's vocabulary, and since the
+    family is ported no row is skipped as unported: speech2c_base resolves
+    through ``models/registry`` to a ``Speech2CModel``, and its row runs
+    convert -> evaluate like the others."""
+    from speecht5_tpu_torch.models.registry import arch_config, init_for_arch
+    from speecht5_tpu_torch.models.speech2c import Speech2CModel
+
     unresolved = sorted(r["arch"] for r in JPar.MATRIX if not hasattr(JC, r["arch"]))
     assert unresolved == ["speech2c_base", "speecht5_base_st", "speecht5_base_tts",
                           "speecht5_base_vc"]
     assert [r["name"] for r in PPar.MATRIX] == [r["name"] for r in JPar.MATRIX]
+    assert PPar.UNPORTED_FAMILIES == {}
     for row in PPar.MATRIX:
-        if row.get("family") in PPar.UNPORTED_FAMILIES:
-            rec, calls = _argvs(PPar, PEval, row, tmp_path, monkeypatch)
-            assert rec["status"] == "skipped_unported_family" and not calls
-            assert row["family"] == "speech2c"
-        else:
-            cfg = getattr(PC, row["arch"])(vocab_size=81, blank_id=80)
-            assert cfg.vocab_size == 81
-    assert sum(r.get("family") == "speech2c" for r in PPar.MATRIX) == 1
+        cfg = arch_config(row["arch"], vocab_size=81, blank_id=80)
+        assert cfg.vocab_size == 81
+    (row,) = [r for r in PPar.MATRIX if r.get("family") == "speech2c"]
+    rec, calls = _argvs(PPar, PEval, {**row, "ckpt": "m.pt", "manifest": "t.tsv",
+                                      "labels": "t.ltr"}, tmp_path, monkeypatch)
+    assert not rec["status"].startswith("skipped") and rec["ours"] == 0.1
+    assert calls and "speech2c_base" in calls[0]
+    tiny = arch_config("speech2c_base", vocab_size=81, blank_id=80,
+                       encoder=PC.TransformerConfig(num_layers=1),
+                       decoder=PC.TransformerConfig(num_layers=1, use_rel_pos_bias=False))
+    assert isinstance(init_for_arch("speech2c_base", tiny, device="cpu"), Speech2CModel)

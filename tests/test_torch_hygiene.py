@@ -1,5 +1,6 @@
 """Import hygiene, device defaults and the CUDA build line of the port, and
-``chip_smoke.py``'s phases run on the CPU at the tiny preset.
+``chip_smoke.py``'s refusal without a card and its kernels line (its
+phases' CPU rehearsals are in tests/test_torch_smoke_*.py, a file each).
 
 A machine that runs the port need not have JAX, flax, transformers or
 sentencepiece, so neither the port nor ``chip_smoke.py`` may reach them or
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 import chip_smoke
+import torch_cpu  # noqa: F401  (one torch thread a process)
 from speecht5_tpu_torch import config as C
 from speecht5_tpu_torch.ops import cuda_kernels as K
 
@@ -58,7 +60,15 @@ def test_port_and_smoke_import_with_jax_blocked():
             "speecht5_tpu_torch.ops.heads", "speecht5_tpu_torch.data.text_noising",
             "speecht5_tpu_torch.data.binarized", "speecht5_tpu_torch.data.sentencepiece",
             "speecht5_tpu_torch.data.prep", "speecht5_tpu_torch.cli.prep",
-            "speecht5_tpu_torch.utils.flops", "speecht5_tpu_torch.cli.parity"} <= names
+            "speecht5_tpu_torch.utils.flops", "speecht5_tpu_torch.cli.parity",
+            "speecht5_tpu_torch.models.speechlm", "speecht5_tpu_torch.models.speechut",
+            "speecht5_tpu_torch.models.speech2c", "speecht5_tpu_torch.models.fastspeech2",
+            "speecht5_tpu_torch.models.registry", "speecht5_tpu_torch.train.joint",
+            "speecht5_tpu_torch.data.multicorpus", "speecht5_tpu_torch.data.multitask",
+            "speecht5_tpu_torch.recipes", "speecht5_tpu_torch.recipes.common",
+            "speecht5_tpu_torch.recipes.speechlm_ctc_finetune",
+            "speecht5_tpu_torch.recipes.speechut_joint_pretrain",
+            "speecht5_tpu_torch.recipes.speech2c_pretrain"} <= names
 
 
 def test_no_import_lines_reach_jax():
@@ -173,33 +183,6 @@ def test_build_without_nvcc_raises(monkeypatch):
         K.find_nvcc()
 
 
-def test_chip_smoke_phases_run_on_cpu_with_twins():
-    base = C.speecht5_tiny()
-    served = chip_smoke.phase_serve(base, device="cpu", dtype="float32",
-                                    requests_s=(0.3, 1.1, 2.1), buckets="1,2")
-    assert [r["chunks"] for r in served["requests"]] == [1, 1, 2]
-    assert set(served["counts"].values()) == {0}
-    parity = chip_smoke.phase_parity(base, device="cpu",
-                                     requests_s=(0.3, 2.1), buckets="1,2")
-    assert parity["frames"] > 0 and parity["differing_frames"] == 0
-
-
-def test_chip_smoke_train_phases_run_on_cpu_with_twins(tmp_path):
-    """The train phase (cli/train.main, resume) and the train parity phase
-    at the tiny preset on the CPU: the kernels' twins run, so no launches;
-    every encoder layer runs (the tiny preset has no layerdrop)."""
-    flags = ["--batch-size", "2", "--accum", "2", "--ctc-weight", "0.5",
-             "--normalize"]
-    trained = chip_smoke.phase_train(str(tmp_path), "speecht5_tiny", device="cpu",
-                                     n_utts=4, updates=2, seconds=(0.3, 0.8),
-                                     flags=flags)
-    assert set(trained["counts"].values()) == {0}
-    assert trained["layer_runs"] == 2 * 2 * 2 and len(trained["history"]) == 3
-    parity = chip_smoke.phase_train_parity(C.speecht5_tiny(), device="cpu",
-                                           batch=2, seconds=(0.8, 1.2))
-    assert parity["loss_rel_diff"] < 1e-5
-
-
 def test_chip_smoke_fails_without_card_or_repo(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present")
@@ -212,24 +195,6 @@ def test_chip_smoke_fails_without_card_or_repo(tmp_path):
     out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0 and '"ok": true' not in out.stdout
-
-
-def test_chip_smoke_t2s_phases_run_on_cpu_with_twins():
-    """The t2s train phase (cli/train.main --task t2s with device mels,
-    resume) and the t2s parity phase at the tiny preset on the CPU: the
-    twins run, so no launches; every text-encoder layer runs once per
-    micro-batch (the tiny preset has no layerdrop)."""
-    flags = ["--guided-attn", "--batch-size", "2", "--accum", "2"]
-    trained = chip_smoke.phase_train_t2s("speecht5_tiny", device="cpu", n_utts=4,
-                                         updates=2, seconds=(0.3, 0.8), flags=flags)
-    assert set(trained["counts"].values()) == {0}
-    assert trained["micro_batches"] == 4 and trained["layer_runs"] == 2 * 4
-    assert len(trained["history"]) == 3
-    with pytest.raises(AssertionError, match="t2s path launches wrong"):
-        chip_smoke.check_t2s_counts(trained)     # the card's launch check
-    parity = chip_smoke.phase_t2s_parity(C.speecht5_tiny(), device="cpu", batch=2,
-                                         seconds=(0.3, 0.8))
-    assert parity["mel_max_abs_err"] == 0.0 and parity["loss_rel_diff"] < 1e-6
 
 
 def test_chip_smoke_kernels_line_lists_every_kernel():
@@ -258,43 +223,6 @@ def test_chip_smoke_kernels_line_lists_every_kernel():
     assert "bound_share" not in mel
 
 
-def test_chip_smoke_warm_start_and_tts_phases_run_on_cpu_with_twins():
-    """The warm-start phase (a fairseq .pt written on the spot, cli/convert,
-    the bit-for-bit warm-start check, cli/train --finetune-from, a greedy
-    request from the converted checkpoint, a SIGTERM'd train subprocess and
-    its resume), the /tts phase (HiFi-GAN at a narrower width, Griffin-Lim)
-    and the TTS parity phase at the tiny preset on the CPU: the twins run,
-    so no launches."""
-    from speecht5_tpu_torch.models.hifigan import HiFiGANConfig
-
-    flags = ["--batch-size", "2", "--accum", "2", "--ctc-weight", "0.5", "--normalize"]
-    warm = chip_smoke.phase_warm_start("speecht5_tiny", device="cpu", n_utts=4, updates=2,
-                                       seconds=(0.3, 0.8), flags=flags, src_vocab=40,
-                                       request_s=1.1, buckets="2")
-    assert warm["fresh_tensors"] == 5 and warm["loaded_tensors"] > 100
-    assert set(warm["train_counts"].values()) == set(warm["serve_counts"].values()) == {0}
-    assert warm["layer_runs"] == 2 * 2 * 2 and warm["preempt"]["resumed_to"] == 3
-    voc = HiFiGANConfig(in_dim=20, upsample_initial_channel=32)
-    texts = ("hi", "hello there")
-    tts = chip_smoke.phase_serve_tts(C.speecht5_tiny(), device="cpu", dtype="float32",
-                                     texts=texts, max_frames=48, bucket_tokens=16,
-                                     vocoder_cfg=voc)
-    steps = [r["decode_steps"] for r in tts["requests"]]
-    assert steps == [16, 24, 16, 24] and set(tts["counts"].values()) == {0}
-    parity = chip_smoke.phase_tts_parity(C.speecht5_tiny(), device="cpu", texts=texts,
-                                         max_frames=48, bucket_tokens=16, vocoder_cfg=voc)
-    assert parity["lengths_kernel"] == [30, 48] and parity["mel_max_abs_err"] < 1e-4
-    # the second run stops the longer text by threshold, before its bound
-    early = parity["early_stop"]
-    assert early["lengths_kernel"] == early["lengths_plain"] == early["expected_lengths"]
-    assert early["row"] == 1 and 2 * 15 <= early["lengths_kernel"][1] < 48
-    # the card's launch rule: 12 encoder layers x 2 bf16 launches a request,
-    # 6 decoder layers x (self + cross) a step
-    want = chip_smoke.tts_launches_expected(C.speecht5_base(dtype="bfloat16"), 10)
-    assert want["banded_flash_attention"] == 24 and want["flash_attention_bias"] == 120
-    assert sum(want.values()) == 144
-
-
 def test_parity_cli_defaults_to_cuda_and_raises_before_its_fixtures(tmp_path):
     from speecht5_tpu_torch.cli import parity
 
@@ -311,61 +239,6 @@ def test_prep_cli_is_host_only():
     """cli/prep.py takes no device: none of its subcommands has a --device."""
     src = (REPO / "speecht5_tpu_torch" / "cli" / "prep.py").read_text()
     assert "--device" not in src and not re.search(r"^\s*(import|from)\s+torch\b", src, re.M)
-
-
-def test_chip_smoke_flac_corpus_and_prep_chain_run_on_cpu(tmp_path):
-    """The train phase's corpus: even utterances 16 kHz FLAC, odd ones 48 kHz
-    FLAC resampled by cli/prep.py to 16 kHz WAV; the manifest lists both
-    kinds with their decoded lengths, the labels follow its order."""
-    from speecht5_tpu_torch.data.audio import read_audio
-    from speecht5_tpu_torch.data.native import flac_info
-
-    manifest, labels, dict_path, secs = chip_smoke.write_flac_corpus(
-        str(tmp_path), 5, seconds=(0.3, 0.6), seed=2)
-    rows = [l.split("\t") for l in open(manifest).read().splitlines()[1:]]
-    assert sorted(r for r, _ in rows) == ["utt0.flac", "utt1.wav", "utt2.flac", "utt3.wav",
-                                         "utt4.flac"]
-    assert set(secs) == {"write_flac", "resample", "manifest_wrd2ltr", "decode_check"}
-    n48, *fmt, _ = flac_info(str(tmp_path / "raw48k" / "utt1.flac"))
-    assert fmt == [48000, 1, 16] and dict(rows)["utt1.wav"] == str(-(-n48 // 3))
-    wav, sr = read_audio(str(tmp_path / "audio" / "utt0.flac"))
-    assert sr == 16000 and not wav[:chip_smoke.FLAC_BLOCK].any() and wav.any()
-    ltr = open(labels).read().splitlines()
-    assert len(ltr) == 5 and all(l.endswith("|") for l in ltr)
-    assert os.path.basename(dict_path) == "dict.ltr.txt"
-
-
-def test_chip_smoke_parity_sweep_runs_on_cpu_with_twins():
-    """The parity sweep's dry run at the tiny preset, every kernel flag on
-    (their twins on the CPU): a report-only record with finite WERs for
-    the beam and both arms, and no launch; its MFU helpers say "not
-    measured" off the card."""
-    sweep = chip_smoke.phase_parity_sweep(device="cpu", arch="speecht5_tiny", dtype="float32")
-    assert set(sweep["counts"].values()) == {0}
-    assert sweep["record"]["status"] == "report_only"
-    assert set(sweep["record"]["arms"]) == {"ctc_greedy", "ctc_rescore"}
-    cfg = C.speecht5_tiny()
-    calls = [{"ms": 1.0, "batch": 4, "samples": 4000, "steps": 8, "models": 2, "beam": 2}]
-    dec = chip_smoke.decode_mfu(cfg, calls, "cpu")
-    from speecht5_tpu_torch.utils import flops
-
-    assert dec["decode_flops"] == [2 * flops.asr_decode_flops(cfg, 4, 2, 4000, 8)]
-    assert dec["mfu"].startswith("not measured")
-
-
-def test_chip_smoke_pretrain_large_reads_binarized_text_on_cpu():
-    """Phase 24 at the Large-shaped tiny preset: the text corpus binarized
-    by the port's writer, its blocks equal to the raw file's, read through
-    --text-file <prefix>.bin by cli/train.main for 3 updates of both tasks
-    and a resume; the twins run, so no launches."""
-    ovs = ["encoder.layer_norm_first=True", "decoder.layer_norm_first=True",
-           "conv_features.mode='layer_norm'", "quantizer.enabled=True",
-           "hubert.num_classes=(504,)"]
-    r = chip_smoke.phase_train_pretrain_large(device="cpu", arch="speecht5_tiny",
-                                              overrides=ovs, seconds=(0.5, 1.2), n_utts=8)
-    assert set(r["counts"].values()) == {0} and r["text_blocks"] > 3
-    assert {"pretrain_speech", "pretrain_text"} <= set(r["tasks"][:3])
-    assert r["text_file"] == "text.bin"
 
 
 def test_parallel_package_imports_without_jax_and_nccl_needs_a_card(tmp_path):
@@ -399,26 +272,3 @@ def test_parallel_package_imports_without_jax_and_nccl_needs_a_card(tmp_path):
     assert not torch.distributed.is_initialized()
 
 
-def test_chip_smoke_parallel_phases_run_on_cpu_with_twins(tmp_path):
-    """Phases 29-30 at the tiny preset on the CPU: the parallel train
-    modes of the fixed table as spawned gloo ranks against the one-process
-    run, data-parallel evaluate against the one-process
-    evaluate, and the wrapper's cost at world size 1 (gloo here: NCCL needs
-    the card)."""
-    from conftest import cpu_subprocess_env
-
-    env = {**cpu_subprocess_env(), "OMP_NUM_THREADS": "1"}
-    out = chip_smoke.phase_parallel_train(device="cpu", arch="speecht5_tiny",
-                                          seconds=(0.3, 0.6), env=env)
-    assert set(out["modes"]) == {"dp", "fsdp", "tp"}
-    assert out["modes"]["tp"]["mesh"] == {"data": 1, "model": 2}
-    trained = chip_smoke.phase_train(str(tmp_path), "speecht5_tiny", device="cpu", n_utts=4,
-                                     updates=1, seconds=(0.3, 0.6),
-                                     flags=["--batch-size", "2", "--ctc-weight", "0.5"])
-    ev = chip_smoke.phase_parallel_evaluate(str(tmp_path), device="cpu", arch="speecht5_tiny",
-                                            seconds=0.5, max_len=8, dtype="float32", env=env)
-    assert ev["hypotheses_equal"] and ev["n_utts"] == 8
-    wrap = chip_smoke.phase_parallel_wrapper(trained["args"], str(tmp_path), device="cpu",
-                                             mode=("dp_gloo", 1, "gloo", []), env=env)
-    assert wrap["losses_wrapped"] == wrap["losses_one_process"]
-    assert len(wrap["update_ms_wrapped"]) == 2

@@ -23,6 +23,7 @@ rank's rows of them.
 
 import json
 import sys
+import time
 
 import numpy as np
 import torch
@@ -140,19 +141,25 @@ def child_env():
     return {**cpu_subprocess_env(), "OMP_NUM_THREADS": "1", "GLOO_SOCKET_IFNAME": "lo"}
 
 
-def launch(argv_of_rank, world, timeout=300, cwd=None):
+# a launch's bound: well under the suite's time limit, so that a stuck rank
+# fails its test instead of ending the run
+LAUNCH_S = 240
+
+
+def launch(argv_of_rank, world, timeout=LAUNCH_S, cwd=None):
     """Start ``world`` processes (``argv_of_rank(rank)``), wait for all of
-    them, kill the rest when one fails or the time runs out -> their
-    outputs; raise on a non-zero exit."""
+    them for ``timeout`` seconds in all, kill the rest when one fails or the
+    time runs out -> their outputs; raise on a non-zero exit."""
     import subprocess
 
     procs = [subprocess.Popen(argv_of_rank(r), stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True, env=child_env(),
                               cwd=cwd) for r in range(world)]
     outs = []
+    deadline = time.monotonic() + timeout
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=timeout)[0])
+            outs.append(p.communicate(timeout=max(deadline - time.monotonic(), 1.0))[0])
     finally:
         for p in procs:
             if p.poll() is None:
@@ -164,7 +171,7 @@ def launch(argv_of_rank, world, timeout=300, cwd=None):
     return outs
 
 
-def run_jobs(tmp_path, jobs, world=2, timeout=300):
+def run_jobs(tmp_path, jobs, world=2, timeout=LAUNCH_S):
     """Run ``jobs`` on ``world`` gloo ranks -> per job, every rank's result."""
     import os
 
