@@ -249,7 +249,7 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                route's top two totals, < 1e-4).
 22. beam lm -- ``ASRDecoder`` with a fusion LM (the reference's geometry:
                d 1280, 20 pre-LN layers, 16 heads of Dh 80, ~0.45 B
-               parameters, random seeded, bf16) at beam 5, max_len 200, CTC
+               parameters, random seeded, bf16) at beam 5, max_len 100, CTC
                weight 0.3, LM weight 0.3, every kernel on, a 3 s
                request: wall ms, decode steps, and 12 + 20 decode-step
                launches a step (the decoder's self and cross, the LM's self
@@ -354,6 +354,31 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                shapes (attention T 549, the train kernels at N 48, T 512
                and 149, the conv stack at batch 4, the 3 s beam's cross
                step).
+35. yitrans -- YiTrans Base (``models/yitrans.YiTransConfig()``: 12 + 12
+               layers, d 768, vocab 32000 (a dictionary of 31993 words, two
+               language tags and <mask>), bf16, every kernel flag on)
+               through ``recipes/yitrans_pretrain_finetune``: 3 stage-1
+               updates at batch 4 (8-16 s speech with km units, denoised
+               [en_XX] / [de_DE] text of 128-256 tokens), one update each
+               of the ASR, MT and ST fine-tunes, then the beam (beam 5,
+               max_len 200) on a 3 s ASR request (CTC 0.3) and on a 51-71
+               token MT source through ``encode_text``.
+36. vatlm   -- VATLM Base (``models/vatlm.VATLMConfig(phone_vocab_size=
+               50)``: 12 + 6 layers, 88 x 88 video through the 3-D stem and
+               ResNet-18, 104-d stacked fbank, 1000 km classes; bf16, every
+               kernel flag on): 3 updates of ``recipes/vatlm_pretrain.run``
+               at batch 4 on 2-4 s clips read by ``VATLMDataset`` (the
+               train crop of 96 x 96 ROIs, flips), the three streams
+               (audio+video, audio, phones) an update, BatchNorm in train
+               mode; then the AVSR beam (``encode_method="encode_av"``) on
+               a 3 s clip.
+37. yitrans vatlm parity -- f32, the masks handed in, kernel route against
+               plain route: YiTrans' stage-1 loss and gradients, its ASR
+               and MT beams; VATLM's three-stream loss and gradients and
+               the AVSR beam (max_len 60).  35-36 check every launch count
+               exactly; the kernels phase adds their shapes (attention T
+               61 and 75, the train kernels at N 48, T 258 and 100, the
+               MT and AVSR beams' cross steps).
 
 Depth cut to make room for 29-30 (PR 17): the train phase resamples 4 of
 its 32 utterances from 48 kHz (16 before), serve beam and beam parity take
@@ -363,6 +388,13 @@ request, and Large's beam serving and beam parity the 3 s request.  For
 31-34: Base's beam parity and Large's greedy parity take the 3 s
 request alone, so does serve beam (the 11 s request stays in serve and
 serve Large), and phase 34's f32 beams stop at max_len 60.
+For 35-37: the profiled beam requests of serve beam and serve
+Large stop at 50 decode steps (``PROFILED_STEPS``; 200 before: reading
+the trace took ~15 s each; a second cut at 10 steps takes the encoder's
+launches out of the launches a step), the profiled /tts request takes the shorter
+text (60 steps, not 292), Base's and Large's f32 beam parity stop at
+max_len 60, as phase 34's, VC decodes to 512 frames (256 steps, 512
+before) and the LM-fused beam's request to max_len 100.
 
 The launch counts are zeroed just before each driven path (serve, serve
 beam, train, train t2s, the warm-started train and request, serve tts,
@@ -406,6 +438,7 @@ from speecht5_tpu_torch.cli import train as cli_train
 from speecht5_tpu_torch.cli.serve import SR, Service, build_parser
 from speecht5_tpu_torch.data.audio import layer_norm_wav, write_wav
 from speecht5_tpu_torch.decode.tts import CHECK_EVERY
+from speecht5_tpu_torch.data.vatlm import VATLMDataset
 from speecht5_tpu_torch.data.manifests import (AUDIO_BUCKETS, TOKEN_BUCKETS,
                                                SpeechPretrainDataset, SpeechToTextDataset,
                                                bucket_length, collate_mel_targets)
@@ -423,16 +456,21 @@ from speecht5_tpu_torch.models.speechlm import (SpeechLMConfig, SpeechLMCtc, ini
                                                 mix_selection, speechlm_tiny, text_masking)
 from speecht5_tpu_torch.models.speechut import SpeechUTConfig, init_speechut, speechut_tiny
 from speecht5_tpu_torch.models.speecht5 import init_model
+from speecht5_tpu_torch.models.vatlm import VATLMConfig, init_vatlm, vatlm_tiny
+from speecht5_tpu_torch.models.yitrans import YiTransConfig, init_yitrans, yitrans_tiny
 from speecht5_tpu_torch.ops import cuda_kernels as K
 from speecht5_tpu_torch.ops.masking import sample_feature_masks
 from speecht5_tpu_torch.ops.mel import mel_filterbank
 from speecht5_tpu_torch.recipes import speech2c_pretrain as s2c_recipe
 from speecht5_tpu_torch.recipes import speechlm_ctc_finetune as slm_recipe
 from speecht5_tpu_torch.recipes import speechut_joint_pretrain as sut_recipe
+from speecht5_tpu_torch.recipes import vatlm_pretrain as vat_recipe
+from speecht5_tpu_torch.recipes import yitrans_pretrain_finetune as yit_recipe
 from speecht5_tpu_torch.recipes.common import adamw as recipe_adamw
 from speecht5_tpu_torch.train.criterions import fasttext2unit_loss
-from speecht5_tpu_torch.train.joint import (JointLossConfig, speechlm_joint_loss,
-                                            speechut_joint_loss)
+from speecht5_tpu_torch.train.joint import (VATLM_STREAMS, JointLossConfig,
+                                            speechlm_joint_loss, speechut_joint_loss,
+                                            vatlm_pretrain_loss, yitrans_pretrain_loss)
 from speecht5_tpu_torch.train.trainer import Trainer, TrainConfig, device_mel_batch
 
 WATCHDOG_S = 1100
@@ -489,6 +527,8 @@ KERNEL_OVERRIDES = ["encoder.use_pallas_attn=True", "conv_features.impl='pallas'
 BEAM_OVERRIDES = KERNEL_OVERRIDES + ["decoder.use_pallas_attn=True"]
 # cli/serve.py's beam defaults (JAX cli/serve.py:549-551)
 BEAM, BEAM_MAX_LEN = 5, 200
+PROFILED_STEPS = 50         # the profiled beam request's decode steps
+PROFILED_SHORT_STEPS = 10   # its short cut: the difference is per step
 # the fusion LM (models/lm.TransformerLMConfig(): d 1280, 16 heads, 20
 # pre-LN layers): its head size is the decode-step kernel's D 80
 LM_HEADS, LM_DH = 16, 80
@@ -559,6 +599,8 @@ BEAM_REQUESTS_S = (3, 11)
 # encoder frames at Base: a 3 s VC source, the 6 s s2s audio bucket, the
 # 8 s s2c crop (--max-sample-size 128000)
 VC_SOURCE_S = 3.0
+VC_MAX_FRAMES = 512          # the VC phase's bound: 256 decode steps at r 2
+BEAM_LM_MAX_LEN = 100        # the LM-fused beam's request
 VC_SOURCE_FRAMES = C.ConvFeatureConfig().out_length(int(VC_SOURCE_S * 16000))
 S2S_SOURCE_FRAMES = C.ConvFeatureConfig().out_length(6 * 16000)
 SID_FRAMES = C.ConvFeatureConfig().out_length(128000)
@@ -1174,7 +1216,10 @@ def flash_bias_cache_case(case, dtype, device="cuda", seed=4):
     "sweep_cross_cached" (q [4, 2, 12, 64] against the clips' 12 encoder
     frames, all valid).  The SpeechUT / Speech2C beam on a 3 s request:
     "sib_cross_cached" (q [1, 5, 12, 64] against its 149 encoder frames, all
-    valid).  -> q4, k4, v4, key_valid, rows."""
+    valid).  YiTrans' MT beam and VATLM's AVSR beam: "yit_mt_cross_cached"
+    (q [1, 5, 12, 64] against the 61-token source) and "vat_cross_cached"
+    (against the 3 s clip's 75 frames at 25 Hz), all valid.  -> q4, k4, v4,
+    key_valid, rows."""
     g = torch.Generator().manual_seed(seed)
     H, D = {"lm_self_cache": (LM_HEADS, LM_DH),
             "eval_lm_self_cache": (EVAL_LM_HEADS, EVAL_LM_DH)}.get(case, (12, 64))
@@ -1206,7 +1251,9 @@ def flash_bias_cache_case(case, dtype, device="cuda", seed=4):
     else:
         Bs, beam, Tk = {"eval_cross_cached": (EVAL_BATCH, BEAM, EVAL_FRAMES),
                         "sweep_cross_cached": (SWEEP_BATCH, SWEEP_BEAM, SWEEP_FRAMES),
-                        "sib_cross_cached": (1, BEAM, VC_SOURCE_FRAMES)
+                        "sib_cross_cached": (1, BEAM, VC_SOURCE_FRAMES),
+                        "yit_mt_cross_cached": (1, BEAM, YIT_MT_T),
+                        "vat_cross_cached": (1, BEAM, VAT_BEAM_T)
                         }.get(case, (1, BEAM, 799))
         q4 = (torch.randn(Bs, beam, H, 64, generator=g) * 64 ** -0.5).to(dtype)
         k4, v4 = (torch.randn(Bs, H, Tk, 64, generator=g).to(dtype).transpose(1, 2)
@@ -1215,7 +1262,8 @@ def flash_bias_cache_case(case, dtype, device="cuda", seed=4):
         if case == "eval_cross_cached":
             valid = torch.randint(2 * Tk // 5, Tk + 1, (Bs,), generator=g)
             valid[0] = Tk                                  # the batch's longest clip
-        elif case in ("sweep_cross_cached", "sib_cross_cached"):
+        elif case in ("sweep_cross_cached", "sib_cross_cached", "yit_mt_cross_cached",
+                      "vat_cross_cached"):
             valid = torch.full((Bs,), Tk)                  # every frame valid
         else:
             valid = torch.tensor([549])
@@ -1230,8 +1278,8 @@ def _flash_bias_record(case, dtype):
     SDPA (an f32 0/-1e9 mask, scale 1) on the same K/V as the yardstick,
     timed both ways.  "cross", "self" and "lm_self" call the contract entry
     on [N, T, D] rows, "cross_cached", "self_cache", "lm_self_cache",
-    the "eval_", "large_", "sweep_" and "sib_" cases, "tts_self", "tts_cross"
-    and "vc_cross" the
+    the "eval_", "large_", "sweep_", "sib_", "yit_" and "vat_" cases,
+    "tts_self", "tts_cross" and "vc_cross" the
     cached entry on the decoder's layouts; the last two with
     the max-probability output, held against the twin's (f32 1e-4, bf16
     3e-2 of max |ref|) and timed with and without it."""
@@ -1239,7 +1287,8 @@ def _flash_bias_record(case, dtype):
     if case in ("self_cache", "cross_cached", "tts_self", "tts_cross", "vc_cross",
                 "lm_self_cache", "eval_self_cache", "eval_lm_self_cache",
                 "eval_cross_cached", "large_cross_cached", "large_self_cache",
-                "sweep_cross_cached", "sweep_self_cache", "sib_cross_cached"):
+                "sweep_cross_cached", "sweep_self_cache", "sib_cross_cached",
+                "yit_mt_cross_cached", "vat_cross_cached"):
         q4, k4, v4, key_valid, rows = flash_bias_cache_case(case, dtype)
         B, Tq, H, D = q4.shape
         N, Tk = B * H, k4.shape[1]
@@ -1350,7 +1399,12 @@ def phase_kernels():
     attention at T 549 ("bfloat16/slm_T549"), the train kernels at N 48, T
     512 and 149 ("bfloat16/r0.1/b4_T512", "bfloat16/r0.1/b4_T149"), the
     conv stack at batch 4 on 16 s ("bfloat16/b4") and the 3 s beam's cross
-    step ("<dtype>/sib_cross_cached")."""
+    step ("<dtype>/sib_cross_cached").  YiTrans and VATLM: the inference
+    attention at the MT source's T 61 and the AVSR request's T 75
+    ("bfloat16/yit_mt_T61", "bfloat16/vat_T75"), the train kernels at N 48,
+    T 258 (stage 1's text) and T 100 (VATLM's 4 s clips)
+    ("bfloat16/r0.1/b4_T258", "bfloat16/r0.1/b4_T100"), and the two beams'
+    cross steps ("<dtype>/yit_mt_cross_cached", "<dtype>/vat_cross_cached")."""
     records = {name: {} for name in KERNELS}
     failures = []
     for batch in (1, 2):
@@ -1461,6 +1515,25 @@ def phase_kernels():
     if not ok:
         failures.append(f"conv_stack b4: max|diff| {rec['max_abs_err']} > {rec['tolerance']}")
     torch.cuda.empty_cache()
+    # YiTrans and VATLM (phases 35-36): the MT beam's 61-token source and
+    # the AVSR request's 75 frames through the inference attention; stage
+    # 1's denoised text (4 rows of up to 258) and VATLM's 4 clips of up to
+    # 100 frames through the train kernels
+    for key, T in ((f"yit_mt_T{YIT_MT_T}", YIT_MT_T), (f"vat_T{VAT_BEAM_T}", VAT_BEAM_T)):
+        ok, rec = _attention_record(1, torch.bfloat16, T=T, valid=T)
+        records["banded_flash_attention"][f"bfloat16/{key}"] = rec
+        if not ok:
+            failures.append(f"banded_flash_attention {key}: max|diff| "
+                            f"{rec['max_abs_err']} > {rec['tolerance']}")
+    for T in (YIT_TEXT_TOKENS[1] + 2, VAT_TRAIN_T):
+        key = f"bfloat16/r0.1/b4_T{T}"
+        ok, recs = _train_records(torch.bfloat16, 0.1, batch=SIB_BATCH, T=T)
+        for name, rec in recs.items():
+            records[name][key] = rec
+        if not ok:
+            failures.append(f"train kernels {key}: "
+                            + json.dumps({n: r["errors"] for n, r in recs.items()}))
+    torch.cuda.empty_cache()
     for batch, samples, center in ((16, 767 * 256 + 1024, False), (2, 48000, True)):
         ok, rec = _mel_record(batch, samples, center)
         records["fused_log_mel"][f"float32/b{batch}"] = rec
@@ -1471,7 +1544,7 @@ def phase_kernels():
                  "vc_cross", "lm_self", "lm_self_cache", "eval_cross_cached",
                  "eval_self_cache", "eval_lm_self_cache", "large_cross_cached",
                  "large_self_cache", "sweep_cross_cached", "sweep_self_cache",
-                 "sib_cross_cached"):
+                 "sib_cross_cached", "yit_mt_cross_cached", "vat_cross_cached"):
         for dtype in (torch.float32, torch.bfloat16):
             key = f"{str(dtype).split('.')[-1]}/{case}"
             ok, rec = _flash_bias_record(case, dtype)
@@ -1656,27 +1729,40 @@ def phase_serve_beam(base_cfg, device="cuda", dtype="bfloat16",
     return {"counts": counts, "requests": results}
 
 
-def beam_device_launches(svc, wav) -> dict:
-    """Every launch the card runs for one beam request (kernels, copies and
-    fills, from ``torch.profiler``'s device events), and per decode step:
-    the encoder's few hundred launches a chunk are in the total too.  Only
-    the device is traced: reading a 200-step request's host events as
-    well took ~50 s (PR 17)."""
+def beam_device_launches(svc, wav, max_steps=PROFILED_STEPS,
+                         short_steps=PROFILED_SHORT_STEPS) -> dict:
+    """Every launch the card runs for one beam request cut at ``max_steps``
+    decode steps (kernels, copies and fills, from ``torch.profiler``'s
+    device events), and again cut at ``short_steps``: ``per_step`` is the
+    difference over the steps between, so the encoder's few hundred
+    launches a chunk, in both, stay out of it (``fixed_launches``: the
+    long cut's launches less its steps').  Only the device is traced:
+    reading a 200-step request's host events as well took ~50 s, its device
+    events alone ~15 s."""
     from torch.profiler import ProfilerActivity, profile
 
-    steps0 = svc.asr.steps_run
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:   # device events only
-        svc.transcribe(wav)
+    def count(cut):
+        steps0, full = svc.asr.steps_run, svc.asr.max_len
         torch.cuda.synchronize()
-    steps = svc.asr.steps_run - steps0
+        svc.asr.max_len = cut
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:   # device events only
+                svc.transcribe(wav)
+                torch.cuda.synchronize()
+        finally:
+            svc.asr.max_len = full
+        n = sum(1 for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False))
+        return n, svc.asr.steps_run - steps0
+
     t0 = time.perf_counter()
-    n = sum(1 for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False))
-    return {"device_launches": n, "decode_steps": steps,
-            "per_step": n / steps if steps else None,
-            "trace_read_s": time.perf_counter() - t0}
+    (n, steps), (n_short, steps_short) = count(max_steps), count(short_steps)
+    per_step = (n - n_short) / (steps - steps_short) if steps > steps_short else None
+    return {"device_launches": n, "decode_steps": steps, "per_step": per_step,
+            "fixed_launches": None if per_step is None else n - per_step * steps,
+            "short_cut": {"device_launches": n_short, "decode_steps": steps_short},
+            "profile_s": time.perf_counter() - t0}
 
 
 def phase_beam_parity(base_cfg, device="cuda", requests_s=(3, 11, 21),
@@ -2714,7 +2800,7 @@ def phase_serve_tts(base_cfg, device="cuda", dtype="bfloat16", texts=TTS_TEXTS, 
         log(json.dumps({"served_tts": r}))
     out = {"counts": counts, "requests": results}
     if on_card:
-        out["device_launches"] = tts_device_launches(services[0][1], texts[-1])
+        out["device_launches"] = tts_device_launches(services[0][1], texts[0])
         log(json.dumps({"tts_device_launches": out["device_launches"]}))
     return out
 
@@ -4236,9 +4322,12 @@ def sibling_config(family: str, dtype: str, kernels: bool, tiny: bool = False,
     base = {"speechlm": (speechlm_tiny, SpeechLMConfig),
             "speechut": (speechut_tiny, SpeechUTConfig),
             "speech2c": (lambda: C.speecht5_tiny(vocab_size=20),
-                         speech2c_base)}[family][0 if tiny else 1]()
+                         speech2c_base),
+            "yitrans": (yitrans_tiny, YiTransConfig),
+            "vatlm": (vatlm_tiny, lambda: VATLMConfig(phone_vocab_size=VAT_PHONES)),
+            }[family][0 if tiny else 1]()
     flags = {"speechlm": SLM_FLAGS, "speechut": SUT_FLAGS,
-             "speech2c": SPEECH2C_FLAGS}[family]
+             "speech2c": SPEECH2C_FLAGS, "yitrans": YIT_FLAGS, "vatlm": VAT_FLAGS}[family]
     return C.apply_overrides(C.replace(base, dtype=dtype),
                              (flags if kernels else []) + list(overrides))
 
@@ -4247,7 +4336,8 @@ def sibling_still(family: str):
     """Every dropout and layerdrop of the family's stacks at 0 (parity)."""
     stacks = {"speechlm": ("speech_encoder", "unit_encoder"),
               "speechut": ("speech_encoder", "unit_encoder", "decoder"),
-              "speech2c": ("encoder", "decoder")}[family]
+              "speech2c": ("encoder", "decoder"), "yitrans": ("encoder", "decoder"),
+              "vatlm": ("encoder", "decoder")}[family]
     return [f"{s}.{f}=0.0" for s in stacks
             for f in ("dropout", "attention_dropout", "activation_dropout", "layerdrop")]
 
@@ -4599,24 +4689,67 @@ def _twin_models(family, init, tiny, device, seed, extra=()):
     return cfg_k, cfg_p, mk, mp
 
 
-def _route_loss_grads(models, loss_fn):
-    """loss_fn(model) on each model in train mode -> [(loss, {name: grad})]."""
+class _ulp_scaled:
+    """Scale ``params`` in place by ``ULP_SCALE`` for the duration of the
+    block (forward and backward), then restore their exact values."""
+
+    def __init__(self, params):
+        self.params = list(params)
+
+    def __enter__(self):
+        self.saved = [p.detach().clone() for p in self.params]
+        with torch.no_grad():
+            for p in self.params:
+                p.mul_(ULP_SCALE)
+
+    def __exit__(self, *exc):
+        with torch.no_grad():
+            for p, v in zip(self.params, self.saved):
+                p.copy_(v)
+
+
+def _route_loss_grads(models, loss_fn, ulp_fn=None, ulp_params=lambda m: []):
+    """loss_fn(model) and its backward on each model in train mode -> [(loss,
+    {name: grad})].  With ``ulp_fn`` a third run on the last (plain) model:
+    ``ulp_fn(model)``, its inputs scaled by ``ULP_SCALE``, with
+    ``ulp_params(model)`` scaled as well for the forward and backward; it
+    leaves the model's buffers (BatchNorm statistics) as the second run
+    left them."""
+    runs = [(m, loss_fn, False) for m in models]
+    if ulp_fn is not None:
+        runs.append((models[-1], ulp_fn, True))
     out = []
-    for m in models:
+    for m, fn, ulp in runs:
         m.train()
-        loss = loss_fn(m)
-        loss.backward()
+        buffers = {n: b.clone() for n, b in m.named_buffers()} if ulp else {}
+        with _ulp_scaled(ulp_params(m) if ulp else []):
+            loss = fn(m)
+            loss.backward()
         out.append((loss.item(), {n: p.grad for n, p in m.named_parameters()}))
+        m.zero_grad(set_to_none=True)
         m.eval()
+        with torch.no_grad():
+            for n, b in m.named_buffers():
+                if n in buffers:
+                    b.copy_(buffers[n])
     return out
 
 
 def _gate(what, results, loss_rtol, grad_rtol):
-    (lk, gk), (lp, gp) = results
-    worst, name = grad_diff(gk, gp)
-    rec = {"loss_kernel": lk, "loss_plain": lp, "loss_rel_diff": abs(lk - lp) / abs(lp),
-           "worst_grad_rel_diff": worst, "worst_grad_param": name}
-    if rec["loss_rel_diff"] > loss_rtol or worst > grad_rtol:
+    """The kernel route's loss and gradients (``results[0]``) against the
+    plain route's (``results[1]``): losses within ``loss_rtol``; gradients
+    within ``grad_rtol`` of max |g|, or, given the plain route's run under
+    ``ULP_SCALE`` (``results[2]``), through ``grad_gate``."""
+    (lk, gk), (lp, gp) = results[:2]
+    rec = {"loss_kernel": lk, "loss_plain": lp, "loss_rel_diff": abs(lk - lp) / abs(lp)}
+    if len(results) == 3:
+        worst, name, floored, over = grad_gate(gk, gp, results[2][1], grad_rtol)
+        rec.update(grads_held_to_their_ulp_move=floored, grads_over=over)
+    else:
+        worst, name = grad_diff(gk, gp)
+        over = worst > grad_rtol
+    rec.update(worst_grad_rel_diff=worst, worst_grad_param=name)
+    if rec["loss_rel_diff"] > loss_rtol or over:
         raise AssertionError(f"{what}: kernel and plain routes differ: {rec}")
     return rec
 
@@ -4740,6 +4873,304 @@ def phase_siblings_parity(device="cuda", tiny=False, seed=0, loss_rtol=1e-4,
     return out
 
 
+# phases 35-37: YiTrans and VATLM at full width, then each family's kernel
+# route against its plain route in f32
+YIT_FLAGS = ["encoder.use_pallas_attn=True", "encoder.use_pallas_attn_train=True",
+             "decoder.use_pallas_attn=True", "conv_features.impl='pallas'"]
+VAT_FLAGS = YIT_FLAGS[:3]            # no waveform front: no conv stack
+YIT_TEXT_TOKENS = (128, 256)         # stage 1's denoised mono text
+YIT_PAIR_TOKENS = (50, 70)           # the MT pairs; the MT beam's source 51-71 with EOS
+YIT_TGT_TOKENS = 30                  # the ASR / ST fine-tunes' targets
+YIT_MT_T = 61                        # the MT beam's source (+ EOS) in the kernels phase
+VAT_PHONES = 50                      # phone_vocab_size on the Base config (0: no branch)
+VAT_CLIP_S = (2.0, 4.0)              # 50-100 video frames at 25 Hz
+VAT_BEAM_S = 3.0                     # the AVSR request: 75 frames
+VAT_BEAM_T = int(VAT_BEAM_S * 25)
+VAT_TRAIN_T = int(VAT_CLIP_S[1] * 25)
+VAT_RAW = 96                         # raw lip-ROI frames, the train crop 88 at random
+YIT_TINY = dict(SIB_TINY, text=(8, 16), pair=(6, 12), tgt=4, clip_s=(1.0, 1.6), vat_beam_s=1.0)
+
+
+def _yv_sizes(tiny: bool) -> dict:
+    if tiny:
+        return YIT_TINY
+    return dict(_sib_sizes(False), text=YIT_TEXT_TOKENS, pair=YIT_PAIR_TOKENS,
+                tgt=YIT_TGT_TOKENS, clip_s=VAT_CLIP_S, vat_beam_s=VAT_BEAM_S)
+
+
+def yitrans_data(cfg, sz, seed, device):
+    """``recipes/yitrans_pretrain_finetune.synthetic_data`` at the phase's
+    sizes: a dictionary of ``vocab_size`` symbols (words, two language
+    tags, <mask>), ``SIB_UPDATES`` batches of ``batch`` utterances of
+    ``speech_s`` with km units, two languages of mono text of ``text``
+    tokens (two batches each), MT pairs of ``pair`` tokens, batches of
+    ``batch`` rows by count."""
+    b = sz["batch"]
+    return yit_recipe.synthetic_data(
+        cfg, seed, device, max_sentences=b, n_speech=SIB_UPDATES * b,
+        wav_samples=tuple(int(s * SR) for s in sz["speech_s"]), n_mono=2 * b,
+        text_tokens=sz["text"], n_pair=2 * b, pair_tokens=sz["pair"],
+        n_words=cfg.vocab_size - 7, b_sp=b, b_txt=b, tgt_tokens=sz["tgt"])
+
+
+def _yit_beam(model, task, data, sz, device, seed):
+    """The fine-tuned model's beam (beam 5, ``max_len``): ASR on a
+    ``beam_s`` request (CTC 0.3), MT on the first pair's source (no CTC
+    head on text) -> (BeamResult, decode steps, wall s)."""
+    dec = yit_recipe.decoder_for(model, task, device, beam_size=BEAM, max_len=sz["max_len"],
+                                 ctc_weight=0.3 if task == "asr" else 0.0)
+    if task == "asr":
+        wav = synth_audio(sz["beam_s"], seed=seed)
+        args = (wav[None], [len(wav)])
+    else:
+        args = (data["pair"][0]["source"][None],)
+    t0 = time.perf_counter()
+    res = dec(*args)
+    _sync(device)
+    return res, dec.steps_run, time.perf_counter() - t0
+
+
+def phase_yitrans(device="cuda", tiny=False, seed=0):
+    """YiTrans Base (``YiTransConfig()``: 12 + 12 layers, d 768, vocab
+    32000; bf16, every kernel flag on) through
+    ``recipes/yitrans_pretrain_finetune``: ``SIB_UPDATES`` stage-1 updates
+    at batch 4 (speech of 8-16 s with km units; denoised [en_XX] / [de_DE]
+    text of 128-256 tokens), one update each of the ASR (0.7 CE + 0.3
+    CTC), MT and ST fine-tunes warm-started from stage 1, then the beam
+    (beam 5, max_len 200) on a 3 s ASR request (CTC 0.3) and on a 51-71
+    token MT source through ``encode_text``.  Launches checked exactly: a
+    stage-1 update runs 24 train-attention layers (12 on the speech, 12 on
+    the text, one encoder) and 6 conv launches; a fine-tune update 12
+    layers and 6 conv launches (none for MT); a request 12 inference
+    layers (and 6 conv launches for ASR), 24 decode-step launches a step."""
+    sz = _yv_sizes(tiny)
+    dev = torch.device(device)
+    cfg = sibling_config("yitrans", "bfloat16", True, tiny)
+    data = yitrans_data(cfg, sz, seed, dev)
+    model = init_yitrans(cfg, torch.Generator().manual_seed(seed), dev)
+    gen = torch.Generator().manual_seed(seed + 1)
+    L = cfg.encoder.num_layers
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses, metrics = yit_recipe.pretrain(model, data["loader"], SIB_UPDATES, 5e-4,
+                                          generator=gen, log=lambda s: None)
+    _sync(dev)
+    out = {"ok": False, "pretrain_losses": losses, "metrics": metrics,
+           "pretrain_s": time.perf_counter() - t0,
+           "text_tokens": int(data["mono"][0].sizes.max())}
+    counts = {"pretrain": K.launch_counts()}
+    _finite(losses, "yitrans stage-1 losses")
+    if _cuda(dev):
+        check_train_counts(counts["pretrain"], SIB_UPDATES * 2 * L, "YiTrans speech + text")
+        _expect(counts["pretrain"], {"conv_stack": SIB_UPDATES * 6}, "yitrans stage 1",
+                TRAIN_KERNELS)
+    tuned = {}
+    for task in yit_recipe.TASKS:
+        batch = yit_recipe.finetune_batch(data, task, dev)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        ft, ft_losses = yit_recipe.finetune(model, task, [batch], 5e-4, generator=gen,
+                                            log=lambda s: None)
+        _sync(dev)
+        counts[f"finetune_{task}"] = K.launch_counts()
+        out[f"finetune_{task}"] = {"loss": ft_losses[0], "s": time.perf_counter() - t0}
+        _finite(ft_losses, f"yitrans {task} fine-tune")
+        if _cuda(dev):
+            check_train_counts(counts[f"finetune_{task}"], L, f"YiTrans {task}")
+            _expect(counts[f"finetune_{task}"], {"conv_stack": 0 if task == "mt" else 6},
+                    f"yitrans {task} fine-tune", TRAIN_KERNELS)
+        if task in ("asr", "mt"):
+            tuned[task] = ft
+        del ft
+    for i, task in enumerate(("asr", "mt")):
+        K.reset_launch_counts()
+        beam, steps, wall = _yit_beam(tuned[task], task, data, sz, dev, seed=410 + i)
+        counts[f"beam_{task}"] = K.launch_counts()
+        if _cuda(dev):
+            want = {"banded_flash_attention": L * K.fwd_launches(torch.bfloat16),
+                    "flash_attention_bias": steps * 2 * cfg.decoder.num_layers}
+            if task == "asr":
+                want["conv_stack"] = 6
+            _expect(counts[f"beam_{task}"], want, f"YiTrans {task} beam")
+        out[f"beam_{task}"] = {"steps": steps, "s": wall,
+                               "best": beam.tokens[0, 0, : int(beam.lengths[0, 0])].tolist()[:12]}
+    out.update(counts=counts, ok=True)
+    log(json.dumps({"phase": "yitrans", **out}))
+    del model, tuned
+    torch.cuda.empty_cache()
+    return out
+
+
+def vatlm_corpus(directory, cfg, sz, seed, n):
+    """``n`` seeded AV clips of ``clip_s`` seconds and one of
+    ``vat_beam_s`` (the request): 16 kHz audio, raw 0-255 lip ROIs of
+    ``VAT_RAW`` (the crop + 8) pixels at 25 fps as ``.npy``, km labels of
+    ``num_classes[0]`` at 25 Hz -> (the train ``VATLMDataset``, with the
+    random crop and flip; the eval one, center crop)."""
+    rng = np.random.default_rng(seed)
+    raw = cfg.video_size + 8
+    lines, labels = [directory], []
+    for i, secs in enumerate([*rng.uniform(*sz["clip_s"], n), sz["vat_beam_s"]]):
+        frames = max(int(secs * 25), 2)
+        write_wav(os.path.join(directory, f"c{i}.wav"), synth_audio(frames / 25, 900 + seed + i))
+        np.save(os.path.join(directory, f"c{i}.npy"),
+                rng.integers(0, 256, (frames, raw, raw)).astype(np.uint8))
+        lines.append(f"c{i}\tc{i}.npy\tc{i}.wav\t{frames * 640}\t{frames}")
+        labels.append(" ".join(map(str, rng.integers(0, cfg.num_classes[0], frames))))
+    with open(os.path.join(directory, "av.tsv"), "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    with open(os.path.join(directory, "av.km"), "w", encoding="utf-8") as f:
+        f.write("\n".join(labels) + "\n")
+    kw = dict(label_paths=[os.path.join(directory, "av.km")], stack_order=cfg.audio_feat_dim // 26,
+              image_crop_size=cfg.video_size, seed=seed)
+    return (VATLMDataset(os.path.join(directory, "av.tsv"), image_aug=True, **kw),
+            VATLMDataset(os.path.join(directory, "av.tsv"), **kw))
+
+
+def vatlm_data(cfg, sz, seed, n_batches):
+    """``n_batches`` train batches of ``batch`` clips (epoch e's augmentation
+    for batch e) with random phones at the frame rate, and the request's
+    eval item (audio [T, F], video [T, H, W, 1])."""
+    b = sz["batch"]
+    rng = np.random.default_rng(seed + 1)
+    with tempfile.TemporaryDirectory() as d:
+        ds, ev = vatlm_corpus(d, cfg, sz, seed, n_batches * b)
+        batches = []
+        for e in range(n_batches):
+            ds.set_epoch(e)
+            c = ds.collate([ds[i] for i in range(e * b, (e + 1) * b)])
+            B, T = c["audio"].shape[:2]
+            batches.append({"audio": c["audio"], "video": c["video"], "lengths": c["lengths"],
+                            "targets": c["targets"][0],
+                            "phones": rng.integers(4, cfg.phone_vocab_size, (B, T)).astype(
+                                np.int32)})
+        request = ev[len(ev) - 1]
+    return batches, request
+
+
+def _vat_beam(model, request, sz, device):
+    dec = ASRDecoder(model, beam_size=BEAM, max_len=sz["max_len"], encode_method="encode_av",
+                     device=device)
+    t0 = time.perf_counter()
+    res = dec(request["audio"][None], request["video"][None], [len(request["audio"])])
+    _sync(device)
+    return res, dec.steps_run, time.perf_counter() - t0
+
+
+def phase_vatlm(device="cuda", tiny=False, seed=0):
+    """VATLM Base (``VATLMConfig(phone_vocab_size=50)``: 12 + 6 layers, d
+    768, 88 x 88 video through the 3-D stem and ResNet-18 widths (64, 128,
+    256, 512), 104-d stacked fbank, 1000 km classes; bf16, every kernel flag
+    on) through ``recipes/vatlm_pretrain.run``: ``SIB_UPDATES`` updates at
+    batch 4 on 2-4 s clips (50-100 frames at 25 Hz) read by
+    ``VATLMDataset`` (the train crop and flip, per-epoch), each update the
+    recipe's three streams (audio+video, audio, phones) with the video
+    BatchNorm in train mode, then the AVSR beam (beam 5, max_len 200,
+    ``encode_method="encode_av"``) on a 3 s clip.  Launches checked
+    exactly: an update runs 36 train-attention layers (12 a stream); the
+    request 12 inference layers and 12 decode-step launches a step."""
+    sz = _yv_sizes(tiny)
+    dev = torch.device(device)
+    cfg = sibling_config("vatlm", "bfloat16", True, tiny)
+    batches, request = vatlm_data(cfg, sz, seed, SIB_UPDATES)
+    model = init_vatlm(cfg, torch.Generator().manual_seed(seed), dev)
+    L = cfg.encoder.num_layers
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = vat_recipe.run(cfg, steps=SIB_UPDATES, lr=5e-4, seed=seed, device=dev, model=model,
+                         batch=batches, log=lambda s: None)
+    _sync(dev)
+    out = {"ok": False, "losses": res["losses"], "last": res["last"],
+           "train_s": time.perf_counter() - t0,
+           "frames": [int(b["lengths"].max()) for b in batches]}
+    counts = {"train": K.launch_counts()}
+    _finite(res["losses"], "vatlm losses")
+    if _cuda(dev):
+        check_train_counts(counts["train"], SIB_UPDATES * len(VATLM_STREAMS) * L,
+                           "VATLM encoder")
+        _expect(counts["train"], {}, "vatlm train", TRAIN_KERNELS)
+    K.reset_launch_counts()
+    beam, steps, wall = _vat_beam(res["model"], request, sz, dev)
+    counts["beam"] = K.launch_counts()
+    if _cuda(dev):
+        _expect(counts["beam"], {"banded_flash_attention": L * K.fwd_launches(torch.bfloat16),
+                                 "flash_attention_bias": steps * 2 * cfg.decoder.num_layers},
+                "VATLM AVSR beam")
+    out.update(counts=counts, beam_steps=steps, beam_s=wall, request_frames=len(request["audio"]),
+               ok=True)
+    log(json.dumps({"phase": "vatlm", **out}))
+    del model, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_yitrans_vatlm_parity(device="cuda", tiny=False, seed=0, loss_rtol=1e-4,
+                               grad_rtol=1e-3, gap_tol=1e-4, score_rtol=1e-4):
+    """f32 on the card, every dropout at 0, the HuBERT masks drawn once and
+    handed to both routes, the same weights: each family's kernel route
+    against its plain route.  YiTrans: the stage-1 loss (1e-4) and every
+    gradient through ``grad_gate`` (1e-3 of its max |g|, or twice the
+    plain route's own move under ``ULP_SCALE`` of the waveform and the
+    token embeddings) on 2 speech utterances and 2 denoised text rows,
+    then the best hypotheses of the ASR beam (3 s, CTC 0.3) and the MT beam
+    (equal, or a near tie of the plain route's top two; best scores 1e-4),
+    max_len 60.  VATLM: the three-stream loss and gradients on 2
+    clips (the same masks on each stream; BatchNorm on batch statistics;
+    the ULP scaling on the audio, the video and the phone embeddings), then
+    the AVSR beam as YiTrans'."""
+    sz = dict(_yv_sizes(tiny), batch=2)
+    if not tiny:
+        sz["max_len"] = SIB_PARITY_MAX_LEN
+    dev = torch.device(device)
+    out = {"ok": False}
+
+    cfg, _, mk, mp = _twin_models("yitrans", init_yitrans, tiny, dev, seed)
+    data = yitrans_data(cfg, sz, seed, dev)
+    joint = next(data["loader"].iter_epoch(0))[1]
+    sp = joint["speech"]
+    masks = sample_feature_masks(cfg.conv_features.out_length(sp["wav_lengths"]).cpu(),
+                                 sp["units"].shape[1], cfg.d_model, text_masking(cfg.masking),
+                                 torch.Generator().manual_seed(seed + 5))
+
+    def yit_loss(j):
+        return lambda m: yitrans_pretrain_loss(m, j, JointLossConfig(),
+                                               draws={"speech": {"masks": masks}})[0]
+
+    ulp_joint = dict(joint, speech=dict(sp, wav=sp["wav"] * ULP_SCALE))
+    rec = {"pretrain": _gate("YiTrans stage-1 loss", _route_loss_grads(
+        (mk, mp), yit_loss(joint), yit_loss(ulp_joint), lambda m: [m.embed_tokens.weight]),
+        loss_rtol, grad_rtol)}
+    for i, task in enumerate(("asr", "mt")):
+        rk, rp = (_yit_beam(m, task, data, sz, dev, seed=510 + i)[0] for m in (mk, mp))
+        rec[f"beam_{task}"] = _beam_gate(f"YiTrans {task}", rk, rp, gap_tol, score_rtol)
+    out["yitrans"] = rec
+    del mk, mp
+
+    cfg, _, mk, mp = _twin_models("vatlm", init_vatlm, tiny, dev, seed)
+    (batch,), request = vatlm_data(cfg, sz, seed + 1, 1)
+    b = vat_recipe.on_device(batch, dev)
+    g = torch.Generator().manual_seed(seed + 6)
+    draws = {name: {"masks": sample_feature_masks(b["lengths"].cpu(), b["audio"].shape[1],
+                                                  cfg.d_model, text_masking(cfg.masking), g)}
+             for name, _ in VATLM_STREAMS}
+
+    def vat_loss(bb):
+        return lambda m: vatlm_pretrain_loss(m, bb, draws=draws)[0]
+
+    rec = {"pretrain": _gate("VATLM three-stream loss", _route_loss_grads(
+        (mk, mp), vat_loss(b), vat_loss(dict(b, audio=b["audio"] * ULP_SCALE,
+                                             video=b["video"] * ULP_SCALE)),
+        lambda m: [m.phone_embed.weight]), loss_rtol, grad_rtol)}
+    rk, rp = (_vat_beam(m, request, sz, dev)[0] for m in (mk, mp))
+    rec["beam_avsr"] = _beam_gate("VATLM AVSR", rk, rp, gap_tol, score_rtol)
+    out["vatlm"] = rec
+    del mk, mp
+    out["ok"] = True
+    log(json.dumps({"phase": "yitrans_vatlm_parity", **out}))
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernels_line(records, counts, by_path=None):
     """The contract line: each kernel's path case (MAIN_CASE) in the named
     keys, the other cases under "other"; ``launches`` from the runs of the
@@ -4838,7 +5269,7 @@ def main():
     log(json.dumps({"phase": "serve_beam", "launches": beam["counts"]}))
 
     t0 = time.perf_counter()
-    phase_beam_parity(base, requests_s=BEAM_REQUESTS_S[:1])
+    phase_beam_parity(base, requests_s=BEAM_REQUESTS_S[:1], max_len=SIB_PARITY_MAX_LEN)
     _wall(walls, "beam_parity", t0)
 
     with tempfile.TemporaryDirectory() as d:
@@ -4917,7 +5348,7 @@ def main():
     _wall(walls, "s2s_parity", t0)
 
     t0 = time.perf_counter()
-    vc = phase_vc_decode(C.speecht5_base(), requests=1)
+    vc = phase_vc_decode(C.speecht5_base(), requests=1, max_frames=VC_MAX_FRAMES)
     _wall(walls, "vc_decode", t0)
 
     t0 = time.perf_counter()
@@ -4938,7 +5369,7 @@ def main():
     _wall(walls, "rescore_parity", t0)
 
     t0 = time.perf_counter()
-    beam_lm = phase_beam_lm(base, requests_s=LARGE_REQUESTS_S[:1])
+    beam_lm = phase_beam_lm(base, requests_s=LARGE_REQUESTS_S[:1], max_len=BEAM_LM_MAX_LEN)
     _wall(walls, "beam_lm", t0)
 
     t0 = time.perf_counter()
@@ -4967,7 +5398,8 @@ def main():
 
     t0 = time.perf_counter()
     phase_parity(large, requests_s=LARGE_REQUESTS_S[:1], buckets=LARGE_PARITY_BUCKETS)
-    phase_beam_parity(large, requests_s=LARGE_REQUESTS_S[:1], buckets=LARGE_PARITY_BUCKETS)
+    phase_beam_parity(large, requests_s=LARGE_REQUESTS_S[:1], buckets=LARGE_PARITY_BUCKETS,
+                      max_len=SIB_PARITY_MAX_LEN)
     _wall(walls, "large_parity", t0)
 
     t0 = time.perf_counter()
@@ -4985,6 +5417,18 @@ def main():
     t0 = time.perf_counter()
     phase_siblings_parity()
     _wall(walls, "siblings_parity", t0)
+
+    t0 = time.perf_counter()
+    yit = phase_yitrans()
+    _wall(walls, "yitrans", t0)
+
+    t0 = time.perf_counter()
+    vat = phase_vatlm()
+    _wall(walls, "vatlm", t0)
+
+    t0 = time.perf_counter()
+    phase_yitrans_vatlm_parity()
+    _wall(walls, "yitrans_vatlm_parity", t0)
 
     walls["total"] = time.perf_counter() - t_start
     log(json.dumps({"phase_seconds": walls, "card": card_line()}))
@@ -5005,7 +5449,9 @@ def main():
                **{f"parallel_evaluate_rank{r}": c for r, c in enumerate(peval["counts"])},
                **{f"speechlm_{k}": c for k, c in slm["counts"].items()},
                **{f"speechut_{k}": c for k, c in sut["counts"].items()},
-               **{f"speech2c_{k}": c for k, c in s2c_pre["counts"].items()}}
+               **{f"speech2c_{k}": c for k, c in s2c_pre["counts"].items()},
+               **{f"yitrans_{k}": c for k, c in yit["counts"].items()},
+               **{f"vatlm_{k}": c for k, c in vat["counts"].items()}}
     counts = {n: sum(c[n] for c in by_path.values()) for n in KERNELS}
     log(json.dumps(kernels_line(records, counts, by_path)))
     torch.cuda.synchronize()

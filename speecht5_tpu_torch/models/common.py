@@ -8,6 +8,9 @@ does, and LayerNorm always computes in f32, as the JAX package's
 
 from __future__ import annotations
 
+import math
+from typing import Tuple
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -34,12 +37,40 @@ class LayerNorm32(nn.LayerNorm):
                             self.bias, self.eps)
 
 
+def same_pads(n: int, k: int, s: int) -> Tuple[int, int]:
+    """flax / XLA "SAME" padding of one axis: (left, right)."""
+    total = max((math.ceil(n / s) - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
+class SameConvNd(nn.Module):
+    """flax ``nn.Conv(padding="SAME", use_bias=False)`` over channels-last
+    [N, *spatial, C_in] (2-D or 3-D), computed in ``dtype``; ``weight``
+    [C_out, C_in, *kernel]."""
+
+    def __init__(self, c_in: int, c_out: int, kernel, stride, dtype=torch.float32):
+        super().__init__()
+        self.kernel, self.stride = tuple(kernel), tuple(stride)
+        self.compute_dtype = dtype
+        self.weight = nn.Parameter(torch.empty(c_out, c_in, *self.kernel))
+
+    def forward(self, x):
+        nd = len(self.kernel)
+        x = x.to(self.compute_dtype).movedim(-1, 1)          # channels-last storage
+        pads = []
+        for n, k, s in reversed(list(zip(x.shape[2:], self.kernel, self.stride))):
+            pads += same_pads(n, k, s)
+        conv = F.conv3d if nd == 3 else F.conv2d
+        y = conv(F.pad(x, pads), self.weight.to(self.compute_dtype), stride=self.stride)
+        return y.movedim(1, -1)
+
 
 def init_weights(model: nn.Module, generator: torch.Generator = None) -> nn.Module:
     """Random weights for the sibling families' models (SpeechLM, SpeechUT,
-    FastText2Unit), drawn from ``generator`` (a CPU ``torch.Generator``,
-    seeded 0 when None) in module order, after the JAX initialisers:
-    lecun-normal dense and conv kernels, zero biases, unit norm scales,
+    FastText2Unit, YiTrans, VATLM), drawn from ``generator`` (a CPU
+    ``torch.Generator``, seeded 0 when None) in module order, after the JAX
+    initialisers: lecun-normal dense and conv kernels (1-D, 2-D and 3-D),
+    zero biases, unit norm scales,
     embeddings of std dim^-0.5, normal(0.02) for a weight-normed conv's
     direction with unit magnitudes, and uniform [0, 1) for the mask
     embedding and the label embeddings (any parameter named ``mask_emb`` or
@@ -52,9 +83,9 @@ def init_weights(model: nn.Module, generator: torch.Generator = None) -> nn.Modu
         for mod in model.modules():
             if isinstance(mod, nn.Linear):
                 mod.weight.normal_(0.0, mod.in_features ** -0.5, generator=generator)
-            elif isinstance(mod, (nn.Conv1d, _ConvKernel)):
-                _, c_in, k = mod.weight.shape
-                mod.weight.normal_(0.0, (c_in * k) ** -0.5, generator=generator)
+            elif isinstance(mod, (nn.Conv1d, _ConvKernel, SameConvNd)):
+                fan_in = mod.weight[0].numel()
+                mod.weight.normal_(0.0, fan_in ** -0.5, generator=generator)
             elif isinstance(mod, nn.Embedding):
                 mod.weight.normal_(0.0, mod.embedding_dim ** -0.5, generator=generator)
             elif isinstance(mod, WeightNormConv1d):

@@ -1,6 +1,7 @@
-"""Joint speech + text pretraining losses of SpeechLM and SpeechUT.
+"""Joint speech + text pretraining losses of SpeechLM, SpeechUT, YiTrans
+and VATLM.
 
-Port of ``speecht5_tpu/train/joint.py`` :1-229 (reference SpeechUT/
+Port of ``speecht5_tpu/train/joint.py`` (reference SpeechUT/
 speechut/criterions/speechut_criterion.py:166-265 and SpeechLM/speechlm/
 criterions/speechlm_criterion.py:66-200): one update consumes a
 heterogeneous sample ``{speech, text_*}`` (``data/multicorpus.py``) and
@@ -12,8 +13,10 @@ modalities.  Metric names are JAX's.
 The losses are plain functions of the model (in train mode for training
 passes), the batch and a CPU ``torch.Generator`` for the draws, or the
 draws handed in (``draws``: ``{"speech": {"masks", "mix_sel"}, "text" |
-"text_mono": {"masks"}}``, each entry optional).  The YiTrans loss
-(JAX :232-289) waits for its family.
+"text_mono": {"masks"}}``, each entry optional).  ``yitrans_pretrain_loss``
+is JAX ``make_yitrans_pretrain_loss`` (:232-289); ``vatlm_pretrain_loss``
+is the loss of JAX ``recipes/vatlm_pretrain.py`` (:70-104), which the JAX
+package keeps in the recipe.
 """
 
 from __future__ import annotations
@@ -155,3 +158,76 @@ def speechut_joint_loss(model, batch, jcfg: JointLossConfig, *, generator=None,
     metrics["loss"] = loss
     metrics["sample_size"] = sample_size
     return loss, metrics
+
+
+def yitrans_pretrain_loss(model, batch, jcfg: JointLossConfig, *, text_weight: float = 1.0,
+                          generator=None, draws=None):
+    """YiTrans stage 1 (JAX :232-289; reference YiTrans/yitrans_iwslt22/
+    models/pretrain_ed.py:200): masked speech prediction over km units
+    plus multilingual BART denoising CE, scaled by sample_size / tsize.
+    batch = {"speech": {wav, wav_lengths, units}, "text_mono": {src_tokens,
+    prev_tokens, targets} or None} -> (loss, metrics)."""
+    mcfg = model.cfg
+    metrics = {}
+    sp = batch["speech"]
+    enc = model.encode_speech(sp["wav"], sp["wav_lengths"], mask=True, generator=generator,
+                              masks=_draw(draws, "speech").get("masks"))
+    loss, m = _hubert(jcfg, [model.hubert_logits(enc)], [sp["units"]], enc["time_mask"],
+                      enc["valid_mask"])
+    metrics.update({f"speech_{k}": v for k, v in m.items()})
+    sample_size = _masked_count(enc["time_mask"], enc["valid_mask"])
+
+    tm = batch.get("text_mono")
+    if tm is not None and text_weight > 0:
+        logits = model.forward_mt(tm["src_tokens"], tm["prev_tokens"], generator=generator)
+        tgt_valid = tm["targets"] != mcfg.pad_id
+        tsize = tgt_valid.sum().clamp_min(1)
+        ce, _ = criterions.label_smoothed_ce(logits.float(), tm["targets"], tgt_valid,
+                                             jcfg.label_smoothing)
+        loss = loss + text_weight * ce * (sample_size / tsize)
+        metrics["denoise_loss"] = ce
+        metrics["denoise_acc"] = ((logits.argmax(-1) == tm["targets"]) & tgt_valid).sum() / tsize
+    metrics["loss"] = loss
+    metrics["sample_size"] = sample_size
+    return loss, metrics
+
+
+#: the modality streams of one VATLM update (JAX recipes/vatlm_pretrain.py
+#: :81-85): audio+video, audio alone, phones alone
+VATLM_STREAMS = (("av", dict(audio=True, video=True, phone=False)),
+                 ("audio_only", dict(audio=True, video=False, phone=False)),
+                 ("phone", dict(audio=False, video=False, phone=True)))
+
+
+def vatlm_pretrain_loss(model, batch, *, generator=None, draws=None):
+    """One VATLM update (JAX recipes/vatlm_pretrain.py:87-104; reference
+    vathubert_criterion.py:45): ``hubert_loss`` over the first label set
+    on each stream of ``VATLM_STREAMS``, summed.  The video BatchNorm's
+    running statistics, updated in place in training mode, carry from one
+    stream to the next.  batch = {audio [B, T, F], video [B, T, H, W, 1],
+    lengths, phones [B, T'], targets [B, T]}; ``draws``: {stream: {"masks",
+    "modality_drop"}}, each entry optional (the JAX recipe draws a stream's
+    masks from ``fold_in(rng, hash(name) % 997)``, which Python's salted
+    string hash makes differ from process to process) -> (loss, metrics:
+    each stream's loss by name).  Labels past a clip's length
+    (``VATLMDataset.collate`` pads them with -1) lie outside the valid mask
+    and count nowhere; they are clamped to 0 so that the gather stays in
+    range."""
+    targets = batch["targets"].clamp_min(0)
+    total = 0.0
+    metrics = {}
+    for name, spec in VATLM_STREAMS:
+        d = _draw(draws, name)
+        out = model.forward_pretrain(
+            batch["audio"] if spec["audio"] else None,
+            batch["video"] if spec["video"] else None, batch["lengths"],
+            phone_tokens=batch["phones"] if spec["phone"] else None, mask=True,
+            masks=d.get("masks"), modality_drop=d.get("modality_drop"), generator=generator)
+        tm = out["time_mask"]
+        if tm is None:
+            tm = torch.ones_like(out["valid_mask"])
+        loss, _ = criterions.hubert_loss([out["logits"][0]], [targets], tm,
+                                         out["valid_mask"])
+        total = total + loss
+        metrics[name] = loss
+    return total, metrics

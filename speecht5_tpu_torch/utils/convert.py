@@ -6,6 +6,8 @@ returns a ``state_dict`` for the port's ``SpeechT5Model``.  Layouts:
 
 - Dense ``kernel`` [in, out]            -> Linear ``weight`` [out, in]
 - Conv ``kernel`` [k, C_in, C_out]      -> ``weight`` [C_out, C_in, k]
+  (2-D / 3-D convs, [kh, kw(, kt first), C_in, C_out], alike:
+  [C_out, C_in, k...])
 - weight-norm ``weight_v`` [k, C_in/g, C_out] -> [C_out, C_in/g, k]
 - weight-norm ``weight_g`` [k, 1, 1]    -> [1, 1, k]
 - GroupNorm / LayerNorm ``scale``       -> ``weight``; ``bias`` -> ``bias``
@@ -18,9 +20,11 @@ returns a ``state_dict`` for the port's ``SpeechT5Model``.  Layouts:
 
 ``lm_from_jax_params`` carries the fusion LM (JAX ``models/lm.py``) the
 same way, and ``speechlm_from_jax_params``, ``fastspeech2_from_jax_params``,
-``speechut_from_jax_params`` and ``speech2c_from_jax_params`` the sibling
+``speechut_from_jax_params``, ``speech2c_from_jax_params``,
+``yitrans_from_jax_params`` and ``vatlm_from_jax_params`` the sibling
 families (their trees whole: the port names their sub-nets as JAX does;
-SpeechLM and SpeechUT's ``label_embs*`` as they are).
+the ``label_embs*`` as they are; VATLM's video BatchNorm statistics from
+its ``batch_stats``).
 
 Only the subtrees the port has (``PORTED_SUBTREES``) are carried; the
 others are left out of the result.  ``from_jax_batch_stats`` carries the
@@ -55,8 +59,9 @@ def _leaf(name: str, value: np.ndarray):
     if name == "kernel":
         if value.ndim == 2:
             return "weight", value.T
-        if value.ndim == 3:
-            return "weight", value.transpose(2, 1, 0)
+        if 3 <= value.ndim <= 5:
+            return "weight", value.transpose(value.ndim - 1, value.ndim - 2,
+                                             *range(value.ndim - 2))
         raise ValueError(f"kernel of rank {value.ndim}")
     if name == "weight_v":
         return name, value.transpose(2, 1, 0)
@@ -132,17 +137,33 @@ def speech2c_from_jax_params(flat: dict) -> dict:
     return _convert(flat, "params", _leaf, SPEECH2C_SUBTREES)
 
 
+def yitrans_from_jax_params(flat: dict) -> dict:
+    """The JAX ``YiTransModel``'s flattened ``params`` -> the port's
+    ``models/yitrans.YiTransModel`` state dict."""
+    return _convert(flat, "params", _leaf, None)
+
+
+def vatlm_from_jax_params(flat: dict, batch_stats: dict) -> dict:
+    """The JAX ``VATLMModel``'s flattened ``params`` (the video ResNet's
+    2-D and 3-D conv kernels among them) and ``batch_stats`` (its
+    BatchNorms' mean / var) -> the port's ``models/vatlm.VATLMModel`` state
+    dict, parameters and statistics."""
+    return {**_convert(flat, "params", _leaf, None),
+            **from_jax_batch_stats(batch_stats, subtrees=None)}
+
+
 def _stat_leaf(name: str, value: np.ndarray):
     if name not in _STATS:
         raise KeyError(f"unknown batch_stats leaf {name!r}")
     return _STATS[name], value
 
 
-def from_jax_batch_stats(flat: dict) -> dict:
+def from_jax_batch_stats(flat: dict, subtrees=PORTED_SUBTREES) -> dict:
     """``{"speech_decoder_postnet/postnet/bn_0/mean": ndarray, ...}`` (the
     flattened ``batch_stats`` collection) -> the port's BatchNorm
-    ``running_mean`` / ``running_var`` buffers."""
-    return _convert(flat, "batch_stats", _stat_leaf)
+    ``running_mean`` / ``running_var`` buffers (of ``subtrees``, None:
+    all)."""
+    return _convert(flat, "batch_stats", _stat_leaf, subtrees)
 
 
 # ------------------------------------------------------ fairseq checkpoints

@@ -928,3 +928,90 @@ def test_sibling_family_kernel_route_matches_plain_route(card, family, dtype):
             assert max(gk[n].abs().max(), x.abs().max()) <= gtol * gmax, n
         else:
             assert (gk[n] - x).abs().max() <= gtol * x.abs().max(), n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("family", ["yitrans", "vatlm"])
+def test_yitrans_vatlm_kernel_route_matches_plain_route(card, family, dtype):
+    """YiTrans and VATLM at Base width (one layer a stack): the kernel
+    route against the plain route with the same weights and masks.  Eval:
+    YiTrans' speech encoder (2 s and 1.3 s, with CTC) and text encoder (a
+    61-token source), VATLM's ``encode_av`` (3 s of 88 x 88 video and
+    stacked fbank); train: the pretraining logits (YiTrans' HuBERT and
+    denoising logits, VATLM's on audio + video + phones) and the gradients
+    of a fixed random projection of them; tolerances as the sibling
+    families' test above."""
+    from dataclasses import replace
+
+    from speecht5_tpu_torch.config import apply_overrides
+    from speecht5_tpu_torch.models.common import init_weights
+    from speecht5_tpu_torch.models.speechlm import text_masking
+    from speecht5_tpu_torch.models.vatlm import VATLMConfig, VATLMModel
+    from speecht5_tpu_torch.models.yitrans import YiTransConfig, YiTransModel
+    from speecht5_tpu_torch.ops.masking import sample_feature_masks
+
+    P, M = {"yitrans": (YiTransConfig, YiTransModel),
+            "vatlm": (lambda: VATLMConfig(phone_vocab_size=50), VATLMModel)}[family]
+    still = [f"{s}.{f}" for s in ("encoder", "decoder") for f in (
+        "num_layers=1", "dropout=0.0", "attention_dropout=0.0", "activation_dropout=0.0")]
+    cfg = apply_overrides(replace(P(), dtype=str(dtype).split(".")[-1]), still)
+    flags = ["encoder.use_pallas_attn=True", "encoder.use_pallas_attn_train=True"]
+    if family == "yitrans":
+        flags.append("conv_features.impl='pallas'")
+    models = [init_weights(M(apply_overrides(cfg, ovs)), torch.Generator().manual_seed(0)).to(card)
+              for ovs in (flags, [])]
+    models[1].load_state_dict(models[0].state_dict())
+    g = torch.Generator().manual_seed(1)
+    if family == "yitrans":
+        wav = torch.randn(2, 32000, generator=g).to(card) * 0.1
+        lens = torch.tensor([32000, 20800], device=card)
+        T = cfg.conv_features.out_length(32000)
+        src = torch.randint(5, 32000, (2, 61), generator=g).to(card)
+        prev = torch.randint(5, 32000, (2, 20), generator=g).to(card)
+        masks = sample_feature_masks(cfg.conv_features.out_length(lens.cpu()), T, cfg.d_model,
+                                     text_masking(cfg.masking), g)
+    else:
+        T = 75
+        audio = torch.randn(2, T, 104, generator=g).to(card)
+        video = torch.randn(2, T, 88, 88, 1, generator=g).to(card)
+        lens = torch.tensor([T, 50], device=card)
+        phones = torch.randint(4, 50, (2, T), generator=g).to(card)
+        masks = sample_feature_masks(lens.cpu(), T, cfg.d_model, text_masking(cfg.masking), g)
+    outs = []
+    K.reset_launch_counts()
+    for m in models:
+        with torch.no_grad():
+            m.eval()
+            if family == "yitrans":
+                enc = m.encode_speech(wav, lens, with_ctc=True)
+                evals = [enc["encoder_out"], enc["ctc_logits"], m.encode_text(src)["encoder_out"]]
+            else:
+                evals = [m.encode_av(audio, video, lens)["encoder_out"]]
+        m.train()
+        if family == "yitrans":
+            out = m.forward_pretrain(wav, lens, src, prev, masks=masks)
+            logits = [out["speech_logits"], out["text_logits"]]
+        else:
+            logits = m.forward_pretrain(audio, video, lens, phone_tokens=phones,
+                                        masks=masks)["logits"]
+        gp = torch.Generator().manual_seed(2)
+        sum((x.float() * torch.randn(x.shape, generator=gp).to(card)).sum()
+            for x in logits).backward()
+        outs.append(([e.float() for e in evals], [x.detach().float() for x in logits],
+                     {n: p.grad.float() for n, p in m.named_parameters()
+                      if p.grad is not None}))
+    counts = K.launch_counts()
+    assert counts["banded_flash_attention"] > 0 and counts["banded_attention_train_fwd"] > 0
+    assert (counts["conv_stack"] > 0) == (family == "yitrans"), counts
+    (ek, lk, gk), (ep, lp, gp) = outs
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    for a, b in zip(ek + lk, ep + lp):
+        assert (a - b).abs().max() <= tol * b.abs().max()
+    gtol = 1e-3 if dtype == torch.float32 else 3e-2
+    assert set(gk) == set(gp)
+    gmax = max(x.abs().max() for x in gp.values())
+    for n, x in gp.items():
+        if n.endswith("k_proj.bias"):
+            assert max(gk[n].abs().max(), x.abs().max()) <= gtol * gmax, n
+        else:
+            assert (gk[n] - x).abs().max() <= gtol * x.abs().max(), n
