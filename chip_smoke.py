@@ -286,12 +286,13 @@ Phases, each timed; any failure raises and the exit code is non-zero:
 26. serve large -- Service at speecht5_large, bf16, buckets 4/8/16 s:
                greedy on the 3 s and 11 s requests (24 x 2 inference
                attention launches a request, no conv launch: the layer_norm
-               mode has no kernel) and the beam on the 3 s one (beam 5, max_len 200, CTC weight
-               0.3; 12 decode-step launches a step), then one profiled
-               beam request.
-27. large parity -- f32, kernel route against plain route, buckets 4/16:
-               greedy CTC ids (as 4) on the 3 s and 11 s requests and the
-               beam (as 6) on the 3 s one.
+               mode has no kernel) and the beam on the 3 s one (its service
+               warms the 4 s bucket; beam 5, max_len 200, CTC weight 0.3;
+               12 decode-step launches a step), then one profiled beam
+               request.
+27. large parity -- f32, kernel route against plain route: greedy CTC
+               ids (as 4, buckets 4/16) on the 3 s request and the beam
+               (as 6, the 4 s bucket) on the 3 s one.
 28. parity sweep -- right after 19: the checkpoint-day sweep's dry run,
                ``cli/parity.py --dry-run --dry-run-arch speecht5_base_asr
                --arms --device cuda`` (bf16, every kernel on): a random-init
@@ -379,6 +380,28 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                exactly; the kernels phase adds their shapes (attention T
                61 and 75, the train kernels at N 48, T 258 and 100, the
                MT and AVSR beams' cross steps).
+38. wavllm  -- WavLLM at ``WavLLMConfig()``'s released geometry (Whisper
+               32 x 1280, WavLM Base, LLaMA 32 x 4096, LoRA r 8; bf16, the
+               random seeded weights drawn on the card, every kernel flag
+               on: WavLM's attention and the LLaMA decode step on
+               ``flash_attention_bias``, the extractor on the conv stack):
+               2 updates of ``recipes/wavllm_sft`` at batch 2 (8-16 s clips
+               through ``WavLLMDataset``, 20-40 byte target tokens), then
+               per request (10 s, 30 s) a prefill, ``generate`` and
+               ``generate_beam`` (beam 4), max_new 32.  Launches checked
+               exactly: 6 conv launches a WavLM forward, no attention
+               launch in an update (its WavLM trains with dropout), 12
+               attention launches a prefill, 32 decode-step launches a
+               step.
+39. wavllm parity -- f32, Whisper 4 and LLaMA 4 layers at full width
+               (WavLM's 12), kernel route against plain route, LoRA and
+               LoRA-MoE: ``forward_sft`` logits (1e-4 of max), the SFT loss
+               (1e-4), every trained parameter's gradient (``grad_gate``),
+               greedy tokens and the beam's best equal (score 1e-4).  The
+               kernels phase adds the decode-step kernel as WavLM's
+               attention (T 499 / 1499 with the f32 bias) and as the LLaMA
+               step (the cache [4, 675, 32, 128], the ancestry map), and the
+               conv stack on 30 s.
 
 Depth cut to make room for 29-30 (PR 17): the train phase resamples 4 of
 its 32 utterances from 48 kHz (16 before), serve beam and beam parity take
@@ -394,15 +417,21 @@ the trace took ~15 s each; a second cut at 10 steps takes the encoder's
 launches out of the launches a step), the profiled /tts request takes the shorter
 text (60 steps, not 292), Base's and Large's f32 beam parity stop at
 max_len 60, as phase 34's, VC decodes to 512 frames (256 steps, 512
-before) and the LM-fused beam's request to max_len 100.
+before) and the LM-fused beam's request to max_len 100.  For 38-39: the
+beam services of serve beam, beam parity, serve Large and Large parity
+warm the 4 s bucket alone (``BEAM_BUCKETS``; 4/8/16 and 4/16 before:
+each bucket's warm-up is a whole max_len decode), the profiled beam
+requests stop at 20 decode steps (50 before).  So no beam decode at the
+8 s or 16 s bucket's encoder lengths runs on the card any more (the
+compared and counted beam requests are 3 s, in the 4 s bucket).
 
 The launch counts are zeroed just before each driven path (serve, serve
 beam, train, train t2s, the warm-started train and request, serve tts,
 train s2s, the VC requests, train s2c, the SID inference, evaluate, the
 parity sweep, the two rescore runs, the LM-fused beam, Large's
-pretraining, greedy and beam requests, each parallel rank's run, and each
-sibling family's updates, CTC recipe, requests and beam) and read
-just after; a kernel of that path that was never launched fails.
+pretraining, greedy and beam requests, each parallel rank's run, each
+sibling family's updates, CTC recipe, requests and beam, and WavLLM's
+updates, prefills, greedy and beam requests) and read just after; a kernel of that path that was never launched fails.
 Output: an early line with the card's name and power limit as nvidia-smi
 gives them, one ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  A watchdog ends a hung run with a
@@ -439,6 +468,7 @@ from speecht5_tpu_torch.cli.serve import SR, Service, build_parser
 from speecht5_tpu_torch.data.audio import layer_norm_wav, write_wav
 from speecht5_tpu_torch.decode.tts import CHECK_EVERY
 from speecht5_tpu_torch.data.vatlm import VATLMDataset
+from speecht5_tpu_torch.data.wavllm import WHISPER_HOP, prompt_strings
 from speecht5_tpu_torch.data.manifests import (AUDIO_BUCKETS, TOKEN_BUCKETS,
                                                SpeechPretrainDataset, SpeechToTextDataset,
                                                bucket_length, collate_mel_targets)
@@ -457,6 +487,7 @@ from speecht5_tpu_torch.models.speechlm import (SpeechLMConfig, SpeechLMCtc, ini
 from speecht5_tpu_torch.models.speechut import SpeechUTConfig, init_speechut, speechut_tiny
 from speecht5_tpu_torch.models.speecht5 import init_model
 from speecht5_tpu_torch.models.vatlm import VATLMConfig, init_vatlm, vatlm_tiny
+from speecht5_tpu_torch.models.wavllm import WavLLMConfig, init_wavllm, wavllm_tiny
 from speecht5_tpu_torch.models.yitrans import YiTransConfig, init_yitrans, yitrans_tiny
 from speecht5_tpu_torch.ops import cuda_kernels as K
 from speecht5_tpu_torch.ops.masking import sample_feature_masks
@@ -465,6 +496,7 @@ from speecht5_tpu_torch.recipes import speech2c_pretrain as s2c_recipe
 from speecht5_tpu_torch.recipes import speechlm_ctc_finetune as slm_recipe
 from speecht5_tpu_torch.recipes import speechut_joint_pretrain as sut_recipe
 from speecht5_tpu_torch.recipes import vatlm_pretrain as vat_recipe
+from speecht5_tpu_torch.recipes import wavllm_sft as wavllm_recipe
 from speecht5_tpu_torch.recipes import yitrans_pretrain_finetune as yit_recipe
 from speecht5_tpu_torch.recipes.common import adamw as recipe_adamw
 from speecht5_tpu_torch.train.criterions import fasttext2unit_loss
@@ -527,7 +559,7 @@ KERNEL_OVERRIDES = ["encoder.use_pallas_attn=True", "conv_features.impl='pallas'
 BEAM_OVERRIDES = KERNEL_OVERRIDES + ["decoder.use_pallas_attn=True"]
 # cli/serve.py's beam defaults (JAX cli/serve.py:549-551)
 BEAM, BEAM_MAX_LEN = 5, 200
-PROFILED_STEPS = 50         # the profiled beam request's decode steps
+PROFILED_STEPS = 20         # the profiled beam request's decode steps
 PROFILED_SHORT_STEPS = 10   # its short cut: the difference is per step
 # the fusion LM (models/lm.TransformerLMConfig(): d 1280, 16 heads, 20
 # pre-LN layers): its head size is the decode-step kernel's D 80
@@ -596,6 +628,10 @@ PARALLEL_EVAL_SECONDS = 4.0
 # from 48 kHz, the beam phases skip the 21 s request, and so on (main())
 RESAMPLED_EVERY = 8
 BEAM_REQUESTS_S = (3, 11)
+# the bucket of the 3 s beam requests: a beam Service warms each of its
+# buckets with a whole max_len decode (random weights never stop early),
+# so the beam phases warm only the one their requests use
+BEAM_BUCKETS = "4"
 # encoder frames at Base: a 3 s VC source, the 6 s s2s audio bucket, the
 # 8 s s2c crop (--max-sample-size 128000)
 VC_SOURCE_S = 3.0
@@ -1177,15 +1213,25 @@ def flash_bias_case(case, dtype, device="cuda", seed=4):
     rows; "lm_self", the fusion LM's cached self-attention at the same
     step (N = 5 x 16 rows, Dh 80).  The key mask comes as the path gives
     it: one row per sample (cross, [1, Tk]) or per beam row (self, [5,
-    Tk]), each serving its heads.  -> q, k, v, key_valid."""
+    Tk]), each serving its heads.  "wavlm_T<T>": WavLM's self-attention on
+    one request of T frames (499: 10 s, 1499: 30 s) as its kernel route
+    calls the contract entry: N = 12 heads, Tq = Tk = T, D 64, the f32
+    gated bias [12, T, T], the sample's mask [1, T] (every frame valid).
+    -> q, k, v, key_valid, bias (None: a zero bias)."""
     g = torch.Generator().manual_seed(seed)
-    N, Tq, Tk, valid, mask_rows, D = {"cross": (12, 5, 799, 549, 1, 64),
-                                      "self": (60, 1, 201, 101, 5, 64),
-                                      "lm_self": (5 * LM_HEADS, 1, 201, 101, 5, LM_DH)}[case]
+    if case.startswith("wavlm_T"):
+        T = int(case[len("wavlm_T"):])
+        N, Tq, Tk, valid, mask_rows, D = 12, T, T, T, 1, 64
+    else:
+        N, Tq, Tk, valid, mask_rows, D = {"cross": (12, 5, 799, 549, 1, 64),
+                                          "self": (60, 1, 201, 101, 5, 64),
+                                          "lm_self": (5 * LM_HEADS, 1, 201, 101, 5, LM_DH)}[case]
     q = (torch.randn(N, Tq, D, generator=g) * D ** -0.5).to(dtype)
     k, v = (torch.randn(N, Tk, D, generator=g).to(dtype) for _ in range(2))
     key_valid = (torch.arange(Tk) < valid)[None, :].expand(mask_rows, Tk).contiguous()
-    return [t.to(device) for t in (q, k, v, key_valid)]
+    bias = (torch.randn(N, Tq, Tk, generator=g) * 0.5).to(device) if case.startswith(
+        "wavlm_T") else None
+    return [t.to(device) for t in (q, k, v, key_valid)] + [bias]
 
 
 def flash_bias_cache_case(case, dtype, device="cuda", seed=4):
@@ -1218,9 +1264,22 @@ def flash_bias_cache_case(case, dtype, device="cuda", seed=4):
     "sib_cross_cached" (q [1, 5, 12, 64] against its 149 encoder frames, all
     valid).  YiTrans' MT beam and VATLM's AVSR beam: "yit_mt_cross_cached"
     (q [1, 5, 12, 64] against the 61-token source) and "vat_cross_cached"
-    (against the 3 s clip's 75 frames at 25 Hz), all valid.  -> q4, k4, v4,
-    key_valid, rows."""
+    (against the 3 s clip's 75 frames at 25 Hz), all valid.  WavLLM's LLaMA
+    decode step in the 30 s request's beam: "llama_self_cache" (q [4, 1, 32,
+    128], the cache [4, 675, 32, 128] at step 16 of 32 (slot 658), the int64
+    ancestry map within the 4 lanes, the lanes' own masks [4, 675] as
+    ``WavLLMModel._decode_step`` builds them).  -> q4, k4, v4, key_valid,
+    rows."""
     g = torch.Generator().manual_seed(seed)
+    if case == "llama_self_cache":
+        L0 = wavllm_prefix_len(WAVLLM_REQUESTS_S[-1])
+        Tc, pos, B, H, D = L0 + WAVLLM_MAX_NEW, L0 + WAVLLM_MAX_NEW // 2 - 1, WAVLLM_BEAM, 32, 128
+        q4 = (torch.randn(B, 1, H, D, generator=g) * D ** -0.5).to(dtype)
+        k4, v4 = (torch.randn(B, Tc, H, D, generator=g).to(dtype) for _ in range(2))
+        rows = torch.randint(0, B, (B, Tc), generator=g)
+        rows[:, pos + 1:] = torch.arange(B)[:, None]     # the lanes' own next writes
+        key_valid = (torch.arange(Tc)[None, :] <= pos).expand(B, Tc).contiguous()
+        return (*(t.to(device) for t in (q4, k4, v4, key_valid)), rows.to(device))
     H, D = {"lm_self_cache": (LM_HEADS, LM_DH),
             "eval_lm_self_cache": (EVAL_LM_HEADS, EVAL_LM_DH)}.get(case, (12, 64))
     if case.startswith("large_"):       # SpeechT5-Large's decoder: 16 heads
@@ -1279,16 +1338,19 @@ def _flash_bias_record(case, dtype):
     timed both ways.  "cross", "self" and "lm_self" call the contract entry
     on [N, T, D] rows, "cross_cached", "self_cache", "lm_self_cache",
     the "eval_", "large_", "sweep_", "sib_", "yit_" and "vat_" cases,
-    "tts_self", "tts_cross" and "vc_cross" the
-    cached entry on the decoder's layouts; the last two with
+    "tts_self", "tts_cross", "vc_cross" and "llama_self_cache" the
+    cached entry on the decoder's layouts; "tts_cross" and "vc_cross" with
     the max-probability output, held against the twin's (f32 1e-4, bf16
-    3e-2 of max |ref|) and timed with and without it."""
+    3e-2 of max |ref|) and timed with and without it.  The "wavlm_T" cases
+    call the contract entry with their f32 bias, which SDPA's mask then
+    carries."""
     maxp_call = None
+    bias = None
     if case in ("self_cache", "cross_cached", "tts_self", "tts_cross", "vc_cross",
                 "lm_self_cache", "eval_self_cache", "eval_lm_self_cache",
                 "eval_cross_cached", "large_cross_cached", "large_self_cache",
                 "sweep_cross_cached", "sweep_self_cache", "sib_cross_cached",
-                "yit_mt_cross_cached", "vat_cross_cached"):
+                "yit_mt_cross_cached", "vat_cross_cached", "llama_self_cache"):
         q4, k4, v4, key_valid, rows = flash_bias_cache_case(case, dtype)
         B, Tq, H, D = q4.shape
         N, Tk = B * H, k4.shape[1]
@@ -1305,11 +1367,11 @@ def _flash_bias_record(case, dtype):
         q, k, v = (t.transpose(1, 2).reshape(N, -1, D).contiguous()
                    for t in (q4, kg, vg))
     else:
-        q, k, v, key_valid = flash_bias_case(case, dtype)
+        q, k, v, key_valid, bias = flash_bias_case(case, dtype)
         N, Tq, D = q.shape
         B, H, Tk, rows = N, 1, k.shape[1], None
-        call = lambda: K.flash_attention_bias(q, k, v, None, key_valid)
-        plain = lambda: K.flash_attention_bias_plain(q, k, v, None, key_valid)
+        call = lambda: K.flash_attention_bias(q, k, v, bias, key_valid)
+        plain = lambda: K.flash_attention_bias_plain(q, k, v, bias, key_valid)
     got, ref = call(), plain()
     torch.cuda.synchronize()
     err, tol, ok = _check(dtype, got, ref)
@@ -1328,13 +1390,16 @@ def _flash_bias_record(case, dtype):
                 + torch.arange(H, device=q.device)[None, :, None])
     kv_keys = torch.unique(kv_index[full_mask.view(B, H, Tk)]).numel()
     nbytes = ((2 * N * Tq * D + 2 * D * kv_keys) * q.element_size()
-              + key_valid.numel())
+              + key_valid.numel() + (0 if bias is None else bias.numel() * 4))
     if rows is not None:
         nbytes += key_valid.sum().item() * B * rows.element_size()
     flops = 4.0 * Tq * D * valid_keys
     bound_ms, bound_by = _bound(nbytes, flops, dtype)
     mask = torch.where(full_mask[:, None, :], 0.0, K.NEG_INF).expand(N, Tq, Tk)
     library_call = "F.scaled_dot_product_attention(attn_mask=f32 0/-1e9, scale=1)"
+    if bias is not None:
+        mask = mask + bias
+        library_call = "F.scaled_dot_product_attention(attn_mask=f32 bias + 0/-1e9, scale=1)"
     try:
         F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0)
     except RuntimeError:    # a backend that wants the mask in q's dtype
@@ -1404,7 +1469,11 @@ def phase_kernels():
     ("bfloat16/yit_mt_T61", "bfloat16/vat_T75"), the train kernels at N 48,
     T 258 (stage 1's text) and T 100 (VATLM's 4 s clips)
     ("bfloat16/r0.1/b4_T258", "bfloat16/r0.1/b4_T100"), and the two beams'
-    cross steps ("<dtype>/yit_mt_cross_cached", "<dtype>/vat_cross_cached")."""
+    cross steps ("<dtype>/yit_mt_cross_cached", "<dtype>/vat_cross_cached").
+    WavLLM: the decode-step kernel as WavLM's self-attention at T 499 and
+    1499 with its f32 bias ("<dtype>/wavlm_T499", "<dtype>/wavlm_T1499") and
+    as the LLaMA step of the 30 s beam ("<dtype>/llama_self_cache"), and the
+    conv stack on the 30 s request ("bfloat16/b1_T95999")."""
     records = {name: {} for name in KERNELS}
     failures = []
     for batch in (1, 2):
@@ -1534,6 +1603,14 @@ def phase_kernels():
             failures.append(f"train kernels {key}: "
                             + json.dumps({n: r["errors"] for n, r in recs.items()}))
     torch.cuda.empty_cache()
+    # WavLLM (phase 38): WavLM's extractor on the 30 s request (layers 1-6
+    # after conv 0)
+    ok, rec = _conv_record(1, torch.bfloat16, T=WAVLM_CONV_T)
+    records["conv_stack"][f"bfloat16/b1_T{WAVLM_CONV_T}"] = rec
+    if not ok:
+        failures.append(f"conv_stack b1 T{WAVLM_CONV_T}: max|diff| {rec['max_abs_err']} "
+                        f"> {rec['tolerance']}")
+    torch.cuda.empty_cache()
     for batch, samples, center in ((16, 767 * 256 + 1024, False), (2, 48000, True)):
         ok, rec = _mel_record(batch, samples, center)
         records["fused_log_mel"][f"float32/b{batch}"] = rec
@@ -1544,7 +1621,8 @@ def phase_kernels():
                  "vc_cross", "lm_self", "lm_self_cache", "eval_cross_cached",
                  "eval_self_cache", "eval_lm_self_cache", "large_cross_cached",
                  "large_self_cache", "sweep_cross_cached", "sweep_self_cache",
-                 "sib_cross_cached", "yit_mt_cross_cached", "vat_cross_cached"):
+                 "sib_cross_cached", "yit_mt_cross_cached", "vat_cross_cached",
+                 *(f"wavlm_T{t}" for t in WAVLM_T), "llama_self_cache"):
         for dtype in (torch.float32, torch.bfloat16):
             key = f"{str(dtype).split('.')[-1]}/{case}"
             ok, rec = _flash_bias_record(case, dtype)
@@ -5171,6 +5249,283 @@ def phase_yitrans_vatlm_parity(device="cuda", tiny=False, seed=0, loss_rtol=1e-4
     return out
 
 
+WAVLLM_SFT_S = (8.0, 16.0)           # the SFT clips
+WAVLLM_SFT_BATCH, WAVLLM_SFT_UPDATES = 2, 2
+WAVLLM_TARGET_BYTES = (19, 39)       # + EOS: 20-40 target tokens
+WAVLLM_REQUESTS_S = (10, 30)         # WavLM T 499 / 1499, Whisper 500 / 1500 frames
+WAVLLM_MAX_NEW, WAVLLM_BEAM = 32, 4
+WAVLLM_LR = 1e-4
+WAVLLM_LORA_B_STD = 0.02             # the adapters as after fine-tuning (B = 0 at init)
+WAVLLM_PARITY_DEPTH = dict(whisper_layers=4, llama_layers=4)    # WavLM keeps its 12
+WAVLLM_TINY = dict(sft_s=(0.5, 0.9), target=(6, 10), requests_s=(0.6, 1.2), max_new=4, beam=2)
+WAVLM_T = tuple(C.ConvFeatureConfig().out_length(s * 16000) for s in WAVLLM_REQUESTS_S)
+WAVLM_CONV_T = (WAVLLM_REQUESTS_S[-1] * 16000 - 10) // 5 + 1      # after conv 0: 95999
+
+
+def _wavllm_sizes(tiny: bool) -> dict:
+    if tiny:
+        return WAVLLM_TINY
+    return dict(sft_s=WAVLLM_SFT_S, target=WAVLLM_TARGET_BYTES, requests_s=WAVLLM_REQUESTS_S,
+                max_new=WAVLLM_MAX_NEW, beam=WAVLLM_BEAM)
+
+
+def wavllm_prefix_len(seconds: float, cfg: WavLLMConfig = WavLLMConfig()) -> int:
+    """The packed prefix's slots of a ``seconds`` request at the released
+    geometry: BOS + the chat template's left prompt, the audio (Whisper's
+    frames and WavLM's, each through its two stride-2 adapters, the
+    shorter), the right prompt around ``PROMPTS[0]`` (byte tokens)."""
+    n = int(seconds * 16000)
+    halve = lambda t: (t + 1) // 2
+    whisper = halve(halve(halve(n // WHISPER_HOP)))
+    wavlm = halve(halve(cfg.wavlm.conv.out_length(n)))
+    left, right = prompt_strings(wavllm_recipe.PROMPTS[0])
+    return 1 + len(left.encode()) + min(whisper, wavlm) + len(right.encode())
+
+
+def wavllm_config(dtype: str, kernels: bool, tiny: bool = False, **kw) -> WavLLMConfig:
+    """``WavLLMConfig()`` (the released geometry: Whisper 32 x 1280, WavLM
+    Base, LLaMA 32 x 4096, LoRA r 8; ``tiny``: ``wavllm_tiny`` at 80 mels and
+    the recipe's RoPE table) at ``dtype``, with ``kernels`` the WavLM
+    attention and the LLaMA decode step on ``flash_attention_bias`` and the
+    extractor on the conv stack (else all plain, the extractor ``xla``)."""
+    cfg = (wavllm_tiny(n_mels=80, max_seq_len=wavllm_recipe.TINY_SEQ_LEN) if tiny
+           else WavLLMConfig())
+    wavlm = C.replace(cfg.wavlm, use_pallas_attn=kernels,
+                      conv=C.replace(cfg.wavlm.conv, impl="pallas" if kernels else "xla"))
+    return C.replace(cfg, dtype=dtype, use_pallas_attn=kernels, wavlm=wavlm, **kw)
+
+
+def wavllm_data(cfg, sz, seed, n_batches=WAVLLM_SFT_UPDATES):
+    """``n_batches`` SFT batches of ``WAVLLM_SFT_BATCH`` clips of ``sft_s``
+    with ``target`` bytes (``recipes/wavllm_sft.write_corpus``, read back
+    through ``WavLLMDataset``: the Whisper mel, the waveform, the chat
+    template, byte tokens) and one request per ``requests_s`` -> (batches,
+    requests), numpy."""
+    tok = wavllm_recipe.byte_tokenizer(cfg.vocab_size)
+    batches, requests = [], []
+    with tempfile.TemporaryDirectory() as d:
+        for u in range(n_batches):
+            os.makedirs(os.path.join(d, f"sft{u}"))
+            tsv = wavllm_recipe.write_corpus(os.path.join(d, f"sft{u}"), WAVLLM_SFT_BATCH,
+                                             seconds=sz["sft_s"], target_bytes=sz["target"],
+                                             seed=seed + u)
+            batches.append(wavllm_recipe.load_batch(tsv, tok, cfg))
+        for i, secs in enumerate(sz["requests_s"]):
+            os.makedirs(os.path.join(d, f"req{i}"))
+            tsv = wavllm_recipe.write_corpus(os.path.join(d, f"req{i}"), 1, seconds=(secs, secs),
+                                             seed=seed + 100 + i)
+            requests.append(wavllm_recipe.load_batch(tsv, tok, cfg))
+    return batches, requests
+
+
+def _wavllm_request(model, req, method, max_new, beam):
+    """``generate`` (greedy) or ``generate_beam`` on one request ->
+    (tokens [1, max_new], the beam's score or None)."""
+    kw = dict(max_new=max_new, wav=req["wav"], wav_lengths=req["wav_lengths"],
+              left_tokens=req["left_tokens"])
+    if method == "beam":
+        return model.generate_beam(req["mel"], req["mel_lengths"], req["prompt_tokens"],
+                                   beam_size=beam, **kw)
+    return model.generate(req["mel"], req["mel_lengths"], req["prompt_tokens"], **kw), None
+
+
+def _peak_gb(device) -> float:
+    return torch.cuda.max_memory_allocated() / 1e9 if _cuda(device) else 0.0
+
+
+WAVLLM_PROFILED_STEPS = 4
+
+
+def wavllm_step_profile(model, req):
+    """Greedy generation on ``req`` under ``torch.profiler`` (device events
+    only, ``device_profile``), at ``WAVLLM_PROFILED_STEPS`` decode steps and
+    at none (the prefill alone): device launches, busy ms and wall ms a
+    decode step by difference, the prefill's launches and busy ms, and the
+    longer run's idle share and largest device times."""
+    a, b = (device_profile(lambda n=n: _wavllm_request(model, req, "greedy", n + 1, 1),
+                           lambda: 0)
+            for n in (0, WAVLLM_PROFILED_STEPS))
+    per = lambda k: (b[k] - a[k]) / WAVLLM_PROFILED_STEPS
+    return {"launches_per_step": per("device_launches"), "busy_ms_per_step": per("device_busy_ms"),
+            "wall_ms_per_step": per("wall_ms_profiled"), "idle_share": b["idle_share"],
+            "prefill_launches": a["device_launches"], "prefill_busy_ms": a["device_busy_ms"],
+            "top_device_ms": b["top_device_ms"]}
+
+
+def phase_wavllm(device="cuda", tiny=False, seed=0):
+    """WavLLM at ``WavLLMConfig()``'s released geometry (Whisper-large-v2's
+    encoder 32 x 1280, WavLM Base with the conv-stack extractor, LLaMA-2-7B
+    32 x 4096, LoRA r 8; bf16, every kernel flag on), its random seeded
+    weights drawn on the card (the frozen matrices in bf16, the trained
+    parameters f32; LoRA B normal(0.02)): ``WAVLLM_SFT_UPDATES`` updates of
+    ``recipes/wavllm_sft`` at batch 2 (8-16 s clips, the chat template,
+    20-40 byte target tokens; train mode, so dropout on and WavLM's
+    attention on its plain route), then per request (10 s, 30 s) a prefill
+    alone (twice: a warm-up, then timed), ``generate`` and
+    ``generate_beam`` (beam 4), max_new 32.
+    Launches checked exactly: an update runs the conv stack once per
+    WavLM forward (6 launches) and no attention kernel; a prefill 12
+    attention launches (WavLM's layers) and 6 conv launches; each decode
+    step one decode-step launch per LLaMA layer (32).  Logged: update
+    walls, ms a decode step (the generation's wall less the prefill's,
+    over its 31 steps), launches a step, peak memory; on a card, then the
+    10 s request's greedy decode steps under ``torch.profiler``
+    (``wavllm_step_profile``)."""
+    sz = _wavllm_sizes(tiny)
+    dev = torch.device(device)
+    cfg = wavllm_config("bfloat16", True, tiny)
+    n_conv = len(cfg.wavlm.conv.layers) - 1
+    batches, requests = wavllm_data(cfg, sz, seed)
+    t0 = time.perf_counter()
+    model = init_wavllm(cfg, torch.Generator(device=dev).manual_seed(seed), dev,
+                        param_dtype=torch.bfloat16, lora_b_std=WAVLLM_LORA_B_STD)
+    _sync(dev)
+    out = {"ok": False, "init_s": time.perf_counter() - t0,
+           "params_b": sum(p.numel() for p in model.parameters()) / 1e9,
+           "sft_tokens": [[int(v) for v in b["target_tokens"].shape] for b in batches],
+           "request_text_tokens": []}
+    params = wavllm_recipe.freeze_for_sft(model)
+    opt = wavllm_recipe.make_optimizer(params, WAVLLM_LR)
+    on_dev = [wavllm_recipe.to_device(b, dev) for b in batches]
+    if _cuda(dev):
+        torch.cuda.reset_peak_memory_stats()
+    counts, walls, losses = {}, [], []
+    K.reset_launch_counts()
+    for b in on_dev:
+        t0 = time.perf_counter()
+        losses.append(wavllm_recipe.sft_update(model, opt, b))
+        _sync(dev)
+        walls.append(time.perf_counter() - t0)
+    counts["sft"] = K.launch_counts()
+    out.update(sft_losses=losses, sft_update_s=walls, sft_peak_gb=_peak_gb(dev))
+    _finite(losses, "WavLLM SFT losses")
+    if _cuda(dev):
+        _expect(counts["sft"], {"conv_stack": len(on_dev) * n_conv}, "WavLLM SFT")
+    opt.zero_grad(set_to_none=True)
+    del opt
+    model.eval()
+    L = cfg.llama_layers
+    steps = sz["max_new"] - 1
+    for secs, req in zip(sz["requests_s"], requests):
+        r = wavllm_recipe.to_device(req, dev)
+        rec = {}
+        # the first prefill warms the request's shapes up; the second is
+        # the one the decode loops' times are taken against
+        for method, max_new in (("prefill_warm", 1), ("prefill", 1),
+                                ("greedy", sz["max_new"]), ("beam", sz["max_new"])):
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            tokens, score = _wavllm_request(model, r, "beam" if method == "beam" else "greedy",
+                                            max_new, sz["beam"])
+            _sync(dev)
+            wall = time.perf_counter() - t0
+            c = counts[f"{method}_{secs}s"] = K.launch_counts()
+            if _cuda(dev):
+                _expect(c, {"conv_stack": n_conv, "flash_attention_bias":
+                            cfg.wavlm.num_layers + (max_new - 1) * L},
+                        f"WavLLM {method} on {secs} s")
+            if not ((tokens >= 0) & (tokens < cfg.vocab_size)).all():
+                raise AssertionError(f"WavLLM {method}: tokens out of the vocabulary")
+            if score is not None:
+                _finite(score.tolist(), f"WavLLM beam score on {secs} s")
+            rec[method] = {"s": wall, "tokens": tokens[0, :12].tolist()}
+            if method in ("greedy", "beam"):
+                rec[method]["ms_per_step"] = (wall - rec["prefill"]["s"]) / steps * 1e3
+                if _cuda(dev):
+                    rec[method]["launches_per_step"] = (
+                        c["flash_attention_bias"] - cfg.wavlm.num_layers) / steps
+        out[f"request_{secs}s"] = rec
+        out["request_text_tokens"].append(int(req["left_tokens"].shape[1]
+                                              + req["prompt_tokens"].shape[1]))
+        if _cuda(dev) and secs == sz["requests_s"][0]:
+            out["step_profile"] = wavllm_step_profile(model, r)
+
+    out.update(counts=counts, peak_gb=_peak_gb(dev), ok=True)
+    log(json.dumps({"phase": "wavllm", **out}))
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _wavllm_twins(tiny, device, seed, **kw):
+    """The f32 model on the kernel route and on the plain route, the same
+    weights, the trained parameters (``freeze_for_sft``) asking for
+    gradients."""
+    models = []
+    for kernels in (True, False):
+        cfg = wavllm_config("float32", kernels, tiny, **kw)
+        m = init_wavllm(cfg, torch.Generator(device=device).manual_seed(seed), device,
+                        lora_b_std=WAVLLM_LORA_B_STD)
+        if models:
+            m.load_state_dict(models[0].state_dict())
+        wavllm_recipe.freeze_for_sft(m)
+        models.append(m)
+    return models
+
+
+def _wavllm_loss_grads(model, b, scale=1.0):
+    """``sft_loss`` in eval mode (no dropout: WavLM's attention on its
+    kernel route when the flag is on) and its backward, the audio scaled by
+    ``scale`` -> (loss, {name: gradient of each trained parameter})."""
+    model.eval()
+    loss = wavllm_recipe.sft_loss(model, dict(b, mel=b["mel"] * scale, wav=b["wav"] * scale))
+    loss.backward()
+    grads = {n: p.grad.clone() for n, p in model.named_parameters() if p.requires_grad}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def phase_wavllm_parity(device="cuda", tiny=False, seed=0, logit_rtol=1e-4, loss_rtol=1e-4,
+                        grad_rtol=1e-3, score_rtol=1e-4):
+    """f32 on the card, the released widths at a cut depth (Whisper 4 and
+    LLaMA 4 layers, WavLM's 12), every dropout off (eval mode), the same
+    weights: the kernel route (WavLM's attention and the LLaMA decode step
+    on ``flash_attention_bias``, the conv stack) against the plain route,
+    for LoRA and LoRA-MoE (3 experts): ``forward_sft``'s logits (1e-4 of
+    max |logit|), the SFT loss (1e-4) and every trained parameter's
+    gradient (``grad_gate``: 1e-3 of its max |g|, or twice the plain
+    route's own move under ``ULP_SCALE`` of the audio) on one SFT batch;
+    greedy tokens equal and the beam's best hypothesis equal, its score
+    within 1e-4, on the 10 s request."""
+    sz = _wavllm_sizes(tiny)
+    dev = torch.device(device)
+    depth = {} if tiny else WAVLLM_PARITY_DEPTH
+    cfg = wavllm_config("float32", True, tiny, **depth)
+    (batch,), requests = wavllm_data(cfg, sz, seed + 7, n_batches=1)
+    b = wavllm_recipe.to_device(batch, dev)
+    r = wavllm_recipe.to_device(requests[0], dev)
+    out = {"ok": False}
+    for variant, kw in (("lora", {}), ("lora_moe", {"lora_moe": True, "n_experts": 3})):
+        mk, mp = _wavllm_twins(tiny, dev, seed, **depth, **kw)
+        args = (b["mel"], b["mel_lengths"], b["prompt_tokens"], b["target_tokens"], b["wav"],
+                b["wav_lengths"], b["left_tokens"])
+        with torch.no_grad():
+            lk, lp = (m.forward_sft(*args)[0] for m in (mk, mp))
+        rec = {"logits_rel_diff": ((lk - lp).abs().max() / lp.abs().max()).item()}
+        if rec["logits_rel_diff"] > logit_rtol:
+            raise AssertionError(f"WavLLM {variant}: forward_sft logits differ: {rec}")
+        rec.update(_gate(f"WavLLM {variant} SFT", [
+            _wavllm_loss_grads(mk, b), _wavllm_loss_grads(mp, b),
+            _wavllm_loss_grads(mp, b, ULP_SCALE)], loss_rtol, grad_rtol))
+        (gk, _), (gp, _) = (_wavllm_request(m, r, "greedy", sz["max_new"], sz["beam"])
+                            for m in (mk, mp))
+        (bk, sk), (bp, sp) = (_wavllm_request(m, r, "beam", sz["max_new"], sz["beam"])
+                              for m in (mk, mp))
+        rec.update(greedy_equal=torch.equal(gk, gp), beam_equal=torch.equal(bk, bp),
+                   beam_score_rel_diff=((sk - sp).abs() / sp.abs()).max().item())
+        if not (rec["greedy_equal"] and rec["beam_equal"]) or \
+                rec["beam_score_rel_diff"] > score_rtol:
+            raise AssertionError(f"WavLLM {variant}: decodes differ: {rec}, greedy "
+                                 f"{gk.tolist()} vs {gp.tolist()}, beam {bk.tolist()} vs "
+                                 f"{bp.tolist()}")
+        out[variant] = rec
+        del mk, mp
+        torch.cuda.empty_cache()
+    out["ok"] = True
+    log(json.dumps({"phase": "wavllm_parity", **out}))
+    return out
+
+
 def kernels_line(records, counts, by_path=None):
     """The contract line: each kernel's path case (MAIN_CASE) in the named
     keys, the other cases under "other"; ``launches`` from the runs of the
@@ -5264,12 +5619,13 @@ def main():
     _wall(walls, "parity", t0)
 
     t0 = time.perf_counter()
-    beam = phase_serve_beam(base, requests_s=BEAM_REQUESTS_S[:1])
+    beam = phase_serve_beam(base, requests_s=BEAM_REQUESTS_S[:1], buckets=BEAM_BUCKETS)
     _wall(walls, "serve_beam", t0)
     log(json.dumps({"phase": "serve_beam", "launches": beam["counts"]}))
 
     t0 = time.perf_counter()
-    phase_beam_parity(base, requests_s=BEAM_REQUESTS_S[:1], max_len=SIB_PARITY_MAX_LEN)
+    phase_beam_parity(base, requests_s=BEAM_REQUESTS_S[:1], buckets=BEAM_BUCKETS,
+                      max_len=SIB_PARITY_MAX_LEN)
     _wall(walls, "beam_parity", t0)
 
     with tempfile.TemporaryDirectory() as d:
@@ -5392,13 +5748,13 @@ def main():
             * large.encoder.num_layers * K.fwd_launches(torch.bfloat16)}
     if served_large["counts"] != want:
         raise AssertionError(f"Large greedy launches {served_large['counts']}, want {want}")
-    beam_large = phase_serve_beam(large, requests_s=LARGE_REQUESTS_S[:1])
+    beam_large = phase_serve_beam(large, requests_s=LARGE_REQUESTS_S[:1], buckets=BEAM_BUCKETS)
     log(json.dumps({"phase": "serve_beam_large", "launches": beam_large["counts"]}))
     _wall(walls, "serve_large", t0)
 
     t0 = time.perf_counter()
     phase_parity(large, requests_s=LARGE_REQUESTS_S[:1], buckets=LARGE_PARITY_BUCKETS)
-    phase_beam_parity(large, requests_s=LARGE_REQUESTS_S[:1], buckets=LARGE_PARITY_BUCKETS,
+    phase_beam_parity(large, requests_s=LARGE_REQUESTS_S[:1], buckets=BEAM_BUCKETS,
                       max_len=SIB_PARITY_MAX_LEN)
     _wall(walls, "large_parity", t0)
 
@@ -5430,6 +5786,14 @@ def main():
     phase_yitrans_vatlm_parity()
     _wall(walls, "yitrans_vatlm_parity", t0)
 
+    t0 = time.perf_counter()
+    wavllm = phase_wavllm()
+    _wall(walls, "wavllm", t0)
+
+    t0 = time.perf_counter()
+    phase_wavllm_parity()
+    _wall(walls, "wavllm_parity", t0)
+
     walls["total"] = time.perf_counter() - t_start
     log(json.dumps({"phase_seconds": walls, "card": card_line()}))
     by_path = {"serve": served["counts"], "serve_beam": beam["counts"],
@@ -5451,7 +5815,8 @@ def main():
                **{f"speechut_{k}": c for k, c in sut["counts"].items()},
                **{f"speech2c_{k}": c for k, c in s2c_pre["counts"].items()},
                **{f"yitrans_{k}": c for k, c in yit["counts"].items()},
-               **{f"vatlm_{k}": c for k, c in vat["counts"].items()}}
+               **{f"vatlm_{k}": c for k, c in vat["counts"].items()},
+               **{f"wavllm_{k}": c for k, c in wavllm["counts"].items()}}
     counts = {n: sum(c[n] for c in by_path.values()) for n in KERNELS}
     log(json.dumps(kernels_line(records, counts, by_path)))
     torch.cuda.synchronize()

@@ -53,12 +53,14 @@ def _conv_weight(c_out: int, c_in: int, k: int) -> nn.Parameter:
 
 
 class _ConvKernel(nn.Module):
-    """Bare bias-free conv kernel ``weight`` [C_out, C_in, k] under the
-    JAX tree's ``conv_i`` name; every ``impl`` reads the same parameter."""
+    """Bare conv kernel ``weight`` [C_out, C_in, k] under the JAX tree's
+    ``conv_i`` name, and its ``bias`` [C_out] when asked for; every
+    ``impl`` reads the same parameters."""
 
-    def __init__(self, c_out: int, c_in: int, k: int):
+    def __init__(self, c_out: int, c_in: int, k: int, bias: bool = False):
         super().__init__()
         self.weight = _conv_weight(c_out, c_in, k)
+        self.bias = nn.Parameter(torch.zeros(c_out)) if bias else None
 
 
 class WeightNormConv1d(nn.Module):
@@ -127,15 +129,18 @@ class ConvFeatureExtractor(nn.Module):
     "layer_norm" mode (Large): every layer is conv, then ``ln_<i>`` over the
     channels in f32 (flax's epsilon, 1e-6), then the exact GELU; layers 1..
     run as ``F.conv1d`` whatever ``impl`` says, as JAX's stack engages its
-    kernel in "default" mode only (prenets.py:236).
+    kernel in "default" mode only (prenets.py:236).  Either mode takes a
+    conv bias (``cfg.bias``, each ``conv_<i>``'s ``bias``: WavLM Large's
+    extractor); with one, layers 1.. run as ``F.conv1d`` whatever ``impl``
+    says, as JAX's rule keeps its kernel off (prenets.py:235-237).
     """
 
     def __init__(self, cfg: ConvFeatureConfig, dtype=torch.float32):
         super().__init__()
-        if cfg.mode not in ("default", "layer_norm") or cfg.bias:
+        if cfg.mode not in ("default", "layer_norm"):
             raise NotImplementedError(
-                "only the 'default' and 'layer_norm' modes without conv bias are "
-                "ported")
+                f"conv feature mode {cfg.mode!r}: only 'default' and 'layer_norm', "
+                "each with or without conv bias, are ported")
         dim0, k0, s0 = cfg.layers[0]
         if k0 % s0:
             raise NotImplementedError("conv 0 needs stride | kernel")
@@ -143,7 +148,7 @@ class ConvFeatureExtractor(nn.Module):
         self.dtype = dtype
         c_in = 1
         for i, (dim, k, _) in enumerate(cfg.layers):
-            self.add_module(f"conv_{i}", _ConvKernel(dim, c_in, k))
+            self.add_module(f"conv_{i}", _ConvKernel(dim, c_in, k, cfg.bias))
             if cfg.mode == "layer_norm":
                 self.add_module(f"ln_{i}", LayerNorm32(dim, eps=1e-6))
             c_in = dim
@@ -162,14 +167,20 @@ class ConvFeatureExtractor(nn.Module):
         rows = x[:, : (T // s) * s].reshape(B, T // s, s)
         frames = torch.cat([rows[:, i : i + n_out] for i in range(k // s)], dim=-1)
         w = self.convs[0].weight[:, 0, :].t().to(self.dtype)    # [k, C]
-        return frames @ w
+        y = frames @ w
+        return y if self.convs[0].bias is None else y + self.convs[0].bias.to(self.dtype)
+
+    def _conv1d(self, x, c, s):
+        """Layer ``c`` as ``F.conv1d`` over [B, T, C] (its bias, if any)."""
+        b = None if c.bias is None else c.bias.to(self.dtype)
+        return F.conv1d(x.transpose(1, 2), c.weight.to(self.dtype), b,
+                        stride=s).transpose(1, 2)
 
     def _layer_norm_forward(self, wav):
         x = self._conv0(wav)
         for i, ((_, _, s), c) in enumerate(zip(self.cfg.layers, self.convs)):
             if i:
-                x = F.conv1d(x.transpose(1, 2), c.weight.to(self.dtype),
-                             stride=s).transpose(1, 2)
+                x = self._conv1d(x, c, s)
             x = F.gelu(getattr(self, f"ln_{i}")(x).to(self.dtype))
         return x
 
@@ -183,11 +194,9 @@ class ConvFeatureExtractor(nn.Module):
             return x
         specs = tuple((k, s) for _, k, s in rest)
         convs = self.convs[1:]
-        if self.cfg.impl == "xla":
+        if self.cfg.impl == "xla" or self.cfg.bias:
             for (_, s), c in zip(specs, convs):
-                x = F.conv1d(x.transpose(1, 2), c.weight.to(self.dtype),
-                             stride=s).transpose(1, 2)
-                x = F.gelu(x)
+                x = F.gelu(self._conv1d(x, c, s))
             return x
         # [k, C_in, C_out]: the JAX kernel layout of the conv-stack contract
         weights = [c.weight.permute(2, 1, 0) for c in convs]

@@ -21,10 +21,13 @@ returns a ``state_dict`` for the port's ``SpeechT5Model``.  Layouts:
 ``lm_from_jax_params`` carries the fusion LM (JAX ``models/lm.py``) the
 same way, and ``speechlm_from_jax_params``, ``fastspeech2_from_jax_params``,
 ``speechut_from_jax_params``, ``speech2c_from_jax_params``,
-``yitrans_from_jax_params`` and ``vatlm_from_jax_params`` the sibling
-families (their trees whole: the port names their sub-nets as JAX does;
-the ``label_embs*`` as they are; VATLM's video BatchNorm statistics from
-its ``batch_stats``).
+``yitrans_from_jax_params``, ``vatlm_from_jax_params`` and
+``wavllm_from_jax_params`` the sibling families (their trees whole: the
+port names their sub-nets as JAX does; the ``label_embs*`` as they are;
+VATLM's video BatchNorm statistics from its ``batch_stats``; WavLLM's
+``llama_layers_<i>`` -> ``llama_layers.<i>``, its LoRA ``lora_A`` /
+``lora_B``, WavLM's ``rel_attn_embed`` / ``gru_rel_pos_const``, Whisper's
+``embed_positions`` and the RMSNorm ``weight`` as they are).
 
 Only the subtrees the port has (``PORTED_SUBTREES``) are carried; the
 others are left out of the result.  ``from_jax_batch_stats`` carries the
@@ -85,7 +88,7 @@ def _convert(flat: dict, collection: str, leaf_fn, subtrees=PORTED_SUBTREES) -> 
             parts = parts[1:]
         if subtrees is not None and parts[0] not in subtrees:
             continue
-        path = [re.sub(r"^layers_(\d+)$", r"layers.\1", p) for p in parts[:-1]]
+        path = [re.sub(r"^((?:llama_)?layers)_(\d+)$", r"\1.\2", p) for p in parts[:-1]]
         leaf, arr = leaf_fn(parts[-1], np.asarray(value, np.float32))
         out[".".join(path + [leaf])] = torch.tensor(arr)
     return out
@@ -150,6 +153,27 @@ def vatlm_from_jax_params(flat: dict, batch_stats: dict) -> dict:
     dict, parameters and statistics."""
     return {**_convert(flat, "params", _leaf, None),
             **from_jax_batch_stats(batch_stats, subtrees=None)}
+
+
+#: WavLLM's leaves that keep their name and layout (LoRA A / B in the JAX
+#: layout [in, r] / [r, out], with a leading expert axis under LoRA-MoE)
+_WAVLLM_LEAVES = ("lora_A", "lora_B", "rel_attn_embed", "gru_rel_pos_const",
+                  "embed_positions", "weight")
+
+
+def _wavllm_leaf(name: str, value: np.ndarray):
+    if name in _WAVLLM_LEAVES:
+        return name, value
+    return _leaf(name, value)
+
+
+def wavllm_from_jax_params(flat: dict) -> dict:
+    """The JAX ``WavLLMModel``'s flattened ``params`` (or a subtree of it:
+    a ``WavLMEncoderModel``'s, a ``WhisperStyleEncoder``'s; flax ``nn.Conv``
+    kernels [k, C_in, C_out], the LoRA and LoRA-MoE pairs, ``moe_gate``)
+    -> the state dict of the port's module of the same name
+    (``models/wavllm.py``, ``models/wavlm.py``)."""
+    return _convert(flat, "params", _wavllm_leaf, None)
 
 
 def _stat_leaf(name: str, value: np.ndarray):

@@ -198,6 +198,23 @@ def hf_config_to_ours(hf_cfg: dict, dtype: str = "float32"):
         spk_embed_dim=c["speaker_embedding_dim"], dtype=dtype)
 
 
+def read_hf_dir(d: str) -> tuple:
+    """An HF directory -> (its parsed ``config.json``, the state dict of its
+    ``pytorch_model.bin``).  A ``model.safetensors`` directory is refused:
+    reading it needs the ``safetensors`` package."""
+    with open(os.path.join(d, "config.json"), encoding="utf-8") as f:
+        hf_cfg = json.load(f)
+    bin_path = os.path.join(d, "pytorch_model.bin")
+    if not os.path.exists(bin_path):
+        if os.path.exists(os.path.join(d, "model.safetensors")):
+            raise ValueError(
+                f"{d} holds model.safetensors, which needs the safetensors "
+                "package; save the model with safe_serialization=False "
+                "(pytorch_model.bin) to convert it here")
+        raise FileNotFoundError(f"no pytorch_model.bin in {d}")
+    return hf_cfg, torch.load(bin_path, map_location="cpu", weights_only=True)
+
+
 def load_hf_checkpoint(model_or_dir, dtype: str = "float32"):
     """An HF SpeechT5 checkpoint -> (the port's SpeechT5Config, its state
     dict, unknown keys).  ``model_or_dir``: a directory holding
@@ -205,18 +222,7 @@ def load_hf_checkpoint(model_or_dir, dtype: str = "float32"):
     object (its ``config`` and ``state_dict()``).  A ``model.safetensors``
     directory is refused: reading it needs the ``safetensors`` package."""
     if isinstance(model_or_dir, (str, os.PathLike)):
-        d = os.fspath(model_or_dir)
-        with open(os.path.join(d, "config.json"), encoding="utf-8") as f:
-            hf_cfg = json.load(f)
-        bin_path = os.path.join(d, "pytorch_model.bin")
-        if not os.path.exists(bin_path):
-            if os.path.exists(os.path.join(d, "model.safetensors")):
-                raise ValueError(
-                    f"{d} holds model.safetensors, which needs the safetensors "
-                    "package; save the model with safe_serialization=False "
-                    "(pytorch_model.bin) to convert it here")
-            raise FileNotFoundError(f"no pytorch_model.bin in {d}")
-        sd = torch.load(bin_path, map_location="cpu", weights_only=True)
+        hf_cfg, sd = read_hf_dir(os.fspath(model_or_dir))
     else:
         hf_cfg = model_or_dir.config.to_dict()
         with torch.no_grad():
