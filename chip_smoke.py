@@ -403,6 +403,41 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                step (the cache [4, 675, 32, 128], the ancestry map), and the
                conv stack on 30 s.
 
+40. s2st    -- Speech2S's S2ST chain (``recipes/speech2s_s2st``'s entry
+               points) at ``SpeechUTConfig()``'s Base geometry with a
+               1000-id unit vocabulary (bf16, every kernel flag on): one 3 s
+               request through the speech encoder (conv stack, inference
+               attention), the beam over units (beam 5, max_len 100), then
+               ``CodeHiFiGANConfig()`` with the duration predictor and
+               ``write_wav``.  Launches exact: 6 conv, 12 x 2 attention,
+               12 decode-step launches a step.
+41. encodec  -- EnCodec 24 kHz (f32, the LSTM on cuDNN): 10 s encoded at 8
+               and 32 codebooks, each decoded back; no kernel on the path
+               (every count 0).
+42. vallex   -- VALL-E X at ``VALLEXConfig()`` (12 + 12 layers, d 1024, 16
+               heads, 8 codebooks of 1024; bf16): 40 phonemes and a 3 s
+               prompt (225 codes), ``synthesize`` (AR greedy to max_new
+               150: the prefix prefilled on the dense route, then 12
+               decode-step launches a step; 7 NAR passes), EnCodec decodes
+               the 8 codebooks.
+43. viola    -- VioLA at ``VioLAConfig()`` (24-layer trunk, 12-layer NAR;
+               bf16): greedy ASR, MT and TTS to max_new 64 (24 decode-step
+               launches a step), the NAR fill of the TTS codes and an
+               EnCodec decode.
+44. prosody  -- Prosody-SpeechT5 on ``speecht5_base`` with
+               ``ProsodyConfig()`` (bf16): ``TTSDecoder.text_to_speech`` of a
+               60-token text, 60 steps and HiFi-GAN, under the predicted
+               prosody and under transfer from a 3 s reference mel;
+               launches as a /tts request.
+45. codec families parity -- f32, full width at 2 layers a stack, kernel
+               route against plain route: the S2ST beam's units (score
+               1e-4) and waveform (2e-3); VALL-E X's codes, AR step logits
+               and NAR logits (1e-4 of max); VioLA's three tasks' tokens
+               and step logits (1e-4); Prosody's TTS in both modes
+               (lengths, mels, stop probabilities, waveforms 2e-3).  The
+               kernels phase adds the decode-step kernel at the codec LMs'
+               steps ("vallex_self_cache", "viola_self_cache").
+
 Depth cut to make room for 29-30 (PR 17): the train phase resamples 4 of
 its 32 utterances from 48 kHz (16 before), serve beam and beam parity take
 the 3 s and 11 s requests (the 21 s chunked request stays in serve and
@@ -423,15 +458,20 @@ warm the 4 s bucket alone (``BEAM_BUCKETS``; 4/8/16 and 4/16 before:
 each bucket's warm-up is a whole max_len decode), the profiled beam
 requests stop at 20 decode steps (50 before).  So no beam decode at the
 8 s or 16 s bucket's encoder lengths runs on the card any more (the
-compared and counted beam requests are 3 s, in the 4 s bucket).
+compared and counted beam requests are 3 s, in the 4 s bucket).  For
+40-45: the parallel modes and the one-process run of phase 29 take 2
+updates (3 before), and so does phase 11's warm-started fine-tune (its
+preempted run resumes to 3, not 4).
 
 The launch counts are zeroed just before each driven path (serve, serve
 beam, train, train t2s, the warm-started train and request, serve tts,
 train s2s, the VC requests, train s2c, the SID inference, evaluate, the
 parity sweep, the two rescore runs, the LM-fused beam, Large's
 pretraining, greedy and beam requests, each parallel rank's run, each
-sibling family's updates, CTC recipe, requests and beam, and WavLLM's
-updates, prefills, greedy and beam requests) and read just after; a kernel of that path that was never launched fails.
+sibling family's updates, CTC recipe, requests and beam, WavLLM's
+updates, prefills, greedy and beam requests, and the codec families' S2ST
+request, EnCodec round trips, VALL-E X synthesis, VioLA tasks and Prosody
+requests) and read just after; a kernel of that path that was never launched fails.
 Output: an early line with the card's name and power limit as nvidia-smi
 gives them, one ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  A watchdog ends a hung run with a
@@ -489,6 +529,16 @@ from speecht5_tpu_torch.models.speecht5 import init_model
 from speecht5_tpu_torch.models.vatlm import VATLMConfig, init_vatlm, vatlm_tiny
 from speecht5_tpu_torch.models.wavllm import WavLLMConfig, init_wavllm, wavllm_tiny
 from speecht5_tpu_torch.models.yitrans import YiTransConfig, init_yitrans, yitrans_tiny
+from speecht5_tpu_torch.models.encodec import encodec_24khz, encodec_tiny, init_encodec
+from speecht5_tpu_torch.models.hifigan import (CodeHiFiGANConfig, HiFiGANConfig,
+                                               init_codehifigan)
+from speecht5_tpu_torch.models.prosody import (ProsodyConfig, ProsodyTransfer,
+                                               init_prosody_speecht5)
+from speecht5_tpu_torch.models.vallex import VALLEXConfig, init_vallex, vallex_tiny
+from speecht5_tpu_torch.models.viola import VioLAConfig, init_viola, viola_tiny
+from speecht5_tpu_torch.decode.tts import TTSDecoder
+from speecht5_tpu_torch.ops.mel import log_mel_numpy
+from speecht5_tpu_torch.recipes import speech2s_s2st as s2st_recipe
 from speecht5_tpu_torch.ops import cuda_kernels as K
 from speecht5_tpu_torch.ops.masking import sample_feature_masks
 from speecht5_tpu_torch.ops.mel import mel_filterbank
@@ -622,6 +672,9 @@ PARALLEL_TOL = {"dp": 1e-4, "fsdp": 1e-4, "tp": 2e-3}   # relative, on the losse
 # the wrapper's cost: data parallelism at world size 1 over NCCL
 PARALLEL_WRAPPER = ("dp_nccl", 1, "nccl", [])
 PARALLEL_RANK_S = 300       # a rank's watchdog
+# depth cut for phases 40-45: the parallel modes' and the warm start's
+# updates (3 before)
+PARALLEL_UPDATES, WARM_UPDATES = 2, 2
 PARALLEL_BATCH, PARALLEL_SECONDS = 8, (2.0, 4.0)
 PARALLEL_EVAL_SECONDS = 4.0
 # depth cut for phases 29-30: the train phase resamples every 8th utterance
@@ -748,6 +801,12 @@ def synth_audio(seconds: float, seed: int, sr: int = SR) -> np.ndarray:
         f0, f1 = rng.uniform(100, 3000, size=2)
         wav += 0.1 * np.sin(2 * np.pi * (f0 * t + (f1 - f0) * t * t / (2 * t[-1])))
     return wav.astype(np.float32)
+
+
+def card_generator(device, seed: int) -> torch.Generator:
+    """A generator on ``device`` seeded ``seed``: ``init_model`` draws the
+    weights there (milliseconds on the card, seconds on the host CPU)."""
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def _sync(device):
@@ -1268,9 +1327,22 @@ def flash_bias_cache_case(case, dtype, device="cuda", seed=4):
     decode step in the 30 s request's beam: "llama_self_cache" (q [4, 1, 32,
     128], the cache [4, 675, 32, 128] at step 16 of 32 (slot 658), the int64
     ancestry map within the 4 lanes, the lanes' own masks [4, 675] as
-    ``WavLLMModel._decode_step`` builds them).  -> q4, k4, v4, key_valid,
-    rows."""
+    ``WavLLMModel._decode_step`` builds them).  The codec LMs' steps at
+    their half-way step, 16 heads of Dh 64, batch 1, no row map:
+    "vallex_self_cache" (VALL-E X's AR stage, the cache [1, 416, 16, 64]
+    of a 266-slot prefix and 150 codes) and "viola_self_cache" (VioLA's
+    trunk in the ASR task, the cache [1, 217, 16, 64] of a 153-slot
+    prefix and 64 tokens), the causal mask [1, Tc].  -> q4, k4, v4,
+    key_valid, rows."""
     g = torch.Generator().manual_seed(seed)
+    if case in ("vallex_self_cache", "viola_self_cache"):
+        L0, n = ((VALLEX_PHONEMES + 1 + VALLEX_PROMPT, VALLEX_MAX_NEW)
+                 if case.startswith("vallex") else (VIOLA_UNITS + 3, VIOLA_MAX_NEW))
+        Tc, pos, H = L0 + n, L0 + n // 2 - 1, 16
+        q4 = (torch.randn(1, 1, H, 64, generator=g) * 64 ** -0.5).to(dtype)
+        k4, v4 = (torch.randn(1, Tc, H, 64, generator=g).to(dtype) for _ in range(2))
+        key_valid = torch.arange(Tc)[None, :] <= pos
+        return (*(t.to(device) for t in (q4, k4, v4, key_valid)), None)
     if case == "llama_self_cache":
         L0 = wavllm_prefix_len(WAVLLM_REQUESTS_S[-1])
         Tc, pos, B, H, D = L0 + WAVLLM_MAX_NEW, L0 + WAVLLM_MAX_NEW // 2 - 1, WAVLLM_BEAM, 32, 128
@@ -1350,7 +1422,8 @@ def _flash_bias_record(case, dtype):
                 "lm_self_cache", "eval_self_cache", "eval_lm_self_cache",
                 "eval_cross_cached", "large_cross_cached", "large_self_cache",
                 "sweep_cross_cached", "sweep_self_cache", "sib_cross_cached",
-                "yit_mt_cross_cached", "vat_cross_cached", "llama_self_cache"):
+                "yit_mt_cross_cached", "vat_cross_cached", "llama_self_cache",
+                "vallex_self_cache", "viola_self_cache"):
         q4, k4, v4, key_valid, rows = flash_bias_cache_case(case, dtype)
         B, Tq, H, D = q4.shape
         N, Tk = B * H, k4.shape[1]
@@ -1622,7 +1695,8 @@ def phase_kernels():
                  "eval_self_cache", "eval_lm_self_cache", "large_cross_cached",
                  "large_self_cache", "sweep_cross_cached", "sweep_self_cache",
                  "sib_cross_cached", "yit_mt_cross_cached", "vat_cross_cached",
-                 *(f"wavlm_T{t}" for t in WAVLM_T), "llama_self_cache"):
+                 *(f"wavlm_T{t}" for t in WAVLM_T), "llama_self_cache",
+                 "vallex_self_cache", "viola_self_cache"):
         for dtype in (torch.float32, torch.bfloat16):
             key = f"{str(dtype).split('.')[-1]}/{case}"
             ok, rec = _flash_bias_record(case, dtype)
@@ -1646,7 +1720,7 @@ def phase_serve(base_cfg, device="cuda", dtype="bfloat16",
     chunked when ``chunked``).  Returns the launch counts of the request
     window and the per-request times."""
     cfg = serve_config(base_cfg, dtype, kernels=True)
-    model = init_model(cfg, torch.Generator().manual_seed(seed), device)
+    model = init_model(cfg, card_generator(device, seed), device)
     with tempfile.TemporaryDirectory() as d:
         svc = make_service(cfg, model, write_dictionary(d), device, buckets)
     wavs = [synth_audio(s, seed=100 + i) for i, s in enumerate(requests_s)]
@@ -1688,8 +1762,8 @@ def phase_parity(base_cfg, device="cuda", requests_s=(3, 11, 21),
     flags off; CTC frame ids must agree (see module docstring)."""
     cfg_k = serve_config(base_cfg, "float32", kernels=True)
     cfg_t = serve_config(base_cfg, "float32", kernels=False)
-    model_k = init_model(cfg_k, torch.Generator().manual_seed(seed), device)
-    model_t = init_model(cfg_t, torch.Generator().manual_seed(seed + 1), device)
+    model_k = init_model(cfg_k, card_generator(device, seed), device)
+    model_t = init_model(cfg_t, card_generator(device, seed + 1), device)
     model_t.load_state_dict(model_k.state_dict())
     with tempfile.TemporaryDirectory() as d:
         path = write_dictionary(d)
@@ -1759,7 +1833,7 @@ def phase_serve_beam(base_cfg, device="cuda", dtype="bfloat16",
     ``beam_launches_expected`` on a card.  Returns the launches of the
     request window and the per-request records."""
     cfg = serve_config(base_cfg, dtype, kernels=True, overrides=BEAM_OVERRIDES)
-    model = init_model(cfg, torch.Generator().manual_seed(seed), device)
+    model = init_model(cfg, card_generator(device, seed), device)
     with tempfile.TemporaryDirectory() as d:
         svc = make_service(cfg, model, write_dictionary(d), device, buckets,
                            decoder="beam", max_len=max_len)
@@ -1854,8 +1928,8 @@ def phase_beam_parity(base_cfg, device="cuda", requests_s=(3, 11, 21),
     differences are printed."""
     cfg_k = serve_config(base_cfg, "float32", kernels=True, overrides=BEAM_OVERRIDES)
     cfg_t = serve_config(base_cfg, "float32", kernels=False)
-    model_k = init_model(cfg_k, torch.Generator().manual_seed(seed), device)
-    model_t = init_model(cfg_t, torch.Generator().manual_seed(seed + 1), device)
+    model_k = init_model(cfg_k, card_generator(device, seed), device)
+    model_t = init_model(cfg_t, card_generator(device, seed + 1), device)
     model_t.load_state_dict(model_k.state_dict())
     with tempfile.TemporaryDirectory() as d:
         path = write_dictionary(d)
@@ -2236,7 +2310,7 @@ def route_grads(task, routes, tcfg, seed, device, after=None):
     [(loss, {name: grad}, after's result or None), ...]."""
     results, state = [], None
     for cfg, mb in routes:
-        model = init_model(cfg, torch.Generator().manual_seed(seed + 7), device)
+        model = init_model(cfg, card_generator(device, seed + 7), device)
         if state is None:
             state = model.state_dict()
         model.load_state_dict(state)
@@ -2785,7 +2859,7 @@ def tts_model(base_cfg, dtype, kernels, device, seed=0):
     inference attention and the decode-step kernel), seeded weights, the
     stop logits' bias at ``TTS_STOP_BIAS``."""
     cfg = serve_config(base_cfg, dtype, kernels=kernels, overrides=BEAM_OVERRIDES)
-    model = init_model(cfg, torch.Generator().manual_seed(seed), device)
+    model = init_model(cfg, card_generator(device, seed), device)
     with torch.no_grad():
         model.speech_decoder_postnet.prob_out.bias.fill_(TTS_STOP_BIAS)
     return cfg, model
@@ -3384,7 +3458,7 @@ def phase_s2c_parity(base_cfg, device="cuda", batch=8, seconds=(4.0, 10.0), seed
     log(json.dumps({"phase": "s2c_parity", **res}))
 
     cfg = C.apply_overrides(C.replace(base_cfg, dtype="bfloat16"), KERNEL_OVERRIDES)
-    clf = SIDClassifier(init_model(cfg, torch.Generator().manual_seed(seed), device), device)
+    clf = SIDClassifier(init_model(cfg, card_generator(device, seed), device), device)
     wav = synth_audio(max_sample_size / SR, seed=500)[None]     # one full crop
     on_card = torch.device(device).type == "cuda"
     want = dict.fromkeys(KERNELS, 0)
@@ -3456,7 +3530,7 @@ def phase_serve_rescore(base_cfg, device="cuda", dtype="bfloat16",
     be ``rescore_launches_expected`` on a card; a lexicon transcript holds
     lexicon words only.  Returns {run: {"counts", "requests"}}."""
     cfg = serve_config(base_cfg, dtype, kernels=True)
-    model = init_model(cfg, torch.Generator().manual_seed(seed), device)
+    model = init_model(cfg, card_generator(device, seed), device)
     wavs = [synth_audio(s, seed=100 + i) for i, s in enumerate(requests_s)]
     card = card_line() if torch.device(device).type == "cuda" else "cpu"
     on_card = torch.device(device).type == "cuda"
@@ -3514,8 +3588,8 @@ def phase_rescore_parity(base_cfg, device="cuda", requests_s=(3, 11), buckets="4
     from speecht5_tpu_torch.decode.asr import RescoreDecoder
 
     cfgs = [serve_config(base_cfg, "float32", kernels=k) for k in (True, False)]
-    model_k = init_model(cfgs[0], torch.Generator().manual_seed(seed), device)
-    model_t = init_model(cfgs[1], torch.Generator().manual_seed(seed + 1), device)
+    model_k = init_model(cfgs[0], card_generator(device, seed), device)
+    model_t = init_model(cfgs[1], card_generator(device, seed + 1), device)
     model_t.load_state_dict(model_k.state_dict())
     cfg = cfgs[0]
     kw = dict(blank_id=cfg.blank_id, eos_id=cfg.eos_id, pad_id=cfg.pad_id, nbest=nbest,
@@ -3606,7 +3680,7 @@ def phase_beam_lm(base_cfg, device="cuda", dtype="bfloat16", requests_s=(3, 11),
     from speecht5_tpu_torch.models.lm import init_lm
 
     cfg = serve_config(base_cfg, dtype, kernels=True, overrides=BEAM_OVERRIDES)
-    model = init_model(cfg, torch.Generator().manual_seed(seed), device)
+    model = init_model(cfg, card_generator(device, seed), device)
     lmcfg = lm_config(cfg, kernels=True, tiny=lm_tiny)
     lm = init_lm(lmcfg, torch.Generator().manual_seed(seed + 2), device, cfg.compute_dtype)
     kw = dict(beam_size=BEAM, ctc_weight=0.3, lm=lm, lm_weight=lm_weight, device=device)
@@ -3666,8 +3740,8 @@ def phase_beam_lm_parity(base_cfg, device="cuda", request_s=3, seed=0, max_len=6
 
     cfg_k = serve_config(base_cfg, "float32", kernels=True, overrides=BEAM_OVERRIDES)
     cfg_t = serve_config(base_cfg, "float32", kernels=False)
-    model_k = init_model(cfg_k, torch.Generator().manual_seed(seed), device)
-    model_t = init_model(cfg_t, torch.Generator().manual_seed(seed + 1), device)
+    model_k = init_model(cfg_k, card_generator(device, seed), device)
+    model_t = init_model(cfg_t, card_generator(device, seed + 1), device)
     model_t.load_state_dict(model_k.state_dict())
     lm_k = init_lm(lm_config(cfg_k, True, lm_tiny), torch.Generator().manual_seed(seed + 2),
                    device)
@@ -4246,7 +4320,7 @@ def large_update_profile(device="cuda", batch=4, seconds=LARGE_SPEECH_S, seed=0)
     busy ms, idle share, the largest device times by kernel name and the
     peak device memory (``torch.cuda.max_memory_allocated``)."""
     cfg = large_config("bfloat16", LARGE_TRAIN_OVERRIDES)
-    model = init_model(cfg, torch.Generator().manual_seed(seed), device)
+    model = init_model(cfg, card_generator(device, seed), device)
     trainer = Trainer(model, ["pretrain_speech", "s2t"], TrainConfig(ctc_weight=0.5))
     speech, s2t, _ = large_batches(cfg, batch, seconds, seed, device)
     out = {"card": card_line(), "batch": batch,
@@ -4289,7 +4363,7 @@ def phase_pretrain_parity(device="cuda", batch=2, seconds=LARGE_SPEECH_S, seed=0
 
     cfg = large_config("float32", ["quantizer.enabled=True"] + LARGE_STILL + list(overrides),
                        arch)
-    model = init_model(cfg, torch.Generator().manual_seed(seed), device).train()
+    model = init_model(cfg, card_generator(device, seed), device).train()
     speech, _, text = large_batches(cfg, batch, seconds, seed, device)
     speech = device_mel_batch(speech, cfg.n_mels, cfg.reduction_factor)
     g = torch.Generator().manual_seed(seed + 3)
@@ -5526,6 +5600,571 @@ def phase_wavllm_parity(device="cuda", tiny=False, seed=0, logit_rtol=1e-4, loss
     return out
 
 
+# ------------------------------------------------------------ phases 40-45
+# the codec families at full width (bf16) and their f32 route parity
+S2ST_REQUEST_S, S2ST_MAX_LEN, S2ST_UNITS = 3.0, 100, 1000
+ENCODEC_S, ENCODEC_NQ = 10.0, (8, 32)
+VALLEX_PHONEMES, VALLEX_PROMPT, VALLEX_MAX_NEW = 40, 225, 150   # the prompt: 3 s at 75 Hz
+VIOLA_UNITS, VIOLA_TEXT, VIOLA_MAX_NEW = 150, 30, 64
+PROSODY_TOKENS, PROSODY_STEPS, PROSODY_REF_S = 60, 60, 3.0
+CODEC_PARITY_DEPTH = 2          # phase 45's layers a stack
+CODEC_PARITY_STEPS = 8          # phase 45's teacher-forced decode steps
+CODEC_TINY = dict(s2st_s=0.3, s2st_max_len=6, codec_s=0.2, nq=(2, 4), phonemes=6, prompt=5,
+                  max_new=6, units=5, text=4, task_new=4, tokens=6, steps=4, ref_s=0.3)
+
+
+def _codec_sizes(tiny: bool) -> dict:
+    if tiny:
+        return CODEC_TINY
+    return dict(s2st_s=S2ST_REQUEST_S, s2st_max_len=S2ST_MAX_LEN, codec_s=ENCODEC_S,
+                nq=ENCODEC_NQ, phonemes=VALLEX_PHONEMES, prompt=VALLEX_PROMPT,
+                max_new=VALLEX_MAX_NEW, units=VIOLA_UNITS, text=VIOLA_TEXT,
+                task_new=VIOLA_MAX_NEW, tokens=PROSODY_TOKENS, steps=PROSODY_STEPS,
+                ref_s=PROSODY_REF_S)
+
+
+def _depth(stack, depth):
+    return stack if depth is None else C.replace(stack, num_layers=depth)
+
+
+def s2st_config(dtype: str, kernels: bool, tiny: bool = False, depth=None):
+    """Speech2S at ``SpeechUTConfig()``'s Base geometry with a
+    ``S2ST_UNITS``-id decoder vocabulary (specials 0-4, units from 5;
+    ``tiny``: the recipe's preset), its kernel flags on with ``kernels``,
+    every dropout 0; ``depth``: the layers of each stack."""
+    cfg = s2st_recipe.tiny_config() if tiny else SpeechUTConfig(text_vocab_size=S2ST_UNITS)
+    cfg = C.replace(cfg, dtype=dtype, **{s: _depth(getattr(cfg, s), depth) for s in
+                                         ("speech_encoder", "unit_encoder", "decoder")})
+    return C.apply_overrides(cfg, (SUT_FLAGS if kernels else []) + sibling_still("speechut"))
+
+
+def s2st_vocoder(cfg, tiny: bool, device, seed: int):
+    """``CodeHiFiGANConfig()`` (hop 256) with the duration predictor, its
+    table over the decoder vocabulary (``tiny``: the recipe's vocoder)."""
+    vcfg = (s2st_recipe.vocoder_config(cfg.text_vocab_size) if tiny else
+            CodeHiFiGANConfig(num_units=cfg.text_vocab_size, dur_predictor=True))
+    return init_codehifigan(vcfg, torch.Generator().manual_seed(seed), device)
+
+
+def _s2st_request(model, vocoder, wav, sz, device):
+    """speech -> the units of the best beam (beam 5) -> the vocoder ->
+    dict(units, beam result, steps, durations, waveform, walls)."""
+    t0 = time.perf_counter()
+    units, res, dec = s2st_recipe.decode_units(
+        model, torch.from_numpy(wav[None]).to(device), torch.tensor([len(wav)]), beam=BEAM,
+        max_len=sz["s2st_max_len"], device=device)
+    _sync(device)
+    t_beam = time.perf_counter() - t0
+    with torch.no_grad():
+        u = torch.tensor([units[0]], dtype=torch.int64, device=device)
+        _, dur = vocoder.durations(vocoder.unit_embed(u), torch.ones_like(u, dtype=torch.bool))
+        out = vocoder(u)
+    _sync(device)
+    return {"units": units[0], "res": res, "steps": dec.steps_run, "durations": dur[0],
+            "wav": out[0], "beam_s": t_beam, "request_s": time.perf_counter() - t0}
+
+
+def phase_s2st(device="cuda", tiny=False, seed=0):
+    """Speech2S's S2ST chain (``recipes/speech2s_s2st``'s entry points) at
+    ``SpeechUTConfig()``'s Base geometry (6 + 6 encoder and 6 decoder
+    layers, a 1000-id unit vocabulary; bf16, every kernel flag on), random
+    seeded weights: one 3 s request through the speech encoder (the conv
+    stack, the inference attention), the beam over units (beam 5, max_len
+    100, each step's self- and cross-attention on ``flash_attention_bias``),
+    ``CodeHiFiGANConfig()`` with the duration predictor (f32) and
+    ``write_wav``.  Launches exact: 6 conv launches, 12 x 2 attention
+    launches, 12 decode-step launches a step.  Logged: the request wall,
+    ms and launches a beam step, the waveform's buffer against its voiced
+    length ``sum(durations) * 256``."""
+    sz = _codec_sizes(tiny)
+    dev = torch.device(device)
+    cfg = s2st_config("bfloat16", True, tiny)
+    model = init_speechut(cfg, card_generator(dev, seed), dev)
+    vocoder = s2st_vocoder(cfg, tiny, dev, seed + 2)
+    hop = math.prod(vocoder.cfg.generator.upsample_rates)
+    wav = synth_audio(sz["s2st_s"], seed=600 + seed)
+    K.reset_launch_counts()
+    r = _s2st_request(model, vocoder, wav, sz, dev)
+    counts = {"request": K.launch_counts()}
+    if _cuda(dev):
+        _expect(counts["request"], _beam_counts(cfg, cfg.speech_encoder.num_layers
+                                                + cfg.unit_encoder.num_layers, r["steps"]),
+                "S2ST request")
+    voiced = int(r["durations"].sum()) * hop
+    if r["wav"].shape[-1] != len(r["units"]) * vocoder.cfg.max_duration * hop or \
+            not torch.isfinite(r["wav"]).all() or not 0 < voiced <= r["wav"].shape[-1]:
+        raise AssertionError(f"S2ST waveform: {tuple(r['wav'].shape)}, voiced {voiced}")
+    with tempfile.TemporaryDirectory() as d:
+        out_wav = r["wav"][:voiced].float().cpu().numpy()
+        write_wav(os.path.join(d, "s2st.wav"), out_wav / max(1e-6, float(np.abs(out_wav).max())))
+    out = {"ok": True, "counts": counts, "request_s": r["request_s"], "beam_s": r["beam_s"],
+           "beam_steps": r["steps"], "ms_per_step": r["beam_s"] / r["steps"] * 1e3,
+           "units": len(r["units"]), "wav_samples": int(r["wav"].shape[-1]),
+           "voiced_samples": voiced, "sum_durations_x_hop": voiced}
+    if _cuda(dev):
+        out["launches_per_step"] = counts["request"]["flash_attention_bias"] / r["steps"]
+    log(json.dumps({"phase": "s2st", **out}))
+    del model, vocoder
+    torch.cuda.empty_cache()
+    return out
+
+
+def codec_config(tiny: bool, lm_cfg=None):
+    """``encodec_24khz()``; ``tiny``: ``encodec_tiny``, with the codebooks
+    of the codec LM config ``lm_cfg`` when given."""
+    if not tiny:
+        return encodec_24khz()
+    if lm_cfg is None:
+        return encodec_tiny()
+    return encodec_tiny(num_quantizers=lm_cfg.n_codebooks, codebook_size=lm_cfg.codebook_size)
+
+
+def phase_encodec(device="cuda", tiny=False, seed=0):
+    """EnCodec at ``encodec_24khz()`` (f32; the LSTM on cuDNN), random
+    seeded weights: 10 s of 24 kHz audio encoded at 8 and at 32 codebooks
+    (1.5 and 6 kbps), each decoded back (after one untimed warm-up pass).
+    No kernel on this path: every launch count 0.  Logged: the walls and
+    the round-trip shapes."""
+    sz = _codec_sizes(tiny)
+    dev = torch.device(device)
+    cfg = codec_config(tiny)
+    model = init_encodec(cfg, torch.Generator().manual_seed(seed), dev)
+    wav = torch.from_numpy(synth_audio(sz["codec_s"], seed=610 + seed,
+                                       sr=cfg.sampling_rate)[None]).to(dev)
+    with torch.no_grad():
+        model.decode_codes(model.encode(wav[:, : 20 * cfg.hop_length], 2))
+    K.reset_launch_counts()
+    out = {"ok": False}
+    for n_q in sz["nq"]:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            codes = model.encode(wav, n_q)
+            _sync(dev)
+            t1 = time.perf_counter()
+            rec = model.decode_codes(codes)
+        _sync(dev)
+        frames = wav.shape[-1] // cfg.hop_length
+        if codes.shape != (1, n_q, frames) or rec.shape != (1, frames * cfg.hop_length) or \
+                not torch.isfinite(rec).all() or int(codes.max()) >= cfg.codebook_size:
+            raise AssertionError(f"EnCodec n_q {n_q}: codes {tuple(codes.shape)}, "
+                                 f"waveform {tuple(rec.shape)}")
+        out[f"nq{n_q}"] = {"encode_s": t1 - t0, "decode_s": time.perf_counter() - t1,
+                           "codes": list(codes.shape), "wav": list(rec.shape)}
+    counts = {"roundtrip": K.launch_counts()}
+    _expect(counts["roundtrip"], {}, "EnCodec")
+    out.update(ok=True, counts=counts, audio_samples=int(wav.shape[-1]))
+    log(json.dumps({"phase": "encodec", **out}))
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def vallex_config(dtype: str, kernels: bool, tiny: bool = False, depth=None):
+    """``VALLEXConfig()`` (12 + 12 pre-LN layers, d 1024, 16 heads, 8
+    codebooks of 1024; ``tiny``: ``vallex_tiny``) at ``dtype``, the AR
+    decode steps on ``flash_attention_bias`` with ``kernels``."""
+    cfg = vallex_tiny() if tiny else VALLEXConfig()
+    ar = C.replace(_depth(cfg.ar, depth), use_pallas_attn=kernels, dropout=0.0,
+                   attention_dropout=0.0)
+    nar = C.replace(_depth(cfg.nar, depth), dropout=0.0, attention_dropout=0.0)
+    return C.replace(cfg, dtype=dtype, ar=ar, nar=nar)
+
+
+def _codec_lm_inputs(cfg, sz, seed):
+    rng = np.random.default_rng(seed)
+    phonemes = torch.from_numpy(rng.integers(1, cfg.phoneme_vocab, (1, sz["phonemes"])))
+    prompt = torch.from_numpy(rng.integers(0, cfg.codebook_size,
+                                           (1, cfg.n_codebooks, sz["prompt"])))
+    return phonemes, prompt
+
+
+def phase_vallex(device="cuda", tiny=False, seed=0):
+    """VALL-E X at ``VALLEXConfig()`` (bf16, random seeded weights drawn on
+    the card): 40 phonemes and a 3 s acoustic prompt (225 codes of 8
+    codebooks), ``VALLEX.synthesize``: the AR stage greedy to max_new 150
+    (a causal prefill of the 266-slot prefix on the dense route, then one
+    cached step a code, each layer's self-attention on
+    ``flash_attention_bias``), then 7 NAR passes (plain attention, as in
+    JAX), then EnCodec 24 kHz decodes the 8 codebooks of prompt +
+    continuation.  Launches exact: 12 decode-step launches a step, nothing
+    else.  Logged: ms an AR step (the synthesis less a timed prefill and a
+    timed second run of the NAR passes, over its steps), launches a step,
+    the NAR wall, the codec's wall."""
+    sz = _codec_sizes(tiny)
+    dev = torch.device(device)
+    cfg = vallex_config("bfloat16", True, tiny)
+    model = init_vallex(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    codec = init_encodec(codec_config(tiny, cfg), torch.Generator().manual_seed(seed + 7), dev)
+    phonemes, prompt = (t.to(dev) for t in _codec_lm_inputs(cfg, sz, seed + 620))
+    prefill = []
+    for _ in range(2):        # a warm-up, then the timed prefill
+        t0 = time.perf_counter()
+        model.ar.generate(phonemes, prompt[:, 0], max_new=1)
+        _sync(dev)
+        prefill.append(time.perf_counter() - t0)
+    K.reset_launch_counts()
+    steps0 = model.ar.steps_run
+    t0 = time.perf_counter()
+    codes, lengths = model.synthesize(phonemes, prompt, max_new=sz["max_new"])
+    _sync(dev)
+    synth_s = time.perf_counter() - t0
+    steps = model.ar.steps_run - steps0
+    counts = {"synthesize": K.launch_counts()}
+    if _cuda(dev):
+        _expect(counts["synthesize"], {"flash_attention_bias": steps * cfg.ar.num_layers},
+                "VALL-E X synthesize")
+    valid = torch.arange(sz["max_new"], device=dev)[None] < lengths[:, None]
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for j in range(1, cfg.n_codebooks):
+            model.nar(phonemes, codes, j, code_valid=valid)
+    _sync(dev)
+    nar_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        wav = codec.decode_codes(torch.cat([prompt, codes], dim=-1))
+    _sync(dev)
+    codec_s = time.perf_counter() - t0
+    n_frames = prompt.shape[-1] + sz["max_new"]
+    if wav.shape != (1, n_frames * codec.cfg.hop_length) or not torch.isfinite(wav).all() \
+            or int(codes.max()) >= cfg.codebook_size:
+        raise AssertionError(f"VALL-E X: codes {tuple(codes.shape)}, wav {tuple(wav.shape)}")
+    out = {"ok": True, "counts": counts, "prefill_s": prefill[1], "synthesize_s": synth_s,
+           "ar_steps": steps, "length": int(lengths[0]), "nar_s": nar_s, "codec_s": codec_s,
+           "ms_per_step": (synth_s - nar_s - prefill[1]) / max(steps, 1) * 1e3,
+           "wav_samples": int(wav.shape[-1]), "codes": codes[0, :, :8].tolist()}
+    if _cuda(dev):
+        out["launches_per_step"] = counts["synthesize"]["flash_attention_bias"] / steps
+    log(json.dumps({"phase": "vallex", **out}))
+    del model, codec
+    torch.cuda.empty_cache()
+    return out
+
+
+def viola_config(dtype: str, kernels: bool, tiny: bool = False, depth=None):
+    """``VioLAConfig()`` (a 24-layer pre-LN trunk and a 12-layer NAR, d
+    1024, 16 heads; ``tiny``: ``viola_tiny``) at ``dtype``, the trunk's
+    decode steps on ``flash_attention_bias`` with ``kernels``."""
+    cfg = viola_tiny() if tiny else VioLAConfig()
+    trunk = C.replace(_depth(cfg.trunk, depth), use_pallas_attn=kernels, dropout=0.0,
+                      attention_dropout=0.0)
+    nar = C.replace(_depth(cfg.nar, depth), dropout=0.0, attention_dropout=0.0)
+    return C.replace(cfg, dtype=dtype, trunk=trunk, nar=nar)
+
+
+def viola_prefixes(cfg, sz, seed):
+    """The three tasks' prefixes (numpy [1, n]): ASR from ``units``
+    semantic units, MT and TTS from ``text`` text tokens; with TTS's
+    ``allowed_range`` (the code block)."""
+    rng = np.random.default_rng(seed)
+    units = (cfg.unit0 + rng.integers(0, cfg.unit_vocab, sz["units"])).tolist()
+    text = (cfg.text0 + rng.integers(0, cfg.text_vocab, sz["text"])).tolist()
+    row = lambda lang, task, src: np.asarray(
+        [[cfg.lang_id(lang), cfg.task_id(task), *src, cfg.sep_id]], np.int64)
+    return {"asr": (row(0, "asr", units), {}), "mt": (row(1, "mt", text), {}),
+            "tts": (row(0, "tts", text), {"allowed_range": (cfg.code0, cfg.total_vocab)})}
+
+
+def viola_fill(model, prefix, tts_out, lengths):
+    """The NAR fill of a TTS continuation: codebook 0 from the LM's codes,
+    each other stage's argmax (``VALLEX.synthesize``'s rule) -> [1, K, T]."""
+    cfg = model.cfg
+    T = tts_out.shape[1]
+    valid = torch.arange(T, device=tts_out.device)[None] < lengths[:, None]
+    codes = torch.zeros((1, cfg.n_codebooks, T), dtype=torch.int64, device=tts_out.device)
+    codes[:, 0] = (tts_out - cfg.code0).clamp(0, cfg.codebook_size - 1) * valid
+    with torch.no_grad():
+        for j in range(1, cfg.n_codebooks):
+            codes[:, j] = model.nar_logits(prefix, codes, j, code_valid=valid).argmax(-1) * valid
+    return codes
+
+
+def phase_viola(device="cuda", tiny=False, seed=0):
+    """VioLA at ``VioLAConfig()`` (bf16, random seeded weights drawn on the
+    card): greedy ASR (150 units), MT and TTS (30 text tokens; TTS held to
+    the code block) to max_new 64 each (a causal prefill, then one cached
+    step a token, each trunk layer on ``flash_attention_bias``), the NAR
+    fill of the TTS codes (7 passes) and an EnCodec 24 kHz decode of its 8
+    codebooks.  Launches exact: 24 decode-step launches a step, nothing
+    else.  Logged per task: the wall, a timed prefill, ms and launches a
+    step."""
+    sz = _codec_sizes(tiny)
+    dev = torch.device(device)
+    cfg = viola_config("bfloat16", True, tiny)
+    model = init_viola(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    codec = init_encodec(codec_config(tiny, cfg), torch.Generator().manual_seed(seed + 11), dev)
+    out, counts = {"ok": False}, {}
+    for task, (prefix, kw) in viola_prefixes(cfg, sz, seed + 630).items():
+        prefix = torch.from_numpy(prefix).to(dev)
+        walls = []
+        for max_new in (1, 1):       # a warm-up, then the timed prefill
+            t0 = time.perf_counter()
+            model.generate(prefix, max_new=max_new, **kw)
+            _sync(dev)
+            walls.append(time.perf_counter() - t0)
+        K.reset_launch_counts()
+        steps0 = model.steps_run
+        t0 = time.perf_counter()
+        tokens, lengths = model.generate(prefix, max_new=sz["task_new"], **kw)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        steps = model.steps_run - steps0
+        counts[task] = K.launch_counts()
+        if _cuda(dev):
+            _expect(counts[task], {"flash_attention_bias": steps * cfg.trunk.num_layers},
+                    f"VioLA {task}")
+        lo, hi = kw.get("allowed_range", (0, cfg.total_vocab))
+        ok = (tokens == cfg.eos_id) | (tokens == cfg.pad_id) | ((tokens >= lo) & (tokens < hi))
+        if not ok.all():
+            raise AssertionError(f"VioLA {task}: tokens outside their block {tokens.tolist()}")
+        out[task] = {"s": wall, "prefill_s": walls[1], "steps": steps,
+                     "ms_per_step": (wall - walls[1]) / max(steps, 1) * 1e3,
+                     "prefix": int(prefix.shape[1]), "tokens": tokens[0, :8].tolist()}
+        if _cuda(dev):
+            out[task]["launches_per_step"] = counts[task]["flash_attention_bias"] / steps
+        if task == "tts":
+            t0 = time.perf_counter()
+            codes = viola_fill(model, prefix, tokens, lengths)
+            with torch.no_grad():
+                wav = codec.decode_codes(codes)
+            _sync(dev)
+            if wav.shape != (1, codes.shape[-1] * codec.cfg.hop_length) or \
+                    not torch.isfinite(wav).all():
+                raise AssertionError(f"VioLA TTS waveform {tuple(wav.shape)}")
+            out["nar_and_codec_s"] = time.perf_counter() - t0
+    out.update(ok=True, counts=counts)
+    log(json.dumps({"phase": "viola", **out}))
+    del model, codec
+    torch.cuda.empty_cache()
+    return out
+
+
+def prosody_config(dtype: str, kernels: bool, tiny: bool = False, depth=None):
+    """``speecht5_base`` (``tiny``: ``speecht5_tiny``) with its text
+    encoder's inference attention and the decode steps on the kernels with
+    ``kernels``, every dropout 0 but the Tacotron prenet's (always on, as
+    served)."""
+    cfg = C.speecht5_tiny() if tiny else C.speecht5_base()
+    cfg = C.replace(cfg, dtype=dtype, encoder=_depth(cfg.encoder, depth),
+                    decoder=_depth(cfg.decoder, depth))
+    kernel_flags = ["encoder.use_pallas_attn=True", "decoder.use_pallas_attn=True"]
+    return C.apply_overrides(cfg, (kernel_flags if kernels else []) + DETERMINISTIC)
+
+
+def prosody_request(cfg, sz, seed, device):
+    """A ``tokens``-token text (ids drawn from ``seed``, eos last), an
+    x-vector and a reference log-mel of ``ref_s`` seconds (host numpy)."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(4, cfg.vocab_size, (1, sz["tokens"]))
+    tokens[0, -1] = cfg.eos_id
+    spk = rng.standard_normal((1, cfg.spk_embed_dim)).astype(np.float32)
+    ref = log_mel_numpy(synth_audio(sz["ref_s"], seed=seed + 1), n_mels=cfg.n_mels)
+    ref = torch.from_numpy(ref[None]).to(device)
+    return (torch.from_numpy(tokens).to(device), torch.from_numpy(spk).to(device), ref,
+            torch.tensor([ref.shape[1]], device=device))
+
+
+def prosody_model(cfg, tiny, device, seed):
+    pcfg = ProsodyConfig(dim=8, conv_channels=16, n_convs=2, predictor_hidden=16) if tiny \
+        else ProsodyConfig()
+    model = init_prosody_speecht5(cfg, pcfg, card_generator(device, seed), device)
+    with torch.no_grad():
+        model.backbone.speech_decoder_postnet.prob_out.bias.fill_(TTS_STOP_BIAS)
+    return model
+
+
+def _prosody_tts(model, mode, request, sz, vocoder, device):
+    tokens, spk, ref, ref_len = request
+    target = model if mode == "predicted" else ProsodyTransfer(model, ref, ref_len)
+    dec = TTSDecoder(target, max_frames=sz["steps"] * model.cfg.reduction_factor,
+                     vocoder=vocoder, device=device)
+    t0 = time.perf_counter()
+    res = dec.text_to_speech(tokens, spk)
+    _sync(device)
+    return res, dec.steps_run, time.perf_counter() - t0
+
+
+def phase_prosody(device="cuda", tiny=False, seed=0):
+    """Prosody-SpeechT5 on ``speecht5_base`` with ``ProsodyConfig()`` (bf16,
+    the text encoder's inference attention and the decode steps on the
+    kernels), random seeded weights, the stop bias at ``TTS_STOP_BIAS``:
+    ``TTSDecoder.text_to_speech`` of a 60-token text for 60 decode steps
+    with the HiFi-GAN vocoder, under the predictor's prosody
+    (``encode_text``) and under transfer from a 3 s reference log-mel
+    (``ProsodyTransfer``: ``encode_text_ref``).  Launches exact, each mode
+    as one /tts request (``tts_launches_expected``).  Logged: walls, ms a
+    step."""
+    sz = _codec_sizes(tiny)
+    dev = torch.device(device)
+    cfg = prosody_config("bfloat16", True, tiny)
+    model = prosody_model(cfg, tiny, dev, seed)
+    vocoder = tts_vocoder(cfg.n_mels, dev, cfg=HiFiGANConfig(in_dim=cfg.n_mels,
+                                                             upsample_initial_channel=32)
+                          if tiny else None)
+    request = prosody_request(cfg, sz, seed + 640, dev)
+    _prosody_tts(model, "predicted", request, {**sz, "steps": 4}, vocoder, dev)   # warm-up
+    out, counts = {"ok": False}, {}
+    for mode in ("predicted", "transfer"):
+        K.reset_launch_counts()
+        res, steps, wall = _prosody_tts(model, mode, request, sz, vocoder, dev)
+        counts[mode] = K.launch_counts()
+        if _cuda(dev):
+            _expect(counts[mode], tts_launches_expected(cfg, steps), f"Prosody {mode}")
+        if steps != sz["steps"] or not torch.isfinite(res.mel).all() or \
+                not torch.isfinite(res.wav).all():
+            raise AssertionError(f"Prosody {mode}: {steps} steps, mel finite "
+                                 f"{bool(torch.isfinite(res.mel).all())}")
+        out[mode] = {"s": wall, "steps": steps, "ms_per_step": wall / steps * 1e3,
+                     "mel": list(res.mel.shape), "wav": list(res.wav.shape)}
+    out.update(ok=True, counts=counts)
+    log(json.dumps({"phase": "prosody", **out}))
+    del model, vocoder
+    torch.cuda.empty_cache()
+    return out
+
+
+def _twins(make, cfgs, seed, device):
+    """The model at each config (the kernel route, the plain route), the
+    second on the first's weights."""
+    mk = make(cfgs[0], seed, device)
+    mp = make(cfgs[1], seed, device)
+    mp.load_state_dict(mk.state_dict())
+    return mk, mp
+
+
+def _rel(a, b) -> float:
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+
+def _gate_rel(what, value, tol):
+    if not value <= tol:
+        raise AssertionError(f"{what}: {value} > {tol}")
+    return value
+
+
+def _vallex_step_logits(model, phonemes, prompt0, codes0, n: int):
+    """The AR stage's prefill and ``n`` cached steps teacher-forced on
+    ``codes0`` -> logits [n + 1, B, V] (the steps' attention on the
+    model's route)."""
+    ar = model.ar
+    B, Lp = phonemes.shape
+    prev = torch.cat([torch.full((B, 1), ar.cfg.code_bos, device=prompt0.device), prompt0], 1)
+    x, valid = ar._embed_seq(phonemes, prev)
+    cache = ar.decoder.init_cache(None, B, x.shape[1] + n)
+    sv = torch.cat([valid[:, :Lp], torch.ones((B, cache["layers"][0]["k"].shape[1] - Lp),
+                                              dtype=torch.bool, device=x.device)], 1)
+    with torch.no_grad():
+        feats, cache = ar.decoder.decode_step(x, cache, self_valid=sv)
+        out = [ar.out_proj(feats[:, -1].float())]
+        for t in range(n):
+            emb = ar.code_embed(codes0[:, t])[:, None].to(ar.dtype) + ar.pos.table[
+                cache["index"] - Lp].to(ar.dtype)
+            feats, cache = ar.decoder.decode_step(emb, cache, self_valid=sv)
+            out.append(ar.out_proj(feats[:, 0].float()))
+    return torch.stack(out)
+
+
+def _viola_step_logits(model, prefix, tokens, n: int):
+    cache = model.init_cache(1, prefix.shape[1] + n)
+    sv = torch.ones((1, prefix.shape[1] + n), dtype=torch.bool, device=prefix.device)
+    with torch.no_grad():
+        logits, cache = model.decode_step(prefix, cache, self_valid=sv)
+        out = [logits]
+        for t in range(n):
+            logits, cache = model.decode_step(tokens[:, t:t + 1], cache, self_valid=sv)
+            out.append(logits)
+    return torch.stack(out)
+
+
+def phase_codec_families_parity(device="cuda", tiny=False, seed=0, logit_rtol=1e-4,
+                                score_rtol=1e-4, wav_atol=2e-3, mel_atol=2e-3):
+    """f32 on the card, each family at full width with 2 layers a stack,
+    the kernel route against the plain route on the same weights: the S2ST
+    beam's units equal (its best score within 1e-4 relative) and the
+    vocoder's waveforms within 2e-3; VALL-E X's codes and lengths equal,
+    its teacher-forced AR step logits and every NAR stage's logits within
+    1e-4 of max; VioLA's three tasks' tokens equal and its trunk's step
+    logits within 1e-4 of max; Prosody's TTS in both modes: lengths equal,
+    mels, stop probabilities and waveforms within 2e-3."""
+    sz = _codec_sizes(tiny)
+    dev = torch.device(device)
+    depth = None if tiny else CODEC_PARITY_DEPTH
+    n = min(CODEC_PARITY_STEPS, sz["max_new"] - 1)
+    out = {"ok": False}
+
+    # S2ST: the beam over units, then the vocoder
+    mk, mp = _twins(lambda c, s, d: init_speechut(c, card_generator(d, s), d),
+                    [s2st_config("float32", k, tiny, depth) for k in (True, False)], seed, dev)
+    vocoder = s2st_vocoder(mk.cfg, tiny, dev, seed + 2)
+    psz = {**sz, "s2st_max_len": min(sz["s2st_max_len"], SIB_PARITY_MAX_LEN)}
+    wav = synth_audio(sz["s2st_s"], seed=600 + seed)
+    rk, rp = (_s2st_request(m, vocoder, wav, psz, dev) for m in (mk, mp))
+    rec = _beam_gate("S2ST beam", rk["res"], rp["res"], 0.0, score_rtol)
+    if rk["units"] != rp["units"]:
+        raise AssertionError(f"S2ST units differ: {rk['units'][:20]} vs {rp['units'][:20]}")
+    rec["wav_max_abs_diff"] = _gate_rel("S2ST waveform", (rk["wav"] - rp["wav"]).abs().max()
+                                        .item(), wav_atol)
+    out["s2st"] = rec
+    del mk, mp, vocoder
+
+    # VALL-E X: generate, the AR step logits, every NAR stage
+    cfgs = [vallex_config("float32", k, tiny, depth) for k in (True, False)]
+    mk, mp = _twins(lambda c, s, d: init_vallex(c, torch.Generator(device=d).manual_seed(s), d),
+                    cfgs, seed, dev)
+    phonemes, prompt = (t.to(dev) for t in _codec_lm_inputs(cfgs[0], sz, seed + 620))
+    (ck, lk), (cp, lp) = (m.ar.generate(phonemes, prompt[:, 0], max_new=sz["max_new"])
+                          for m in (mk, mp))
+    if not (torch.equal(ck, cp) and torch.equal(lk, lp)):
+        raise AssertionError(f"VALL-E X codes differ: {ck.tolist()} vs {cp.tolist()}")
+    lgk, lgp = (_vallex_step_logits(m, phonemes, prompt[:, 0], cp, n) for m in (mk, mp))
+    rec = {"ar_logits_rel": _gate_rel("VALL-E X AR step logits", _rel(lgk, lgp), logit_rtol)}
+    with torch.no_grad():
+        rec["nar_logits_rel"] = max(_gate_rel(f"VALL-E X NAR stage {j}", _rel(
+            mk.nar(phonemes, prompt, j), mp.nar(phonemes, prompt, j)), logit_rtol)
+            for j in range(1, cfgs[0].n_codebooks))
+    out["vallex"] = {**rec, "codes_equal": True, "steps": n}
+    del mk, mp
+
+    # VioLA: the three tasks' tokens, the trunk's step logits
+    cfgs = [viola_config("float32", k, tiny, depth) for k in (True, False)]
+    mk, mp = _twins(lambda c, s, d: init_viola(c, torch.Generator(device=d).manual_seed(s), d),
+                    cfgs, seed, dev)
+    rec = {}
+    for task, (prefix, kw) in viola_prefixes(cfgs[0], sz, seed + 630).items():
+        prefix = torch.from_numpy(prefix).to(dev)
+        (tk, lk), (tp, lp) = (m.generate(prefix, max_new=sz["task_new"], **kw)
+                              for m in (mk, mp))
+        if not (torch.equal(tk, tp) and torch.equal(lk, lp)):
+            raise AssertionError(f"VioLA {task} tokens differ: {tk.tolist()} vs {tp.tolist()}")
+        lgk, lgp = (_viola_step_logits(m, prefix, tp, min(n, tp.shape[1])) for m in (mk, mp))
+        rec[task] = _gate_rel(f"VioLA {task} step logits", _rel(lgk, lgp), logit_rtol)
+    out["viola"] = {"step_logits_rel": rec, "tokens_equal": True}
+    del mk, mp
+
+    # Prosody: TTS under both modes
+    cfgs = [prosody_config("float32", k, tiny, depth) for k in (True, False)]
+    mk, mp = _twins(lambda c, s, d: prosody_model(c, tiny, d, s), cfgs, seed, dev)
+    vocoder = tts_vocoder(cfgs[0].n_mels, dev, cfg=HiFiGANConfig(
+        in_dim=cfgs[0].n_mels, upsample_initial_channel=32) if tiny else None)
+    request = prosody_request(cfgs[0], sz, seed + 640, dev)
+    rec = {}
+    for mode in ("predicted", "transfer"):
+        (a, _, _), (b, _, _) = (_prosody_tts(m, mode, request, sz, vocoder, dev)
+                                for m in (mk, mp))
+        if not torch.equal(a.lengths, b.lengths):
+            raise AssertionError(f"Prosody {mode}: lengths {a.lengths} vs {b.lengths}")
+        rec[mode] = {f: _gate_rel(f"Prosody {mode} {f}", (getattr(a, f) - getattr(b, f)).abs()
+                                  .max().item(), tol)
+                     for f, tol in (("mel", mel_atol), ("stop_probs", mel_atol),
+                                    ("wav", wav_atol))}
+    out["prosody"] = rec
+    del mk, mp, vocoder
+    torch.cuda.empty_cache()
+    out["ok"] = True
+    log(json.dumps({"phase": "codec_families_parity", **out}))
+    return out
+
+
 def kernels_line(records, counts, by_path=None):
     """The contract line: each kernel's path case (MAIN_CASE) in the named
     keys, the other cases under "other"; ``launches`` from the runs of the
@@ -5664,7 +6303,7 @@ def main():
     _wall(walls, "train_parity", t0)
 
     t0 = time.perf_counter()
-    ptrain = phase_parallel_train()
+    ptrain = phase_parallel_train(updates=PARALLEL_UPDATES)
     _wall(walls, "parallel_train", t0)
 
     t0 = time.perf_counter()
@@ -5677,7 +6316,7 @@ def main():
     _wall(walls, "t2s_parity", t0)
 
     t0 = time.perf_counter()
-    warm = phase_warm_start()
+    warm = phase_warm_start(updates=WARM_UPDATES)
     _wall(walls, "warm_start", t0)
     check_train_counts(warm["train_counts"], warm["layer_runs"], "warm-started encoder")
     wsc = warm["serve_counts"]
@@ -5794,6 +6433,17 @@ def main():
     phase_wavllm_parity()
     _wall(walls, "wavllm_parity", t0)
 
+    codec_paths = {}
+    for name, phase in (("s2st", phase_s2st), ("encodec", phase_encodec),
+                        ("vallex", phase_vallex), ("viola", phase_viola),
+                        ("prosody", phase_prosody)):
+        t0 = time.perf_counter()
+        codec_paths[name] = phase()["counts"]
+        _wall(walls, name, t0)
+    t0 = time.perf_counter()
+    phase_codec_families_parity()
+    _wall(walls, "codec_families_parity", t0)
+
     walls["total"] = time.perf_counter() - t_start
     log(json.dumps({"phase_seconds": walls, "card": card_line()}))
     by_path = {"serve": served["counts"], "serve_beam": beam["counts"],
@@ -5816,7 +6466,8 @@ def main():
                **{f"speech2c_{k}": c for k, c in s2c_pre["counts"].items()},
                **{f"yitrans_{k}": c for k, c in yit["counts"].items()},
                **{f"vatlm_{k}": c for k, c in vat["counts"].items()},
-               **{f"wavllm_{k}": c for k, c in wavllm["counts"].items()}}
+               **{f"wavllm_{k}": c for k, c in wavllm["counts"].items()},
+               **{f"{fam}_{k}": c for fam, cs in codec_paths.items() for k, c in cs.items()}}
     counts = {n: sum(c[n] for c in by_path.values()) for n in KERNELS}
     log(json.dumps(kernels_line(records, counts, by_path)))
     torch.cuda.synchronize()

@@ -44,15 +44,18 @@ def same_pads(n: int, k: int, s: int) -> Tuple[int, int]:
 
 
 class SameConvNd(nn.Module):
-    """flax ``nn.Conv(padding="SAME", use_bias=False)`` over channels-last
-    [N, *spatial, C_in] (2-D or 3-D), computed in ``dtype``; ``weight``
-    [C_out, C_in, *kernel]."""
+    """flax ``nn.Conv(padding="SAME")`` over channels-last [N, *spatial,
+    C_in] (1-D, 2-D or 3-D), computed in ``dtype``; ``weight`` [C_out, C_in,
+    *kernel], and ``bias`` [C_out] with ``bias=True`` (flax's
+    ``use_bias``)."""
 
-    def __init__(self, c_in: int, c_out: int, kernel, stride, dtype=torch.float32):
+    def __init__(self, c_in: int, c_out: int, kernel, stride, dtype=torch.float32,
+                 bias: bool = False):
         super().__init__()
         self.kernel, self.stride = tuple(kernel), tuple(stride)
         self.compute_dtype = dtype
         self.weight = nn.Parameter(torch.empty(c_out, c_in, *self.kernel))
+        self.bias = nn.Parameter(torch.zeros(c_out)) if bias else None
 
     def forward(self, x):
         nd = len(self.kernel)
@@ -60,8 +63,9 @@ class SameConvNd(nn.Module):
         pads = []
         for n, k, s in reversed(list(zip(x.shape[2:], self.kernel, self.stride))):
             pads += same_pads(n, k, s)
-        conv = F.conv3d if nd == 3 else F.conv2d
-        y = conv(F.pad(x, pads), self.weight.to(self.compute_dtype), stride=self.stride)
+        conv = (F.conv1d, F.conv2d, F.conv3d)[nd - 1]
+        bias = None if self.bias is None else self.bias.to(self.compute_dtype)
+        y = conv(F.pad(x, pads), self.weight.to(self.compute_dtype), bias, stride=self.stride)
         return y.movedim(1, -1)
 
 

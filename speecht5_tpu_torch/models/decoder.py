@@ -88,11 +88,13 @@ class TransformerDecoder(nn.Module):
         return {"index": torch.zeros((), dtype=torch.int64, device=dev),
                 "layers": layers, "cross": cross}
 
-    def decode_step(self, x, cache, *, enc_valid=None, cache_rows=None,
+    def decode_step(self, x, cache, *, enc_valid=None, self_valid=None, cache_rows=None,
                     need_cross_max: bool = False):
         """One AR step.  x: [B, Tq, D] prenet output at positions
         ``cache["index"]`` + i (the causal mask hides the unwritten cache
-        positions); ``cache_rows`` int [B, max_len] ancestry map.  ->
+        positions); ``self_valid`` bool [B, max_len]: the attendable cache
+        positions (a prefilled prefix with padding, the codec LMs'), None for
+        all; ``cache_rows`` int [B, max_len] ancestry map.  ->
         (features [B, Tq, D], new cache), and with ``need_cross_max`` every
         layer's largest cross-attention probability [L, B, H, Tq] f32: all
         that JAX's ``need_cross_weights`` weights feed (the TTS focus rate,
@@ -100,8 +102,8 @@ class TransformerDecoder(nn.Module):
         idx = cache["index"]
         layers, maxps = [], []
         for layer, c, kv in zip(self.layers, cache["layers"], cache["cross"]):
-            out = layer.step(x, c, kv, idx, enc_valid=enc_valid, cache_rows=cache_rows,
-                             need_cross_max=need_cross_max)
+            out = layer.step(x, c, kv, idx, enc_valid=enc_valid, self_valid=self_valid,
+                             cache_rows=cache_rows, need_cross_max=need_cross_max)
             x, c = out[:2]
             layers.append(c)
             if need_cross_max:

@@ -15,8 +15,13 @@ three multi-receptive-field resblocks (kernels 3, 7, 11, dilations 1, 3,
 ``F.conv_transpose1d``: the JAX module runs them outside any Pallas kernel.
 Module names follow the JAX tree (``conv_pre``, ``ups_<i>``,
 ``resblocks_<n>.convs1_<j>``), so ``utils/convert.convert_hifigan_state_dict``
-fills them from either released naming.  The unit-based ``CodeHiFiGAN``
-waits for the unit families (ROADMAP A.9).
+fills them from either released naming.
+
+``CodeHiFiGAN`` (JAX :159-217) is the S2ST chain's unit vocoder: a unit
+embedding, optionally a duration predictor that re-expands reduced units
+into a static ``T * max_duration`` frame buffer (a cumsum gather, padded
+units given duration 0 and the slots past the last end zeroed), then the
+generator.
 """
 
 from __future__ import annotations
@@ -128,6 +133,75 @@ class HiFiGANGenerator(nn.Module):
         return torch.tanh(x)[:, 0]
 
 
+@dataclass(frozen=True)
+class CodeHiFiGANConfig:
+    num_units: int = 1000
+    embed_dim: int = 128
+    dur_predictor: bool = False   # reduced (deduped) units need re-expansion
+    max_duration: int = 8         # the static cap of one unit's frames
+    generator: HiFiGANConfig = HiFiGANConfig(in_dim=128, normalize_before=False)
+
+
+def expand_index(dur, max_duration: int):
+    """Durations [B, T] int (0 for padded units) -> (idx [B, T *
+    max_duration] int64: the unit each output slot takes, out_valid [B, T *
+    max_duration] bool: the slots before the last unit's end).  Slot j
+    takes unit t where cumsum(dur)[t - 1] <= j < cumsum(dur)[t], counted
+    exactly in integers as JAX does: ``(pos >= ends).sum(-1)`` clamped to
+    T - 1."""
+    T = dur.shape[1]
+    ends = torch.cumsum(dur.long(), dim=1)                              # [B, T]
+    pos = torch.arange(T * max_duration, device=dur.device)[None, :]    # [1, T_out]
+    idx = (pos[:, :, None] >= ends[:, None, :]).sum(-1)
+    return torch.clamp_max(idx, T - 1), pos < ends[:, -1:]
+
+
+class CodeHiFiGAN(nn.Module):
+    """units [B, T] int -> waveform [B, T * hop] (hop = prod(upsample)),
+    or [B, T * max_duration * hop] with the duration predictor;
+    ``unit_valid`` bool [B, T] masks padded units."""
+
+    def __init__(self, cfg: CodeHiFiGANConfig = CodeHiFiGANConfig()):
+        super().__init__()
+        self.cfg = cfg
+        E = cfg.embed_dim
+        self.unit_embed = nn.Embedding(cfg.num_units, E)
+        if cfg.dur_predictor:
+            self.dur_conv1 = WNConv1d(E, E, 3)
+            self.dur_conv2 = WNConv1d(E, E, 3)
+            self.dur_proj = nn.Linear(E, 1)
+        self.generator = HiFiGANGenerator(cfg.generator)
+
+    def durations(self, x, unit_valid):
+        """Unit embeddings [B, T, E] -> (the predictor's log-durations [B,
+        T] f32, durations [B, T] int64: clip(round(exp(.)), 1,
+        max_duration), round half to even as ``jnp.round``; 0 where
+        ``unit_valid`` is False)."""
+        h = torch.relu(self.dur_conv1(x.transpose(1, 2)))
+        h = self.dur_conv2(h).transpose(1, 2)
+        dur_f = self.dur_proj(h)[..., 0]
+        dur = torch.clamp(torch.round(torch.exp(dur_f)).long(), 1, self.cfg.max_duration)
+        return dur_f, torch.where(unit_valid, dur, torch.zeros_like(dur))
+
+    def forward(self, units, unit_valid=None, *, predict_duration=None):
+        cfg = self.cfg
+        if predict_duration is None:
+            predict_duration = cfg.dur_predictor
+        if predict_duration and not cfg.dur_predictor:
+            raise ValueError("predict_duration needs a config with dur_predictor=True")
+        x = self.unit_embed(units.long())
+        if unit_valid is None:
+            unit_valid = torch.ones(units.shape, dtype=torch.bool, device=units.device)
+        if predict_duration:
+            _, dur = self.durations(x, unit_valid)
+            idx, out_valid = expand_index(dur, cfg.max_duration)
+            x = torch.gather(x, 1, idx[:, :, None].expand(-1, -1, x.shape[-1]))
+            x = x * out_valid[:, :, None]
+        else:
+            x = x * unit_valid[:, :, None]
+        return self.generator(x)
+
+
 def init_hifigan(cfg: HiFiGANConfig = HiFiGANConfig(), generator=None,
                  device="cuda") -> HiFiGANGenerator:
     """A generator with random weights from ``generator`` (a CPU
@@ -139,6 +213,30 @@ def init_hifigan(cfg: HiFiGANConfig = HiFiGANConfig(), generator=None,
         generator = torch.Generator().manual_seed(0)
     voc = HiFiGANGenerator(cfg)
     with torch.no_grad():
+        for mod in voc.modules():
+            if isinstance(mod, WNConv1d):
+                mod.weight_v.normal_(0.0, 0.05, generator=generator)
+                axes = (0, 2) if mod.transposed else (1, 2)
+                mod.weight_g.copy_(mod.weight_v.pow(2).sum(axes).sqrt())
+    return voc.to(dev).eval()
+
+
+def init_codehifigan(cfg: CodeHiFiGANConfig = CodeHiFiGANConfig(), generator=None,
+                     device="cuda") -> CodeHiFiGAN:
+    """A ``CodeHiFiGAN`` with random weights from ``generator`` (CPU, seeded
+    0 when None): the weight-normed convs as ``init_hifigan`` draws them,
+    the unit embedding normal(embed_dim^-0.5) and the duration projection
+    lecun-normal with a zero bias, as the JAX initialisers; on ``device``
+    in eval mode."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    voc = CodeHiFiGAN(cfg)
+    with torch.no_grad():
+        voc.unit_embed.weight.normal_(0.0, cfg.embed_dim ** -0.5, generator=generator)
+        if cfg.dur_predictor:
+            voc.dur_proj.weight.normal_(0.0, cfg.embed_dim ** -0.5, generator=generator)
+            voc.dur_proj.bias.zero_()
         for mod in voc.modules():
             if isinstance(mod, WNConv1d):
                 mod.weight_v.normal_(0.0, 0.05, generator=generator)

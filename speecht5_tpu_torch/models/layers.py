@@ -148,16 +148,17 @@ class DecoderLayer(nn.Module):
         x, = self._block(x, self.final_layer_norm, lambda h: (self.ffn(h),))
         return (x, cross_w) if need_cross_weights else x
 
-    def step(self, x, cache, cross_kv, cache_index, *, enc_valid=None,
+    def step(self, x, cache, cross_kv, cache_index, *, enc_valid=None, self_valid=None,
              cache_rows=None, need_cross_max: bool = False):
         """One decode step: x [B, Tq, D] at positions ``cache_index`` + i;
         ``cache`` this layer's {"k", "v"} buffers (written in place);
-        ``cross_kv`` from ``init_cross_kv`` or None (no cross-attention).
+        ``cross_kv`` from ``init_cross_kv`` or None (no cross-attention);
+        ``self_valid`` bool [B, Tmax] or None: the attendable cache slots.
         -> (x, cache), or with ``need_cross_max`` (x, cache, the cross
         attention's largest probability [B, H, Tq] f32)."""
         x, cache = self._block(
             x, self.self_attn_layer_norm,
-            lambda h: self.self_attn(h, causal=True, cache=cache,
+            lambda h: self.self_attn(h, self_valid, causal=True, cache=cache,
                                      cache_index=cache_index, cache_rows=cache_rows))
         maxp = None
         if cross_kv is not None:

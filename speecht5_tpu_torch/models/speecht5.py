@@ -390,7 +390,9 @@ def shuffle_frames(x, valid, perm):
 def init_model(cfg: SpeechT5Config, generator: torch.Generator = None,
                device="cuda") -> SpeechT5Model:
     """Build a SpeechT5Model with random weights drawn from ``generator``
-    (a CPU ``torch.Generator``; seeded 0 when None) and move it to
+    (a CPU ``torch.Generator``, seeded 0 when None, or one on ``device``:
+    then the weights are drawn there, which takes milliseconds where the
+    CPU takes seconds, and differ from the CPU's) and move it to
     ``device`` in eval mode.  Init follows the JAX package's initialisers:
     lecun-normal dense and conv kernels, zero biases, unit norm scales, the
     embedding's variance scaling, normal(0.02) for the weight-normed conv's
@@ -403,7 +405,7 @@ def init_model(cfg: SpeechT5Config, generator: torch.Generator = None,
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    model = SpeechT5Model(cfg)
+    model = SpeechT5Model(cfg).to(generator.device)
     late = ("speech_encoder_postnet", "quantizer")
     with torch.no_grad():
         for name, mod in model.named_modules():

@@ -228,9 +228,11 @@ class SpeechUTModel(UnitFront):
 
 def init_speechut(cfg: SpeechUTConfig, generator: torch.Generator = None,
                   device="cuda") -> SpeechUTModel:
-    """A ``SpeechUTModel`` with random weights from ``generator``, on
-    ``device`` in eval mode."""
+    """A ``SpeechUTModel`` with random weights from ``generator`` (CPU, or
+    on ``device``: drawn there), on ``device`` in eval mode."""
     dev = resolve_device(device)
     model = SpeechUTModel(cfg)
+    if generator is not None:
+        model.to(generator.device)
     init_weights(model, generator)
     return model.to(dev).eval()

@@ -27,7 +27,10 @@ port names their sub-nets as JAX does; the ``label_embs*`` as they are;
 VATLM's video BatchNorm statistics from its ``batch_stats``; WavLLM's
 ``llama_layers_<i>`` -> ``llama_layers.<i>``, its LoRA ``lora_A`` /
 ``lora_B``, WavLM's ``rel_attn_embed`` / ``gru_rel_pos_const``, Whisper's
-``embed_positions`` and the RMSNorm ``weight`` as they are).
+``embed_positions`` and the RMSNorm ``weight`` as they are), and
+``codehifigan_from_jax_params``, ``encodec_from_jax_params``,
+``vallex_from_jax_params``, ``viola_from_jax_params`` and
+``prosody_from_jax_params`` the codec families and Prosody-SpeechT5.
 
 Only the subtrees the port has (``PORTED_SUBTREES``) are carried; the
 others are left out of the result.  ``from_jax_batch_stats`` carries the
@@ -174,6 +177,97 @@ def wavllm_from_jax_params(flat: dict) -> dict:
     -> the state dict of the port's module of the same name
     (``models/wavllm.py``, ``models/wavlm.py``)."""
     return _convert(flat, "params", _wavllm_leaf, None)
+
+
+def _wn_tree(flat: dict, transposed) -> dict:
+    """A tree whose weight-normed convs keep flax's ``weight_v`` [k, C_in,
+    C_out] with a 1-D ``weight_g`` (JAX ``models/hifigan.py`` and
+    ``models/encodec.py``) -> a state dict: ``weight_v`` to torch's Conv1d
+    [C_out, C_in, k], or ConvTranspose1d [C_in, C_out, k] where
+    ``transposed(path)`` (the module's path, a tuple of names) says so;
+    ``weight_g``, the LSTM's ``weight_ih_l<n>`` / ... and the RVQ's
+    ``embed`` as they are; Dense and Embed as ``_leaf``."""
+    out = {}
+    for key, value in flat.items():
+        parts = key.split("/")
+        if parts[0] == "params":
+            parts = parts[1:]
+        path, name = tuple(parts[:-1]), parts[-1]
+        arr = np.asarray(value, np.float32)
+        if name == "weight_v":
+            arr = arr.transpose(1, 2, 0) if transposed(path) else arr.transpose(2, 1, 0)
+        elif name not in ("weight_g", "embed") and not re.match(
+                r"(weight|bias)_(ih|hh)_l\d+$", name):
+            name, arr = _leaf(name, arr)
+        out[".".join(path + (name,))] = torch.tensor(arr)
+    return out
+
+
+def codehifigan_from_jax_params(flat: dict) -> dict:
+    """The JAX ``CodeHiFiGAN``'s flattened ``params`` (``unit_embed``, the
+    duration predictor's ``dur_conv1/2`` and ``dur_proj``, the
+    ``generator``'s weight-normed convs, ``ups_<i>`` transposed) -> the
+    port's ``models/hifigan.CodeHiFiGAN`` state dict, the generator's
+    ``mel_mean`` / ``mel_scale`` at 0 / 1 when the tree has none
+    (``normalize_before=False``)."""
+    out = _wn_tree(flat, lambda path: path[-1].startswith("ups_"))
+    dim = out["generator.conv_pre.weight_v"].shape[1]
+    out.setdefault("generator.mel_mean", torch.zeros(dim))
+    out.setdefault("generator.mel_scale", torch.ones(dim))
+    return out
+
+
+def encodec_from_jax_params(flat: dict) -> dict:
+    """The JAX ``EncodecModel``'s flattened ``params`` (the SEANet
+    ``encoder`` / ``decoder`` with their weight-normed causal convs, the
+    decoder's ``up<i>`` transposed, the LSTM stacks, the ``quantizer``'s
+    ``embed`` [n_q, K, D]) -> the port's ``models/encodec.EncodecModel``
+    state dict."""
+    return _wn_tree(flat, lambda path: re.match(r"up\d+$", path[-1]) is not None)
+
+
+def vallex_from_jax_params(flat: dict) -> dict:
+    """The JAX ``VALLEX``'s flattened ``params`` (``ar``: embeddings, the
+    decoder-only pre-LN ``decoder``, ``out_proj``; ``nar``: the
+    embeddings, ``code_embed_<j>``, ``stage_embed``, the pre-LN
+    ``encoder`` and ``out_<j>``; or a ``VALLEX_AR`` / ``VALLEX_NAR`` tree
+    alone) -> the port's ``models/vallex`` state dict of the same module."""
+    return _convert(flat, "params", _leaf, None)
+
+
+def viola_from_jax_params(flat: dict) -> dict:
+    """The JAX ``VioLAModel``'s flattened ``params`` (``embed_tokens``, the
+    pre-LN trunk ``decoder``, the ``nar`` stage) -> the port's
+    ``models/viola.VioLAModel`` state dict."""
+    return _convert(flat, "params", _leaf, None)
+
+
+def prosody_from_jax_params(flat: dict, batch_stats: dict) -> dict:
+    """The JAX ``ProsodySpeechT5``'s flattened ``params`` (the SpeechT5
+    ``backbone``, ``prosody_encoder`` with its strided ``conv<i>`` /
+    ``ln<i>``, ``prosody_predictor``, ``prosody_proj``) and ``batch_stats``
+    (the backbone's postnet BatchNorms) -> the port's ``models/prosody.
+    ProsodySpeechT5`` state dict."""
+    trees = _split_root(flat, "params")
+    out = {f"backbone.{k}": v for k, v in from_jax_params(trees.pop("backbone")).items()}
+    for root, sub in trees.items():
+        out.update(_convert({f"{root}/{k}": v for k, v in sub.items()}, "params", _leaf,
+                            None))
+    stats = _split_root(batch_stats, "batch_stats").get("backbone", {})
+    out.update({f"backbone.{k}": v for k, v in from_jax_batch_stats(stats).items()})
+    return out
+
+
+def _split_root(flat: dict, collection: str) -> dict:
+    """``{"<collection>/root/a/b": v}`` (the collection's name optional) ->
+    ``{root: {"a/b": v}}``."""
+    out = {}
+    for key, value in flat.items():
+        parts = key.split("/")
+        if parts[0] == collection:
+            parts = parts[1:]
+        out.setdefault(parts[0], {})["/".join(parts[1:])] = value
+    return out
 
 
 def _stat_leaf(name: str, value: np.ndarray):

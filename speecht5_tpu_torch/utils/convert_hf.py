@@ -1,7 +1,7 @@
 """HuggingFace ``transformers`` SpeechT5 checkpoints -> the port's state dict
 (port of ``speecht5_tpu/utils/convert_hf.py``: ``map_hf_key`` :50,
 ``convert_hf_state_dict`` :283, ``hf_config_to_ours`` :317,
-``load_hf_checkpoint`` :403).
+``load_hf_checkpoint`` :403, ``convert_encodec`` :430).
 
 The released SpeechT5 weights (``microsoft/speecht5_asr``, ``_tts``,
 ``_vc``) ship in the HF namespace.  Both sides are torch, so each key maps
@@ -229,3 +229,65 @@ def load_hf_checkpoint(model_or_dir, dtype: str = "float32"):
             sd = {k: v.detach().cpu() for k, v in model_or_dir.state_dict().items()}
     state, unknown = convert_hf_state_dict(sd)
     return hf_config_to_ours(hf_cfg, dtype=dtype), state, unknown
+
+
+# ------------------------------------------------------------------ EnCodec
+
+
+def convert_encodec(state_dict, cfg) -> dict:
+    """A ``transformers.EncodecModel`` state dict -> the port's
+    ``models/encodec.EncodecModel`` state dict (JAX
+    ``utils/convert_hf.py:430``).  Weight norm stays split: the
+    parametrization's ``original0`` (or a legacy ``weight_g``) becomes
+    ``weight_g`` flattened to one gain a channel, ``original1`` (``weight_v``)
+    ``weight_v`` in torch's layout.  The HF model's sequential ``layers.<i>``
+    map to the port's names by the HF constructor's order; ``cfg`` is the
+    port's ``EncodecConfig`` and must match the HF topology."""
+    sd = {k: torch.as_tensor(v).float() for k, v in state_dict.items()}
+    out = {}
+
+    def conv(src, dst):
+        pre = f"{src}.conv."
+        for ours, names in (("weight_g", ("parametrizations.weight.original0", "weight_g")),
+                            ("weight_v", ("parametrizations.weight.original1", "weight_v"))):
+            key = next(pre + n for n in names if pre + n in sd)
+            out[f"{dst}.{ours}"] = sd[key].reshape(-1) if ours == "weight_g" else sd[key]
+        out[f"{dst}.bias"] = sd[pre + "bias"]
+
+    def lstm(src, dst):
+        for l in range(cfg.num_lstm_layers):
+            for nm in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
+                out[f"{dst}.{nm}_l{l}"] = sd[f"{src}.lstm.{nm}_l{l}"]
+
+    def resblock(src, dst):
+        conv(f"{src}.block.1", f"{dst}.block_conv1")
+        conv(f"{src}.block.3", f"{dst}.block_conv2")
+        conv(f"{src}.shortcut", f"{dst}.shortcut")
+
+    n_res = cfg.num_residual_layers
+    conv("decoder.layers.0", "decoder.conv_in")
+    lstm("decoder.layers.1", "decoder.lstm")
+    idx = 2
+    for i in range(len(cfg.upsampling_ratios)):
+        idx += 1                                     # ELU
+        conv(f"decoder.layers.{idx}", f"decoder.up{i}")
+        idx += 1
+        for j in range(n_res):
+            resblock(f"decoder.layers.{idx}", f"decoder.res{i}_{j}")
+            idx += 1
+    conv(f"decoder.layers.{idx + 1}", "decoder.conv_out")      # after an ELU
+
+    conv("encoder.layers.0", "encoder.conv_in")
+    idx = 1
+    for i in range(len(cfg.upsampling_ratios)):
+        for j in range(n_res):
+            resblock(f"encoder.layers.{idx}", f"encoder.res{i}_{j}")
+            idx += 1
+        idx += 1                                     # ELU
+        conv(f"encoder.layers.{idx}", f"encoder.down{i}")
+        idx += 1
+    lstm(f"encoder.layers.{idx}", "encoder.lstm")
+    conv(f"encoder.layers.{idx + 2}", "encoder.conv_out")      # after an ELU
+    out["quantizer.embed"] = torch.stack([sd[f"quantizer.layers.{q}.codebook.embed"]
+                                          for q in range(cfg.num_quantizers)])
+    return out
