@@ -391,7 +391,8 @@ Phases, each timed; any failure raises and the exit code is non-zero:
                ``generate_beam`` (beam 4), max_new 32.  Launches checked
                exactly: 6 conv launches a WavLM forward, no attention
                launch in an update (its WavLM trains with dropout), 12
-               attention launches a prefill, 32 decode-step launches a
+               attention launches a prefill (on the tiled kernel,
+               ``flash_attention_bias_tiled``), 32 decode-step launches a
                step.
 39. wavllm parity -- f32, Whisper 4 and LLaMA 4 layers at full width
                (WavLM's 12), kernel route against plain route, LoRA and
@@ -594,16 +595,24 @@ KERNELS = {
         "source": "speecht5_tpu_torch/csrc/flash_attention_bias.cu",
         "replaces": "speecht5_tpu/ops/pallas_kernels.py:624",
     },
+    # the same wrapper's query-tiled kernel (K.flash_bias_path): WavLM's
+    # self-attention; its launches are also counted in flash_attention_bias's
+    "flash_attention_bias_tiled": {
+        "source": "speecht5_tpu_torch/csrc/flash_attention_bias_tiled.cu",
+        "replaces": "speecht5_tpu/ops/pallas_kernels.py:624",
+    },
 }
 TRAIN_KERNELS = ("banded_attention_train_fwd", "banded_attention_train_bwd_dq",
                  "banded_attention_train_bwd_dkv")
 # the case of each kernel that its path runs: the served chunk (bf16, batch
 # 1), the recipe's train step (bf16, attention dropout 0.1), the t2s step's
-# mel targets (f32, 16 rows of 768 frames) and the beam's grouped
-# cross-attention step through the cached entry (bf16, batch 1, beam 5)
+# mel targets (f32, 16 rows of 768 frames), the beam's grouped
+# cross-attention step through the cached entry (bf16, batch 1, beam 5), and
+# WavLM's self-attention on the 30 s WavLLM request (bf16, the tiled kernel)
 MAIN_CASE = {"banded_flash_attention": "bfloat16/b1", "conv_stack": "bfloat16/b1",
              **{n: "bfloat16/r0.1" for n in TRAIN_KERNELS},
-             "fused_log_mel": "float32/b16", "flash_attention_bias": "bfloat16/cross_cached"}
+             "fused_log_mel": "float32/b16", "flash_attention_bias": "bfloat16/cross_cached",
+             "flash_attention_bias_tiled": "bfloat16/wavlm_T1499"}
 KERNEL_OVERRIDES = ["encoder.use_pallas_attn=True", "conv_features.impl='pallas'"]
 # the beam arm's decode steps through flash_attention_bias as well
 BEAM_OVERRIDES = KERNEL_OVERRIDES + ["decoder.use_pallas_attn=True"]
@@ -1275,21 +1284,29 @@ def flash_bias_case(case, dtype, device="cuda", seed=4):
     Tk]), each serving its heads.  "wavlm_T<T>": WavLM's self-attention on
     one request of T frames (499: 10 s, 1499: 30 s) as its kernel route
     calls the contract entry: N = 12 heads, Tq = Tk = T, D 64, the f32
-    gated bias [12, T, T], the sample's mask [1, T] (every frame valid).
-    -> q, k, v, key_valid, bias (None: a zero bias)."""
+    gated bias [12, T, T], the sample's mask [1, T] (every frame valid);
+    T 77 is a multiple of neither 8 nor 64.  "wavlm_b2_T<T>": WavLM's padded
+    batch of two, N = 24, the mask [2, T] with the second sample's first
+    1000 frames valid.  "wavlm_b2_empty_T<T>": the same with a second sample
+    that has no valid frame (its 12 rows return the mean of V).  -> q, k,
+    v, key_valid, bias (None: a zero bias)."""
     g = torch.Generator().manual_seed(seed)
-    if case.startswith("wavlm_T"):
-        T = int(case[len("wavlm_T"):])
-        N, Tq, Tk, valid, mask_rows, D = 12, T, T, T, 1, 64
+    if case.startswith("wavlm_"):
+        T = int(case.split("_T")[-1])
+        N, Tq, Tk, D = 12, T, T, 64
+        valid = ([T] if "_b2_" not in case else
+                 [T, 0] if "_empty_" in case else [T, min(1000, T)])
+        N *= len(valid)
     else:
         N, Tq, Tk, valid, mask_rows, D = {"cross": (12, 5, 799, 549, 1, 64),
                                           "self": (60, 1, 201, 101, 5, 64),
                                           "lm_self": (5 * LM_HEADS, 1, 201, 101, 5, LM_DH)}[case]
+        valid = [valid] * mask_rows
     q = (torch.randn(N, Tq, D, generator=g) * D ** -0.5).to(dtype)
     k, v = (torch.randn(N, Tk, D, generator=g).to(dtype) for _ in range(2))
-    key_valid = (torch.arange(Tk) < valid)[None, :].expand(mask_rows, Tk).contiguous()
+    key_valid = torch.arange(Tk)[None, :] < torch.tensor(valid)[:, None]
     bias = (torch.randn(N, Tq, Tk, generator=g) * 0.5).to(device) if case.startswith(
-        "wavlm_T") else None
+        "wavlm_") else None
     return [t.to(device) for t in (q, k, v, key_valid)] + [bias]
 
 
@@ -1403,6 +1420,17 @@ def flash_bias_cache_case(case, dtype, device="cuda", seed=4):
     return (*out, None if rows is None else rows.to(device))
 
 
+# the decode steps through the cached entry (flash_bias_cache_case), and
+# through the contract entry on [N, T, D] rows (flash_bias_case)
+FLASH_BIAS_CACHED_CASES = (
+    "cross_cached", "self_cache", "tts_self", "tts_cross", "vc_cross", "lm_self_cache",
+    "eval_cross_cached", "eval_self_cache", "eval_lm_self_cache", "large_cross_cached",
+    "large_self_cache", "sweep_cross_cached", "sweep_self_cache", "sib_cross_cached",
+    "yit_mt_cross_cached", "vat_cross_cached", "llama_self_cache", "vallex_self_cache",
+    "viola_self_cache")
+FLASH_BIAS_DECODE_CASES = ("cross", "self", "lm_self")
+
+
 def _flash_bias_record(case, dtype):
     """The decode-step kernel at one shape against its twin, timed back to
     back on the stream (``ms``) and as the card runs it (``graph_ms``), with
@@ -1413,22 +1441,20 @@ def _flash_bias_record(case, dtype):
     "tts_self", "tts_cross", "vc_cross" and "llama_self_cache" the
     cached entry on the decoder's layouts; "tts_cross" and "vc_cross" with
     the max-probability output, held against the twin's (f32 1e-4, bf16
-    3e-2 of max |ref|) and timed with and without it.  The "wavlm_T" cases
+    3e-2 of max |ref|) and timed with and without it.  The "wavlm_" cases
     call the contract entry with their f32 bias, which SDPA's mask then
-    carries."""
+    carries.  "path" names the kernel that served the call
+    (``K.flash_bias_path``: the cached entry always "split"); the call must
+    be one launch of that kernel."""
     maxp_call = None
     bias = None
-    if case in ("self_cache", "cross_cached", "tts_self", "tts_cross", "vc_cross",
-                "lm_self_cache", "eval_self_cache", "eval_lm_self_cache",
-                "eval_cross_cached", "large_cross_cached", "large_self_cache",
-                "sweep_cross_cached", "sweep_self_cache", "sib_cross_cached",
-                "yit_mt_cross_cached", "vat_cross_cached", "llama_self_cache",
-                "vallex_self_cache", "viola_self_cache"):
+    if case in FLASH_BIAS_CACHED_CASES:
         q4, k4, v4, key_valid, rows = flash_bias_cache_case(case, dtype)
         B, Tq, H, D = q4.shape
         N, Tk = B * H, k4.shape[1]
         call = lambda: K.flash_attention_bias_cached(q4, k4, v4, key_valid, rows)
         plain = lambda: K.flash_attention_bias_cached_plain(q4, k4, v4, key_valid, rows)
+        path = "split"
         if case in ("tts_cross", "vc_cross"):
             maxp_call = lambda: K.flash_attention_bias_cached(
                 q4, k4, v4, key_valid, rows, return_max_prob=True)
@@ -1445,28 +1471,39 @@ def _flash_bias_record(case, dtype):
         B, H, Tk, rows = N, 1, k.shape[1], None
         call = lambda: K.flash_attention_bias(q, k, v, bias, key_valid)
         plain = lambda: K.flash_attention_bias_plain(q, k, v, bias, key_valid)
-    got, ref = call(), plain()
+        path = K.flash_bias_path(Tq, Tk, D, dtype)
+    before = K.launch_counts()
+    got = call()
+    after = K.launch_counts()
+    ref = plain()
     torch.cuda.synchronize()
     err, tol, ok = _check(dtype, got, ref)
     ok = ok and torch.equal(got, call())       # two calls, the same bits
+    launched = {n: after[n] - before[n]
+                for n in ("flash_attention_bias", "flash_attention_bias_tiled")}
+    ok = ok and launched == {"flash_attention_bias": 1,
+                             "flash_attention_bias_tiled": int(path == "tiled")}
     # what the function needs: q and out, the K and V of the valid keys
     # (an invalid key's weight is exp(-1e9 - m) = 0 once a row has a valid
     # key, so its K and V are never needed), each distinct (physical row,
     # position, head) once however many beams share it through the row
-    # map, the mask and the row map's entries of the valid keys; flops: q.k
-    # and p.v over the valid keys of every row
+    # map, the mask, the row map's entries of the valid keys and the bias
+    # of the valid keys; a row with no valid key needs only its V (the
+    # mean); flops: q.k and p.v over the valid keys of every row, p.v over
+    # every key of a row with none
     full_mask = key_valid.repeat_interleave(N // key_valid.shape[0], 0)
+    empty_rows = int((~full_mask.any(1)).sum().item())
     valid_keys = full_mask.sum().item()
     phys = (torch.arange(B, device=q.device)[:, None].expand(B, Tk)
             if rows is None else rows)
     kv_index = ((phys * Tk + torch.arange(Tk, device=q.device))[:, None, :] * H
                 + torch.arange(H, device=q.device)[None, :, None])
     kv_keys = torch.unique(kv_index[full_mask.view(B, H, Tk)]).numel()
-    nbytes = ((2 * N * Tq * D + 2 * D * kv_keys) * q.element_size()
-              + key_valid.numel() + (0 if bias is None else bias.numel() * 4))
+    nbytes = ((2 * N * Tq * D + 2 * D * kv_keys + D * Tk * empty_rows) * q.element_size()
+              + key_valid.numel() + (0 if bias is None else Tq * valid_keys * 4))
     if rows is not None:
         nbytes += key_valid.sum().item() * B * rows.element_size()
-    flops = 4.0 * Tq * D * valid_keys
+    flops = 4.0 * Tq * D * valid_keys + 2.0 * Tq * D * Tk * empty_rows
     bound_ms, bound_by = _bound(nbytes, flops, dtype)
     mask = torch.where(full_mask[:, None, :], 0.0, K.NEG_INF).expand(N, Tq, Tk)
     library_call = "F.scaled_dot_product_attention(attn_mask=f32 0/-1e9, scale=1)"
@@ -1499,9 +1536,10 @@ def _flash_bias_record(case, dtype):
         "plain_ms": time_ms(plain), "library_ms": library_ms,
         "library_graph_ms": library_graph, "library_call": library_call,
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "bound_share_graph": bound_ms / graph,
+        "bound_share_graph": bound_ms / graph, "path": path,
         "shape": {"N": N, "Tq": Tq, "Tk": Tk, "D": D,
                   "valid_keys": int(key_valid[0].sum().item()),
+                  "valid_keys_by_mask_row": key_valid.sum(1).tolist(),
                   "distinct_kv_keys": kv_keys, "row_map": rows is not None},
     }
 
@@ -1544,9 +1582,13 @@ def phase_kernels():
     ("bfloat16/r0.1/b4_T258", "bfloat16/r0.1/b4_T100"), and the two beams'
     cross steps ("<dtype>/yit_mt_cross_cached", "<dtype>/vat_cross_cached").
     WavLLM: the decode-step kernel as WavLM's self-attention at T 499 and
-    1499 with its f32 bias ("<dtype>/wavlm_T499", "<dtype>/wavlm_T1499") and
-    as the LLaMA step of the 30 s beam ("<dtype>/llama_self_cache"), and the
-    conv stack on the 30 s request ("bfloat16/b1_T95999")."""
+    1499 with its f32 bias ("<dtype>/wavlm_T499", "<dtype>/wavlm_T1499";
+    bf16 on the tiled kernel) and as the LLaMA step of the 30 s beam
+    ("<dtype>/llama_self_cache"), and the conv stack on the 30 s request
+    ("bfloat16/b1_T95999").  The tiled kernel's edge cases, bf16
+    (``WAVLM_TILED_CASES``): the padded batch of two at T 1499, T 77 and a
+    sample with no valid frame.  Each "flash_attention_bias" record names
+    its kernel ("path") and is filed under that kernel's name."""
     records = {name: {} for name in KERNELS}
     failures = []
     for batch in (1, 2):
@@ -1690,21 +1732,21 @@ def phase_kernels():
         if not ok:
             failures.append(f"fused_log_mel b{batch}: max|diff| {rec['max_abs_err']} "
                             f"> {rec['tolerance']}")
-    for case in ("cross", "self", "cross_cached", "self_cache", "tts_self", "tts_cross",
-                 "vc_cross", "lm_self", "lm_self_cache", "eval_cross_cached",
-                 "eval_self_cache", "eval_lm_self_cache", "large_cross_cached",
-                 "large_self_cache", "sweep_cross_cached", "sweep_self_cache",
-                 "sib_cross_cached", "yit_mt_cross_cached", "vat_cross_cached",
-                 *(f"wavlm_T{t}" for t in WAVLM_T), "llama_self_cache",
-                 "vallex_self_cache", "viola_self_cache"):
-        for dtype in (torch.float32, torch.bfloat16):
+    for case in (*FLASH_BIAS_DECODE_CASES, *FLASH_BIAS_CACHED_CASES,
+                 *(f"wavlm_T{t}" for t in WAVLM_T), *WAVLM_TILED_CASES):
+        # the tiled kernel's edge cases in its dtype alone
+        dtypes = ((torch.bfloat16,) if case in WAVLM_TILED_CASES
+                  else (torch.float32, torch.bfloat16))
+        for dtype in dtypes:
             key = f"{str(dtype).split('.')[-1]}/{case}"
             ok, rec = _flash_bias_record(case, dtype)
-            records["flash_attention_bias"][key] = rec
+            name = ("flash_attention_bias_tiled" if rec["path"] == "tiled"
+                    else "flash_attention_bias")
+            records[name][key] = rec
             if not ok:
-                failures.append(f"flash_attention_bias {key}: max|diff| "
+                failures.append(f"{name} {key}: max|diff| "
                                 f"{rec['max_abs_err']} (tolerance {rec['tolerance']}), "
-                                "or two calls differ")
+                                "or two calls differ, or not one launch of its path")
     log(json.dumps({"phase": "kernels", "records": records}))
     if failures:
         raise AssertionError("kernel disagrees with its twin: " + "; ".join(failures))
@@ -5333,6 +5375,10 @@ WAVLLM_LORA_B_STD = 0.02             # the adapters as after fine-tuning (B = 0 
 WAVLLM_PARITY_DEPTH = dict(whisper_layers=4, llama_layers=4)    # WavLM keeps its 12
 WAVLLM_TINY = dict(sft_s=(0.5, 0.9), target=(6, 10), requests_s=(0.6, 1.2), max_new=4, beam=2)
 WAVLM_T = tuple(C.ConvFeatureConfig().out_length(s * 16000) for s in WAVLLM_REQUESTS_S)
+# the tiled kernel's further cases (flash_bias_case): WavLM's padded batch of
+# two at 30 s, a T that is a multiple of neither 8 nor 64, a sample with no
+# valid frame
+WAVLM_TILED_CASES = (f"wavlm_b2_T{WAVLM_T[-1]}", "wavlm_T77", "wavlm_b2_empty_T130")
 WAVLM_CONV_T = (WAVLLM_REQUESTS_S[-1] * 16000 - 10) // 5 + 1      # after conv 0: 95999
 
 
@@ -5496,7 +5542,8 @@ def phase_wavllm(device="cuda", tiny=False, seed=0):
             c = counts[f"{method}_{secs}s"] = K.launch_counts()
             if _cuda(dev):
                 _expect(c, {"conv_stack": n_conv, "flash_attention_bias":
-                            cfg.wavlm.num_layers + (max_new - 1) * L},
+                            cfg.wavlm.num_layers + (max_new - 1) * L,
+                            "flash_attention_bias_tiled": cfg.wavlm.num_layers},
                         f"WavLLM {method} on {secs} s")
             if not ((tokens >= 0) & (tokens < cfg.vocab_size)).all():
                 raise AssertionError(f"WavLLM {method}: tokens out of the vocabulary")
@@ -6169,21 +6216,25 @@ def kernels_line(records, counts, by_path=None):
     """The contract line: each kernel's path case (MAIN_CASE) in the named
     keys, the other cases under "other"; ``launches`` from the runs of the
     paths that drive the kernel (``counts``, summed over the paths), and
-    per path under "launches_by_path"."""
+    per path under "launches_by_path".  ``flash_attention_bias``'s own
+    count holds its tiled kernel's launches too: its entry gives the split
+    kernel's share."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "tolerance")
     rates = ("bound_share", "achieved_tflops",      # the redesigned kernels'
              "parts_ms", "graph_ms", "library_graph_ms", "bound_share_graph",
              "max_prob_err", "max_prob_tolerance",   # the TTS cross step's output
-             "without_max_prob_ms", "without_max_prob_graph_ms")
+             "without_max_prob_ms", "without_max_prob_graph_ms", "path")
+    own = lambda c, name: c[name] - (c["flash_attention_bias_tiled"]
+                                     if name == "flash_attention_bias" else 0)
     out = []
     for name, meta in KERNELS.items():
         main = records[name][MAIN_CASE[name]]
         out.append({
             "name": name, "route": "cuda", "impl": "cuda", **meta,
-            "launches": counts[name], **{k: main[k] for k in keys},
+            "launches": own(counts, name), **{k: main[k] for k in keys},
             **{k: main[k] for k in rates if k in main},
-            "launches_by_path": {p: c[name] for p, c in (by_path or {}).items()},
+            "launches_by_path": {p: own(c, name) for p, c in (by_path or {}).items()},
             "dtype": MAIN_CASE[name].split("/")[0], "case": MAIN_CASE[name],
             "shape": main["shape"],
             "other": {case: {k: rec[k] for k in keys + rates + ("shape",) if k in rec}

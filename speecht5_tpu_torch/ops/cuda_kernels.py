@@ -48,7 +48,10 @@ loader that builds them.
   D]`` K/V in place through strides and the beam's ancestry row map.
   The cached entry also returns, on request, the largest softmax
   probability of each row and query from the same launch (the TTS
-  decoder's focus rate).
+  decoder's focus rate).  Long queries (WavLM's self-attention) take a
+  second kernel, ``csrc/flash_attention_bias_tiled.cu``: one block a 64-query
+  tile on wgmma tensor cores fed by TMA, each row's K and V read once a
+  tile; ``flash_bias_path`` picks the kernel of a call.
   Forward only, as in JAX.
 
 The attention wrappers take the band contiguous or as the encoder builds it,
@@ -95,6 +98,7 @@ SOURCES = {
     "banded_attention_train_bwd": "banded_attention_train_bwd.cu",
     "conv_stack": "conv_stack.cu",
     "flash_attention_bias": "flash_attention_bias.cu",
+    "flash_attention_bias_tiled": "flash_attention_bias_tiled.cu",
     "log_mel": "log_mel.cu",
 }
 NVCC_FLAGS = (
@@ -229,6 +233,11 @@ def _lib(name: str) -> ctypes.CDLL:
             # stream
             lib.flash_bias_launch.argtypes = [vp] * 9 + [i] * 7 + [vp]
             lib.flash_bias_launch.restype = i
+        elif name == "flash_attention_bias_tiled":
+            # q, k, v, bias, key_valid (each may be NULL but q, k, v), out,
+            # then N, Tq, Tk, D, rows per mask row, stream
+            lib.flash_tiled_launch.argtypes = [vp] * 6 + [i] * 5 + [vp]
+            lib.flash_tiled_launch.restype = i
         else:
             # wav, window, twiddles, filterbank weights [max len, n_mels],
             # their [n_mels, 2] index, out, then B, T, frames, n_fft, hop,
@@ -1063,6 +1072,11 @@ fused_log_mel.launches = 0
 # ================================================ flash attention + bias
 
 FLASH_BIAS_MAX_D = 128
+# the query-tiled kernel (csrc/flash_attention_bias_tiled.cu): the fewest
+# queries it takes, set from both kernels' times on the card (PERF.md §6),
+# and its key limit (the row's mask and tile list in shared memory)
+FLASH_TILED_MIN_TQ = 32
+FLASH_TILED_MAX_TK = 16384
 
 
 def flash_attention_bias_plain(q, k, v, bias=None, key_valid=None, *,
@@ -1130,6 +1144,38 @@ def _check_flash_d(q) -> int:
     return per_vec
 
 
+def flash_bias_path(Tq: int, Tk: int, D: int, dtype) -> str:
+    """The kernel that serves a call of ``flash_attention_bias`` on the
+    card: "tiled" (``csrc/flash_attention_bias_tiled.cu``, 64-query tiles on
+    wgmma) in bf16 with D a multiple of 16 up to 64, at least
+    ``FLASH_TILED_MIN_TQ`` queries and at most ``FLASH_TILED_MAX_TK`` keys;
+    "split" (``csrc/flash_attention_bias.cu``, the keys split over a
+    cluster) for everything else: f32, D 80 / 128, the decode steps' few
+    queries.  ``flash_attention_bias_cached`` always takes the split kernel:
+    it reads K and V through strides and an ancestry row map and may return
+    the max-probability output, none of which the tiled kernel takes."""
+    if (dtype != torch.bfloat16 or D % 16 or not 16 <= D <= 64
+            or Tq < FLASH_TILED_MIN_TQ or Tk > FLASH_TILED_MAX_TK):
+        return "split"
+    return "tiled"
+
+
+def _flash_tiled_launch(q, k, v, bias, key_valid, out, rows_per_mask):
+    """One launch of the query-tiled kernel on contiguous [N, T, D] bf16
+    rows, counted in ``flash_attention_bias.launches`` and
+    ``.tiled_launches``."""
+    N, Tq, D = q.shape
+    rc = _lib("flash_attention_bias_tiled").flash_tiled_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if bias is None else bias.data_ptr(),
+        None if key_valid is None else key_valid.data_ptr(), out.data_ptr(),
+        N, Tq, k.shape[1], D, rows_per_mask,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _check_rc(rc, "flash_attention_bias (tiled)")
+    flash_attention_bias.launches += 1
+    flash_attention_bias.tiled_launches += 1
+
+
 def _flash_launch(q, k, v, bias, key_valid, rows, out, maxp, strides, B, H, Tq, Tk,
                   D, rows_per_mask):
     """One launch of the split-key kernel; ``strides`` the batch, token and
@@ -1162,8 +1208,8 @@ def flash_attention_bias(q, k, v, bias=None, key_valid=None):
     allocated); key_valid bool [N / R, Tk] or None, row n reading mask row
     n // R (one row per sample serves its R heads) -> [N, Tq, D] in q's
     dtype.  One kernel launch on CUDA tensors (D a multiple of 16 or a
-    power of two, up to 128; any Tq and Tk: the kernel streams the keys);
-    the twin on CPU ones.
+    power of two, up to 128; any Tq and Tk: the kernel streams the keys),
+    the kernel that ``flash_bias_path`` names; the twin on CPU ones.
     Forward only."""
     if q.device.type == "cpu":
         return flash_attention_bias_plain(q, k, v, bias, key_valid)
@@ -1185,6 +1231,9 @@ def flash_attention_bias(q, k, v, bias=None, key_valid=None):
         extra.append(key_valid)
     _check_cuda(q, k, v, *extra)
     out = torch.empty_like(q)
+    if flash_bias_path(Tq, Tk, D, q.dtype) == "tiled":
+        _flash_tiled_launch(q, k, v, bias, key_valid, out, rows_per_mask)
+        return out
     # [N, T, D] rows are samples of one head
     strides = [Tq * D, D, 0, Tk * D, D, 0, Tk * D, D, 0, Tq * D, D, 0]
     _flash_launch(q, k, v, bias, key_valid, None, out, None, strides, N, 1, Tq, Tk,
@@ -1204,8 +1253,9 @@ def flash_attention_bias_cached(q4, k4, v4, key_valid=None, rows=None, *,
     row (b * H + h) // R ([B, Tk]: one row per sample; [1, Tk]: one for
     all) -> [B, Tq, H, D] contiguous in q4's dtype; with
     ``return_max_prob`` (out, the largest probability of row b * H + h and
-    each query, f32 [B * H, Tq], from the same launch).  One kernel launch
-    on CUDA tensors, counted in ``flash_attention_bias.launches``; the twin
+    each query, f32 [B * H, Tq], from the same launch).  One launch of the
+    split kernel on CUDA tensors, whatever Tq, counted in
+    ``flash_attention_bias.launches``; the twin
     (gather, then the dense formula) on CPU ones.  Forward only."""
     if q4.device.type == "cpu":
         return flash_attention_bias_cached_plain(q4, k4, v4, key_valid, rows,
@@ -1251,6 +1301,7 @@ def flash_attention_bias_cached(q4, k4, v4, key_valid=None, rows=None, *,
 
 
 flash_attention_bias.launches = 0
+flash_attention_bias.tiled_launches = 0     # the share of the tiled kernel
 
 
 WRAPPERS = (banded_flash_attention, conv_stack, banded_attention_train_fwd,
@@ -1261,7 +1312,11 @@ WRAPPERS = (banded_flash_attention, conv_stack, banded_attention_train_fwd,
 def reset_launch_counts():
     for fn in WRAPPERS:
         fn.launches = 0
+    flash_attention_bias.tiled_launches = 0
 
 
 def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in WRAPPERS}
+    """Each wrapper's launches, and under "flash_attention_bias_tiled" the
+    share of ``flash_attention_bias``'s that went to the tiled kernel."""
+    return {**{fn.__name__: fn.launches for fn in WRAPPERS},
+            "flash_attention_bias_tiled": flash_attention_bias.tiled_launches}

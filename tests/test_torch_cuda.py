@@ -2,7 +2,8 @@
 train kernels, the conv stack's gradient, the log-mel kernel and the
 decode-step attention kernel (alone, in its cached form on the decoder's
 layouts, inside the decoder, and its max-probability output at the beam's
-and the TTS decoder's shapes) included,
+and the TTS decoder's shapes; its query-tiled kernel at WavLM's long
+queries) included,
 the inference kernel's refusal to drop a gradient and the wrappers'
 refusals of inputs their kernels do not take; the bf16 attention forwards'
 row statistics, their bit-equal scores with the backward's, and a forward
@@ -529,6 +530,105 @@ def test_flash_bias_wrapper_rejects_what_the_kernel_does_not_take(card):
     with pytest.raises(RuntimeError, match="forward-only"):
         K.flash_attention_bias(q.requires_grad_(), k, k)
     assert K.flash_attention_bias.launches == before
+
+
+@pytest.mark.parametrize("N,Tq,Tk,D,lengths", [
+    (12, 499, 499, 64, [499]),            # WavLM Base, 10 s (mask [1, T])
+    (12, 1499, 1499, 64, [1499]),         # 30 s
+    (24, 1499, 1499, 64, [1499, 1000]),   # the padded batch of two: 8 tiles skipped
+    (12, 77, 77, 64, [77]),               # T a multiple of neither 8 nor 64
+    (12, 200, 1499, 64, [1499]),          # Tq != Tk
+    (24, 130, 130, 64, [130, 0]),         # a sample with no valid key
+    *[(6, 150, 333, D, [333, 100]) for D in (16, 32, 48, 64)],
+])
+def test_flash_bias_tiled_kernel_matches_twin(card, N, Tq, Tk, D, lengths):
+    """The query-tiled kernel (bf16, long queries): one launch of the tiled
+    path against the dense twin within 3e-2 x max|ref| (bf16 probabilities
+    at the running max, the twin's at the final one), the same bits on a
+    second call; a sample with no valid key returns the mean of V over its
+    Tk keys."""
+    assert K.flash_bias_path(Tq, Tk, D, torch.bfloat16) == "tiled"
+    q, k, v, b, _ = _flash_case(N, Tq, Tk, D, seed=N + Tq + D)
+    q, k, v = (t.to(torch.bfloat16).to(card) for t in (q, k, v))
+    b = b.to(card)
+    valid = (torch.arange(Tk)[None, :] < torch.tensor(lengths)[:, None]).to(card)
+    before = K.launch_counts()
+    got = K.flash_attention_bias(q, k, v, b, valid)
+    after = K.launch_counts()
+    assert after["flash_attention_bias"] == before["flash_attention_bias"] + 1
+    assert after["flash_attention_bias_tiled"] == before["flash_attention_bias_tiled"] + 1
+    ref = K.flash_attention_bias_plain(q, k, v, b, valid)
+    torch.cuda.synchronize()
+    assert got.shape == (N, Tq, D) and got.dtype == torch.bfloat16
+    assert torch.isfinite(got.float()).all()
+    _close(got, ref, torch.bfloat16)
+    assert torch.equal(got, K.flash_attention_bias(q, k, v, b, valid))
+    R = N // len(lengths)
+    for s, n_valid in enumerate(lengths):
+        if n_valid == 0:
+            rows = slice(s * R, (s + 1) * R)
+            _close(got[rows], v[rows].float().mean(1, keepdim=True).expand(-1, Tq, -1),
+                   torch.bfloat16)
+
+
+def test_flash_bias_tiled_kernel_takes_any_mask_pattern(card):
+    """A mask that is no prefix (row 0's first 70 keys invalid, so its first
+    tile is skipped; row 1 one valid key) and a zero bias given as None:
+    against the twin, and bit-equal to the same launch with the mask
+    expanded to one row per head."""
+    N, Tq, Tk, D = 8, 100, 300, 64
+    q, k, v, _, _ = _flash_case(N, Tq, Tk, D, seed=5, bias=False)
+    q, k, v = (t.to(torch.bfloat16).to(card) for t in (q, k, v))
+    valid = torch.ones(4, Tk, dtype=torch.bool)
+    valid[0, :70] = False
+    valid[1] = False
+    valid[1, 257] = True
+    valid[2, ::3] = False
+    valid = valid.to(card)
+    got = K.flash_attention_bias(q, k, v, None, valid)
+    _close(got, K.flash_attention_bias_plain(q, k, v, None, valid), torch.bfloat16)
+    full = valid.repeat_interleave(2, 0)
+    assert torch.equal(got, K.flash_attention_bias(q, k, v, None, full))
+
+
+@pytest.mark.parametrize("rows,maxp", [(True, False), (False, True)])
+def test_flash_bias_cached_entry_keeps_the_split_kernel_at_long_queries(card, rows, maxp):
+    """The cached entry at WavLM's long queries (q4 [2, 499, 12, 64]) with an
+    ancestry row map or the max-probability output: one launch of the split
+    kernel (none of the tiled one), against its twin."""
+    g = torch.Generator().manual_seed(3)
+    B, T, H, D = 2, 499, 12, 64
+    q4 = (torch.randn(B, T, H, D, generator=g) * D ** -0.5).bfloat16().to(card)
+    k4, v4 = (torch.randn(B, T, H, D, generator=g).bfloat16().to(card) for _ in range(2))
+    valid = (torch.arange(T)[None, :] < torch.tensor([[T], [300]])).to(card)
+    row_map = torch.tensor([[1], [0]]).expand(B, T).contiguous().to(card) if rows else None
+    before = K.launch_counts()
+    got = K.flash_attention_bias_cached(q4, k4, v4, valid, row_map, return_max_prob=maxp)
+    after = K.launch_counts()
+    assert after["flash_attention_bias"] == before["flash_attention_bias"] + 1
+    assert after["flash_attention_bias_tiled"] == before["flash_attention_bias_tiled"]
+    ref = K.flash_attention_bias_cached_plain(q4, k4, v4, valid, row_map, return_max_prob=maxp)
+    torch.cuda.synchronize()
+    _close(got[0] if maxp else got, ref[0] if maxp else ref, torch.bfloat16)
+
+
+def test_flash_bias_tiled_path_raises_on_what_it_does_not_take(card):
+    """A misaligned q on the tiled path: the kernel refuses it and the
+    wrapper raises, launching nothing (no fallback to the split kernel or
+    the twin); D 40 and D 160 at long queries are refused before any
+    launch, as on the split path."""
+    N, T, D = 2, 96, 64
+    q = torch.zeros(N * T * D + 1, dtype=torch.bfloat16, device=card)[1:].view(N, T, D)
+    k = torch.zeros(N, T, D, dtype=torch.bfloat16, device=card)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    before = K.launch_counts()
+    with pytest.raises(RuntimeError, match="tiled"):
+        K.flash_attention_bias(q, k, k)
+    for d in (40, 160):
+        x = torch.zeros(N, T, d, dtype=torch.bfloat16, device=card)
+        with pytest.raises(ValueError):
+            K.flash_attention_bias(x, x, x)
+    assert K.launch_counts() == before
 
 
 def _cached_case(case, dtype, card, seed=9):

@@ -198,7 +198,10 @@ def test_chip_smoke_fails_without_card_or_repo(tmp_path):
 
 
 def test_chip_smoke_kernels_line_lists_every_kernel():
-    assert set(chip_smoke.KERNELS) == {fn.__name__ for fn in K.WRAPPERS}
+    # every wrapper's kernel, and flash_attention_bias's tiled kernel apart
+    assert set(chip_smoke.KERNELS) == set(K.launch_counts())
+    assert set(chip_smoke.KERNELS) == ({fn.__name__ for fn in K.WRAPPERS}
+                                       | {"flash_attention_bias_tiled"})
     assert set(chip_smoke.MAIN_CASE) == set(chip_smoke.KERNELS)
     for meta in chip_smoke.KERNELS.values():
         assert (REPO / meta["source"]).is_file()
@@ -209,10 +212,16 @@ def test_chip_smoke_kernels_line_lists_every_kernel():
     records["conv_stack"][chip_smoke.MAIN_CASE["conv_stack"]].update(
         chip_smoke._achieved(flops=1e9, bound_ms=0.1, ms=1.0))
     by_path = {"a": {n: 1 for n in chip_smoke.KERNELS}, "b": {n: 2 for n in chip_smoke.KERNELS}}
-    line = chip_smoke.kernels_line(records, {n: 3 for n in chip_smoke.KERNELS}, by_path)
-    assert len(line["kernels"]) == 7
+    counts = {n: 3 for n in chip_smoke.KERNELS}
+    counts["flash_attention_bias"] = 5         # 3 of them on the tiled kernel
+    for c in by_path.values():
+        c["flash_attention_bias"] += c["flash_attention_bias_tiled"]
+    line = chip_smoke.kernels_line(records, counts, by_path)
+    assert len(line["kernels"]) == 8
     for k in line["kernels"]:
-        assert k["route"] == "cuda" and k["launches"] == 3
+        # the split kernel's entry counts its own launches alone
+        want = 2 if k["name"] == "flash_attention_bias" else 3
+        assert k["route"] == "cuda" and k["launches"] == want
         assert k["launches_by_path"] == {"a": 1, "b": 2}
         assert {"name", "source", "replaces", "max_abs_err", "ms", "plain_ms",
                 "bound_ms", "bound_by", "library_ms"} <= set(k)

@@ -117,7 +117,7 @@ def test_twins_count_no_launches_on_cpu():
         "banded_flash_attention": 0, "conv_stack": 0,
         "banded_attention_train_fwd": 0, "banded_attention_train_bwd_dq": 0,
         "banded_attention_train_bwd_dkv": 0, "fused_log_mel": 0,
-        "flash_attention_bias": 0}
+        "flash_attention_bias": 0, "flash_attention_bias_tiled": 0}
 
 
 SPECS = ((3, 2), (3, 2), (2, 2))
